@@ -1,0 +1,84 @@
+"""DeepLabV3+ head and the assembled segmentation model, NCHW (port of
+weatherconverter_tpu/models/deeplab.py).
+
+Torchvision's module layout (classifier.aspp.convs.{0..4}, .project,
+classifier.project, classifier.classifier.{0,1,3}), so
+compat/torch_export output loads with strict=True. BatchNorm runs in eval
+mode with its running statistics: the factory returns the model in eval().
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from weatherconverter_tpu_torch.ops.image import global_avg_pool, resize_bilinear
+
+
+class ConvBNReLU(nn.Sequential):
+    def __init__(self, cin: int, cout: int, kernel: int = 1, dilation: int = 1):
+        pad = dilation * (kernel - 1) // 2
+        super().__init__(
+            nn.Conv2d(cin, cout, kernel, padding=pad, dilation=dilation, bias=False),
+            nn.BatchNorm2d(cout),
+            nn.ReLU(),
+        )
+
+
+class ASPPPooling(nn.Sequential):
+    """Global-pool branch: pool -> 1x1 ConvBNReLU -> bilinear back to the map size."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(nn.Identity(), *ConvBNReLU(cin, cout))  # index 0 is the pool
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = super().forward(global_avg_pool(x))
+        return resize_bilinear(h, x.shape[-2:])
+
+
+class ASPP(nn.Module):
+    """1x1 + three dilated 3x3 + global-pool branches, concatenated and
+    projected by 1x1 (+ dropout 0.1, inactive in eval)."""
+
+    def __init__(self, cin: int, atrous_rates: Sequence[int], cout: int = 256):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            [ConvBNReLU(cin, cout)]
+            + [ConvBNReLU(cin, cout, 3, rate) for rate in atrous_rates]
+            + [ASPPPooling(cin, cout)]
+        )
+        self.project = nn.Sequential(*ConvBNReLU(5 * cout, cout), nn.Dropout(0.1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.project(torch.cat([conv(x) for conv in self.convs], dim=1))
+
+
+class DeepLabHeadV3Plus(nn.Module):
+    """low_level -> 1x1 to 48ch; ASPP(out) upsampled to it; concat -> 3x3 256 -> 1x1 classes."""
+
+    def __init__(self, low_channels: int, in_channels: int, num_classes: int, aspp_dilate: Sequence[int]):
+        super().__init__()
+        self.project = ConvBNReLU(low_channels, 48)
+        self.aspp = ASPP(in_channels, aspp_dilate)
+        self.classifier = nn.Sequential(
+            *ConvBNReLU(48 + 256, 256, 3), nn.Conv2d(256, num_classes, 1)
+        )
+
+    def forward(self, feats: dict[str, torch.Tensor]) -> torch.Tensor:
+        low = self.project(feats["low_level"])
+        aspp = resize_bilinear(self.aspp(feats["out"]), low.shape[-2:])
+        return self.classifier(torch.cat([low, aspp], dim=1))
+
+
+class DeepLabV3(nn.Module):
+    """backbone -> head -> logits bilinearly resized to the input size, f32."""
+
+    def __init__(self, backbone: nn.Module, classifier: nn.Module):
+        super().__init__()
+        self.backbone, self.classifier = backbone, classifier
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        logits = self.classifier(self.backbone(x))
+        return resize_bilinear(logits, x.shape[-2:]).float()

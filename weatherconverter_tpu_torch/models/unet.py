@@ -1,0 +1,118 @@
+"""DDPM eps-prediction UNet, NCHW (port of weatherconverter_tpu/models/unet.py).
+
+conv_in -> DownBlocks -> MidBlocks -> UpBlocks (skip stack) -> GN+SiLU ->
+conv_out, attention where `config.im_size // 2**i` is in `attn_resolutions`.
+Parameter names are those of compat/torch_export.export_unet, e.g.
+`downs.{i}.resnet_conv_first.{j}.0` and `mids.{i}.attentions.{j}.in_proj_weight`.
+`qk_int8` routes every flash-length attention through the int8-QK^T kernel
+(forward only).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from weatherconverter_tpu_torch.core.config import UnetModelConfig
+from weatherconverter_tpu_torch.models.layers import GroupNormSiLU, ResnetTimeBlock
+from weatherconverter_tpu_torch.ops.time_embed import timestep_embedding
+
+
+class DownBlock(ResnetTimeBlock):
+    """num_layers x [resnet(+t), attn?] then a 4x4/s2 downsample conv."""
+
+    def __init__(self, cin, cout, t_dim, num_layers, num_heads, use_attn, down_sample, qk_int8=False):
+        super().__init__([(cin if j == 0 else cout, cout) for j in range(num_layers)], t_dim,
+                         num_layers if use_attn else 0, cout, num_heads, qk_int8)
+        self.num_layers, self.use_attn = num_layers, use_attn
+        self.down_sample_conv = nn.Conv2d(cout, cout, 4, 2, 1) if down_sample else None
+
+    def forward(self, x, t_emb):
+        for j in range(self.num_layers):
+            x = self.resnet(j, x, t_emb)
+            if self.use_attn:
+                x = self.attend(j, x)
+        return x if self.down_sample_conv is None else self.down_sample_conv(x)
+
+
+class MidBlock(ResnetTimeBlock):
+    """resnet, then num_layers x [attn, resnet]."""
+
+    def __init__(self, cin, cout, t_dim, num_layers, num_heads, qk_int8=False):
+        super().__init__([(cin, cout)] + [(cout, cout)] * num_layers, t_dim,
+                         num_layers, cout, num_heads, qk_int8)
+        self.num_layers = num_layers
+
+    def forward(self, x, t_emb):
+        x = self.resnet(0, x, t_emb)
+        for j in range(self.num_layers):
+            x = self.resnet(j + 1, self.attend(j, x), t_emb)
+        return x
+
+
+class UpBlock(ResnetTimeBlock):
+    """ConvTranspose(4, 2, 1) upsample -> concat skip -> num_layers x [resnet(+t), attn?]."""
+
+    def __init__(self, x_ch, cin, cout, t_dim, num_layers, num_heads, use_attn, up_sample, qk_int8=False):
+        super().__init__([(cin if j == 0 else cout, cout) for j in range(num_layers)], t_dim,
+                         num_layers if use_attn else 0, cout, num_heads, qk_int8)
+        self.num_layers, self.use_attn = num_layers, use_attn
+        self.up_sample_conv = nn.ConvTranspose2d(x_ch, x_ch, 4, 2, 1) if up_sample else None
+
+    def forward(self, x, skip, t_emb):
+        if self.up_sample_conv is not None:
+            x = self.up_sample_conv(x)
+        x = torch.cat([x, skip], dim=1)
+        for j in range(self.num_layers):
+            x = self.resnet(j, x, t_emb)
+            if self.use_attn:
+                x = self.attend(j, x)
+        return x
+
+
+class Unet(nn.Module):
+    def __init__(self, config: UnetModelConfig, qk_int8: bool = False):
+        super().__init__()
+        cfg = self.config = config
+        dc, mc, ds = list(cfg.down_channels), list(cfg.mid_channels), list(cfg.down_sample)
+        if mc[0] != dc[-1] or mc[-1] != dc[-2] or len(ds) != len(dc) - 1:
+            raise ValueError("inconsistent UNet channel ladder")
+        t_dim, heads = cfg.time_emb_dim, cfg.num_heads
+        n_down = len(dc) - 1
+
+        def attends(i):
+            return (cfg.im_size // 2**i) in cfg.attn_resolutions
+
+        self.t_proj = nn.Sequential(nn.Linear(t_dim, t_dim), nn.SiLU(), nn.Linear(t_dim, t_dim))
+        self.conv_in = nn.Conv2d(cfg.im_channels, dc[0], 3, padding=1)
+        self.downs = nn.ModuleList(
+            DownBlock(dc[i], dc[i + 1], t_dim, cfg.num_down_layers, heads, attends(i), ds[i], qk_int8)
+            for i in range(n_down)
+        )
+        self.mids = nn.ModuleList(
+            MidBlock(mc[i], mc[i + 1], t_dim, cfg.num_mid_layers, heads, qk_int8)
+            for i in range(len(mc) - 1)
+        )
+        # up block for level i: x arrives with dc[i] channels, the skip adds dc[i]
+        self.ups = nn.ModuleList(
+            UpBlock(dc[i], 2 * dc[i], dc[i - 1] if i != 0 else dc[0], t_dim, cfg.num_up_layers, heads,
+                    attends(i), ds[i], qk_int8)
+            for i in reversed(range(n_down))
+        )
+        self.norm_out = GroupNormSiLU(dc[0])
+        self.conv_out = nn.Conv2d(dc[0], cfg.im_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor, t) -> torch.Tensor:
+        """x (B, C, H, W), t (B,) or scalar int timesteps -> eps (B, C, H, W) f32."""
+        t = torch.as_tensor(t, device=x.device).reshape(-1).expand(x.shape[0])
+        t_emb = self.t_proj(timestep_embedding(t, self.config.time_emb_dim))
+        out = self.conv_in(x)
+        skips = []
+        for down in self.downs:
+            skips.append(out)
+            out = down(out, t_emb)
+        for mid in self.mids:
+            out = mid(out, t_emb)
+        for up in self.ups:
+            out = up(out, skips.pop(), t_emb)
+        return self.conv_out(self.norm_out(out)).float()
