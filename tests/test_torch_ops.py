@@ -166,6 +166,80 @@ def test_qk_int8_dispatch_matches_jax_env_switch(monkeypatch):
                                PA.attention_reference(sq, sk, sv), rtol=0, atol=0)
 
 
+def test_qk_int8_refuses_gradients_as_jax_does():
+    """JAX has no VJP for the int8 path (jax.grad through it fails to
+    linearize); the port raises instead of differentiating through the
+    rounding and the per-tensor scale, on the CPU as on the card."""
+    (_, _, _), (tq, tk, tv) = _qkv((1, 1, 1024, 16), seed=13)
+    tq.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        PA.multi_head_attention(tq, tk, tv, qk_int8=True)
+    with torch.no_grad():
+        out = PA.multi_head_attention(tq, tk, tv, qk_int8=True)
+    torch.testing.assert_close(out, PA.flash_attention_qk_i8_plain(tq.detach(), tk, tv), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# attention backward: K3's plain version and the autograd Function
+# ---------------------------------------------------------------------------
+
+# f32 against f32, as tests/test_ops.py:519-527 holds the JAX backwards to
+# each other: the same sums in another order
+BWD_TOL = 3e-4
+BWD_SHAPES = [(1, 2, 1024, 32), (1, 2, 256, 16)]
+
+
+def _bwd_case(shape, seed, qk_scale):
+    """(jax q, k, v, dO), (torch q, k, v, dO); q and k scaled by qk_scale."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(shape, seed=seed)
+    jq, jk, tq, tk = jq * qk_scale, jk * qk_scale, tq * qk_scale, tk * qk_scale
+    g = _rand(shape, seed + 10)
+    return (jq, jk, jv, jnp.asarray(g)), (tq, tk, tv, torch.from_numpy(g))
+
+
+@pytest.mark.parametrize("qk_scale", [1.0, 8.0])
+@pytest.mark.parametrize("variant", ["v1", "v2", "stream"])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_bwd_plain_matches_jax_backwards(monkeypatch, shape, variant, qk_scale):
+    """The resident backward (v1; v2 through WCTPU_ATTN_BWD_V2=1) and the
+    streaming backward (through WCTPU_ATTN_STREAM=1), in interpret mode.
+    qk_scale 8 puts most scores past +-60: p sits at its e^60 ceiling and
+    the gradient mask fires on both sides."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _bwd_case(shape, seed=shape[2] + shape[3], qk_scale=qk_scale)
+    if qk_scale > 1:
+        s = np.einsum("bhnd,bhmd->bhnm", np.asarray(jq), np.asarray(jk)) / shape[3] ** 0.5
+        assert (s > 60).mean() > 0.1 and (s < -60).mean() > 0.1
+    if variant == "stream":
+        monkeypatch.setenv("WCTPU_ATTN_STREAM", "1")
+        ref = jax.vjp(JA.flash_attention, jq, jk, jv)[1](jg)
+    else:
+        if variant == "v2":
+            monkeypatch.setenv("WCTPU_ATTN_BWD_V2", "1")
+        jo = JA.flash_attention(jq, jk, jv)
+        ref = JA._flash_attention_bwd_impl(jq, jk, jv, jo, jg, block_q=JA._pick_bwd_block(shape[2], shape[3]),
+                                           interpret=True)
+    o, l = PA.flash_attention_plain(tq, tk, tv, return_l=True)
+    for port, want in zip(PA.flash_attention_bwd(tq, tk, tv, o, tg, l), ref):
+        _close(port, want, rtol=BWD_TOL, atol=BWD_TOL)
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_attention_autograd_matches_jax_vjp(shape):
+    """`flash_attention` on inputs that require grad (the autograd Function:
+    plain forward with l, K3's plain backward) against jax.vjp of JAX's
+    `flash_attention` (custom_vjp, interpret mode)."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _bwd_case(shape, seed=21, qk_scale=1.0)
+    ref_o, vjp = jax.vjp(JA.flash_attention, jq, jk, jv)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    before = PA.flash_attention_bwd.launches
+    o = PA.flash_attention(*leaves)
+    (o * tg).sum().backward()
+    assert PA.flash_attention_bwd.launches == before  # CPU tensors: the plain version, uncounted
+    _close(o.detach(), ref_o, rtol=FLASH_RTOL, atol=FLASH_ATOL)
+    for leaf, want in zip(leaves, vjp(jg)):
+        _close(leaf.grad, want, rtol=BWD_TOL, atol=BWD_TOL)
+
+
 # ---------------------------------------------------------------------------
 # DDPM schedule
 # ---------------------------------------------------------------------------

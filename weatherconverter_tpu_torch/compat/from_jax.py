@@ -6,6 +6,13 @@ exporter plus the conversion to tensors; load the result with
 `load_state_dict(..., strict=True)`. The trees may hold numpy arrays or
 anything `np.asarray` takes. Importing the exporter loads neither JAX nor
 flax (tests/test_torch_translate.py checks it).
+
+Trees carried across: the UNet's, the DeepLabV3+/ResNet's and the SRGAN
+generator's parameters (with BatchNorm statistics for the latter two).
+`unet_state_dict` takes any tree shaped like the UNet's parameters: the
+export only moves and transposes arrays (layout, no arithmetic), so a
+gradient tree or an EMA shadow maps the same way, which is how the tests
+hold the port's gradients and EMA against JAX's.
 """
 
 from __future__ import annotations

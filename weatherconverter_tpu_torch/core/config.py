@@ -1,21 +1,34 @@
-"""Configuration schema for guided translation (the sections the port uses).
+"""Configuration schema for DDPM training and guided translation (the
+sections the port uses).
 
-A copy of the translation part of weatherconverter_tpu/core/config.py, with
-the same field names and defaults, so the same YAML files
-(configs/translation*.yaml) load here. It is a copy because importing the
-JAX package's `core` loads JAX (its core/__init__ imports core/rng.py).
+A copy of the diffusion and translation parts of
+weatherconverter_tpu/core/config.py, with the same field names and defaults,
+so the same YAML files (configs/diffusion.yaml, configs/translation*.yaml)
+load here. It is a copy because importing the JAX package's `core` loads JAX
+(its core/__init__ imports core/rng.py).
 
-Sections the slice does not use (data, training, folders, the seg
-transform/optimizer) are left out; pydantic ignores their keys in a YAML
-file.
+Sections the port does not use yet (the seg training, data and optimizer
+sections, SRGAN training) are left out; pydantic ignores their keys in a
+YAML file.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import yaml
 from pydantic import BaseModel, Field
+
+
+class DiffusionDataConfig(BaseModel):
+    root_dir: str = "data"
+    acdc_dir: str = "ACDC"
+    acdc_labels: str = "ACDC/gt"
+    acdc_images: str = "ACDC/rgb_anon"
+    bdd_dir: str = "BDD"
+    dawn_dir: str = "DAWN"
+    weather: list[str] = Field(default_factory=lambda: ["fog", "rain"])
+    image_size: Any = 128  # int or [H, W]
 
 
 class DiffusionProcessConfig(BaseModel):
@@ -42,9 +55,47 @@ class UnetModelConfig(BaseModel):
     attn_resolutions: list[int] = Field(default_factory=lambda: [8, 16, 32, 64])
 
 
+class TrainingConfig(BaseModel):
+    device: str = "auto"
+    random_seed: int = 3455
+    epochs: int = 200
+    batch_size: int = 4
+    num_workers: int = 0
+    lr: float = 1e-4
+    log_interval: int = 10
+    save_interval: int = 10
+    sample_interval: int = 1_000_000_000
+    resume_training: bool = False
+    resume_checkpoint: str = ""
+    sample_size: int = 8
+    num_grid_rows: int = 4
+    dtype: str = "bfloat16"  # compute dtype of the model's forward and backward
+    param_dtype: str = "float32"
+    data_axis: str = "data"
+    donate_state: bool = True
+    ema_decay: float = 0.999
+    # batch_size is per device and the global batch grows with the device
+    # count; scale_lr_with_batch scales lr linearly with it
+    scale_batch_to_mesh: bool = True
+    scale_lr_with_batch: bool = False
+    fsdp: bool = False
+    accum_steps: int = 1  # microbatches per optimizer update
+
+
+class FolderConfig(BaseModel):
+    output: str = "outputs"
+    weights: str = "weights"
+    logs: str = "logs"
+    checkpoints: str = "outputs/checkpoints"
+    samples: str = "outputs/samples"
+
+
 class DiffusionConfig(BaseModel):
+    data: DiffusionDataConfig = Field(default_factory=DiffusionDataConfig)
     diffusion: DiffusionProcessConfig = Field(default_factory=DiffusionProcessConfig)
     model: UnetModelConfig = Field(default_factory=UnetModelConfig)
+    training: TrainingConfig = Field(default_factory=TrainingConfig)
+    folders: FolderConfig = Field(default_factory=FolderConfig)
 
 
 class SegModelConfig(BaseModel):
@@ -84,11 +135,19 @@ class TranslationConfig(BaseModel):
     guidance: GuidanceConfig = Field(default_factory=GuidanceConfig)
 
 
+def load_yaml(path: str) -> dict:
+    with open(path, "r") as f:
+        return yaml.safe_load(f) or {}
+
+
+def load_diffusion_config(path: Optional[str] = None, **overrides) -> DiffusionConfig:
+    """Load a diffusion config YAML (configs/diffusion.yaml's schema)."""
+    data = load_yaml(path) if path else {}
+    return DiffusionConfig(**_deep_update(data, overrides))
+
+
 def load_translation_config(path: Optional[str] = None, **overrides) -> TranslationConfig:
-    data = {}
-    if path:
-        with open(path, "r") as f:
-            data = yaml.safe_load(f) or {}
+    data = load_yaml(path) if path else {}
     return TranslationConfig(**_deep_update(data, overrides))
 
 

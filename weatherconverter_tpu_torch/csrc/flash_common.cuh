@@ -1,4 +1,4 @@
-// Shared pieces of the clamped-softmax flash-attention forwards (K1, K2).
+// Shared pieces of the clamped-softmax flash-attention kernels (K1, K2, K3).
 //
 // Tiling: one block of 4 warps owns 64 query rows of one (batch*head); each
 // warp owns 16 rows and walks the keys in tiles of 64 staged in shared
@@ -47,6 +47,9 @@ struct Mma<__nv_bfloat16> {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  }
 };
 
 template <>
@@ -61,6 +64,9 @@ struct Mma<__half> {
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
   }
 };
 

@@ -1,0 +1,2 @@
+"""Data: on-device augmentation (the diffusion subset of the JAX package's
+data/transforms.py)."""

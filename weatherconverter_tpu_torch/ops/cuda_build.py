@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels in `csrc/`.
 
-The kernels have a plain C interface, so nvcc builds them into one shared
-library in seconds, with no PyTorch headers, and `ctypes` loads it. The build
-happens at first use, into `_build/` beside the package (listed in
-.gitignore); the library's name carries a hash of the sources and flags, so
-an edited source is rebuilt and an unchanged one is reused.
+The kernels have a plain C interface, so nvcc builds them with no PyTorch
+headers, in seconds, and `ctypes` loads the result. Each source compiles in
+its own nvcc process, all started together, and one more links the objects
+into a shared library. The build happens at first use, into `_build/` beside
+the package (listed in .gitignore); the library's name carries a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+reused.
 """
 
 from __future__ import annotations
@@ -20,12 +22,10 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("flash_fwd.cu", "flash_fwd_qk_i8.cu")
+SOURCES = ("flash_fwd.cu", "flash_fwd_qk_i8.cu", "flash_bwd.cu")
 HEADERS = ("flash_common.cuh",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _library: ctypes.CDLL | None = None
@@ -53,17 +53,34 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every nvcc process; raise on the first that failed."""
+    log, failed = "", None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+    if failed:
+        raise RuntimeError(failed)
+    return log
+
+
+def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def _build(target: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
-    return proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, s + ".o") for s in SOURCES]
+        log = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, s)])
+                    for s, obj in zip(SOURCES, objs)])
+        tmp = os.path.join(work, "lib.so")
+        log += _run([_start([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs])])
+        os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
+    return log
 
 
 def library() -> ctypes.CDLL:
@@ -79,6 +96,8 @@ def library() -> ctypes.CDLL:
             lib.wc_flash_fwd.restype = _int
             lib.wc_flash_fwd_qk_i8.argtypes = [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr]
             lib.wc_flash_fwd_qk_i8.restype = _int
+            lib.wc_flash_bwd.argtypes = [_ptr] * 10 + [_int, _int, _int, _int, ctypes.c_float, _ptr]
+            lib.wc_flash_bwd.restype = _int
             lib.wc_error_string.argtypes = [_int]
             lib.wc_error_string.restype = ctypes.c_char_p
             _library = lib

@@ -1,0 +1,143 @@
+"""DDPM training loop (port of weatherconverter_tpu/training/loop_diffusion.py).
+
+Epochs over the merged ACDC (+ BDD, DAWN) image set, eps-MSE steps, interval
+logging, epoch-cadence checkpoints, resume with the step count carried over,
+and a checkpoint flush on SIGTERM. The loader ships uint8 (B, H, W, C)
+batches; the random crop, flip and [-1, 1] scaling run on the device inside
+the train step. One device: the CUDA card when there is one (or as
+`training.device` says), else the CPU. On CUDA the step runs under bf16
+autocast when `training.dtype` is "bfloat16"; on the CPU it runs in f32, as
+the JAX loop does off the TPU.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from functools import partial
+from typing import Optional
+
+import torch
+
+from weatherconverter_tpu_torch.core.checkpoint import CheckpointManager, create_run, restore_auto
+from weatherconverter_tpu_torch.core.config import DiffusionConfig
+from weatherconverter_tpu_torch.core.logging import MetricsLogger
+from weatherconverter_tpu_torch.core.preempt import PreemptionGuard, preempt_save_index
+from weatherconverter_tpu_torch.core.rng import run_key, split_named
+from weatherconverter_tpu_torch.data.transforms import diffusion_train_augment
+from weatherconverter_tpu_torch.diffusion.schedule import make_schedule
+from weatherconverter_tpu_torch.models.unet import Unet
+from weatherconverter_tpu_torch.training.diffusion import DDPMTrainState, create_ddpm_state, make_train_step
+
+
+def build_dataset(cfg: DiffusionConfig):
+    """ACDC plus the BDD/DAWN trees where present, as uint8 HWC images at
+    (im_size, im_size * 16/9). It is the JAX package's DiffusionImageDataset
+    (numpy and PIL, no JAX), imported here only, so that `train(cfg,
+    dataset=...)` never imports PIL."""
+    from weatherconverter_tpu.data.datasets import DiffusionImageDataset
+
+    ds = DiffusionImageDataset(
+        os.path.join(cfg.data.root_dir, cfg.data.acdc_images),
+        selected_conditions=cfg.data.weather,
+        resize_to=cfg.model.im_size,
+    )
+    for extra in (cfg.data.bdd_dir, cfg.data.dawn_dir):
+        path = os.path.join(cfg.data.root_dir, extra)
+        if extra and os.path.isdir(path):
+            ds.add_images(path)
+    return ds
+
+
+def make_augmented_train_step(sched, crop: int, mesh=None, fsdp: bool = False, accum_steps: int = 1,
+                              dtype: Optional[torch.dtype] = None):
+    """The train step on RAW uint8 batches: crop/flip/scale, q-sample,
+    eps-MSE, Adam and EMA in one step body, through make_train_step's
+    augment_fn hook."""
+    return make_train_step(sched, mesh=mesh, fsdp=fsdp, accum_steps=accum_steps, dtype=dtype,
+                           augment_fn=partial(diffusion_train_augment, crop=crop))
+
+
+def _device(name: str) -> torch.device:
+    if name == "auto":
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device(name)
+
+
+def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -> DDPMTrainState:
+    """Full training run; returns the final state. `max_steps` stops early
+    (smoke runs); `dataset` replaces the image folders: anything indexable
+    that yields uint8 (H, W, C) arrays."""
+    tr = cfg.training
+    if tr.fsdp:
+        raise NotImplementedError("FSDP training is ROADMAP Queue 1 item 17, not ported yet")
+    device = _device(tr.device)
+    keys = split_named(run_key(tr.random_seed), "init", "train", device=device)
+
+    ds = dataset if dataset is not None else build_dataset(cfg)
+    if len(ds) == 0:
+        raise FileNotFoundError(
+            "diffusion dataset is empty: no images under "
+            f"{os.path.join(cfg.data.root_dir, cfg.data.acdc_images)!r} for conditions "
+            f"{list(cfg.data.weather)!r} (expected <root>/rgb_anon/<condition>/<split>/**.png)"
+        )
+    sched = make_schedule(cfg.diffusion.schedule, cfg.diffusion.num_timesteps, cfg.diffusion.beta_start,
+                          cfg.diffusion.beta_end, device=device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(keys["init"].initial_seed())
+        model = Unet(cfg.model)
+    state = create_ddpm_state(model.to(device), lr=tr.lr, ema_decay=tr.ema_decay)
+
+    run_dir = create_run(cfg.folders.output)
+    logger = MetricsLogger(run_dir, config=cfg.model_dump())
+    ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"))
+    if tr.resume_training and tr.resume_checkpoint:
+        state = ckpt_restore_into(tr.resume_checkpoint, state)
+        logger.print(f"resumed from {tr.resume_checkpoint} at epoch {state.epoch}, step {state.step}")
+
+    loader = torch.utils.data.DataLoader(
+        ds, batch_size=tr.batch_size, shuffle=True, drop_last=True, num_workers=tr.num_workers,
+        generator=torch.Generator().manual_seed(tr.random_seed), pin_memory=device.type == "cuda",
+    )
+    dtype = torch.bfloat16 if tr.dtype == "bfloat16" else None
+    step_fn = make_augmented_train_step(sched, cfg.model.im_size, accum_steps=tr.accum_steps, dtype=dtype)
+
+    global_step = state.step
+    with PreemptionGuard() as guard:
+        for epoch in range(state.epoch, tr.epochs):
+            # the epoch's loss adds up on the device; one read per epoch
+            epoch_loss, nb, t0 = torch.zeros((), device=device), 0, time.time()
+            for batch in loader:
+                state, loss = step_fn(state, batch.to(device, non_blocking=True), keys["train"])
+                epoch_loss += loss
+                global_step += 1
+                nb += 1
+                if global_step % tr.log_interval == 0:
+                    logger.log({"train/loss": loss, "epoch": epoch}, step=global_step)
+                if guard.triggered:
+                    # SIGTERM mid-epoch: flush the post-step state; state.epoch
+                    # is still `epoch`, so a resume restarts this epoch
+                    ckpt.save(preempt_save_index(ckpt, global_step), state)
+                    ckpt.wait()
+                    logger.print(f"preempted (signal {guard.received}): checkpoint flushed at step "
+                                 f"{global_step} (epoch {epoch}), exiting")
+                    logger.finish()
+                    return state
+                if max_steps is not None and global_step >= max_steps:
+                    logger.finish()
+                    return state
+            dt = time.time() - t0
+            logger.log({"epoch": epoch, "epoch/loss": epoch_loss.item() / nb if nb else 0.0, "epoch/sec": dt,
+                        "epoch/img_per_sec": nb * tr.batch_size / max(dt, 1e-9)}, step=global_step)
+            state.epoch = epoch + 1
+            if (epoch + 1) % tr.save_interval == 0:
+                ckpt.save(epoch + 1, state)
+    ckpt.wait()
+    logger.finish()
+    return state
+
+
+def ckpt_restore_into(path: str, state: DDPMTrainState) -> DDPMTrainState:
+    """Restore a checkpoint file, a CheckpointManager directory (its latest
+    step) or one step directory into `state`, in place."""
+    return restore_auto(path, state)

@@ -1,5 +1,6 @@
-"""Cross-entropy with ignore index (port of the CE half of
-weatherconverter_tpu/training/losses.py). Logits are (B, C, ...), torch's
+"""Losses: the eps-MSE of DDPM training and cross-entropy with an ignore
+index (port of weatherconverter_tpu/training/losses.py; focal loss waits for
+the segmentation-training slice). Logits are (B, C, ...), torch's
 class-second convention; labels (B, ...) integer train-ids."""
 
 from __future__ import annotations
@@ -8,6 +9,11 @@ import torch
 import torch.nn.functional as F
 
 IGNORE_INDEX = 255
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared error, computed in f32 whatever the inputs' dtype."""
+    return torch.mean(torch.square(pred.float() - target.float()))
 
 
 def _per_pixel_ce(
