@@ -31,7 +31,13 @@ Phases, each of which fails the run (exit code != 0, no result line):
   7. hold one train step at batch 2 on the card (bf16, kernels) against the
      same step on the CPU (f32, plain versions): the same freshly seeded
      weights, the same t, noise, crop and flip;
-  8. profile a few train steps.
+  8. profile a few train steps;
+  9. run the four H100 micro-probes (weatherconverter_tpu_torch/probes):
+     hold each probe kernel (K4 the exp2 flash forward, K7 the raw int8 and
+     bf16 QK^T, K6 the 3x3 depthwise conv, K5 the 81-FMA depthwise floor)
+     against its plain version at the probe's full shapes, then run the
+     probe (its comparison lines, CUDA-event times), whose launches of the
+     kernel are counted.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors and times.
 It has no CPU mode: without a CUDA card it exits with code 2.
@@ -41,8 +47,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
-import subprocess
 import sys
 import time
 
@@ -78,32 +84,11 @@ def log(*args):
     print(*args, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of fn() over `reps` runs, CUDA events around each."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def phase_kernels(torch, A, device):
     """Each forward kernel against its plain version at the path shapes;
     returns {name: (max_abs_err, kernel_ms_sum, plain_ms_sum)}."""
+    from weatherconverter_tpu_torch.probes.common import time_ms
+
     gen = torch.Generator(device=device).manual_seed(0)
     results = {}
     for name, kernel, plain in (
@@ -119,8 +104,8 @@ def phase_kernels(torch, A, device):
             err = (out.float() - ref.float()).abs().max().item()
             if not (err <= KERNEL_TOL and torch.isfinite(out.float()).all().item()):
                 raise AssertionError(f"{name} {shape}: max abs err {err} > {KERNEL_TOL} or not finite")
-            k_ms = time_ms(torch, lambda: kernel(q, k, v), reps=20)
-            p_ms = time_ms(torch, lambda: plain(q, k, v), reps=5)
+            k_ms = time_ms(lambda: kernel(q, k, v), reps=20)
+            p_ms = time_ms(lambda: plain(q, k, v), reps=5)
             b, h, n, d = shape
             tflops = 4 * b * h * n * n * d / (k_ms * 1e-3) / 1e12
             log(f"  {name} B*H={b * h} N={n} D={d}: max_abs_err {err:.3e} (tol {KERNEL_TOL}); "
@@ -134,6 +119,8 @@ def phase_kernels(torch, A, device):
 def phase_backward_kernel(torch, A, device):
     """K3 against its plain version at the path shapes, bf16; returns
     (max_abs_err, kernel_ms_sum, plain_ms_sum)."""
+    from weatherconverter_tpu_torch.probes.common import time_ms
+
     gen = torch.Generator(device=device).manual_seed(10)
     worst, k_total, p_total = 0.0, 0.0, 0.0
     for shape in PATH_SHAPES:
@@ -152,8 +139,8 @@ def phase_backward_kernel(torch, A, device):
                 raise AssertionError(f"flash_attention_bwd {shape} {name}: max|err|/max|ref| {rel[-1]} > "
                                      f"{BWD_REL_TOL} or not finite")
         del got, ref
-        k_ms = time_ms(torch, lambda: A.flash_attention_bwd(*args), reps=20)
-        p_ms = time_ms(torch, lambda: A.flash_attention_bwd_plain(*args), reps=3, warmup=1)
+        k_ms = time_ms(lambda: A.flash_attention_bwd(*args), reps=20)
+        p_ms = time_ms(lambda: A.flash_attention_bwd_plain(*args), reps=3, warmup=1)
         b, h, n, d = shape
         tflops = 10 * b * h * n * n * d / (k_ms * 1e-3) / 1e12
         log(f"  flash_attention_bwd B*H={b * h} N={n} D={d}: max|err|/max|ref| dq {rel[0]:.3e} dk {rel[1]:.3e} "
@@ -490,15 +477,52 @@ def phase_train_profile(torch, train_state):
             f"x{e.count:<5d} {e.key[:100]}")
 
 
+def phase_probes(torch, device, card):
+    """K4-K7 through their probes. Each kernel is first held against its
+    plain version at the probe's full shapes (`check`; those launches are not
+    counted); then the probe runs (`run`) with the kernel's launch counts set
+    to 0 just before it and read just after. Returns {name: (max_abs_err,
+    launches, the probe's timings)}."""
+    from weatherconverter_tpu_torch.probes import micro_attn, probe_dw3x3, probe_dw9x9_floor, probe_int8_dot
+
+    results = {}
+    for name, probe, wrappers in (
+        ("exp2_attention", micro_attn, (micro_attn.exp2_attention,)),
+        ("qk_dot", probe_int8_dot, (probe_int8_dot.qk_dot_i8, probe_int8_dot.qk_dot_bf16)),
+        ("dw3x3", probe_dw3x3, (probe_dw3x3.dw3x3,)),
+        ("dw_fma81", probe_dw9x9_floor, (probe_dw9x9_floor.dw_fma81,)),
+    ):
+        log(f"  probes.{probe.__name__.rsplit('.', 1)[1]}:")
+        err = probe.check(device)
+        log(f"  {name}: kernel against its plain version at the probe's shapes, max abs err {err:.3e}")
+        for w in wrappers:
+            w.launches = 0
+        timing = probe.run(device, card)
+        launches = [w.launches for w in wrappers]
+        if not all(launches):
+            raise AssertionError(f"probe {name}: launches {launches}: a kernel was not launched")
+        results[name] = (err, sum(launches), timing)
+        torch.cuda.empty_cache()
+    return results
+
+
+PTXAS_KERNELS = ("flash_fwd_qk_i8_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_fwd_kernel",
+                 "probe_exp2_attn_kernel", "probe_qk_i8_kernel", "probe_qk_bf16_kernel", "probe_dw3x3_kernel",
+                 "probe_dw_fma81_kernel")
+
+
 def ptxas_summary(build_log: str) -> list[str]:
     """One line per compiled kernel: its name, registers and spill bytes."""
     lines, name, spill = [], None, ""
     for ln in build_log.splitlines():
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            name = next((k for k in ("flash_fwd_qk_i8_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                                     "flash_fwd_kernel") if k in mangled), mangled)
-            name += ("<f16" if "6__half" in mangled else "<bf16") + ", D=" + mangled.split("Li")[1].split("E")[0] + ">"
+            name = next((k for k in PTXAS_KERNELS if k in mangled), mangled)
+            args = ["f16"] if "6__half" in mangled else ["bf16"] if "13__nv_bfloat16" in mangled else []
+            dim = re.search(r"Li(\d+)E", mangled)
+            if dim:
+                args.append(f"D={dim.group(1)}")
+            name += f"<{', '.join(args)}>" if args else ""
         elif "spill stores" in ln:
             spill = ln.strip()
         elif "Used" in ln and "registers" in ln and name:
@@ -517,6 +541,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from weatherconverter_tpu_torch.ops import attention as A
     from weatherconverter_tpu_torch.ops import cuda_build
+    from weatherconverter_tpu_torch.probes.common import card_line
 
     device = torch.device("cuda")
     card = card_line()
@@ -563,6 +588,9 @@ def main() -> int:
     log(f"phase 8: training profile [{card}]")
     phase_train_profile(torch, train_state)
 
+    log(f"phase 9: the H100 micro-probes K4-K7 [{card}]")
+    probes = phase_probes(torch, device, card)
+
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []
     for name, source, replaces, count in (
@@ -576,8 +604,20 @@ def main() -> int:
         err, k_ms, p_ms = kernel_results[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": count, "max_abs_err": err, "ms": round(k_ms, 4), "plain_ms": round(p_ms, 4)})
-    log("kernels: ms and plain_ms are sums of the medians over the four path shapes; launches are "
-        "from the headline run (K1), the int8 run (K2) and the loop_diffusion.train run (K3)")
+    for name, source, replaces in (
+        ("exp2_attention", "probe_exp2_attn.cu", "scripts/micro_attn.py:43"),
+        ("qk_dot", "probe_qk_dot.cu", "scripts/probe_int8_dot.py:24"),
+        ("dw3x3", "probe_dw3x3.cu", "scripts/probe_dw3x3.py:36"),
+        ("dw_fma81", "probe_dw9x9.cu", "scripts/probe_dw9x9_floor.py:40"),
+    ):
+        err, count, timing = probes[name]
+        kernels.append({"name": name, "route": "cuda", "source": csrc + source, "replaces": replaces,
+                        "launches": count, "max_abs_err": err, "ms": round(timing["ms"], 4),
+                        "plain_ms": round(timing["plain_ms"], 4)})
+    log("kernels: for K1-K3, ms and plain_ms are sums of the medians over the four path shapes and launches "
+        "are from the headline run (K1), the int8 run (K2) and the loop_diffusion.train run (K3); for the "
+        "probes K4-K7 they are from phase 9's probe runs (K4: sums over D=64 and D=16; qk_dot: int8 plus "
+        "bf16, k_bf16 at scripts/probe_int8_dot.py:34)")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
-"""The PyTorch port's CUDA attention kernels (K1, K2, K3) against their plain
-PyTorch versions, and the wrappers' dispatch rules.
+"""The PyTorch port's CUDA kernels against their plain PyTorch versions: the
+attention kernels (K1, K2, K3) and the micro-probes' kernels (K4-K7), and
+the wrappers' dispatch rules.
 
 The kernel tests need a CUDA card: they are marked `gpu` and skip without
 one. On a machine with a card: `python -m pytest tests/test_torch_kernels.py -m gpu`.
 This file imports no JAX (the card's machine has none); the JAX parity of
-the plain versions is in tests/test_torch_ops.py.
+the plain versions is in tests/test_torch_ops.py and tests/test_torch_probes.py.
 """
 
 import numpy as np
@@ -221,3 +222,174 @@ def test_quantize_per_tensor_rounds_half_to_even():
     assert q8.tolist() == [127, -64, 0, 2, -2, 0]
     q8, scale = A.quantize_per_tensor(torch.zeros(4))
     assert scale.item() == pytest.approx(1e-6 / 127) and q8.abs().sum().item() == 0
+
+
+# --- the micro-probes' kernels (K4-K7, weatherconverter_tpu_torch/probes) ---
+
+from weatherconverter_tpu_torch.probes import micro_attn as K4  # noqa: E402
+from weatherconverter_tpu_torch.probes import probe_dw3x3 as K6  # noqa: E402
+from weatherconverter_tpu_torch.probes import probe_dw9x9_floor as K5  # noqa: E402
+from weatherconverter_tpu_torch.probes import probe_int8_dot as K7  # noqa: E402
+
+PROBE_MODULES = [K4, K7, K6, K5]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SMALL_SHAPES + K4.SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_exp2_attention_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v = _qkv(shape, dtype, cuda, seed=2)
+    before = K4.exp2_attention.launches
+    o = K4.exp2_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert K4.exp2_attention.launches == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    assert (o.float() - K4.exp2_attention_plain(q, k, v).float()).abs().max().item() <= BF16_ATOL
+
+
+@pytest.mark.gpu
+def test_exp2_attention_kernel_upper_clamp_fires(cuda):
+    """q and k scaled by 6: many scores pass 60 log2 e and share exp2's
+    ceiling, as in the plain version (bf16, whose range holds 2^86.6)."""
+    q, k, v = _qkv((1, 2, 128, 64), torch.bfloat16, cuda, seed=3)
+    q, k = (q.float() * 6).to(torch.bfloat16), (k.float() * 6).to(torch.bfloat16)
+    o = K4.exp2_attention(q, k, v)
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - K4.exp2_attention_plain(q, k, v).float()).abs().max().item() <= 4 * BF16_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 64, 32), (2, 128, 64), (1, 192, 128), (K7.B, K7.N, K7.D)])
+def test_qk_dot_kernels_match_plain(cuda, shape):
+    """int8 exactly equal; bf16 within 1e-5 of max |S| (the tensor cores and
+    cuBLAS add the exact products in other orders)."""
+    qf, kf = _qkv(shape, torch.bfloat16, cuda, seed=4)[:2]
+    q8, k8 = K7.to_int8(qf), K7.to_int8(kf)
+    before = (K7.qk_dot_i8.launches, K7.qk_dot_bf16.launches)
+    s8, sb = K7.qk_dot_i8(q8, k8), K7.qk_dot_bf16(qf, kf)
+    torch.cuda.synchronize()
+    assert (K7.qk_dot_i8.launches, K7.qk_dot_bf16.launches) == (before[0] + 1, before[1] + 1)
+    assert s8.dtype == torch.int32 and s8.shape == (shape[0], shape[1], shape[1])
+    assert torch.equal(s8, K7.qk_dot_i8_plain(q8, k8))
+    ref = K7.qk_dot_bf16_plain(qf, kf)
+    assert sb.dtype == torch.float32
+    torch.testing.assert_close(sb, ref, rtol=1e-5, atol=K7.BF16_RTOL * ref.abs().max().item())
+
+
+@pytest.mark.gpu
+# one pixel; odd H and W; a row of 130 * 3 vectors, past one 256-thread
+# block; the probe's shape
+@pytest.mark.parametrize("shape", [(1, 1, 1, 8), (2, 5, 7, 16), (1, 19, 130, 24), (K6.B, K6.H, K6.W, K6.C)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_dw3x3_kernel_matches_plain(cuda, shape, dtype):
+    x = _qkv(shape, dtype, cuda, seed=5)[0]
+    k = _qkv((3, 3, 1, shape[-1]), dtype, cuda, seed=6, scale=K6.TAP_SCALE)[0]
+    before = K6.dw3x3.launches
+    out = K6.dw3x3(x, k)
+    torch.cuda.synchronize()
+    assert K6.dw3x3.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    assert (out.float() - K6.dw3x3_plain(x, k).float()).abs().max().item() <= K6.TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8,), (3, 5, 8), (1, 7, 9, 64), (K5.B, K5.HW, K5.HW, K5.C)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_dw_fma81_kernel_within_one_ulp_of_plain(cuda, shape, dtype):
+    """The kernel fuses each multiply-add and the plain version rounds twice,
+    so after the cast they differ by at most one ulp of the output type."""
+    x = _qkv(shape, dtype, cuda, seed=7)[0]
+    before = K5.dw_fma81.launches
+    out = K5.dw_fma81(x, K5.taps())
+    torch.cuda.synchronize()
+    assert K5.dw_fma81.launches == before + 1
+    ref = K5.dw_fma81_plain(x, K5.taps())
+    assert out.dtype == dtype and out.shape == x.shape
+    assert ((out.float() - ref.float()).abs() <= K5.ulp(ref, dtype)).all()
+
+
+@pytest.mark.gpu
+def test_probe_kernels_refuse_what_they_do_not_take(cuda):
+    q, k, v = _qkv((1, 1, 128, 64), torch.float32, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        K4.exp2_attention(q, k, v)
+    q, k, v = _qkv((1, 1, 128, 48), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        K4.exp2_attention(q, k, v)
+    q, k = _qkv((1, 128, 48), torch.bfloat16, cuda)[:2]
+    with pytest.raises(ValueError, match="head dim"):
+        K7.qk_dot_bf16(q, k)
+    q, k = _qkv((1, 96, 64), torch.bfloat16, cuda)[:2]
+    with pytest.raises(ValueError, match="multiple"):
+        K7.qk_dot_bf16(q, k)
+    with pytest.raises(ValueError, match="dtype"):
+        K7.qk_dot_i8(q[:, :64], k[:, :64])
+    x = _qkv((1, 4, 4, 12), torch.bfloat16, cuda)[0]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K6.dw3x3(x, _qkv((3, 3, 1, 12), torch.bfloat16, cuda)[0])
+    x = _qkv((1, 4, 4, 16), torch.float32, cuda)[0]
+    with pytest.raises(ValueError, match="dtype"):
+        K6.dw3x3(x, _qkv((3, 3, 1, 16), torch.float32, cuda)[0])
+    with pytest.raises(ValueError, match="dtype"):
+        K5.dw_fma81(x, K5.taps())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K5.dw_fma81(_qkv((12,), torch.bfloat16, cuda)[0], K5.taps())
+    with pytest.raises(ValueError, match="81"):
+        K5.dw_fma81(_qkv((16,), torch.bfloat16, cuda)[0], K5.taps()[:80])
+
+
+@pytest.mark.parametrize("probe", PROBE_MODULES, ids=lambda m: m.__name__.rsplit(".", 1)[1])
+def test_probe_main_exits_2_without_cuda(probe, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe.main() == 2
+    out, err = capsys.readouterr()
+    assert out == "" and "no CUDA device" in err
+
+
+def test_probe_cpu_tensors_take_the_plain_versions_and_count_nothing():
+    counters = (K4.exp2_attention, K7.qk_dot_i8, K7.qk_dot_bf16, K6.dw3x3, K5.dw_fma81)
+    before = [f.launches for f in counters]
+    q, k, v = _qkv((1, 2, 128, 16), torch.float32, "cpu")
+    torch.testing.assert_close(K4.exp2_attention(q, k, v), K4.exp2_attention_plain(q, k, v), rtol=0, atol=0)
+    q8, k8 = K7.to_int8(q[0]), K7.to_int8(k[0])
+    assert torch.equal(K7.qk_dot_i8(q8, k8), K7.qk_dot_i8_plain(q8, k8))
+    qb, kb = q[0].to(torch.bfloat16), k[0].to(torch.bfloat16)
+    torch.testing.assert_close(K7.qk_dot_bf16(qb, kb), K7.qk_dot_bf16_plain(qb, kb), rtol=0, atol=0)
+    x, taps = _qkv((2, 6, 5, 8), torch.float32, "cpu")[0], _qkv((3, 3, 1, 8), torch.float32, "cpu")[0]
+    torch.testing.assert_close(K6.dw3x3(x, taps), K6.dw3x3_plain(x, taps), rtol=0, atol=0)
+    torch.testing.assert_close(K5.dw_fma81(x, K5.taps()), K5.dw_fma81_plain(x, K5.taps()), rtol=0, atol=0)
+    assert [f.launches for f in counters] == before
+
+
+def test_dw3x3_plain_is_the_depthwise_conv_of_the_srgan_block():
+    """The plain version against the SRGAN residual block's depthwise
+    nn.Conv2d with the same taps (f32 on the CPU, 1e-5)."""
+    x = _qkv((2, 9, 7, 16), torch.float32, "cpu", seed=8)[0]
+    k = _qkv((3, 3, 1, 16), torch.float32, "cpu", seed=9, scale=K6.TAP_SCALE)[0]
+    conv = K6.SeparableConv(16, 16, 3, 1, 1, bias=False).depthwise
+    with torch.no_grad():
+        conv.weight.copy_(k.permute(3, 2, 0, 1))
+        want = conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    torch.testing.assert_close(K6.dw3x3_plain(x, k), want, rtol=0, atol=1e-5)
+
+
+def test_probe_kernels_are_forward_only():
+    q = _qkv((1, 1, 64, 16), torch.float32, "cpu")[0].requires_grad_(True)
+    for call in (lambda: K4.exp2_attention(q, q, q), lambda: K7.qk_dot_bf16(q[0], q[0]),
+                 lambda: K6.dw3x3(q.reshape(1, 8, 8, 16), q.reshape(64, 16)[:9].reshape(3, 3, 1, 16)),
+                 lambda: K5.dw_fma81(q, K5.taps())):
+        with pytest.raises(NotImplementedError, match="forward-only"):
+            call()
+
+
+def test_ulp_is_one_step_of_the_type():
+    x = torch.tensor([1.0, 1.5, -3.0, 256.0, 0.01])
+    for dtype in (torch.bfloat16, torch.float16):
+        step = K5.ulp(x, dtype)
+        assert torch.equal(step[:4], torch.tensor([1.0, 1.0, 2.0, 256.0]) * torch.finfo(dtype).eps)
+        assert ((x + step).to(dtype).float() != x.to(dtype).float())[:4].all()
+
+
+def test_to_int8_clamps_and_truncates_toward_zero():
+    x = torch.tensor([-200.0, -127.9, -3.9, -0.5, 0.0, 0.5, 3.9, 126.99, 500.0])
+    assert K7.to_int8(x, scale=1.0).tolist() == [-127, -127, -3, 0, 0, 0, 3, 126, 127]

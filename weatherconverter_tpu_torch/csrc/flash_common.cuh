@@ -1,4 +1,5 @@
-// Shared pieces of the clamped-softmax flash-attention kernels (K1, K2, K3).
+// Shared pieces of the clamped-softmax flash-attention kernels (K1, K2, K3),
+// also used by the probes K4 (probe_exp2_attn.cu) and K7 (probe_qk_dot.cu).
 //
 // Tiling: one block of 4 warps owns 64 query rows of one (batch*head); each
 // warp owns 16 rows and walks the keys in tiles of 64 staged in shared
@@ -69,6 +70,17 @@ struct Mma<__half> {
     return __half22float2(*reinterpret_cast<const __half2*>(&u));
   }
 };
+
+// int8 fragments (m16n8k32, s8 -> s32): a0 (g, 4t..4t+3), a1 (g+8, 4t..),
+// a2 (g, 16+4t..), a3 (g+8, 16+4t..); b0 (k 4t..4t+3, n g), b1 (k 16+4t.., n g);
+// C as above.
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);

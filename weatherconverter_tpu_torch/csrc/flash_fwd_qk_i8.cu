@@ -20,16 +20,7 @@
 
 namespace wcflash {
 
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// int8 fragments (m16n8k32): a0 (g, 4t..4t+3), a1 (g+8, 4t..), a2 (g, 16+4t..),
-// a3 (g+8, 16+4t..); b0 (k 4t..4t+3, n g), b1 (k 16+4t.., n g).
+// the int8 product is mma_s8 (flash_common.cuh), fragments as laid out there
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_qk_i8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,

@@ -25,8 +25,6 @@ require grad, on every device.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from weatherconverter_tpu_torch.ops import cuda_build
@@ -91,7 +89,7 @@ def flash_attention_qk_i8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return (torch.matmul(p.to(v.dtype).float(), v.float()) / l).to(v.dtype)
 
 
-def _check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel runs on CUDA tensors, got {q.device}")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
@@ -114,15 +112,6 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _launch_error(name: str, err: int) -> RuntimeError:
-    msg = cuda_build.library().wc_error_string(err).decode()
-    return RuntimeError(f"{name}: kernel launch failed, cudaError {err}: {msg}")
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_l: bool = False):
     """K1, (B, H, N, D) -> O in q's dtype (and l, (B, H, N, 1) f32, with
     `return_l`). A CPU tensor takes `flash_attention_plain`; a CUDA tensor
@@ -138,7 +127,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_l: bool):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, return_l=return_l)
-    _check_kernel_inputs("flash_attention", q, k, v)
+    check_kernel_inputs("flash_attention", q, k, v)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k, v must share one dtype")
     b, h, n, d = q.shape
@@ -150,10 +139,9 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_
         err = lib.wc_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if l is None else l.data_ptr(),
-            b * h, n, d, int(q.dtype == torch.float16), 1.0 / d**0.5, _stream(q.device),
+            b * h, n, d, int(q.dtype == torch.float16), 1.0 / d**0.5, cuda_build.stream(q.device),
         )
-    if err != 0:
-        raise _launch_error("flash_attention", err)
+    cuda_build.check_launch("flash_attention", err)
     flash_attention.launches += 1
     return (o, l) if return_l else o
 
@@ -193,7 +181,7 @@ def flash_attention_bwd(q, k, v, o, do, l):
     five tensors in one dtype."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, l)
-    _check_kernel_inputs("flash_attention_bwd", q, k, v)
+    check_kernel_inputs("flash_attention_bwd", q, k, v)
     b, h, n, d = q.shape
     for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -210,10 +198,9 @@ def flash_attention_bwd(q, k, v, o, do, l):
         err = lib.wc_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), l.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(),
-            b * h, n, d, int(q.dtype == torch.float16), 1.0 / d**0.5, _stream(q.device),
+            b * h, n, d, int(q.dtype == torch.float16), 1.0 / d**0.5, cuda_build.stream(q.device),
         )
-    if err != 0:
-        raise _launch_error("flash_attention_bwd", err)
+    cuda_build.check_launch("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -259,7 +246,7 @@ def flash_attention_qk_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
             "train with qk_int8=False")
     if q.device.type == "cpu":
         return flash_attention_qk_i8_plain(q, k, v)
-    _check_kernel_inputs("flash_attention_qk_i8", q, k, v)
+    check_kernel_inputs("flash_attention_qk_i8", q, k, v)
     b, h, n, d = q.shape
     # contiguous first, so q8/k8 come out contiguous; every buffer the kernel
     # reads stays referenced here until the launch has been queued
@@ -271,10 +258,9 @@ def flash_attention_qk_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
         err = lib.wc_flash_fwd_qk_i8(
             q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
             qk_scale.data_ptr(), o.data_ptr(), b * h, n, d, int(v.dtype == torch.float16),
-            _stream(q.device),
+            cuda_build.stream(q.device),
         )
-    if err != 0:
-        raise _launch_error("flash_attention_qk_i8", err)
+    cuda_build.check_launch("flash_attention_qk_i8", err)
     flash_attention_qk_i8.launches += 1
     return o
 

@@ -22,7 +22,8 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("flash_fwd.cu", "flash_fwd_qk_i8.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_fwd_qk_i8.cu", "flash_bwd.cu",
+           "probe_exp2_attn.cu", "probe_qk_dot.cu", "probe_dw3x3.cu", "probe_dw9x9.cu")
 HEADERS = ("flash_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -98,10 +99,32 @@ def library() -> ctypes.CDLL:
             lib.wc_flash_fwd_qk_i8.restype = _int
             lib.wc_flash_bwd.argtypes = [_ptr] * 10 + [_int, _int, _int, _int, ctypes.c_float, _ptr]
             lib.wc_flash_bwd.restype = _int
+            lib.wc_probe_exp2_attn.argtypes = [_ptr] * 4 + [_int] * 4 + [ctypes.c_float, _ptr]
+            lib.wc_probe_qk_i8.argtypes = [_ptr] * 3 + [_int] * 3 + [_ptr]
+            lib.wc_probe_qk_bf16.argtypes = [_ptr] * 3 + [_int] * 3 + [_ptr]
+            lib.wc_probe_dw3x3.argtypes = [_ptr] * 3 + [_int] * 5 + [_ptr]
+            lib.wc_probe_dw_fma81.argtypes = [_ptr, _ptr, ctypes.c_longlong, _ptr, _int, _ptr]
+            for fn in (lib.wc_probe_exp2_attn, lib.wc_probe_qk_i8, lib.wc_probe_qk_bf16, lib.wc_probe_dw3x3,
+                       lib.wc_probe_dw_fma81):
+                fn.restype = _int
             lib.wc_error_string.argtypes = [_int]
             lib.wc_error_string.restype = ctypes.c_char_p
             _library = lib
         return _library
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a kernel's C entry point returned a cudaError_t other than 0."""
+    if err != 0:
+        msg = library().wc_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}: {msg}")
+
+
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on `device`, for a kernel's stream argument."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def build_log() -> str:
