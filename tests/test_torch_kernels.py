@@ -19,6 +19,11 @@ from weatherconverter_tpu_torch.ops import attention as A
 # template instance and the grid's edges
 PATH_SHAPES = [(8, 4, 4096, 64), (8, 4, 1024, 128), (8, 4, 1024, 32), (8, 4, 4096, 16)]
 SMALL_SHAPES = [(1, 1, 64, 16), (2, 3, 128, 32), (1, 2, 192, 64), (3, 1, 64, 128)]
+# N = 2048 at every head dim: between the two lengths of the path (32 tiles
+# of 64 rows; SMALL_SHAPES hold one, two and three)
+MID_SHAPES = [(1, 2, 2048, 16), (2, 1, 2048, 32), (1, 2, 2048, 64), (1, 1, 2048, 128)]
+ALL_SHAPES = SMALL_SHAPES + MID_SHAPES + PATH_SHAPES
+HEAD_DIMS = [16, 32, 64, 128]
 
 
 @pytest.fixture()
@@ -41,7 +46,7 @@ BF16_ATOL = 1e-2
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SMALL_SHAPES + PATH_SHAPES)
+@pytest.mark.parametrize("shape", ALL_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = _qkv(shape, dtype, cuda)
@@ -63,6 +68,28 @@ def test_flash_kernel_clamp_fires(cuda):
     ref = A.flash_attention_plain(q, k, v)
     assert torch.isfinite(o.float()).all()
     assert (o.float() - ref.float()).abs().max().item() <= 4 * BF16_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("n", [192, 256])
+def test_flash_kernel_at_both_clamp_rails(cuda, d, n):
+    """q and k scaled so that scores pass +60 and -60 at every head dim, at
+    an odd and an even count of 64-key tiles (N = 192 fills the three-deep
+    tile ring once, N = 256 wraps it): O and l as the plain version's (bf16,
+    whose range holds e^60)."""
+    q, k, v = _qkv((2, 2, n, d), torch.bfloat16, cuda, seed=d + n)
+    gain = 2.0 * (60.0 / d**0.5) ** 0.5
+    q, k = (q.float() * gain).to(torch.bfloat16), (k.float() * gain).to(torch.bfloat16)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / d**0.5
+    assert (s > 60).any() and (s < -60).any()
+    o, l = A.flash_attention(q, k, v, return_l=True)
+    ref_o, ref_l = A.flash_attention_plain(q, k, v, return_l=True)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(l).all()
+    assert (o.float() - ref_o.float()).abs().max().item() <= 4 * BF16_ATOL
+    # l sums exp2(s * log2 e) in the kernel and exp(s) in the plain version:
+    # at |s| near 60 the f32 argument's rounding moves p by up to ~60 * 2^-23
+    torch.testing.assert_close(l, ref_l, rtol=1e-4, atol=0)
 
 
 @pytest.mark.gpu
@@ -130,7 +157,7 @@ def _bwd_inputs(shape, dtype, device, seed=0, qk_scale=1.0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SMALL_SHAPES + PATH_SHAPES)
+@pytest.mark.parametrize("shape", ALL_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_bwd_kernel_matches_plain(cuda, shape, dtype):
     args = _bwd_inputs(shape, dtype, cuda)
@@ -141,6 +168,34 @@ def test_flash_bwd_kernel_matches_plain(cuda, shape, dtype):
     ref = A.flash_attention_bwd_plain(*args)
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         assert g.dtype == dtype and g.shape == shape and torch.isfinite(g.float()).all(), name
+        assert _rel_err(g, r) <= BWD_REL_TOL, (name, _rel_err(g, r))
+    # no atomics: a second call gives the same bits
+    for name, g, again in zip(("dq", "dk", "dv"), got, A.flash_attention_bwd(*args)):
+        assert torch.equal(g, again), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_kernel_at_both_clamp_rails_every_head_dim(cuda, d, dtype):
+    """Scores past +60 and -60 at every head dim: p at its e^60 ceiling, the
+    gradient mask firing on both sides. bf16 against the plain version in
+    bf16. f16 against the plain version on f32 copies of the same values:
+    the kernel folds 1/l into p before the cast, so p / l <= 1 stays in
+    f16's range, where the plain version's own f16 cast of p would overflow."""
+    shape = (1, 2, 256, d)
+    q, k, v = _qkv(shape, dtype, cuda, seed=20 + d, scale=1.0)
+    gain = 2.0 * (60.0 / d**0.5) ** 0.5
+    q, k = (q.float() * gain).to(dtype), (k.float() * gain).to(dtype)
+    do = _qkv(shape, dtype, cuda, seed=120 + d)[0]
+    ref_dtype = dtype if dtype == torch.bfloat16 else torch.float32
+    o, l = A.flash_attention_plain(q.to(ref_dtype), k.to(ref_dtype), v.to(ref_dtype), return_l=True)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / d**0.5
+    assert (s > 60).any() and (s < -60).any()
+    got = A.flash_attention_bwd(q, k, v, o.to(dtype), do, l)
+    ref = A.flash_attention_bwd_plain(*(t.to(ref_dtype) for t in (q, k, v, o.to(dtype), do)), l)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all(), name
         assert _rel_err(g, r) <= BWD_REL_TOL, (name, _rel_err(g, r))
 
 
@@ -230,6 +285,7 @@ from weatherconverter_tpu_torch.probes import micro_attn as K4  # noqa: E402
 from weatherconverter_tpu_torch.probes import probe_dw3x3 as K6  # noqa: E402
 from weatherconverter_tpu_torch.probes import probe_dw9x9_floor as K5  # noqa: E402
 from weatherconverter_tpu_torch.probes import probe_int8_dot as K7  # noqa: E402
+from weatherconverter_tpu_torch.probes import common as probe_common, time_flash  # noqa: E402
 
 PROBE_MODULES = [K4, K7, K6, K5]
 
@@ -338,12 +394,44 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
         K5.dw_fma81(_qkv((16,), torch.bfloat16, cuda)[0], K5.taps()[:80])
 
 
-@pytest.mark.parametrize("probe", PROBE_MODULES, ids=lambda m: m.__name__.rsplit(".", 1)[1])
+@pytest.mark.parametrize("probe", PROBE_MODULES + [time_flash], ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_probe_main_exits_2_without_cuda(probe, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert probe.main() == 2
     out, err = capsys.readouterr()
     assert out == "" and "no CUDA device" in err
+
+
+@pytest.mark.parametrize("shape, kw, ms, binds", [
+    ((8, 4, 4096, 64), {}, 0.138968, "bf16"),
+    ((8, 4, 4096, 16), {}, 0.138907, "ex2"),
+    ((8, 4, 1024, 128), dict(qk_int8=True), 0.013026, "int8+bf16"),
+    ((8, 4, 4096, 64), dict(qk_int8=True), 0.138907, "ex2"),
+    ((8, 4, 4096, 64), dict(backward=True), 0.347419, "bf16"),
+    ((8, 4, 1024, 32), dict(backward=True), 0.0108568, "bf16"),
+    ((8, 4, 4096, 16), dict(backward=True), 0.138907, "ex2"),
+])
+def test_attention_roofline_counts_what_the_function_needs(shape, kw, ms, binds):
+    """By hand, B*H = 32: the forward's two products at 989 TFLOP/s (Q K^T at
+    1,979 TOP/s in int8), the backward's five, and one exponential a score
+    at 16 * 132 * 1.83e9 a second in both directions."""
+    bound = probe_common.attention_roofline(probe_common.peaks("NVIDIA H100 80GB HBM3, 700.00 W"), shape, **kw)
+    assert bound["binds"] == binds and bound["bound_by"] == "operations"
+    assert bound["bound_ms"] == pytest.approx(ms, rel=1e-5)
+    assert probe_common.attention_roofline(None, shape, **kw)["bound_ms"] is None
+
+
+def test_time_flash_loads_another_checkout_beside_this_one():
+    import os
+    import sys
+
+    before = {k: m for k, m in sys.modules.items() if k.startswith("weatherconverter_tpu_torch")}
+    path = list(sys.path)
+    other = time_flash.load_attention(os.path.abspath(os.path.join(os.path.dirname(A.__file__), "..", "..")))
+    assert other is not A and other.cuda_build is not A.cuda_build
+    assert os.path.samefile(other.__file__, A.__file__)
+    assert {k: m for k, m in sys.modules.items() if k.startswith("weatherconverter_tpu_torch")} == before
+    assert sys.path == path
 
 
 def test_probe_cpu_tensors_take_the_plain_versions_and_count_nothing():

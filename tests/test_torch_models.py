@@ -112,6 +112,39 @@ def test_srgan_generator_matches_jax(upscale):
     np.testing.assert_allclose(to_nhwc(out), np.asarray(ref), rtol=1e-4, atol=1e-5)
 
 
+def _export_pairs():
+    """(name, the JAX exporter's numpy dict, the port's tensor dict) for the
+    tiny UNet, a DeepLabV3+/ResNet and the SRGAN generator."""
+    from weatherconverter_tpu.compat import torch_export as J
+
+    _, uparams, _ = tiny_unet_pair()
+    cfg = JUnetConfig(**TINY_UNET)
+    yield "unet", J.export_unet(uparams, cfg), from_jax.unet_state_dict(uparams, UnetModelConfig(**TINY_UNET))
+    _, seg_vars, _ = seg_pair("deeplabv3plus_resnet18", 64)
+    yield ("deeplab", J.export_deeplab_resnet(seg_vars["params"], seg_vars["batch_stats"], "resnet18"),
+           from_jax.deeplab_state_dict(seg_vars, "deeplabv3plus_resnet18"))
+    _, gen_vars, _ = generator_pair(2)
+    yield ("srgan", J.export_srgan_generator(gen_vars["params"], gen_vars["batch_stats"], 2),
+           from_jax.srgan_generator_state_dict(gen_vars, 2))
+
+
+def test_from_jax_state_dicts_equal_the_jax_exporter():
+    """The port's own exporters against the JAX package's compat/torch_export:
+    the same keys in the same order, the same dtypes and shapes, and every
+    array bit for bit (layout only, no arithmetic)."""
+    from weatherconverter_tpu.compat.torch_export import to_torch_state_dict
+
+    for name, ref, got in _export_pairs():
+        assert list(got) == list(ref), name
+        for key, want in to_torch_state_dict(ref).items():
+            assert got[key].dtype == want.dtype and got[key].shape == want.shape, (name, key)
+            assert got[key].numpy().tobytes() == want.numpy().tobytes(), (name, key)
+    assert from_jax.RESNET_BASIC == {"resnet18", "resnet34"}
+    from weatherconverter_tpu.compat.torch_import import RESNET_LAYERS
+
+    assert all(RESNET_LAYERS[k] == v for k, v in from_jax.RESNET_LAYERS.items())
+
+
 @pytest.mark.parametrize("path", [None, "configs/translation.yaml", "configs/translation_256.yaml"])
 def test_translation_config_matches_jax(path):
     """The port's copy of the schema reads the repo's YAML files (and the

@@ -301,7 +301,8 @@ class FakeImages:
 
 def _loop_cfg(tmp_path, **training):
     return PC.DiffusionConfig(model=LOOP_MODEL, diffusion={"num_timesteps": 20},
-                              training={"batch_size": 2, "log_interval": 1, "save_interval": 1, **training},
+                              training={"batch_size": 2, "log_interval": 1, "save_interval": 1, "device": "cpu",
+                                        **training},
                               folders={"output": str(tmp_path / "out")})
 
 
@@ -375,6 +376,72 @@ def test_train_without_images_raises(tmp_path):
         loop_diffusion.train(cfg)
 
 
+def test_train_device_auto_raises_without_a_card(tmp_path, monkeypatch):
+    """`training.device="auto"` (the default) is the CUDA card: without one
+    the loop raises and names the explicit CPU request; it never falls back."""
+    from weatherconverter_tpu_torch.training import loop_diffusion
+
+    assert PC.DiffusionConfig().training.device == "auto"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='training.device="cpu"'):
+        loop_diffusion.train(_loop_cfg(tmp_path, epochs=1, device="auto"), dataset=FakeImages())
+    assert not (tmp_path / "out").exists()  # raised before a run directory was made
+    assert loop_diffusion._device("cpu") == torch.device("cpu")
+
+
+def _write_png_tree(root):
+    """A synthetic ACDC-style tree plus a BDD-style one: PNGs and a JPEG of
+    several sizes (wide, tall, near-square), and a file the glob must skip."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    sizes = {"rain/train/a/x1.png": (40, 71), "rain/train/a/x0.png": (33, 90), "rain/val/b.png": (64, 48),
+             "fog/train/c/d/e.png": (30, 31), "fog/test/f.jpg": (50, 120), "night/train/g.png": (20, 20),
+             "snow/train/skipped.png": (20, 40)}
+    for rel, (h, w) in sizes.items():
+        path = os.path.join(root, "rgb_anon", rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(path)
+    with open(os.path.join(root, "rgb_anon", "rain", "train", "notes.txt"), "w") as f:
+        f.write("not an image")
+    for rel in ("rain/r.png", "fog/deep/s.png"):
+        path = os.path.join(root, "bdd", rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (24, 60, 3), dtype=np.uint8)).save(path)
+
+
+def test_diffusion_image_dataset_matches_jax(tmp_path):
+    """The port's DiffusionImageDataset against the JAX package's on one
+    synthetic tree: the same length, the same paths in the same order, and
+    the same uint8 arrays (against the JAX class's PIL path, bit for bit;
+    its optional C++ decoder, where built, within one grey level)."""
+    from weatherconverter_tpu.data import datasets as JDS
+    from weatherconverter_tpu_torch.data import datasets as PDS
+
+    _write_png_tree(str(tmp_path))
+    root = str(tmp_path / "rgb_anon")
+    ref, port = JDS.DiffusionImageDataset(root, resize_to=16), PDS.DiffusionImageDataset(root, resize_to=16)
+    for ds in (ref, port):
+        ds.add_images(str(tmp_path / "bdd"))
+    assert len(port) == len(ref) == 8
+    assert port.img_paths == ref.img_paths and port.out_wh == ref.out_wh == (16, 28)
+    for i in range(len(ref)):
+        got = port[i]
+        assert got.dtype == np.uint8 and got.shape == (16, 28, 3)
+        np.testing.assert_array_equal(got, JDS.load_image_resized(ref.img_paths[i], 16, ref.out_wh))
+        assert np.abs(got.astype(np.int16) - ref[i].astype(np.int16)).max() <= 1
+    np.testing.assert_array_equal(PDS.load_image_resized(ref.img_paths[0], 16),
+                                  JDS.load_image_resized(ref.img_paths[0], 16))
+    cfg = _loop_cfg(tmp_path, epochs=1)
+    cfg.data.root_dir, cfg.data.acdc_images, cfg.data.bdd_dir, cfg.data.dawn_dir = str(tmp_path), "rgb_anon", "bdd", ""
+    cfg.data.weather = ["rain", "fog", "night"]
+    cfg.model.im_size = 16
+    from weatherconverter_tpu_torch.training import loop_diffusion
+
+    built = loop_diffusion.build_dataset(cfg)
+    assert isinstance(built, PDS.DiffusionImageDataset) and built.img_paths == port.img_paths
+
+
 def test_train_with_a_dataset_imports_neither_pil_nor_jax(tmp_path):
     code = (
         "import sys\n"
@@ -385,7 +452,7 @@ def test_train_with_a_dataset_imports_neither_pil_nor_jax(tmp_path):
         "    def __len__(self): return 2\n"
         "    def __getitem__(self, i): return np.zeros((16, 28, 3), np.uint8)\n"
         f"cfg = DiffusionConfig(model={LOOP_MODEL!r}, diffusion={{'num_timesteps': 20}},\n"
-        "    training={'batch_size': 2, 'epochs': 1}, folders={'output': sys.argv[1]})\n"
+        "    training={'batch_size': 2, 'epochs': 1, 'device': 'cpu'}, folders={'output': sys.argv[1]})\n"
         "assert loop_diffusion.train(cfg, dataset=D()).step == 1\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'jax', 'flax'))\n"
         "assert not bad, bad\n"

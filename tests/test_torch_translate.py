@@ -213,15 +213,20 @@ def test_parts_not_ported_raise(kw):
 
 
 def test_port_imports_no_jax():
-    """Every module of weatherconverter_tpu_torch imports in a fresh process
-    without loading jax or flax."""
+    """Every module of weatherconverter_tpu_torch, and chip_smoke (imported,
+    not run), imports in a fresh process without loading jax, jaxlib, flax or
+    anything of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import weatherconverter_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 20, names\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "assert 'weatherconverter_tpu_torch.data.datasets' in names and 'weatherconverter_tpu_torch.compat.from_jax' in names\n"
+        "import chip_smoke\n"
+        "assert callable(chip_smoke.main)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'weatherconverter_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )

@@ -11,51 +11,42 @@
 // The clamped softmax has no running max, so the resident and the streaming
 // TPU forms are the same sum; one design serves both.
 //
-// What bounds it on the H100: per head it does five N x N x D tensor-core
-// products (S and dO V^T twice, dQ, dK, dV: 10*N^2*D FLOPs) and 2*N^2
-// exponentials, against about 9*N*D*2 bytes of Q/K/V/O/dO/dQ/dK/dV traffic.
-// At N = 1024/4096 that is compute-bound: on the tensor cores at D >= 64,
-// on the exp/mask/convert instructions at D = 16/32.
-// What the design does about it:
+// What bounds it on the H100: a backward needs five N x N x D tensor-core
+// products a head (10*N^2*D FLOPs) and p once a score (N^2 exponentials),
+// against about 8*N*D*2 bytes of traffic; this two-pass form spends seven
+// products (S and dO V^T twice) and 2*N^2 exponentials against that bound
+// of five and N^2. At N = 1024/4096 that is compute-bound: on the tensor cores at
+// D >= 64, on the exp/mask/convert instructions at D = 16/32.
+// What the design does about it (flash_wgmma.cuh has the building blocks):
 //   * Two passes, each owning its outputs, so there are no atomics and the
-//     gradients are deterministic. Pass 1 (grid N/64 x B*H) gives each warp
-//     16 query rows, holds their Q and dO as A fragments, writes
-//     Dv = rowsum(dO o O) to an f32 scratch, walks 64-key tiles and
-//     accumulates m K in f32. Pass 2 (same grid) gives each warp 16 keys and
-//     walks 64-query tiles; it computes the products transposed,
-//     S^T = K Q^T and dpn^T = V dO^T, so p^T and m^T sit in the C layout
-//     with keys as rows and pack straight into the A fragments of
-//     dV += (p^T / l) dO and dK += (m^T / l) Q: nothing of size N^2 leaves
-//     registers.
-//   * 1/l is folded into p and m before they are cast to bf16/f16 (the TPU
-//     kernels fold it into the D-wide operands instead): p / l <= 1, so f16
-//     cannot overflow where the clamp lets p reach e^60.
-//   * Scores are formed 16 keys (pass 1) or 16 queries (pass 2) at a time,
-//     and in pass 2 the warp's K and V operands are read from shared memory
-//     rather than held in registers, so at D = 128 the f32 dK and dV
-//     accumulators (128 registers a thread) fit without spilling.
-//   * B operands that run along the key (pass 1) or query (pass 2) axis are
-//     staged transposed (stage_v_transposed), so each fragment is one
-//     conflict-free 32-bit shared load, as in K1.
-// Left for later: wgmma, TMA, cp.async pipelining, ldmatrix.trans instead of
-// the transposed copies, and strided inputs (the wrapper makes them
+//     gradients repeat bit for bit. Pass 1 (one warpgroup a block, 64 query
+//     rows) keeps its Q and dO tiles in shared memory, writes Dv and 1/l to
+//     an f32 scratch, walks 64-key K/V tiles and accumulates m K in f32.
+//     Pass 2 (64 keys a block) walks 64-query tiles of Q, dO, 1/l and Dv
+//     and takes the products transposed, S^T = K Q^T and dP^T = V dO^T, so
+//     p^T and m^T come out with keys as rows.
+//   * All seven products run on wgmma. S, dO V^T and their transposes take
+//     both operands from shared memory (K-major). m K, p^T dO and m^T Q take
+//     m, p^T and m^T from the registers the first products left them in and
+//     the K, dO and Q tiles as loaded (MN-major descriptors): no operand is
+//     staged transposed, nothing of size N^2 leaves registers.
+//   * The streamed tiles come through a ring (three deep; two at D = 128)
+//     filled by 16-byte cp.async into the tensor cores' swizzled layout.
+//   * The recomputed p uses K1's exp2 form; the mask is taken on the score
+//     before the clamp. 1/l is folded into p and m before they are cast to
+//     bf16/f16 (the TPU kernels fold it into the D-wide operands instead):
+//     p / l <= 1, so f16 cannot overflow where the clamp lets p reach e^60.
+//   * At D = 128 pass 2 forms its scores 32 queries at a time, so the f32 dK
+//     and dV (128 registers a thread) fit without spilling.
+//   * One warpgroup a block: two sharing a ring measured 7 % slower at
+//     D = 64 and no faster elsewhere.
+// Left for later: overlapping the exp/mask work with the MMAs inside a
+// warpgroup (splitting S and dO V^T into two MMA groups measured no gain and
+// cost registers), TMA, and strided inputs (the wrapper makes them
 // contiguous).
-#include "flash_common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace wcflash {
-
-// Rows [r0, r0 + kBlockK) of one head into dst[kBlockK][D + kPad].
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ head, int r0) {
-  constexpr int kStride = D + kPad;
-  constexpr int kVecPerRow = D / 8;
-  for (int i = threadIdx.x; i < kBlockK * kVecPerRow; i += kThreads) {
-    const int row = i / kVecPerRow;
-    const int col = (i % kVecPerRow) * 8;
-    *reinterpret_cast<uint4*>(dst + row * kStride + col) =
-        *reinterpret_cast<const uint4*>(head + (size_t)r0 * D + (size_t)row * D + col);
-  }
-}
 
 // A fragment (16 rows x 16-deep chunk kc) of a row-major array with `stride`.
 template <typename T>
@@ -66,247 +57,289 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const T* rows, int stride,
   a[3] = ld32(rows + (g + 8) * stride + kc * 16 + 8 + 2 * t);
 }
 
-// c[j] (16 x 8, C layout) += rows (A, 16 x D) . b_rows[j*8 .. j*8+8)^T for
-// j = 0, 1, where b_rows is row-major [.][D + kPad] in shared memory.
-template <typename T, int D, bool kAInRegs>
-__device__ __forceinline__ void mma_rows_t(float c[2][4], const uint32_t a_regs[][4], const T* a_rows,
-                                           const T* b_rows, int g, int t) {
-  constexpr int kStride = D + kPad;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-    const T* brow = b_rows + (j * 8 + g) * kStride + 2 * t;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      const uint32_t b[2] = {ld32(brow + kc * 16), ld32(brow + kc * 16 + 8)};
-      if constexpr (kAInRegs) {
-        Mma<T>::run(c[j], a_regs[kc], b);
-      } else {
-        uint32_t a[4];
-        load_a(a, a_rows, kStride, kc, g, t);
-        Mma<T>::run(c[j], a, b);
-      }
-    }
-  }
-}
-
-// Pack two C-layout 16 x 8 tiles into one A fragment (16 x 16-deep chunk).
-template <typename T>
-__device__ __forceinline__ void pack_a(uint32_t a[4], const float x[2][4]) {
-  a[0] = Mma<T>::pack(x[0][0], x[0][1]);
-  a[1] = Mma<T>::pack(x[0][2], x[0][3]);
-  a[2] = Mma<T>::pack(x[1][0], x[1][1]);
-  a[3] = Mma<T>::pack(x[1][2], x[1][3]);
-}
-
-// acc[nt] (16 x D, C layout) += a (16 x 16-deep chunk kc) . bt^T chunk, where
-// bt is [D][kVtStride]: the 16-deep operand staged transposed.
-template <typename T, int D>
-__device__ __forceinline__ void mma_chunk(float acc[D / 8][4], const uint32_t a[4], const T* bt, int kc, int g,
-                                          int t) {
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const T* col = bt + (nt * 8 + g) * kVtStride + kc * 16 + 2 * t;
-    const uint32_t b[2] = {ld32(col), ld32(col + 8)};
-    Mma<T>::run(acc[nt], a, b);
-  }
-}
-
-// Write acc * mul (16 x D, C layout) as T rows of `rows` (row stride D).
-template <typename T, int D>
-__device__ __forceinline__ void write_rows(T* __restrict__ rows, const float acc[D / 8][4], float mul, int g,
-                                           int t) {
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const int col = nt * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(rows + g * D + col) = Mma<T>::pack(acc[nt][0] * mul, acc[nt][1] * mul);
-    *reinterpret_cast<uint32_t*>(rows + (g + 8) * D + col) = Mma<T>::pack(acc[nt][2] * mul, acc[nt][3] * mul);
-  }
-}
-
 template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(uint16_t) * (2 * kBlockK * (D + kPad) + D * kVtStride);
+struct BwdConfig {
+  // D = 128: two stages, so two blocks fit an SM, and 32-query sub-tiles in
+  // pass 2, so the f32 dK and dV (128 registers a thread) do not spill
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kSub = D == 128 ? 32 : 64;
+  static constexpr int kDqSmemBytes = 1024 + (2 + kStages * 2) * Tile<D>::kBytes;
+  static constexpr int kDkvSmemBytes = kDqSmemBytes + kStages * 2 * kTileRows * 4;
+};
+
+// exp2-domain score y -> p = exp2(clip(y)), and whether the clamp left it alone
+__device__ __forceinline__ float clamped_exp2(float y, bool& inside) {
+  inside = fabsf(y) <= kClampLog2;
+  return ex2_ftz(fminf(fmaxf(y, -kClampLog2), kClampLog2));
 }
 
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(uint16_t) * (4 * kBlockK * (D + kPad) + 2 * D * kVtStride) + sizeof(float) * 2 * kBlockQ;
-}
-
-// Pass 1: dQ, and Dv = rowsum(dO o O) into dvec (bh, n) f32.
+// Pass 1: dQ for 64 query rows a block (one warpgroup), walking 64-key K/V tiles; also
+// writes Dv = rowsum(dO o O) and 1/l of its rows to the f32 scratch.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const T* __restrict__ o, const T* __restrict__ d_o, const float* __restrict__ l,
-                        T* __restrict__ dq, float* __restrict__ dvec, int n, float scale) {
-  constexpr int kStride = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);  // [kBlockK][kStride]
-  T* vs = ks + kBlockK * kStride;           // [kBlockK][kStride]
-  T* kt = vs + kBlockK * kStride;           // [D][kVtStride]
+__global__ void __launch_bounds__(kWgThreads)
+    flash_bwd_dq_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                              const T* __restrict__ o, const T* __restrict__ d_o, const float* __restrict__ l,
+                              T* __restrict__ dq, float* __restrict__ dvec, float* __restrict__ linv_out, int n,
+                              float scale, float scale_log2) {
+  using L = Tile<D>;
+  constexpr int kStages = BwdConfig<D>::kStages;
+  constexpr int kTileBytes = L::kBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [64][D]
+  const uint32_t do_s = q_s + kTileBytes;                       // [64][D]
+  const uint32_t kv_s = do_s + kTileBytes;                      // kStages x (K tile, V tile)
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
   const size_t head = (size_t)blockIdx.y * n * D;
-  const int row0 = blockIdx.x * kBlockQ + warp * 16;
-  const size_t rows = (size_t)blockIdx.y * n + row0;  // index into l and dvec
+  const int row0 = blockIdx.x * kTileRows;
+  const T* k_head = k + head;
+  const T* v_head = v + head;
+  const int tiles = n / kTileRows;
 
-  // This warp's Q and dO rows as A fragments, and Dv of its rows g and g+8.
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  float dv[2] = {0.f, 0.f};
+  load_tile_async<T, D>(q_s, q + head + (size_t)row0 * D, tid);
+  load_tile_async<T, D>(do_s, d_o + head + (size_t)row0 * D, tid);
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    load_a(qa[kc], q + head + (size_t)row0 * D, D, kc, g, t);
-    load_a(da[kc], d_o + head + (size_t)row0 * D, D, kc, g, t);
-    uint32_t oa[4];
-    load_a(oa, o + head + (size_t)row0 * D, D, kc, g, t);
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < tiles) {
+      load_tile_async<T, D>(kv_s + j * 2 * kTileBytes, k_head + (size_t)j * kTileRows * D, tid);
+      load_tile_async<T, D>(kv_s + j * 2 * kTileBytes + kTileBytes, v_head + (size_t)j * kTileRows * D, tid);
+    }
+    cp_async_commit();
+  }
+
+  // Dv and 1/l of this thread's rows g and g + 8 of its warp's 16
+  const int warp_row0 = row0 + warp * 16;
+  const size_t rows = (size_t)blockIdx.y * n + warp_row0;
+  float dvr[2] = {0.f, 0.f};
+  {
+    const T* do_rows = d_o + head + (size_t)warp_row0 * D;
+    const T* o_rows = o + head + (size_t)warp_row0 * D;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {  // r = 0, 2: row g; r = 1, 3: row g + 8
-      const float2 x = Mma<T>::unpack(da[kc][r]), y = Mma<T>::unpack(oa[r]);
-      dv[r & 1] += x.x * y.x + x.y * y.y;
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t da[4], oa[4];
+      load_a(da, do_rows, D, kc, g, t);
+      load_a(oa, o_rows, D, kc, g, t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // r = 0, 2: row g; r = 1, 3: row g + 8
+        const float2 x = Mma<T>::unpack(da[r]), y = Mma<T>::unpack(oa[r]);
+        dvr[r & 1] += x.x * y.x + x.y * y.y;
+      }
     }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    dv[r] += __shfl_xor_sync(0xffffffffu, dv[r], 1);
-    dv[r] += __shfl_xor_sync(0xffffffffu, dv[r], 2);
-  }
-  if (t == 0) {
-    dvec[rows + g] = dv[0];
-    dvec[rows + g + 8] = dv[1];
+    dvr[r] += __shfl_xor_sync(0xffffffffu, dvr[r], 1);
+    dvr[r] += __shfl_xor_sync(0xffffffffu, dvr[r], 2);
   }
   const float linv[2] = {1.f / l[rows + g], 1.f / l[rows + g + 8]};
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_rows<T, D>(ks, k + head, k0);
-    stage_rows<T, D>(vs, v + head, k0);
-    stage_v_transposed<T, D>(kt, k + head, k0);
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < kBlockK / 16; ++kc) {  // 16 keys at a time
-      float s[2][4], dp[2][4];
-      mma_rows_t<T, D, true>(s, qa, nullptr, ks + kc * 16 * kStride, g, t);
-      mma_rows_t<T, D, true>(dp, da, nullptr, vs + kc * 16 * kStride, g, t);
-      float m[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[j][e] * scale;
-          const float p = __expf(fminf(fmaxf(x, -kClamp), kClamp));
-          m[j][e] = fabsf(x) <= kClamp ? p * (dp[j][e] - dv[e >> 1]) * linv[e >> 1] : 0.f;
-        }
-      }
-      uint32_t a[4];
-      pack_a<T>(a, m);
-      mma_chunk<T, D>(acc, a, kt, kc, g, t);
-    }
+  if (t == 0) {
+    dvec[rows + g] = dvr[0];
+    dvec[rows + g + 8] = dvr[1];
+    linv_out[rows + g] = linv[0];
+    linv_out[rows + g + 8] = linv[1];
   }
-  write_rows<T, D>(dq + head + (size_t)row0 * D, acc, scale, g, t);
+
+  float acc[L::kPanels][L::kAccRegs];
+#pragma unroll
+  for (int pn = 0; pn < L::kPanels; ++pn) {
+#pragma unroll
+    for (int i = 0; i < L::kAccRegs; ++i) acc[pn][i] = 0.f;
+  }
+
+  int stage = 0, fill = kStages - 1;
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<kStages - 2>();
+    fence_async_proxy();
+    __syncthreads();
+    if (j + kStages - 1 < tiles) {
+      const size_t at = (size_t)(j + kStages - 1) * kTileRows * D;
+      load_tile_async<T, D>(kv_s + fill * 2 * kTileBytes, k_head + at, tid);
+      load_tile_async<T, D>(kv_s + fill * 2 * kTileBytes + kTileBytes, v_head + at, tid);
+    }
+    cp_async_commit();
+    const uint32_t k_s = kv_s + stage * 2 * kTileBytes, v_s = k_s + kTileBytes;
+
+    float s[kTileRows / 2], dp[kTileRows / 2];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_rows_rows_t<T, D>(s, q_s, k_s, 0);
+    mma_rows_rows_t<T, D>(dp, do_s, v_s, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    uint32_t ma[kTileRows / 4];
+#pragma unroll
+    for (int i = 0; i < kTileRows / 4; ++i) {  // pair i: row g + 8 * (i & 1)
+      bool in0, in1;
+      const float p0 = clamped_exp2(s[2 * i] * scale_log2, in0);
+      const float p1 = clamped_exp2(s[2 * i + 1] * scale_log2, in1);
+      const float m0 = in0 ? p0 * (dp[2 * i] - dvr[i & 1]) * linv[i & 1] : 0.f;
+      const float m1 = in1 ? p1 * (dp[2 * i + 1] - dvr[i & 1]) * linv[i & 1] : 0.f;
+      ma[i] = Mma<T>::pack(m0, m1);
+    }
+
+    fence_regs(acc);
+    wgmma_fence();
+    mma_regs_tile<T, D, kTileRows / 16>(acc, ma, k_s, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    stage = stage + 1 == kStages ? 0 : stage + 1;
+    fill = fill + 1 == kStages ? 0 : fill + 1;
+  }
+  cp_async_wait<0>();
+
+  const float mul[2] = {scale, scale};
+  __syncthreads();  // every warp's MMAs have read the Q tile: reuse it as the dQ stage
+  store_rows<T, D>(acc, mul, q_s, dq + head + (size_t)row0 * D, warp, lane);
 }
 
-// Pass 2: dK and dV. Reads l from K1 and Dv from pass 1.
+// Pass 2: dK and dV for 64 keys a block (one warpgroup), walking 64-query tiles of Q,
+// dO, 1/l and Dv. The products are taken transposed (S^T = K Q^T,
+// dP^T = V dO^T), so p^T and m^T come out with keys as rows and feed
+// dV += p^T dO and dK += m^T Q from registers, with the dO and Q tiles as loaded.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                         const T* __restrict__ d_o, const float* __restrict__ l, const float* __restrict__ dvec,
-                         T* __restrict__ dk, T* __restrict__ dv, int n, float scale) {
-  constexpr int kStride = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);  // [kBlockQ][kStride] query tile
-  T* dos = qs + kBlockQ * kStride;          // [kBlockQ][kStride] dO tile
-  T* kown = dos + kBlockQ * kStride;        // [kBlockK][kStride] this block's keys
-  T* vown = kown + kBlockK * kStride;       // [kBlockK][kStride]
-  T* qt = vown + kBlockK * kStride;         // [D][kVtStride] query tile, transposed
-  T* dot = qt + D * kVtStride;              // [D][kVtStride] dO tile, transposed
-  float* lis = reinterpret_cast<float*>(dot + D * kVtStride);  // [kBlockQ] 1/l
-  float* dvs = lis + kBlockQ;                                   // [kBlockQ] Dv
+__global__ void __launch_bounds__(kWgThreads)
+    flash_bwd_dkv_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                               const T* __restrict__ d_o, const float* __restrict__ linv,
+                               const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv, int n,
+                               float scale, float scale_log2) {
+  using L = Tile<D>;
+  constexpr int kStages = BwdConfig<D>::kStages;
+  constexpr int kSub = BwdConfig<D>::kSub;
+  constexpr int kTileBytes = L::kBytes;
+  constexpr int kVecBytes = kTileRows * 4;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t k_own = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [64][D]
+  const uint32_t v_own = k_own + kTileBytes;                      // [64][D]
+  const uint32_t qd_s = v_own + kTileBytes;                       // kStages x (Q tile, dO tile)
+  const uint32_t vec_s = qd_s + kStages * 2 * kTileBytes;         // kStages x (1/l[64], Dv[64])
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int t = lane & 3;
   const size_t head = (size_t)blockIdx.y * n * D;
   const size_t head_rows = (size_t)blockIdx.y * n;
-  const int key0 = blockIdx.x * kBlockK;
+  const int key0 = blockIdx.x * kTileRows;
+  const T* q_head = q + head;
+  const T* do_head = d_o + head;
+  const int tiles = n / kTileRows;
 
-  stage_rows<T, D>(kown, k + head, key0);
-  stage_rows<T, D>(vown, v + head, key0);
-  const T* kw = kown + warp * 16 * kStride;
-  const T* vw = vown + warp * 16 * kStride;
+  auto load_stage = [&](int st, int tile) {
+    const size_t at = (size_t)tile * kTileRows;
+    load_tile_async<T, D>(qd_s + st * 2 * kTileBytes, q_head + at * D, tid);
+    load_tile_async<T, D>(qd_s + st * 2 * kTileBytes + kTileBytes, do_head + at * D, tid);
+    load_f32_async(vec_s + st * 2 * kVecBytes, linv + head_rows + at, tid);
+    load_f32_async(vec_s + st * 2 * kVecBytes + kVecBytes, dvec + head_rows + at, tid);
+  };
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  load_tile_async<T, D>(k_own, k + head + (size_t)key0 * D, tid);
+  load_tile_async<T, D>(v_own, v + head + (size_t)key0 * D, tid);
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[nt][e] = dv_acc[nt][e] = 0.f;
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < tiles) load_stage(j, j);
+    cp_async_commit();
   }
 
-  for (int q0 = 0; q0 < n; q0 += kBlockQ) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_rows<T, D>(qs, q + head, q0);
-    stage_rows<T, D>(dos, d_o + head, q0);
-    stage_v_transposed<T, D>(qt, q + head, q0);
-    stage_v_transposed<T, D>(dot, d_o + head, q0);
-    if (threadIdx.x < kBlockQ) {
-      lis[threadIdx.x] = 1.f / l[head_rows + q0 + threadIdx.x];
-      dvs[threadIdx.x] = dvec[head_rows + q0 + threadIdx.x];
-    }
+  float dk_acc[L::kPanels][L::kAccRegs], dv_acc[L::kPanels][L::kAccRegs];
+#pragma unroll
+  for (int pn = 0; pn < L::kPanels; ++pn) {
+#pragma unroll
+    for (int i = 0; i < L::kAccRegs; ++i) dk_acc[pn][i] = dv_acc[pn][i] = 0.f;
+  }
+
+  int stage = 0, fill = kStages - 1;
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<kStages - 2>();
+    fence_async_proxy();
     __syncthreads();
+    if (j + kStages - 1 < tiles) load_stage(fill, j + kStages - 1);
+    cp_async_commit();
+    const uint32_t q_s = qd_s + stage * 2 * kTileBytes, do_s = q_s + kTileBytes;
+    const uint32_t li_s = vec_s + stage * 2 * kVecBytes, dvs_s = li_s + kVecBytes;
+
 #pragma unroll
-    for (int qc = 0; qc < kBlockQ / 16; ++qc) {  // 16 queries at a time
-      float s[2][4], dp[2][4];
-      mma_rows_t<T, D, false>(s, nullptr, kw, qs + qc * 16 * kStride, g, t);
-      mma_rows_t<T, D, false>(dp, nullptr, vw, dos + qc * 16 * kStride, g, t);
-      float pl[2][4], ml[2][4];
+    for (int h = 0; h < kTileRows / kSub; ++h) {  // kSub queries at a time
+      float s[kSub / 2], dp[kSub / 2];
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      mma_rows_rows_t<T, D>(s, k_own, q_s, h * kSub);
+      mma_rows_rows_t<T, D>(dp, v_own, do_s, h * kSub);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      uint32_t pl[kSub / 4], ml[kSub / 4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int jj = 0; jj < kSub / 8; ++jj) {  // 8 queries: this thread's columns 8*jj + 2t, +1
+        float li0, li1, dv0, dv1;
+        const uint32_t col = (h * kSub + jj * 8 + 2 * t) * 4;
+        asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];\n" : "=f"(li0), "=f"(li1) : "r"(li_s + col));
+        asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];\n" : "=f"(dv0), "=f"(dv1) : "r"(dvs_s + col));
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = qc * 16 + j * 8 + 2 * t + (e & 1);  // C column = query
-          const float x = s[j][e] * scale;
-          const float p = __expf(fminf(fmaxf(x, -kClamp), kClamp)) * lis[qi];
-          pl[j][e] = p;
-          ml[j][e] = fabsf(x) <= kClamp ? p * (dp[j][e] - dvs[qi]) : 0.f;
+        for (int r = 0; r < 2; ++r) {  // key rows g and g + 8
+          const int i = 2 * jj + r;
+          bool in0, in1;
+          const float p0 = clamped_exp2(s[2 * i] * scale_log2, in0) * li0;
+          const float p1 = clamped_exp2(s[2 * i + 1] * scale_log2, in1) * li1;
+          pl[i] = Mma<T>::pack(p0, p1);
+          ml[i] = Mma<T>::pack(in0 ? p0 * (dp[2 * i] - dv0) : 0.f, in1 ? p1 * (dp[2 * i + 1] - dv1) : 0.f);
         }
       }
-      uint32_t a[4];
-      pack_a<T>(a, pl);
-      mma_chunk<T, D>(dv_acc, a, dot, qc, g, t);
-      pack_a<T>(a, ml);
-      mma_chunk<T, D>(dk_acc, a, qt, qc, g, t);
+
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wgmma_fence();
+      mma_regs_tile<T, D, kSub / 16>(dv_acc, pl, do_s, h * kSub);
+      mma_regs_tile<T, D, kSub / 16>(dk_acc, ml, q_s, h * kSub);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
     }
+
+    stage = stage + 1 == kStages ? 0 : stage + 1;
+    fill = fill + 1 == kStages ? 0 : fill + 1;
   }
-  const size_t out = head + (size_t)(key0 + warp * 16) * D;
-  write_rows<T, D>(dk + out, dk_acc, scale, g, t);
-  write_rows<T, D>(dv + out, dv_acc, 1.f, g, t);
+  cp_async_wait<0>();
+
+  const float by_scale[2] = {scale, scale}, by_one[2] = {1.f, 1.f};
+  const size_t out = head + (size_t)key0 * D;
+  __syncthreads();  // every warp's MMAs have read the block's K and V tiles: reuse them as stages
+  store_rows<T, D>(dk_acc, by_scale, k_own, dk + out, warp, lane);
+  store_rows<T, D>(dv_acc, by_one, v_own, dv + out, warp, lane);
 }
 
 template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* d_o,
-                       const float* l, void* dq, void* dk, void* dv, float* dvec, int bh, int n, float scale,
+                       const float* l, void* dq, void* dk, void* dv, float* scratch, int bh, int n, float scale,
                        cudaStream_t stream) {
-  const dim3 grid(n / kBlockQ, bh);
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
   const T* do_ = static_cast<const T*>(d_o);
-  constexpr size_t smem1 = dq_smem_bytes<D>(), smem2 = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem1);
+  constexpr int smem1 = BwdConfig<D>::kDqSmemBytes, smem2 = BwdConfig<D>::kDkvSmemBytes;
+  float* dvec = scratch;                   // Dv, pass 1 -> pass 2
+  float* linv = scratch + (size_t)bh * n;  // 1 / l, pass 1 -> pass 2
+  const dim3 grid(n / kTileRows, bh);
+  const float scale_log2 = scale * kLog2e;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem1, stream>>>(q_, k_, v_, static_cast<const T*>(o), do_, l,
-                                                               static_cast<T*>(dq), dvec, n, scale);
+  flash_bwd_dq_wgmma_kernel<T, D><<<grid, kWgThreads, smem1, stream>>>(
+      q_, k_, v_, static_cast<const T*>(o), do_, l, static_cast<T*>(dq), dvec, linv, n, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem2, stream>>>(q_, k_, v_, do_, l, dvec, static_cast<T*>(dk),
-                                                                static_cast<T*>(dv), n, scale);
+  flash_bwd_dkv_wgmma_kernel<T, D><<<grid, kWgThreads, smem2, stream>>>(
+      q_, k_, v_, do_, linv, dvec, static_cast<T*>(dk), static_cast<T*>(dv), n, scale, scale_log2);
   return cudaGetLastError();
 }
 
@@ -326,8 +359,8 @@ cudaError_t dispatch_bwd(const void* q, const void* k, const void* v, const void
 }  // namespace wcflash
 
 // q, k, v, o, d_o, dq, dk, dv: contiguous (bh, n, d) in bf16 (is_f16 = 0) or
-// f16 (is_f16 = 1). l: f32 (bh, n), the forward's row sums. dvec: f32 (bh, n)
-// scratch for Dv, written by pass 1 and read by pass 2. Returns the
+// f16 (is_f16 = 1). l: f32 (bh, n), the forward's row sums. dvec: f32 (2, bh, n)
+// scratch for Dv and 1/l, written by pass 1 and read by pass 2. Returns the
 // cudaError_t of the launches.
 extern "C" int wc_flash_bwd(const void* q, const void* k, const void* v, const void* o, const void* d_o,
                             const float* l, void* dq, void* dk, void* dv, float* dvec, int bh, int n, int d,

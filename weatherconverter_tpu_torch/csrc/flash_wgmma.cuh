@@ -1,0 +1,307 @@
+// Hopper building blocks of the redesigned flash kernels K1 (flash_fwd.cu)
+// and K3 (flash_bwd.cu): swizzled shared-memory tiles filled by 16-byte
+// cp.async, wgmma descriptors over them, and the warpgroup MMA itself.
+//
+// A tile is 64 rows of one head, D wide, 16-bit elements, kept the way
+// it lies in global memory (row-major, d contiguous) but cut into panels of
+// at most 64 columns (128 bytes a row) and swizzled, so that one copy of it
+// serves both operand forms of wgmma:
+//   * K-major (the reduction runs along d): A of Q K^T, B of Q K^T and dO V^T;
+//   * MN-major (the reduction runs along the rows, descriptor transpose
+//     bit set): B of P V, m K, p^T dO and m^T Q, taken as loaded.
+// No operand is ever staged transposed.
+//   D = 16: one panel, 32-byte rows, 32-byte swizzle
+//   D = 32: one panel, 64-byte rows, 64-byte swizzle
+//   D = 64: one panel, 128-byte rows, 128-byte swizzle
+//   D = 128: two panels of 64 columns, 128-byte swizzle each
+// The swizzle is the tensor cores' own (Swizzle<B,4,3>): bits [7, 7+B) of
+// the byte address are XORed into bits [4, 4+B). Tiles start on 1024-byte
+// boundaries, so offsets within a tile swizzle like addresses.
+//
+// Accumulator layout of wgmma m64nNk16 (f32), per warp w of the warpgroup and
+// lane = 4*g + t: register 4*j + e of the N/2 holds row 16*w + g + 8*(e >> 1),
+// column 8*j + 2*t + (e & 1). Registers 8*c .. 8*c+7, packed in pairs, are the
+// A fragment of the 16-deep chunk c, so p and m go from one product's
+// accumulators into the next product's A operand without leaving registers.
+#pragma once
+
+#include "flash_common.cuh"
+
+namespace wcflash {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kClampLog2 = kClamp * kLog2e;  // the clamp in the exp2 domain
+constexpr int kWgThreads = 128;                // one warpgroup
+constexpr int kTileRows = 64;                  // rows of a streamed tile, and of a warpgroup's own tile
+
+template <int D>
+struct Tile {
+  static constexpr int kPanelCols = D < 64 ? D : 64;
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kRowBytes = kPanelCols * 2;
+  static constexpr int kSwizzleMask = kRowBytes / 16 - 1;  // 1, 3, 7: B bits of Swizzle<B,4,3>
+  static constexpr uint64_t kLayoutType = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr int kSbo = 8 * kRowBytes;  // bytes from one 8-row group to the next
+  static constexpr int kChunksPerPanelRow = kRowBytes / 16;
+  static constexpr int kChunksPerRow = D / 8;
+  static constexpr int kAccRegs = kPanelCols / 2;  // f32 accumulators a thread per panel (m64, N = kPanelCols)
+
+  static constexpr int kPanelBytes = kTileRows * kRowBytes;
+  static constexpr int kBytes = kTileRows * D * 2;  // a whole tile: every panel
+
+  // Byte offset inside a panel of 16-byte chunk `chunk` of row `row`.
+  static __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+    const uint32_t off = row * kRowBytes + chunk * 16;
+    return off ^ (((off >> 7) & kSwizzleMask) << 4);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+// Makes shared-memory writes of this thread (cp.async, st.shared) visible to
+// the asynchronous proxy through which wgmma reads its operands.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The 64 rows at `src` (row stride D) into the tile at shared address `dst`,
+// by the block's 128 threads, 16 bytes a copy, coalesced.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const T* __restrict__ src, int tid) {
+  using L = Tile<D>;
+  constexpr int kChunks = kTileRows * L::kChunksPerRow;  // a multiple of 128 for every D
+#pragma unroll
+  for (int i0 = 0; i0 < kChunks; i0 += kWgThreads) {
+    const int i = i0 + tid;
+    const int row = i / L::kChunksPerRow, c = i % L::kChunksPerRow;
+    const int panel = c / L::kChunksPerPanelRow, pc = c % L::kChunksPerPanelRow;
+    cp_async16(dst + panel * L::kPanelBytes + L::swizzled(row, pc), src + (size_t)row * D + c * 8);
+  }
+}
+
+// 64 f32 values into shared memory, unswizzled.
+__device__ __forceinline__ void load_f32_async(uint32_t dst, const float* __restrict__ src, int tid) {
+  if (tid < kTileRows / 4) cp_async16(dst + tid * 16, src + tid * 4);
+}
+
+// The 64-bit shared-memory matrix descriptor of wgmma: address, leading and
+// stride byte offsets in 16-byte units, swizzle mode in bits 62-63.
+template <int D>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, int lbo_bytes) {
+  using L = Tile<D>;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(L::kSbo >> 4) << 32) | (L::kLayoutType << 62);
+}
+
+// K-major operand: rows from `row0` on (64 as A, N as B) of a tile, the
+// 16-deep chunk `ks` of d. Swizzled K-major layouts ignore the leading offset.
+template <int D>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int row0, int ks) {
+  using L = Tile<D>;
+  const int col = ks * 16;
+  return make_desc<D>(tile + (col / L::kPanelCols) * L::kPanelBytes + row0 * L::kRowBytes +
+                          (col % L::kPanelCols) * 2,
+                      16);
+}
+
+// MN-major B operand (transpose bit set): panel `panel` of a tile, the 16-row
+// chunk `kc` of its rows: N = kPanelCols columns of d, K = 16 rows.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int panel, int kc) {
+  using L = Tile<D>;
+  return make_desc<D>(tile + panel * L::kPanelBytes + kc * 16 * L::kRowBytes, L::kPanelBytes);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+// Pins the accumulators in place in the instruction stream: the compiler may
+// not move a read or write of them across this point (the MMAs are asynchronous).
+template <int kRegs>
+__device__ __forceinline__ void fence_regs(float (&d)[kRegs]) {
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for packed A fragments: an MMA in flight still reads them.
+template <int kRegs>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[kRegs]) {
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+template <int kPanels, int kRegs>
+__device__ __forceinline__ void fence_regs(float (&d)[kPanels][kRegs]) {
+#pragma unroll
+  for (int pn = 0; pn < kPanels; ++pn) fence_regs(d[pn]);
+}
+
+#define WC_D4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WC_D8(d, i) WC_D4(d, i), WC_D4(d, i + 4)
+#define WC_D16(d, i) WC_D8(d, i), WC_D8(d, i + 8)
+#define WC_D32(d, i) WC_D16(d, i), WC_D16(d, i + 16)
+#define WC_R8 "{%0,%1,%2,%3,%4,%5,%6,%7}"
+#define WC_R16 "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}"
+#define WC_R32                                                                         \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22," \
+  "%23,%24,%25,%26,%27,%28,%29,%30,%31}"
+
+// d (64 x N, f32) = or += A (64 x 16) . B (16 x N). `accumulate` = 0 overwrites d.
+// _ss: A and B from shared memory, both K-major. _rs: A from registers (four
+// packed pairs, the mma.sync A fragment of this warp's 16 rows), B from
+// shared memory, MN-major when kTransB = 1.
+#define WC_DEFINE_WGMMA(SUFFIX, TYPE)                                                                          \
+  __device__ __forceinline__ void wgmma_ss_##SUFFIX(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                  \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " " WC_R32                        \
+                 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                                             \
+                 : WC_D32(d, 0)                                                                                \
+                 : "l"(a), "l"(b), "r"(accumulate));                                                           \
+  }                                                                                                            \
+  __device__ __forceinline__ void wgmma_ss_##SUFFIX(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                                  \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." TYPE "." TYPE " " WC_R16                        \
+                 ", %16, %17, p, 1, 1, 0, 0;\n}\n"                                                             \
+                 : WC_D16(d, 0)                                                                                \
+                 : "l"(a), "l"(b), "r"(accumulate));                                                           \
+  }                                                                                                            \
+  template <int kTransB>                                                                                       \
+  __device__ __forceinline__ void wgmma_rs_##SUFFIX(float (&d)[32], const uint32_t* a, uint64_t b,             \
+                                                    int accumulate) {                                          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                  \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " " WC_R32                        \
+                 ", {%32,%33,%34,%35}, %36, p, 1, 1, %38;\n}\n"                                                \
+                 : WC_D32(d, 0)                                                                                \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB));         \
+  }                                                                                                            \
+  template <int kTransB>                                                                                       \
+  __device__ __forceinline__ void wgmma_rs_##SUFFIX(float (&d)[16], const uint32_t* a, uint64_t b,             \
+                                                    int accumulate) {                                          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                                  \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." TYPE "." TYPE " " WC_R16                        \
+                 ", {%16,%17,%18,%19}, %20, p, 1, 1, %22;\n}\n"                                                \
+                 : WC_D16(d, 0)                                                                                \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB));         \
+  }                                                                                                            \
+  template <int kTransB>                                                                                       \
+  __device__ __forceinline__ void wgmma_rs_##SUFFIX(float (&d)[8], const uint32_t* a, uint64_t b,              \
+                                                    int accumulate) {                                          \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                                                  \
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32." TYPE "." TYPE " " WC_R8                         \
+                 ", {%8,%9,%10,%11}, %12, p, 1, 1, %14;\n}\n"                                                  \
+                 : WC_D8(d, 0)                                                                                 \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate), "n"(kTransB));         \
+  }
+
+WC_DEFINE_WGMMA(bf16, "bf16")
+WC_DEFINE_WGMMA(f16, "f16")
+#undef WC_DEFINE_WGMMA
+
+template <typename T>
+struct Wgmma;
+template <>
+struct Wgmma<__nv_bfloat16> {
+  template <int kRegs>
+  static __device__ __forceinline__ void ss(float (&d)[kRegs], uint64_t a, uint64_t b, int accumulate) {
+    wgmma_ss_bf16(d, a, b, accumulate);
+  }
+  template <int kTransB, int kRegs>
+  static __device__ __forceinline__ void rs(float (&d)[kRegs], const uint32_t* a, uint64_t b, int accumulate) {
+    wgmma_rs_bf16<kTransB>(d, a, b, accumulate);
+  }
+};
+template <>
+struct Wgmma<__half> {
+  template <int kRegs>
+  static __device__ __forceinline__ void ss(float (&d)[kRegs], uint64_t a, uint64_t b, int accumulate) {
+    wgmma_ss_f16(d, a, b, accumulate);
+  }
+  template <int kTransB, int kRegs>
+  static __device__ __forceinline__ void rs(float (&d)[kRegs], const uint32_t* a, uint64_t b, int accumulate) {
+    wgmma_rs_f16<kTransB>(d, a, b, accumulate);
+  }
+};
+
+// s (64 x 2*kRegs) = A . B^T over all of d: A the 64 rows of tile `a_tile`,
+// B rows [b_row0, b_row0 + 2*kRegs) of tile `b_tile`, both K-major. Queues
+// D/16 MMAs; the caller fences, commits and waits.
+template <typename T, int D, int kRegs>
+__device__ __forceinline__ void mma_rows_rows_t(float (&s)[kRegs], uint32_t a_tile, uint32_t b_tile, int b_row0) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    Wgmma<T>::ss(s, desc_kmajor<D>(a_tile, 0, ks), desc_kmajor<D>(b_tile, b_row0, ks), ks > 0);
+}
+
+// acc[panel] (64 x D) += A (64 x 16*kChunks, register fragments a[4*c ..]) .
+// B rows [b_row0, b_row0 + 16*kChunks) of tile `b_tile`, taken as
+// loaded (MN-major). With `accumulate` = 0 the first chunk overwrites acc, which
+// then needs no zeroing: ptxas serializes every wgmma of a kernel in which
+// another instruction writes accumulator registers between a wgmma.fence and
+// the wait that retires its MMAs, and a zeroing the compiler sinks to the
+// first use lands exactly there.
+template <typename T, int D, int kChunks>
+__device__ __forceinline__ void mma_regs_tile(float (&acc)[Tile<D>::kPanels][Tile<D>::kAccRegs], const uint32_t* a,
+                                              uint32_t b_tile, int b_row0, int accumulate = 1) {
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+#pragma unroll
+    for (int pn = 0; pn < Tile<D>::kPanels; ++pn)
+      Wgmma<T>::template rs<1>(acc[pn], a + 4 * c, desc_mnmajor<D>(b_tile, pn, b_row0 / 16 + c),
+                               c == 0 ? accumulate : 1);
+  }
+}
+
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// This warp's 16 rows of a 64-row accumulator set (row stride D in global
+// memory), times mul[0] (row g) and mul[1] (row g + 8), cast to T: staged in
+// the swizzled 64-row tile at shared address `stage`, then written with
+// 16-byte stores. Only this warp touches its 16 rows, so a warp barrier suffices.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[Tile<D>::kPanels][Tile<D>::kAccRegs],
+                                           const float mul[2], uint32_t stage, T* __restrict__ dst, int warp,
+                                           int lane) {
+  using L = Tile<D>;
+  const int g = lane >> 2, t = lane & 3;
+  const int r = warp * 16 + g;
+#pragma unroll
+  for (int pn = 0; pn < L::kPanels; ++pn) {
+#pragma unroll
+    for (int j = 0; j < L::kAccRegs / 4; ++j) {
+      const uint32_t lo = Mma<T>::pack(acc[pn][4 * j] * mul[0], acc[pn][4 * j + 1] * mul[0]);
+      const uint32_t hi = Mma<T>::pack(acc[pn][4 * j + 2] * mul[1], acc[pn][4 * j + 3] * mul[1]);
+      const uint32_t base = stage + pn * L::kPanelBytes + 4 * t;
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(base + L::swizzled(r, j)), "r"(lo) : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(base + L::swizzled(r + 8, j)), "r"(hi) : "memory");
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i0 = 0; i0 < 16 * L::kChunksPerRow; i0 += 32) {
+    const int i = i0 + lane;
+    const int row = warp * 16 + i / L::kChunksPerRow, c = i % L::kChunksPerRow;
+    const int panel = c / L::kChunksPerPanelRow, pc = c % L::kChunksPerPanelRow;
+    uint4 val;
+    asm volatile("ld.shared.v4.b32 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
+                 : "r"(stage + panel * L::kPanelBytes + L::swizzled(row, pc))
+                 : "memory");
+    *reinterpret_cast<uint4*>(dst + (size_t)row * D + c * 8) = val;
+  }
+}
+
+}  // namespace wcflash

@@ -192,7 +192,7 @@ def flash_attention_bwd(q, k, v, o, do, l):
                          f"{tuple(l.shape)} {l.dtype} {l.device}")
     q, k, v, o, do, l = (t.contiguous() for t in (q, k, v, o, do, l))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dvec = torch.empty((b * h, n), device=q.device, dtype=torch.float32)  # Dv, pass 1 -> pass 2
+    dvec = torch.empty((2, b * h, n), device=q.device, dtype=torch.float32)  # Dv and 1/l, pass 1 -> pass 2
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
         err = lib.wc_flash_bwd(

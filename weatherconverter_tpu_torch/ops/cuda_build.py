@@ -6,7 +6,8 @@ its own nvcc process, all started together, and one more links the objects
 into a shared library. The build happens at first use, into `_build/` beside
 the package (listed in .gitignore); the library's name carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
-reused.
+reused. nvcc's output is kept beside the library under the same hash, so
+`build_log()` always speaks of the library that is loaded.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("flash_fwd.cu", "flash_fwd_qk_i8.cu", "flash_bwd.cu",
            "probe_exp2_attn.cu", "probe_qk_dot.cu", "probe_dw3x3.cu", "probe_dw9x9.cu")
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "flash_wgmma.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -80,8 +81,15 @@ def _build(target: str) -> str:
                     for s, obj in zip(SOURCES, objs)])
         tmp = os.path.join(work, "lib.so")
         log += _run([_start([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs])])
+        with open(os.path.join(work, "log"), "w") as fh:
+            fh.write(log)
+        os.replace(fh.name, _log_path(target))  # the log first: a library on disk always has its log
         os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
     return log
+
+
+def _log_path(target: str) -> str:
+    return os.path.splitext(target)[0] + ".log"
 
 
 def library() -> ctypes.CDLL:
@@ -90,8 +98,11 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _library is None:
             target = os.path.join(BUILD_DIR, f"libwc_flash_{_source_hash()}.so")
-            if not os.path.isfile(target):
+            if not (os.path.isfile(target) and os.path.isfile(_log_path(target))):
                 _build_log = _build(target)
+            else:
+                with open(_log_path(target)) as fh:
+                    _build_log = fh.read()
             lib = ctypes.CDLL(target)
             lib.wc_flash_fwd.argtypes = [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, ctypes.c_float, _ptr]
             lib.wc_flash_fwd.restype = _int
@@ -129,5 +140,6 @@ def stream(device) -> ctypes.c_void_p:
 
 def build_log() -> str:
     """nvcc's output (with -Xptxas -v: registers, shared memory, spills per
-    kernel) from this process's build; empty when a cached library was used."""
+    kernel) from the build of the loaded library, by this process or an
+    earlier one; empty before `library()` was called."""
     return _build_log

@@ -13,8 +13,10 @@ import torch
 # Published dense peaks (NVIDIA's data sheet) at the full power limit, by a
 # substring of the card's name: HBM bytes/s, bf16 FLOP/s, int8 OP/s, f32
 # FLOP/s outside the tensor cores. The H100 SXM part's name carries "HBM3".
+# `ex2` is the special-function rate (exp2, reciprocal): 16 a clock on each of
+# 132 SMs at 1.83 GHz.
 PEAKS = {
-    "H100 80GB HBM3": dict(hbm=3.35e12, bf16=989e12, int8=1979e12, f32=67e12),
+    "H100 80GB HBM3": dict(hbm=3.35e12, bf16=989e12, int8=1979e12, f32=67e12, ex2=16 * 132 * 1.83e9),
 }
 
 
@@ -36,14 +38,22 @@ def peaks(card: str) -> dict | None:
     return next((v for k, v in PEAKS.items() if k in card), None)
 
 
+# clocks the device spins before each timed sample (~0.3 ms on an H100)
+RUN_AHEAD_CYCLES = 500_000
+
+
 def time_ms(fn, reps: int, warmup: int = 2, inner: int = 1) -> float:
     """Median device time of one fn() over `reps` samples, each of `inner`
-    back-to-back calls between two CUDA events."""
+    back-to-back calls between two CUDA events. The device spins
+    RUN_AHEAD_CYCLES clocks before the first event of a sample, so the host
+    has queued the calls by the time it fires: a launch shorter than its
+    wrapper's host time is timed on the device alone."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(RUN_AHEAD_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -59,6 +69,54 @@ def require_cuda(name: str) -> bool:
         return True
     print(f"{name}: no CUDA device; this probe runs on a card and has no CPU mode", file=sys.stderr)
     return False
+
+
+def _bound(times: dict) -> dict:
+    binds = max(times, key=times.get)
+    return dict(bound_ms=times[binds] * 1e3, bound_by="bytes" if binds == "hbm" else "operations", binds=binds)
+
+
+def roofline(peak: dict | None, nbytes: float, **ops: float) -> dict:
+    """The least time the card could take: the larger of `nbytes` over its
+    memory rate and each count in `ops` (keyed by its rate in PEAKS) over
+    that rate. Returns bound_ms, bound_by ("bytes" or "operations") and
+    `binds` (the key of the binding rate); all None for an unknown card."""
+    if peak is None:
+        return dict(bound_ms=None, bound_by=None, binds=None)
+    return _bound({"hbm": nbytes / peak["hbm"], **{k: v / peak[k] for k, v in ops.items()}})
+
+
+def attention_roofline(peak: dict | None, shape, backward: bool = False, qk_int8: bool = False) -> dict:
+    """`roofline` of one clamped-softmax attention call on 16-bit (B, H, N, D)
+    inputs. Forward: Q K^T and P V (2 N^2 D FLOPs a head each; with `qk_int8`
+    Q K^T runs at the int8 rate and the two tensor times add), N^2
+    exponentials, Q, K, V read and O written. Backward: what the function
+    needs, the five products of a one-pass backward (10 N^2 D) and one
+    exponential a score (N^2), with Q, K, V, O, dO and l read and dQ, dK, dV
+    written; a two-pass backward spends seven products and 2 N^2
+    exponentials against this bound."""
+    if peak is None:
+        return roofline(None, 0)
+    b, h, n, d = shape
+    bh = b * h
+    product = 2 * bh * n * n * d
+    ex2 = bh * n * n / peak["ex2"]
+    if backward:
+        return _bound({"hbm": bh * n * (8 * d * 2 + 4) / peak["hbm"], "bf16": 5 * product / peak["bf16"], "ex2": ex2})
+    if qk_int8:
+        tensor = {"int8+bf16": product / peak["int8"] + product / peak["bf16"]}
+    else:
+        tensor = {"bf16": 2 * product / peak["bf16"]}
+    return _bound({"hbm": bh * n * 4 * d * 2 / peak["hbm"], **tensor, "ex2": ex2})
+
+
+def add_rooflines(*parts: dict) -> dict:
+    """The roofline of several calls timed as one sum: the bounds add; the
+    sum is bound by whatever binds the largest part."""
+    if any(p["bound_ms"] is None for p in parts):
+        return dict(bound_ms=None, bound_by=None, binds=None)
+    largest = max(parts, key=lambda p: p["bound_ms"])
+    return dict(bound_ms=sum(p["bound_ms"] for p in parts), bound_by=largest["bound_by"], binds=largest["binds"])
 
 
 def setup() -> str:

@@ -24,6 +24,7 @@ from __future__ import annotations
 import sys
 
 import torch
+import torch.nn.functional as F
 
 from weatherconverter_tpu_torch.ops import attention as A
 from weatherconverter_tpu_torch.ops import cuda_build
@@ -95,11 +96,18 @@ def check(device) -> float:
     return worst
 
 
+def _ms(x) -> str:
+    return "not known" if x is None else f"{x:8.3f}"
+
+
 def run(device, card: str) -> dict:
     """The probe: both forms' error against softmax attention, and their
     times in turns (K1, K4, K4, K1), at each shape. Returns the sums over
-    the shapes of K4's, K1's and the plain version's ms."""
-    total = dict(ms=0.0, k1_ms=0.0, plain_ms=0.0)
+    the shapes of K4's, K1's and the plain version's ms, of the roofline
+    bound, and of `scaled_dot_product_attention`'s ms (timed as a yardstick;
+    the port never calls it)."""
+    total = dict(ms=0.0, k1_ms=0.0, plain_ms=0.0, library_ms=0.0)
+    bounds = []
     for shape in SHAPES:
         b, h, n, d = shape
         q, k, v = _inputs(shape, device)
@@ -121,10 +129,16 @@ def run(device, card: str) -> dict:
         tflops = 4 * b * h * n * n * d / (k4 * 1e-3) / 1e12
         common.log(f"{f'exp2 plain D={d}':34s} {plain:8.3f} ms/layer  (PyTorch, f32 scores) "
                    f"[B*H={b * h} N={n}; {tflops:.1f} TFLOP/s of QK^T+PV in K4] [{card}]")
+        library = common.time_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=15, inner=5)
+        bound = common.attention_roofline(common.peaks(card), shape)
+        bounds.append(bound)
+        common.log(f"{f'bound D={d}':34s} {_ms(bound['bound_ms'])} ms/layer  ({bound['binds']} binds); "
+                   f"scaled_dot_product_attention {library:.3f} ms/layer (a yardstick the port never calls)")
         total["ms"] += k4
         total["k1_ms"] += k1
         total["plain_ms"] += plain
-    return total
+        total["library_ms"] += library
+    return {**total, **common.add_rooflines(*bounds)}
 
 
 def main() -> int:

@@ -146,8 +146,11 @@ def run(device, card: str) -> dict:
     kernel = times["CUDA dw3x3 (NHWC)"]
     common.log(f"floor: {nbytes / 1e6:.1f} MB read and written, {9 * x.numel() / 1e6:.1f} M FMA; at the card's "
                f"published bandwidth {floor}; kernel {nbytes / (kernel * 1e-3) / 1e12:.2f} TB/s [{card}]")
+    # the one library call on the same NHWC memory is cuDNN's channels-last conv
     return dict(ms=kernel, plain_ms=plain, cudnn_ms=times["cuDNN grouped dw3x3 (NCHW, the SRGAN's layer)"],
                 cudnn_cl_ms=times["cuDNN grouped dw3x3 (channels-last)"],
+                library_ms=times["cuDNN grouped dw3x3 (channels-last)"],
+                **common.roofline(peak, nbytes, f32=2 * 9 * x.numel()),
                 transposed_ms=times["CUDA dw3x3 with NCHW<->NHWC transposes"])
 
 

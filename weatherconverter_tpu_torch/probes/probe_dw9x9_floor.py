@@ -138,7 +138,9 @@ def run(device, card: str) -> dict:
               f"{nbytes / peak['hbm'] * 1e3:.4f} ms for the bytes")
     common.log(f"floors: {gflop / 2:.2f} G FMA, {nbytes / 1e6:.1f} MB read and written: {floors}; "
                f"plain PyTorch {plain:.4f} ms")
-    return dict(ms=t_fma, plain_ms=plain, tail_ms=t_tail, dw_ms=t_dw, dw_cl_ms=t_dw_cl)
+    # no single PyTorch call computes the 81-FMA chain (cuDNN's 9x9 conv is another function)
+    return dict(ms=t_fma, plain_ms=plain, tail_ms=t_tail, dw_ms=t_dw, dw_cl_ms=t_dw_cl, library_ms=None,
+                **common.roofline(peak, nbytes, f32=gflop * 1e9))
 
 
 def main() -> int:

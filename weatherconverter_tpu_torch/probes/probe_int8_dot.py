@@ -141,9 +141,11 @@ def run(device, card: str) -> dict:
     pb = common.time_ms(lambda: qk_dot_bf16_plain(qf, kf), reps=5)
     ops = 2 * B * N * N * D
     peak = common.peaks(card)
+    bounds = []
     for label, ms, in_bytes, rate in (("int8", t8, 1, "int8"), ("bf16", tb, 2, "bf16")):
         written = 4 * B * N * N
         read = 2 * B * N * D * in_bytes
+        bounds.append(common.roofline(peak, written + read, **{rate: ops}))
         if peak is None:
             at_peak = "peaks of this card not known"
         else:
@@ -158,7 +160,9 @@ def run(device, card: str) -> dict:
     common.log(f"int8 QK^T ({B}x{N}x{N}, D={D}): {t8:.4f} ms -- COMPILES AND RUNS [{card}]")
     common.log(f"bf16 QK^T same shape: {tb:.4f} ms")
     common.log(f"speedup int8/bf16: {tb / t8:.2f}x   (plain versions: int8 {p8:.4f} ms, bf16 {pb:.4f} ms)")
-    return dict(ms=t8 + tb, plain_ms=p8 + pb, int8_ms=t8, bf16_ms=tb)
+    # no single public PyTorch call gives int32 from int8, or f32 from bf16, operands
+    return dict(ms=t8 + tb, plain_ms=p8 + pb, int8_ms=t8, bf16_ms=tb, library_ms=None,
+                **common.add_rooflines(*bounds))
 
 
 def main() -> int:

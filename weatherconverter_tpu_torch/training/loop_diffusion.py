@@ -4,10 +4,11 @@ Epochs over the merged ACDC (+ BDD, DAWN) image set, eps-MSE steps, interval
 logging, epoch-cadence checkpoints, resume with the step count carried over,
 and a checkpoint flush on SIGTERM. The loader ships uint8 (B, H, W, C)
 batches; the random crop, flip and [-1, 1] scaling run on the device inside
-the train step. One device: the CUDA card when there is one (or as
-`training.device` says), else the CPU. On CUDA the step runs under bf16
-autocast when `training.dtype` is "bfloat16"; on the CPU it runs in f32, as
-the JAX loop does off the TPU.
+the train step. One device: the CUDA card (`training.device="auto"`, the
+default, which raises when there is none) or the device the config names;
+the CPU only on request (`training.device="cpu"`). On CUDA the step runs
+under bf16 autocast when `training.dtype` is "bfloat16"; on the CPU it runs
+in f32, as the JAX loop does off the TPU.
 """
 
 from __future__ import annotations
@@ -32,10 +33,9 @@ from weatherconverter_tpu_torch.training.diffusion import DDPMTrainState, create
 
 def build_dataset(cfg: DiffusionConfig):
     """ACDC plus the BDD/DAWN trees where present, as uint8 HWC images at
-    (im_size, im_size * 16/9). It is the JAX package's DiffusionImageDataset
-    (numpy and PIL, no JAX), imported here only, so that `train(cfg,
-    dataset=...)` never imports PIL."""
-    from weatherconverter_tpu.data.datasets import DiffusionImageDataset
+    (im_size, im_size * 16/9). The dataset module (numpy and PIL) is imported
+    here only, so that `train(cfg, dataset=...)` never imports PIL."""
+    from weatherconverter_tpu_torch.data.datasets import DiffusionImageDataset
 
     ds = DiffusionImageDataset(
         os.path.join(cfg.data.root_dir, cfg.data.acdc_images),
@@ -59,8 +59,13 @@ def make_augmented_train_step(sched, crop: int, mesh=None, fsdp: bool = False, a
 
 
 def _device(name: str) -> torch.device:
+    """`training.device` as a torch.device. "auto" is the CUDA card and raises
+    without one: training runs on the card unless the config asks for "cpu"."""
     if name == "auto":
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError('training.device="auto" needs a CUDA card and found none; '
+                               'set training.device="cpu" to train on the CPU')
+        return torch.device("cuda")
     return torch.device(name)
 
 
