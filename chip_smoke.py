@@ -11,14 +11,18 @@ Phases, each of which fails the run (exit code != 0, no result line):
      least time the card could take (the roofline bound, and what binds it)
      and the time of torch's scaled_dot_product_attention, forward and
      backward alone, on the same inputs: a yardstick the port never calls;
+     K2's quantizer must equal its plain version exactly (int8 tensors and
+     scale), K2's time is split into quantizer and forward, and two K2 calls
+     must agree bit for bit;
   3. run guided translation (GSG) at full width -- the production 128px UNet,
      DeepLabV3+/ResNet-101 at output stride 16 with 19 classes, a 2x
      Swift-SRGAN, batch 8, bf16 autocast over f32 parameters, random weights
      from a seed -- in three variants: the headline (guidance every 2nd step
      at latent resolution, lam 120), the reference-exact schedule (every step
      on the SRGAN upscale, lam 60) and the headline with the int8-QK^T
-     kernel; each run must launch the kernels the expected number of times
-     and give finite (8, 256, 256, 3) images in [0, 1];
+     kernel (K2 and its quantizer 8 times a step); each run must launch the
+     kernels the expected number of times and give finite (8, 256, 256, 3)
+     images in [0, 1];
   4. hold a short chain at batch 1 on the card (bf16, kernels) against the
      same chain on the CPU (f32, plain versions) with the same weights and
      the same noise;
@@ -195,6 +199,59 @@ def phase_backward_kernel(torch, A, device, card):
     return dict(total, bound=add_rooflines(*bounds))
 
 
+def phase_quantizer(torch, A, device, card):
+    """K2's quantizer against its plain version at the path shapes, bf16, in
+    the layout the UNet hands it (q, k, v head-split views of one (B, N, 3C)
+    projection, read in place) and on contiguous tensors: q8, k8 and the scale
+    must be equal; K2 whole on the views within KERNEL_TOL of its plain
+    version; its time in both layouts beside its bytes bound and the eager
+    version's; K2's forward alone; two K2 calls bit-equal. Returns dict(err,
+    ms, plain_ms, library_ms, bound), sums over the shapes in the UNet's
+    layout (err: the largest difference of an int8 value or of the scale,
+    which must be 0)."""
+    from weatherconverter_tpu_torch.probes.common import add_rooflines, peaks, quantizer_roofline, time_ms
+
+    gen = torch.Generator(device=device).manual_seed(20)
+    total, bounds = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=None), []
+    for shape in PATH_SHAPES:
+        b, h, n, d = shape
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=device).to(torch.bfloat16)
+        q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))  # as models/layers.py
+        if q.is_contiguous() or A._row_strides(q) is None:
+            raise AssertionError(f"quantize_qk_i8 {shape}: the head-split views are not read in place")
+        ms = {}
+        for layout, (ql, kl) in (("views", (q, k)), ("contiguous", (q.contiguous(), k.contiguous()))):
+            got = A.quantize_qk_i8(ql, kl)
+            torch.cuda.synchronize()
+            ref = A.quantize_qk_i8_plain(ql, kl)
+            err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+            if not all(g.is_contiguous() and torch.equal(g, r) for g, r in zip(got, ref)):
+                raise AssertionError(f"quantize_qk_i8 {shape} ({layout}): differs from its plain version (largest "
+                                     f"difference {err})")
+            ms[layout] = (time_ms(lambda: A.quantize_qk_i8(ql, kl), reps=20),
+                          time_ms(lambda: A.quantize_qk_i8_plain(ql, kl), reps=20))
+        out = A.flash_attention_qk_i8(q, k, v)
+        if not torch.equal(out, A.flash_attention_qk_i8(q, k, v)):
+            raise AssertionError(f"flash_attention_qk_i8 {shape}: two calls on the same inputs differ")
+        k2_err = (out.float() - A.flash_attention_qk_i8_plain(q, k, v).float()).abs().max().item()
+        if not (k2_err <= KERNEL_TOL and torch.isfinite(out.float()).all().item()):
+            raise AssertionError(f"flash_attention_qk_i8 {shape} on head-split views: max abs err {k2_err} > "
+                                 f"{KERNEL_TOL} or not finite")
+        vc = v.contiguous()
+        f_ms = time_ms(lambda: A.flash_qk_i8_forward(*got, vc), reps=20)
+        bound = quantizer_roofline(peaks(card), shape)
+        bounds.append(bound)
+        (k_ms, p_ms), (kc_ms, pc_ms) = ms["views"], ms["contiguous"]
+        log(f"  quantize_qk_i8 B*H={b * h} N={n} D={d}: q8, k8 and the scale equal the plain version's on head-split "
+            f"views of one projection (the UNet's layout, read in place) and on contiguous tensors; K2 on the views "
+            f"max_abs_err {k2_err:.3e} (tol {KERNEL_TOL}), two calls bit-equal; kernel {k_ms:.4f} ms on the views, "
+            f"{kc_ms:.4f} ms contiguous (two launches and a two-float fill), its eager version {p_ms:.4f} / "
+            f"{pc_ms:.4f} ms, {_bound_text(bound)}; K2's forward alone {f_ms:.4f} ms")
+        total = dict(total, err=max(total["err"], err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms)
+        del qkv, q, k, v, vc, got, ref, out
+    return dict(total, bound=add_rooflines(*bounds))
+
+
 def build_models(torch):
     from weatherconverter_tpu_torch.core.config import UnetModelConfig
     from weatherconverter_tpu_torch.models.factory import make_seg_model
@@ -226,10 +283,10 @@ def phase_slice(torch, A, device, models, card):
     gt = torch.randint(0, 19, (BATCH, 256, 256), generator=g, device=device)
     calls = FLASH_CALLS_PER_UNET * STEPS
     variants = {}
-    for name, model, kw, expected in (
-        ("headline", unet, HEADLINE, (calls, 0)),
-        ("reference_exact", unet, REFERENCE_EXACT, (calls, 0)),
-        ("headline_qk_int8", unet_i8, HEADLINE, (0, calls)),
+    for name, model, kw, expected in (  # launches of K1, K2 and K2's quantizer a run
+        ("headline", unet, HEADLINE, (calls, 0, 0)),
+        ("reference_exact", unet, REFERENCE_EXACT, (calls, 0, 0)),
+        ("headline_qk_int8", unet_i8, HEADLINE, (0, calls, calls)),
     ):
         fn = make_translate_fn(model, sched, seg, gen, dtype=torch.bfloat16, num_steps=STEPS,
                                start_t=STEPS - 1, mode="fixed", guidance_style="gsg", **kw)
@@ -239,14 +296,15 @@ def phase_slice(torch, A, device, models, card):
     launches = {}
     for rep in range(REPEATS):
         for name, (fn, kw, expected, times) in variants.items():
-            A.flash_attention.launches = A.flash_attention_qk_i8.launches = 0
+            A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
             t0 = time.perf_counter()
             out = fn(inp, gt, torch.Generator(device=device).manual_seed(3 + rep))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3 / STEPS)
-            counts = launches[name] = (A.flash_attention.launches, A.flash_attention_qk_i8.launches)
+            counts = launches[name] = (A.flash_attention.launches, A.flash_attention_qk_i8.launches,
+                                       A.quantize_qk_i8.launches)
             if counts != expected:
-                raise AssertionError(f"{name}: kernel launches (K1, K2) = {counts}, expected {expected}")
+                raise AssertionError(f"{name}: kernel launches (K1, K2, quantizer) = {counts}, expected {expected}")
             if out.shape != (BATCH, 256, 256, 3) or out.dtype != torch.float32:
                 raise AssertionError(f"{name}: output {tuple(out.shape)} {out.dtype}")
             if not (torch.isfinite(out).all().item() and out.min().item() >= 0.0 and out.max().item() <= 1.0):
@@ -257,7 +315,8 @@ def phase_slice(torch, A, device, models, card):
             f"{', '.join(f'{t:.2f}' for t in times)}) at batch {BATCH}, guidance every "
             f"{kw['guidance_every']} in space {kw['guidance_space']}, lam {kw['lam']}; extrapolated to 1000 "
             f"steps {60.0 * BATCH / ms_step:.3f} translations/min [{card}]; launches per run "
-            f"K1={launches[name][0]} K2={launches[name][1]}")
+            f"K1={launches[name][0]} K2={launches[name][1]} quantizer={launches[name][2]} (two kernels each), "
+            f"that is {' / '.join(str(c // STEPS) for c in launches[name])} a step")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches, (unet, unet_i8, seg, gen, sched, inp, gt)
 
@@ -299,6 +358,7 @@ def phase_profile(torch, device, slice_state):
 
     unet, unet_i8, seg, gen, sched, inp, gt = slice_state
     cuda = torch.autograd.DeviceType.CUDA
+    per_step = {}
     for name, model, kw in (("headline", unet, HEADLINE), ("reference_exact", unet, REFERENCE_EXACT),
                             ("headline_qk_int8", unet_i8, HEADLINE)):
         fn = make_translate_fn(model, sched, seg, gen, dtype=torch.bfloat16, num_steps=4, start_t=3,
@@ -317,14 +377,21 @@ def phase_profile(torch, device, slice_state):
             log(f"  {name}: the profiler saw no device time; device breakdown not measured")
             continue
         flash_us = sum(e.device_time_total for e in events if "wcflash" in e.key)
+        quant_us = sum(e.device_time_total for e in events if "wcquant" in e.key)
+        per_step[name] = sum(e.count for e in events) / 4
         log(f"  {name}, 4 steps: wall {wall_ms:.1f} ms under the profiler, kernel time {total_us / 1e3:.1f} ms "
             f"({total_us / 4e3:.1f} ms/step), device idle share ~{max(0.0, 1 - total_us / 1e3 / wall_ms):.2f}, "
-            f"flash kernels {100 * flash_us / total_us:.1f}% of kernel time, "
-            f"{sum(e.count for e in events)} kernel launches")
-        if name == "headline":
-            for e in sorted(events, key=lambda e: -e.device_time_total)[:12]:
-                log(f"    {e.device_time_total / 1e3:8.2f} ms {100 * e.device_time_total / total_us:5.1f}% "
-                    f"x{e.count:<5d} {e.key[:100]}")
+            f"flash kernels {100 * flash_us / total_us:.1f}% of kernel time"
+            + (f" and K2's quantizer {100 * quant_us / total_us:.1f}%" if quant_us else "")
+            + f", {sum(e.count for e in events)} kernel launches ({per_step[name]:.0f} a step"
+            + (f", the headline's {per_step['headline']:.0f}" if name != "headline" and "headline" in per_step else "")
+            + ")")
+        rows = sorted(events, key=lambda e: -e.device_time_total)
+        # the headline's largest kernels; of the int8 variant, K2's own (forward and the quantizer's two passes)
+        shown = {"headline": rows[:12], "headline_qk_int8": [e for e in rows if "qk" in e.key]}.get(name, [])
+        for e in shown:
+            log(f"    {e.device_time_total / 1e3:8.2f} ms {100 * e.device_time_total / total_us:5.1f}% "
+                f"x{e.count:<5d} {e.key[:100]}")
 
 
 class SyntheticImages:
@@ -553,9 +620,9 @@ def _round(x):
     return None if x is None else round(x, 4)
 
 
-PTXAS_KERNELS = ("flash_fwd_qk_i8_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
-                 "flash_fwd_wgmma_kernel",
-                 "probe_exp2_attn_kernel", "probe_qk_i8_kernel", "probe_qk_bf16_kernel", "probe_dw3x3_kernel",
+PTXAS_KERNELS = ("flash_fwd_qk_i8_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+                 "flash_fwd_wgmma_kernel", "absmax_qk_kernel", "quantize_qk_kernel",
+                 "probe_exp2_attn_wgmma_kernel", "probe_qk_i8_kernel", "probe_qk_bf16_kernel", "probe_dw3x3_kernel",
                  "probe_dw_fma81_kernel")
 
 
@@ -608,20 +675,22 @@ def main() -> int:
     log(f"  built {', '.join(cuda_build.SOURCES)} in {time.perf_counter() - t0:.1f} s; ptxas, per kernel:")
     for ln in ptxas:
         log(f"    {ln}")
-    # K1 and K3, the wgmma kernels, must not spill (K2's D=16 instance has spilled 4 bytes since it was written);
-    # the log is that of the loaded library, also when an earlier run built it
+    # K1-K4, the wgmma kernels, must not spill; the log is that of the loaded library, also when an
+    # earlier run built it
     wgmma = [ln for ln in ptxas if "wgmma_kernel" in ln]
-    if not all(any(k in ln for ln in wgmma) for k in PTXAS_KERNELS if "wgmma_kernel" in k):
-        raise AssertionError("the build log names no K1 or K3 kernel: the spill and wgmma gates have nothing to read")
+    missing = [k for k in PTXAS_KERNELS if "wgmma_kernel" in k and not any(k in ln for ln in wgmma)]
+    if missing:
+        raise AssertionError(f"the build log does not name {missing}: the spill and wgmma gates have nothing to read")
     spilled = [ln for ln in wgmma if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     if spilled:
-        raise AssertionError(f"ptxas reports register spills in K1 or K3: {spilled}")
+        raise AssertionError(f"ptxas reports register spills in K1-K4: {spilled}")
     if "Potential Performance Loss" in cuda_build.build_log():
         raise AssertionError("ptxas serialized the wgmma instructions of a kernel (see the build log): "
                              + next(ln for ln in cuda_build.build_log().splitlines() if "Potential" in ln))
 
     log(f"phase 2: kernels against their plain versions, bf16 [{card}]")
     kernel_results = phase_kernels(torch, A, device, card)
+    kernel_results["quantize_qk_i8"] = phase_quantizer(torch, A, device, card)
     kernel_results["flash_attention_bwd"] = phase_backward_kernel(torch, A, device, card)
 
     log(f"phase 3: guided translation at full width [{card}]")
@@ -657,6 +726,9 @@ def main() -> int:
          launches["headline"][0]),
         ("flash_attention_qk_i8", csrc + "flash_fwd_qk_i8.cu", "weatherconverter_tpu/ops/attention.py:125",
          launches["headline_qk_int8"][1]),
+        ("quantize_qk_i8", csrc + "quantize_i8.cu",
+         "weatherconverter_tpu/ops/attention.py:173-189 (plain jnp that XLA fused there, no Pallas kernel)",
+         launches["headline_qk_int8"][2]),
         ("flash_attention_bwd", csrc + "flash_bwd.cu", "weatherconverter_tpu/ops/attention.py:305",
          train_state[0][2]),
     ):
@@ -676,9 +748,11 @@ def main() -> int:
                         "launches": count, "max_abs_err": err, "ms": round(timing["ms"], 4),
                         "plain_ms": round(timing["plain_ms"], 4), "bound_ms": _round(timing["bound_ms"]),
                         "bound_by": timing["bound_by"], "library_ms": _round(timing["library_ms"])})
-    log("kernels: for K1-K3, ms, plain_ms, bound_ms and library_ms (scaled_dot_product_attention: its forward "
-        "for K1 and K2, its backward alone for K3) are sums over the four path shapes and launches are from "
-        "the headline run (K1), the int8 run (K2) and the loop_diffusion.train run (K3); for the probes K4-K7 "
+    log("kernels: for K1-K3 and K2's quantizer, ms, plain_ms, bound_ms and library_ms (scaled_dot_product_attention: "
+        "its forward for K1 and K2, its backward alone for K3; none for the quantizer, whose plain_ms is the eager "
+        "quantization it replaces and whose launches count calls of two kernels each) are sums over the four "
+        "path shapes; K2's ms includes its quantizer's; launches are from "
+        "the headline run (K1), the int8 run (K2, quantizer) and the loop_diffusion.train run (K3); for the probes K4-K7 "
         "they are from phase 9's probe runs (K4: sums over D=64 and D=16, library the same sdpa forward; "
         "qk_dot: int8 plus bf16, k_bf16 at scripts/probe_int8_dot.py:34; dw3x3: library cuDNN's channels-last "
         "depthwise conv; null where no single PyTorch call computes the function). bound_ms is the larger of "

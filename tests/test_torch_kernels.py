@@ -103,17 +103,112 @@ def test_flash_kernel_takes_strided_inputs(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SMALL_SHAPES + PATH_SHAPES)
-def test_flash_qk_i8_kernel_matches_plain(cuda, shape):
-    q, k, v = _qkv(shape, torch.bfloat16, cuda, seed=1)
-    before = A.flash_attention_qk_i8.launches
+@pytest.mark.parametrize("shape", ALL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_qk_i8_kernel_matches_plain(cuda, shape, dtype):
+    q, k, v = _qkv(shape, dtype, cuda, seed=1)
+    before = (A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
     o = A.flash_attention_qk_i8(q, k, v)
     torch.cuda.synchronize()
-    assert A.flash_attention_qk_i8.launches == before + 1
+    assert (A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches) == (before[0] + 1, before[1] + 1)
     ref = A.flash_attention_qk_i8_plain(q, k, v)
-    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    assert o.dtype == dtype and o.shape == q.shape
     # the int32 scores are exact in both, so the tolerance is K1's
     assert (o.float() - ref.float()).abs().max().item() <= BF16_ATOL
+    # no atomics on the forward's path and a maximum is order-free: the same bits again
+    assert torch.equal(o, A.flash_attention_qk_i8(q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("n", [192, 256])
+def test_flash_qk_i8_kernel_at_both_clamp_rails(cuda, d, n):
+    """q and k scaled so that the quantized scores pass +60 and -60 at every
+    head dim, at an odd and an even count of 64-key tiles (bf16, whose range
+    holds e^60; f16 cannot hold p there, in the kernel or the plain version)."""
+    q, k, v = _qkv((2, 2, n, d), torch.bfloat16, cuda, seed=d + n)
+    gain = 2.0 * (60.0 / d**0.5) ** 0.5
+    q, k = (q.float() * gain).to(torch.bfloat16), (k.float() * gain).to(torch.bfloat16)
+    q8, k8, qk_scale = A.quantize_qk_i8_plain(q, k)
+    s = torch.matmul(q8.float(), k8.float().transpose(-1, -2)) * qk_scale
+    assert (s > 60).any() and (s < -60).any()
+    o = A.flash_attention_qk_i8(q, k, v)
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - A.flash_attention_qk_i8_plain(q, k, v).float()).abs().max().item() <= 4 * BF16_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_qk_i8_kernel_takes_strided_inputs(cuda, d):
+    """Head-split views of a (B, N, 3C) projection, as the UNet passes them:
+    the quantizer reads q and k in place."""
+    b, n, h = 2, 1024, 4
+    qkv = _qkv((b, n, 3 * h * d), torch.bfloat16, cuda)[0]
+    q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous() and A._row_strides(q) is not None
+    for got, want in zip(A.quantize_qk_i8(q, k), A.quantize_qk_i8_plain(q, k)):
+        assert got.is_contiguous() and torch.equal(got, want)
+    torch.testing.assert_close(A.flash_attention_qk_i8(q, k, v), A.flash_attention_qk_i8_plain(q, k, v),
+                               rtol=0, atol=BF16_ATOL)
+
+
+def _quantizer_inputs(case, shape, dtype, device):
+    q, k = _qkv(shape, dtype, device, seed=30)[:2]
+    if case == "zero":  # the 1e-6 floor of the scale
+        q = torch.zeros_like(q)
+    elif case == "ties":  # max|x| = 127 makes the scale 1: every multiple of 0.5 is a tie
+        g = np.random.default_rng(31)
+        q = torch.from_numpy(g.integers(-254, 255, shape) * 0.5).to(device, dtype)
+        q.view(-1)[0] = 127.0
+    elif case == "outlier":  # one huge value: everything else quantizes to 0 or +-1
+        q.view(-1)[7] = 3.0e4
+    elif case == "misaligned":  # rows 16 bytes apart but the base 2 bytes off: copied, then quantized
+        q = torch.cat([q.reshape(-1), q.new_zeros(8)])[1:1 + q.numel()].view(shape)
+    return q, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "zero", "ties", "outlier", "misaligned"])
+@pytest.mark.parametrize("shape", [(1, 1, 64, 16), (2, 3, 128, 32), (1, 2, 192, 64), (8, 4, 1024, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_quantize_qk_i8_kernel_equals_plain_bit_for_bit(cuda, case, shape, dtype):
+    """Tolerance: none, for the int8 tensors and for the f32 scale."""
+    q, k = _quantizer_inputs(case, shape, dtype, cuda)
+    before = A.quantize_qk_i8.launches
+    got = A.quantize_qk_i8(q, k)
+    torch.cuda.synchronize()
+    assert A.quantize_qk_i8.launches == before + 1
+    want = A.quantize_qk_i8_plain(q, k)
+    assert got[0].dtype == got[1].dtype == torch.int8 and got[2].dtype == torch.float32 and got[2].shape == (1,)
+    for name, g, w in zip(("q8", "k8", "qk_scale"), got, want):
+        assert torch.equal(g, w), name
+    # the plain version gives the same bits on the CPU (its divisors are tensors)
+    for name, g, w in zip(("q8", "k8", "qk_scale"), got, A.quantize_qk_i8_plain(q.cpu(), k.cpu())):
+        assert torch.equal(g.cpu(), w), name
+    for g, again in zip(got, A.quantize_qk_i8(q, k)):
+        assert torch.equal(g, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [float("inf"), float("-inf"), float("nan")])
+@pytest.mark.parametrize("which", ["q", "k"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_quantize_qk_i8_kernel_surfaces_non_finite_input(cuda, bad, which, dtype):
+    """One inf or NaN element reaches the scale, as in the plain version (inf
+    for an infinity, NaN for a NaN), instead of being quantized silently; with
+    an infinity the int8 tensors are the plain version's too (zero in that
+    tensor), but for the element itself: it divides to NaN, whose cast to int8
+    is not defined. Tolerance: none."""
+    q, k = _qkv((2, 2, 128, 32), dtype, cuda, seed=33)[:2]
+    (q if which == "q" else k).view(-1)[1234] = bad
+    got, want = A.quantize_qk_i8(q, k), A.quantize_qk_i8_plain(q, k)
+    assert not torch.isfinite(want[2]).any()
+    assert torch.equal(got[2], want[2]) or (torch.isnan(got[2]).all() and torch.isnan(want[2]).all())
+    if bad == bad:  # with a NaN every element divides to NaN
+        for g, w in zip(got[:2], want[:2]):
+            g, w = g.clone(), w.clone()
+            g.view(-1)[1234] = w.view(-1)[1234] = 0
+            assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
@@ -135,6 +230,27 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     l = torch.ones((1, 1, 128, 1), device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         A.flash_attention_bwd(q, k, v, q, q, l)
+    # K2's quantizer takes 16-bit q and k of one dtype and one shape
+    with pytest.raises(ValueError, match="dtype"):
+        A.flash_attention_qk_i8(q, k, v.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="dtype"):
+        A.quantize_qk_i8(q.to(torch.bfloat16), k.to(torch.float16))
+    with pytest.raises(ValueError, match="shape"):
+        A.quantize_qk_i8(q.to(torch.bfloat16), k.to(torch.bfloat16)[:, :, :64])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        A.quantize_qk_i8(q.to(torch.bfloat16)[..., :8], k.to(torch.bfloat16)[..., :8])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        A.quantize_qk_i8(q.to(torch.bfloat16), k.to(torch.bfloat16).cpu())
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        A.quantize_qk_i8(q.to(torch.bfloat16), k.to(torch.bfloat16))
+    # K2's kernel alone takes contiguous int8 tensors of v's shape
+    q, k, v = _qkv((1, 2, 128, 64), torch.bfloat16, cuda)
+    q8, k8, qk_scale = A.quantize_qk_i8(q, k)
+    with pytest.raises(ValueError, match="int8"):
+        A.flash_qk_i8_forward(q8.float(), k8, qk_scale, v)
+    with pytest.raises(ValueError, match="int8"):  # v's shape, but not contiguous
+        A.flash_qk_i8_forward(q8.transpose(1, 2).contiguous().transpose(1, 2), k8, qk_scale, v)
 
 
 # K3 against its plain version: max |err| / max |ref| of each gradient, the
@@ -291,7 +407,7 @@ PROBE_MODULES = [K4, K7, K6, K5]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SMALL_SHAPES + K4.SHAPES)
+@pytest.mark.parametrize("shape", ALL_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_exp2_attention_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = _qkv(shape, dtype, cuda, seed=2)
@@ -304,11 +420,16 @@ def test_exp2_attention_kernel_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.gpu
-def test_exp2_attention_kernel_upper_clamp_fires(cuda):
-    """q and k scaled by 6: many scores pass 60 log2 e and share exp2's
-    ceiling, as in the plain version (bf16, whose range holds 2^86.6)."""
-    q, k, v = _qkv((1, 2, 128, 64), torch.bfloat16, cuda, seed=3)
-    q, k = (q.float() * 6).to(torch.bfloat16), (k.float() * 6).to(torch.bfloat16)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_exp2_attention_kernel_upper_clamp_fires(cuda, d):
+    """q and k scaled so that many scores pass 60 log2 e and share exp2's
+    ceiling, as in the plain version, at every head dim and over three key
+    tiles (bf16, whose range holds 2^86.6; f16 holds no p past 2^16, in the
+    kernel or the plain version, so there the clamp cannot be reached)."""
+    q, k, v = _qkv((1, 2, 192, d), torch.bfloat16, cuda, seed=3)
+    gain = 2.0 * (60.0 / d**0.5) ** 0.5
+    q, k = (q.float() * gain).to(torch.bfloat16), (k.float() * gain).to(torch.bfloat16)
+    assert (torch.matmul(q.float(), k.float().transpose(-1, -2)) / d**0.5 > 60).any()
     o = K4.exp2_attention(q, k, v)
     assert torch.isfinite(o.float()).all()
     assert (o.float() - K4.exp2_attention_plain(q, k, v).float()).abs().max().item() <= 4 * BF16_ATOL
@@ -421,13 +542,51 @@ def test_attention_roofline_counts_what_the_function_needs(shape, kw, ms, binds)
     assert probe_common.attention_roofline(None, shape, **kw)["bound_ms"] is None
 
 
+@pytest.mark.parametrize("shape, ms", [((8, 4, 4096, 64), 0.015024374), ((8, 4, 1024, 32), 0.001878048)])
+def test_quantizer_roofline_counts_three_bytes_an_element(shape, ms):
+    """By hand: q and k, B*H*N*D 16-bit elements each, read once (2 bytes) and
+    written once as int8 (1 byte), plus the f32 scale, over 3.35 TB/s."""
+    bound = probe_common.quantizer_roofline(probe_common.peaks("NVIDIA H100 80GB HBM3, 700.00 W"), shape)
+    assert bound["bound_by"] == "bytes" and bound["binds"] == "hbm"
+    assert bound["bound_ms"] == pytest.approx(ms, rel=1e-5)
+    assert probe_common.quantizer_roofline(None, shape)["bound_ms"] is None
+
+
+def test_quantizer_reads_head_split_views_in_place():
+    """The layout rule around the quantizer kernel: rows of D contiguous and
+    16-byte aligned pass their (B, H, N) strides; anything else is copied."""
+    b, n, h, d = 2, 64, 4, 16
+    qkv = torch.zeros((b, n, 3 * h * d), dtype=torch.bfloat16)
+    q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    assert list(A._row_strides(k)) == [n * 3 * h * d, d, 3 * h * d]
+    assert list(A._row_strides(q.contiguous())) == [h * n * d, n * d, d]
+    assert A._row_strides(q.transpose(2, 3)) is None  # d is not contiguous
+    assert A._row_strides(torch.zeros(b * h * n * d + 8, dtype=torch.bfloat16)[1:-7].view(b, h, n, d)) is None
+    odd = torch.zeros((b, h, n, d + 4), dtype=torch.bfloat16)[..., :d]  # rows 40 bytes apart
+    assert A._row_strides(odd) is None
+
+
+def test_time_flash_loads_another_checkouts_k2_and_k4_wrappers():
+    import os
+    import sys
+
+    before = {k: m for k, m in sys.modules.items() if k.startswith("weatherconverter_tpu_torch")}
+    other = time_flash.load_checkout(os.path.abspath(os.path.join(os.path.dirname(A.__file__), "..", "..")))
+    assert other.attention is not A and other.micro_attn is not K4
+    # the other checkout's K4 wrapper launches through that checkout's library
+    assert other.micro_attn.cuda_build is other.attention.cuda_build is not A.cuda_build
+    assert other.attention.flash_attention_qk_i8 is not A.flash_attention_qk_i8
+    assert time_flash.THIS.attention is A and time_flash.THIS.micro_attn is K4
+    assert {k: m for k, m in sys.modules.items() if k.startswith("weatherconverter_tpu_torch")} == before
+
+
 def test_time_flash_loads_another_checkout_beside_this_one():
     import os
     import sys
 
     before = {k: m for k, m in sys.modules.items() if k.startswith("weatherconverter_tpu_torch")}
     path = list(sys.path)
-    other = time_flash.load_attention(os.path.abspath(os.path.join(os.path.dirname(A.__file__), "..", "..")))
+    other = time_flash.load_checkout(os.path.abspath(os.path.join(os.path.dirname(A.__file__), "..", ".."))).attention
     assert other is not A and other.cuda_build is not A.cuda_build
     assert os.path.samefile(other.__file__, A.__file__)
     assert {k: m for k, m in sys.modules.items() if k.startswith("weatherconverter_tpu_torch")} == before

@@ -179,6 +179,64 @@ def test_qk_int8_refuses_gradients_as_jax_does():
     torch.testing.assert_close(out, PA.flash_attention_qk_i8_plain(tq.detach(), tk, tv), rtol=0, atol=0)
 
 
+def _jax_quantize_qk(q, k):
+    """The quantization lines of `_flash_attention_fwd_i8_impl` (attention.py:
+    173-189, pv_int8=False), run with jnp as that function runs them."""
+    d = q.shape[-1]
+    qr, kr = q.astype(jnp.float32), k.astype(jnp.float32)
+    qs = jnp.maximum(jnp.max(jnp.abs(qr)), 1e-6) / 127.0
+    ks = jnp.maximum(jnp.max(jnp.abs(kr)), 1e-6) / 127.0
+    return (jnp.round(qr / qs).astype(jnp.int8), jnp.round(kr / ks).astype(jnp.int8),
+            (qs * ks / (d**0.5)).astype(jnp.float32))
+
+
+def _quantizer_case(name):
+    shape = (2, 2, 64, 32)
+    q, k = _rand(shape, seed=21), _rand(shape, seed=22, scale=3.0)
+    if name == "zero":  # an all-zero tensor: the 1e-6 floor of the scale
+        q = np.zeros(shape, np.float32)
+    elif name == "ties":  # max|x| = 127 makes the scale 1: multiples of 0.5 are exact ties
+        q = (np.random.default_rng(23).integers(-254, 255, shape) * 0.5).astype(np.float32)
+        q.flat[0] = 127.0
+    elif name == "outlier":  # one huge value sends everything else to 0 or +-1
+        q.flat[5] = 3.0e4
+    return q, k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["random", "zero", "ties", "outlier"])
+def test_quantize_qk_i8_matches_jax_quantization_exactly(case, dtype):
+    """Tolerance: none. The int8 tensors and the f32 score scale of the port's
+    quantizer (its plain version: these are CPU tensors) equal those of the
+    JAX package's quantization lines bit for bit."""
+    q, k = _quantizer_case(case)
+    jq, jk = (jnp.asarray(a).astype(getattr(jnp, dtype)) for a in (q, k))
+    tq, tk = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k))
+    ref = _jax_quantize_qk(jq, jk)
+    before = PA.quantize_qk_i8.launches
+    q8, k8, scale = PA.quantize_qk_i8(tq, tk)
+    assert PA.quantize_qk_i8.launches == before  # the plain version on the CPU: nothing is counted
+    assert q8.dtype == k8.dtype == torch.int8 and scale.dtype == torch.float32 and scale.shape == (1,)
+    np.testing.assert_array_equal(q8.numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(k8.numpy(), np.asarray(ref[1]))
+    assert scale.item() == float(ref[2])
+    if case == "zero":
+        assert not q8.any() and scale.item() > 0
+    if case == "ties":  # half to even, on both sides of zero
+        np.testing.assert_array_equal(q8.numpy(), np.round(q).astype(np.int8))
+        assert (np.abs(q) % 1 == 0.5).any()
+
+
+def test_quantize_qk_i8_refuses_gradients():
+    q, k = (torch.from_numpy(a) for a in _quantizer_case("random"))
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        PA.quantize_qk_i8(q, k)
+    with torch.no_grad():
+        for got, want in zip(PA.quantize_qk_i8(q, k), PA.quantize_qk_i8_plain(q, k)):
+            assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # attention backward: K3's plain version and the autograd Function
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@
 // on the tensor cores at D >= 64 (at D = 64 the exponentials cost as much)
 // and on the exponentials and the clamp/convert instructions around them at
 // D = 16/32.
-// What the design does about it (flash_wgmma.cuh has the building blocks):
+// What the design does about it (flash_wgmma.cuh has the building blocks,
+// flash_fwd_loop.cuh the schedule, which K2 and K4 share):
 //   * Both products run on wgmma. S = Q K^T takes Q and the K tile from
 //     shared memory (K-major); O += P V takes P from the registers S left it
 //     in and the V tile as loaded (MN-major descriptor): nothing is staged
@@ -24,8 +25,8 @@
 //     +-60 * log2 e, ex2.approx. No running max, so O and l add up unscaled
 //     across tiles; the 4-lane shuffle for l happens once, at the end.
 //   * The exponentials of tile j+1 overlap the P V product of tile j (see
-//     the schedule in the kernel); O leaves through shared memory with
-//     16-byte stores.
+//     the schedule in flash_fwd_loop.cuh); O leaves through shared memory
+//     with 16-byte stores.
 //   * One warpgroup (64 query rows) a block: two warpgroups sharing a ring
 //     measured no faster at any head dim and slower at D = 128 and in K3,
 //     and three or four independent blocks an SM hide each other's waits.
@@ -33,156 +34,67 @@
 // by the MMA warps, not TMA by a producer warp (a tensor map holds the
 // tensor's address, so it would be encoded on the host at every call of an
 // already host-bound path); and S_{j+1} is not kept in flight across
-// iterations (ptxas then serializes every wgmma, see the kernel).
+// iterations (ptxas then serializes every wgmma, see flash_fwd_loop.cuh).
 // Left for later: 128-key tiles at D = 16/32 (half the per-tile overhead),
-// Q as a register operand, and strided inputs (the wrapper makes them
-// contiguous).
-#include "flash_wgmma.cuh"
+// Q as a register operand (K4, probe_exp2_attn.cu, measures it together with
+// a scale folded into q: a gain at D = 64, a loss at D = 128), and strided
+// inputs (the wrapper makes them contiguous).
+#include "flash_fwd_loop.cuh"
 
 namespace wcflash {
 
-// One warpgroup a block owns 64 query rows and walks a ring of 64-key K
-// tiles and one of V tiles.
-template <int D>
-struct FwdConfig {
-  static constexpr int kStages = 3;  // depth of each ring: one tile in use, two on their way
-  static constexpr int kSmemBytes = 1024 + (1 + kStages * 2) * Tile<D>::kBytes;
-};
+// How K1 makes a score tile and turns it into p (flash_fwd_loop.cuh has the
+// schedule): Q from its own swizzled tile in shared memory, one multiply by
+// scale * log2 e, the two-sided clamp, ex2.approx.ftz.
+template <typename T, int D>
+struct FwdPolicy {
+  using Score = float;
+  static constexpr int kQBytes = Tile<D>::kBytes;
+  static constexpr int kKTileBytes = Tile<D>::kBytes;
 
-// One score tile (this warp's 16 rows x 64 keys, 32 accumulators a thread):
-// p = exp2(clip(s * scale * log2 e)), its f32 row sums into l, and p packed
-// in pairs as the A fragments of the P V product.
-template <typename T>
-__device__ __forceinline__ void exp_pack(const float (&s)[kTileRows / 2], float scale_log2, float l[2],
-                                         uint32_t (&p)[kTileRows / 4]) {
-#pragma unroll
-  for (int i = 0; i < kTileRows / 4; ++i) {  // pair i: row g + 8 * (i & 1)
-    const float x0 = ex2_ftz(fminf(fmaxf(s[2 * i] * scale_log2, -kClampLog2), kClampLog2));
-    const float x1 = ex2_ftz(fminf(fmaxf(s[2 * i + 1] * scale_log2, -kClampLog2), kClampLog2));
-    l[i & 1] += x0 + x1;
-    p[i] = Mma<T>::pack(x0, x1);
+  const T* q_rows;  // the block's 64 rows of Q
+  const T* k_head;
+  float scale_log2;  // D^-1/2 * log2 e
+
+  __device__ __forceinline__ void prologue(uint32_t q_s, uint32_t, int tid) const {
+    load_tile_async<T, D>(q_s, q_rows, tid);
   }
-}
+  __device__ __forceinline__ void load_k(uint32_t dst, int tile, int tid) const {
+    load_tile_async<T, D>(dst, k_head + (size_t)tile * kTileRows * D, tid);
+  }
+  __device__ __forceinline__ void start(float (&s)[kTileRows / 2], uint32_t q_s, uint32_t k_tile) const {
+    mma_rows_rows_t<T, D>(s, q_s, k_tile, 0);
+  }
+  // One score tile (this warp's 16 rows x 64 keys, 32 accumulators a thread):
+  // p = exp2(clip(s * scale * log2 e)), its f32 row sums into l, and p packed
+  // in pairs as the A fragments of the P V product.
+  __device__ __forceinline__ void exp_pack(const float (&s)[kTileRows / 2], float l[2],
+                                           uint32_t (&p)[kTileRows / 4]) const {
+#pragma unroll
+    for (int i = 0; i < kTileRows / 4; ++i) {  // pair i: row g + 8 * (i & 1)
+      const float x0 = ex2_ftz(fminf(fmaxf(s[2 * i] * scale_log2, -kClampLog2), kClampLog2));
+      const float x1 = ex2_ftz(fminf(fmaxf(s[2 * i + 1] * scale_log2, -kClampLog2), kClampLog2));
+      l[i & 1] += x0 + x1;
+      p[i] = Mma<T>::pack(x0, x1);
+    }
+  }
+};
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kWgThreads)
     flash_fwd_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                            T* __restrict__ o, float* __restrict__ l_out, int n, float scale_log2) {
-  using L = Tile<D>;
-  constexpr int kStages = FwdConfig<D>::kStages;
-  constexpr int kTileBytes = L::kBytes;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [64][D]
-  const uint32_t k_ring = q_s + kTileBytes;                     // kStages K tiles
-  const uint32_t v_ring = k_ring + kStages * kTileBytes;        // kStages V tiles
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t head = (size_t)blockIdx.y * n * D;
-  const int row0 = blockIdx.x * kTileRows;
-  const T* k_head = k + head;
-  const T* v_head = v + head;
-  const int tiles = n / kTileRows;
-
-  auto load_k = [&](int tile) {
-    if (tile < tiles)
-      load_tile_async<T, D>(k_ring + (tile % kStages) * kTileBytes, k_head + (size_t)tile * kTileRows * D, tid);
-  };
-  auto load_v = [&](int tile) {
-    if (tile >= 0 && tile < tiles)
-      load_tile_async<T, D>(v_ring + (tile % kStages) * kTileBytes, v_head + (size_t)tile * kTileRows * D, tid);
-  };
-  auto start_scores = [&](float(&s)[kTileRows / 2], int tile) {  // S_tile = Q K_tile^T, asynchronous
-    fence_regs(s);
-    wgmma_fence();
-    mma_rows_rows_t<T, D>(s, q_s, k_ring + (tile % kStages) * kTileBytes, 0);
-    wgmma_commit();
-  };
-
-  // The schedule. Iteration j copies K_{j+3} and V_{j+2} (one cp.async
-  // group), starts S_{j+1} = Q K_{j+1}^T and then O += p_j V_j, waits for
-  // S_{j+1} alone and turns it into p_{j+1} while the tensor cores are still
-  // on p_j V_j. So the clamp/exp2/convert work of a warpgroup overlaps its own
-  // P V product, and its Q K^T product the other warpgroups' exponentials.
-  // Every wait takes a constant and every iteration drains the MMAs at its
-  // end: ptxas follows the MMA groups statically and serializes every wgmma
-  // of a kernel in which it cannot prove that an accumulator is read only
-  // after its group retired (a deeper pipeline, with S_{j+1} in flight across
-  // iterations, measured slower for that reason).
-  load_tile_async<T, D>(q_s, q + head + (size_t)row0 * D, tid);
-#pragma unroll
-  for (int i = 0; i < kStages; ++i) {
-    load_k(i);
-    load_v(i - 1);
-    cp_async_commit();
-  }
-
-  float acc[L::kPanels][L::kAccRegs];  // never zeroed: the first P V overwrites it
-  float l[2] = {0.f, 0.f};
-  uint32_t p[kTileRows / 4];
-
-  cp_async_wait<kStages - 1>();  // Q and K_0
-  fence_async_proxy();
-  __syncthreads();
-  {
-    float s[kTileRows / 2];
-    start_scores(s, 0);
-    wgmma_wait<0>();
-    fence_regs(s);
-    exp_pack<T>(s, scale_log2, l, p);
-  }
-  for (int j = 0; j + 1 < tiles; ++j) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of K_{j+1} and V_j have landed
-    fence_async_proxy();
-    __syncthreads();  // everyone's have, and everyone is done with K_j and V_{j-1}
-    load_k(j + kStages);
-    load_v(j + kStages - 1);
-    cp_async_commit();
-    float s[kTileRows / 2];
-    uint32_t p_next[kTileRows / 4];
-    start_scores(s, j + 1);
-    wgmma_fence();
-    mma_regs_tile<T, D, kTileRows / 16>(acc, p, v_ring + (j % kStages) * kTileBytes, 0, j > 0);
-    wgmma_commit();
-    wgmma_wait<1>();  // S_{j+1} is done; p_j V_j may still run
-    fence_regs(s);
-    exp_pack<T>(s, scale_log2, l, p_next);
-    wgmma_wait<0>();  // p_j V_j is done: p is free
-    // p_j V_j read p until that wait: keep p alive up to here, or the compiler,
-    // which sees p's last use where the MMA starts, computes p_next into p's registers
-    fence_regs(p);
-    fence_regs(p_next);
-#pragma unroll
-    for (int i = 0; i < kTileRows / 4; ++i) p[i] = p_next[i];
-  }
-  cp_async_wait<0>();  // V of the last tile
-  fence_async_proxy();
-  __syncthreads();
-  wgmma_fence();
-  mma_regs_tile<T, D, kTileRows / 16>(acc, p, v_ring + ((tiles - 1) % kStages) * kTileBytes, 0, tiles > 1);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const int g = lane >> 2, t = lane & 3;
-  if (l_out != nullptr && t == 0) {
-    float* l_rows = l_out + (size_t)blockIdx.y * n + row0 + warp * 16;
-    l_rows[g] = l[0];
-    l_rows[g + 8] = l[1];
-  }
-  const float inv[2] = {1.f / l[0], 1.f / l[1]};
-  __syncthreads();  // every warp's last Q K^T has read the Q tile: reuse it as the O stage
-  store_rows<T, D>(acc, inv, q_s, o + head + (size_t)row0 * D, warp, lane);
+  const size_t row0 = (size_t)blockIdx.x * kTileRows;
+  FwdPolicy<T, D> policy{q + head + row0 * D, k + head, scale_log2};
+  flash_forward_loop<T, D>(policy, v + head, o + head + row0 * D,
+                           l_out == nullptr ? nullptr : l_out + (size_t)blockIdx.y * n + row0, n);
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* l, int bh, int n,
                    float scale, cudaStream_t stream) {
-  constexpr int smem = FwdConfig<D>::kSmemBytes;
+  constexpr int smem = fwd_loop_smem_bytes<T, D, FwdPolicy<T, D>>();
   cudaError_t err =
       cudaFuncSetAttribute(flash_fwd_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

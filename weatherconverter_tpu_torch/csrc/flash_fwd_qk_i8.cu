@@ -4,95 +4,115 @@
 // Replaces weatherconverter_tpu/ops/attention.py `_flash_kernel_qk_i8` (:125,
 // via `_flash_attention_fwd_i8_impl`), its pv_int8=False branch:
 //   s = int32(Q8 K8^T) * (qs * ks * D^-1/2);  O = (exp(clip(s, -60, 60)) V) / l,
-// Q and K quantized per tensor outside the kernel (plain PyTorch in
-// ops/attention.quantize_per_tensor, as XLA did it for the TPU), V and the
+// Q and K quantized per tensor before the kernel (quantize_i8.cu), V and the
 // PV product in bf16/f16, l and O accumulated in f32.
 //
-// What bounds it on the H100: the same as K1 (compute: tensor cores at
-// D >= 64, the exp/convert instructions at D = 16/32), with the QK^T half
-// on the int8 tensor-core path, which has twice the bf16 rate, and half the
-// Q/K bytes. What the design does about it: the tiling, the streamed K/V
-// tiles and the in-register p of K1 (flash_common.cuh); the int8 product is
-// mma.sync m16n8k32 with s32 accumulation, exact, rescaled once per score.
-// At D = 16 the 32-deep int8 contraction is zero-padded: half of that
-// product is wasted, the price of one code path for every head size.
-#include "flash_common.cuh"
+// What bounds it on the H100: per head 2*N^2*D int8 operations (1,979 TOP/s)
+// and 2*N^2*D bf16 FLOPs (989 TFLOP/s), N^2 exponentials (16 a clock an SM),
+// against N*D*(1 + 1 + 2 + 2) bytes: compute-bound at every shape of the UNet,
+// on the tensor cores only at D = 128, on the exponentials and the
+// convert/clamp/pack instructions around them at D <= 64.
+// What the design does about it (flash_wgmma.cuh, flash_fwd_loop.cuh):
+//   * S = Q8 K8^T is wgmma m64n64k32 s8 -> s32 with both operands from shared
+//     memory. Integer wgmma takes K-major operands only; Q8 (64, D) and K8
+//     (64, D) are K-major as they lie in global memory, so nothing is
+//     transposed. Its s32 accumulators have the f32 layout, so p goes into
+//     the P V product (bf16/f16 wgmma, V as loaded through an MN-major
+//     descriptor) without leaving registers, as in K1.
+//   * K1's schedule and ring (flash_fwd_loop.cuh): K8 and V tiles of 64 keys by
+//     cp.async two tiles ahead, the exponentials of tile j+1 over the P V of
+//     tile j. An int8 tile has D-byte rows in the 128/64/32-byte swizzle; at
+//     D = 16 a row is 16 bytes and a k32 step reads 32, so rows are 32 bytes
+//     with a zero half that is written once per ring slot and that no copy
+//     touches: half of that one product is padding, a quarter of a K1 step.
+//   * Per score: int32 -> f32 times qk_scale * log2 e (read once from the
+//     device pointer, so the wrapper never synchronises), the clamp at
+//     +-60 * log2 e, ex2.approx.ftz. |s| <= 127 * 127 * 128 < 2^22, so
+//     int_as_float(s + 0x4B400000) is exactly 1.5 * 2^23 + s, and one FMA,
+//     f * c - 1.5 * 2^23 * c, converts and scales: an integer add and an FMA
+//     where cvt.rn.f32.s32 and a multiply would stand. The rounding of the
+//     constant term moves every score of a call by the same amount (under
+//     2^-12 in the exp2 domain), one common factor of p and l that cancels
+//     in O. Measured in turns on an H100 (B*H = 32, probes/time_flash.py): at
+//     (4096, 16), where nothing but these instructions binds, 0.2221 ms
+//     against 0.2263 ms with cvt (1.9 % faster), even within 0.6 % at the
+//     other three shapes; a subtraction and a multiply in place of the FMA
+//     (the same bits as cvt) was 4-6 % slower than either. The FMA form is
+//     the one kept; the cvt form is no longer built.
+// Departures: as K1's (cp.async by the MMA warps, not TMA; one warpgroup a
+// block; S_{j+1} not in flight across iterations). The ring keeps K1's depth
+// of three although K8 tiles are half the bytes: at three the block already
+// fits three or four times an SM at D <= 64.
+// Measured on an H100 (700 W, bf16, B*H = 32, chip_smoke.py phase 2), the
+// forward alone beside K1: 0.2914 against 0.3279 ms at (4096, 64), 0.0398
+// against 0.0461 at (1024, 128), 0.0217 against 0.0217 at (1024, 32), 0.2192
+// against 0.2041 at (4096, 16): ahead where the tensor cores weigh, behind
+// where only the per-score instructions do (the conversion is one more).
+#include "flash_fwd_loop.cuh"
 
 namespace wcflash {
 
-// the int8 product is mma_s8 (flash_common.cuh), fragments as laid out there
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_qk_i8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
-                           const T* __restrict__ v, const float* __restrict__ qk_scale,
-                           T* __restrict__ o, int n) {
-  constexpr int kChunks = (D + 31) / 32;     // 32-deep int8 k-chunks
-  constexpr int kKStride = kChunks * 32 + 16;  // bytes; conflict-free b loads
-  __shared__ __align__(16) int8_t ks[kBlockK * kKStride];
-  __shared__ __align__(16) T vt[D * kVtStride];
+struct QkI8Policy {
+  using Score = int;
+  using L8 = Tile<D, 1>;
+  static constexpr int kQBytes = L8::kBytes;
+  static constexpr int kKTileBytes = L8::kBytes;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int8_t* q_rows;  // the block's 64 rows of Q8
+  const int8_t* k_head;
+  float scale_log2;  // qs * ks * D^-1/2 * log2 e
+  float magic_bias;  // -1.5 * 2^23 * scale_log2
+
+  __device__ __forceinline__ void prologue(uint32_t q_s, uint32_t k_ring, int tid) const {
+    zero_row_padding<L8>(q_s, 1, tid);
+    zero_row_padding<L8>(k_ring, kFwdStages, tid);
+    load_tile_async<int8_t, D>(q_s, q_rows, tid);
+  }
+  __device__ __forceinline__ void load_k(uint32_t dst, int tile, int tid) const {
+    load_tile_async<int8_t, D>(dst, k_head + (size_t)tile * kTileRows * D, tid);
+  }
+  __device__ __forceinline__ void start(int (&s)[kTileRows / 2], uint32_t q_s, uint32_t k_tile) const {
+    mma_rows_rows_t_s8<D>(s, q_s, k_tile);
+  }
+  __device__ __forceinline__ float to_exp(int s) const {
+    const float x = fmaf(__int_as_float(s + 0x4B400000), scale_log2, magic_bias);
+    return ex2_ftz(fminf(fmaxf(x, -kClampLog2), kClampLog2));
+  }
+  // One score tile (this warp's 16 rows x 64 keys): p, its f32 row sums into l,
+  // and p packed in pairs as the A fragments of the P V product.
+  __device__ __forceinline__ void exp_pack(const int (&s)[kTileRows / 2], float l[2],
+                                           uint32_t (&p)[kTileRows / 4]) const {
+#pragma unroll
+    for (int i = 0; i < kTileRows / 4; ++i) {  // pair i: row g + 8 * (i & 1)
+      const float x0 = to_exp(s[2 * i]), x1 = to_exp(s[2 * i + 1]);
+      l[i & 1] += x0 + x1;
+      p[i] = Mma<T>::pack(x0, x1);
+    }
+  }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWgThreads)
+    flash_fwd_qk_i8_wgmma_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
+                                 const T* __restrict__ v, const float* __restrict__ qk_scale,
+                                 T* __restrict__ o, int n) {
   const size_t head = (size_t)blockIdx.y * n * D;
-  const int row0 = blockIdx.x * kBlockQ + warp * 16;
-  const float scale = *qk_scale;
-
-  uint32_t qa[kChunks][4];
-  const int8_t* qw = q8 + head + (size_t)row0 * D;
-#pragma unroll
-  for (int kc = 0; kc < kChunks; ++kc) {
-    qa[kc][0] = ld32(qw + g * D + kc * 32 + 4 * t);
-    qa[kc][1] = ld32(qw + (g + 8) * D + kc * 32 + 4 * t);
-    // upper half of the chunk exists only when D reaches it (D = 16 pads with 0)
-    const bool upper = kc * 32 + 16 < D;
-    qa[kc][2] = upper ? ld32(qw + g * D + kc * 32 + 16 + 4 * t) : 0u;
-    qa[kc][3] = upper ? ld32(qw + (g + 8) * D + kc * 32 + 16 + 4 * t) : 0u;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < n; k0 += kBlockK) {
-    __syncthreads();
-    constexpr int kVecPerRow = D / 16;  // 16-byte vectors of int8
-    for (int i = threadIdx.x; i < kBlockK * kVecPerRow; i += kThreads) {
-      const int row = i / kVecPerRow;
-      const int col = (i % kVecPerRow) * 16;
-      *reinterpret_cast<uint4*>(ks + row * kKStride + col) =
-          *reinterpret_cast<const uint4*>(k8 + head + (size_t)(k0 + row) * D + col);
-    }
-    stage_v_transposed<T, D>(vt, v + head, k0);
-    __syncthreads();
-
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      int si[4] = {0, 0, 0, 0};
-      const int8_t* krow = ks + (nt * 8 + g) * kKStride + 4 * t;
-#pragma unroll
-      for (int kc = 0; kc < kChunks; ++kc) {
-        const bool upper = kc * 32 + 16 < D;
-        const uint32_t b[2] = {ld32(krow + kc * 32), upper ? ld32(krow + kc * 32 + 16) : 0u};
-        mma_s8(si, qa[kc], b);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = __int2float_rn(si[e]) * scale;
-    }
-    clamp_exp(s, l);
-    accumulate_pv<T, D>(acc, s, vt, lane);
-  }
-
-  write_output<T, D>(acc, l, o + head + (size_t)row0 * D, nullptr, lane);
+  const size_t row0 = (size_t)blockIdx.x * kTileRows * D;
+  const float scale_log2 = *qk_scale * kLog2e;
+  QkI8Policy<T, D> policy{q8 + head + row0, k8 + head, scale_log2, -12582912.f * scale_log2};
+  flash_forward_loop<T, D>(policy, v + head, o + head + row0, nullptr, n);
 }
 
 template <typename T, int D>
 cudaError_t launch_i8(const int8_t* q8, const int8_t* k8, const void* v, const float* qk_scale, void* o,
                       int bh, int n, cudaStream_t stream) {
-  const dim3 grid(n / kBlockQ, bh);
-  flash_fwd_qk_i8_kernel<T, D><<<grid, kThreads, 0, stream>>>(q8, k8, static_cast<const T*>(v), qk_scale,
-                                                             static_cast<T*>(o), n);
+  constexpr int smem = fwd_loop_smem_bytes<T, D, QkI8Policy<T, D>>();
+  auto kernel = flash_fwd_qk_i8_wgmma_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n / kTileRows, bh), kWgThreads, smem, stream>>>(q8, k8, static_cast<const T*>(v), qk_scale,
+                                                               static_cast<T*>(o), n);
   return cudaGetLastError();
 }
 
@@ -115,7 +135,7 @@ cudaError_t dispatch_i8(const int8_t* q8, const int8_t* k8, const void* v, const
 // qs * ks * d^-1/2. Returns the cudaError_t of the launch.
 extern "C" int wc_flash_fwd_qk_i8(const void* q8, const void* k8, const void* v, const float* qk_scale,
                                   void* o, int bh, int n, int d, int is_f16, void* stream) {
-  if (bh <= 0 || bh > 65535 || n <= 0 || n % wcflash::kBlockQ != 0) return cudaErrorInvalidValue;
+  if (bh <= 0 || bh > 65535 || n <= 0 || n % wcflash::kTileRows != 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* q = static_cast<const int8_t*>(q8);
   const int8_t* k = static_cast<const int8_t*>(k8);

@@ -1,9 +1,10 @@
-// Hopper building blocks of the redesigned flash kernels K1 (flash_fwd.cu)
-// and K3 (flash_bwd.cu): swizzled shared-memory tiles filled by 16-byte
-// cp.async, wgmma descriptors over them, and the warpgroup MMA itself.
+// Hopper building blocks of the flash kernels K1 (flash_fwd.cu), K2
+// (flash_fwd_qk_i8.cu), K3 (flash_bwd.cu) and K4 (probe_exp2_attn.cu):
+// swizzled shared-memory tiles filled by 16-byte cp.async, wgmma descriptors
+// over them, and the warpgroup MMA itself.
 //
-// A tile is 64 rows of one head, D wide, 16-bit elements, kept the way
-// it lies in global memory (row-major, d contiguous) but cut into panels of
+// A tile is 64 rows of one head, D wide, 16-bit elements (or int8, below),
+// kept the way it lies in global memory (row-major, d contiguous) but cut into panels of
 // at most 64 columns (128 bytes a row) and swizzled, so that one copy of it
 // serves both operand forms of wgmma:
 //   * K-major (the reduction runs along d): A of Q K^T, B of Q K^T and dO V^T;
@@ -14,11 +15,16 @@
 //   D = 32: one panel, 64-byte rows, 64-byte swizzle
 //   D = 64: one panel, 128-byte rows, 128-byte swizzle
 //   D = 128: two panels of 64 columns, 128-byte swizzle each
+// An int8 tile (Tile<D, 1>: Q8 and K8 of K2, K-major operands only, which is
+// all integer wgmma takes) has rows of D bytes and is one panel at every D:
+//   D = 128/64/32: 128/64/32-byte rows and swizzle, D/32 k-steps of 32 bytes
+//   D = 16: 32-byte rows whose data is one 16-byte chunk; the other chunk
+//     must be zero (a k32 step reads 32 bytes a row) and no copy writes it
 // The swizzle is the tensor cores' own (Swizzle<B,4,3>): bits [7, 7+B) of
 // the byte address are XORed into bits [4, 4+B). Tiles start on 1024-byte
 // boundaries, so offsets within a tile swizzle like addresses.
 //
-// Accumulator layout of wgmma m64nNk16 (f32), per warp w of the warpgroup and
+// Accumulator layout of wgmma m64nNk16 (f32) and m64nNk32 (s32), per warp w of the warpgroup and
 // lane = 4*g + t: register 4*j + e of the N/2 holds row 16*w + g + 8*(e >> 1),
 // column 8*j + 2*t + (e & 1). Registers 8*c .. 8*c+7, packed in pairs, are the
 // A fragment of the 16-deep chunk c, so p and m go from one product's
@@ -34,20 +40,23 @@ constexpr float kClampLog2 = kClamp * kLog2e;  // the clamp in the exp2 domain
 constexpr int kWgThreads = 128;                // one warpgroup
 constexpr int kTileRows = 64;                  // rows of a streamed tile, and of a warpgroup's own tile
 
-template <int D>
+template <int D, int kElemBytes = 2>
 struct Tile {
-  static constexpr int kPanelCols = D < 64 ? D : 64;
+  static constexpr int kElemsPerChunk = 16 / kElemBytes;  // a chunk is 16 bytes
+  static constexpr int kPanelCols = D * kElemBytes < 128 ? D : 128 / kElemBytes;
   static constexpr int kPanels = D / kPanelCols;
-  static constexpr int kRowBytes = kPanelCols * 2;
+  static constexpr int kDataRowBytes = kPanelCols * kElemBytes;
+  static constexpr int kRowBytes = kDataRowBytes < 32 ? 32 : kDataRowBytes;  // padded at int8, D = 16
   static constexpr int kSwizzleMask = kRowBytes / 16 - 1;  // 1, 3, 7: B bits of Swizzle<B,4,3>
   static constexpr uint64_t kLayoutType = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
   static constexpr int kSbo = 8 * kRowBytes;  // bytes from one 8-row group to the next
-  static constexpr int kChunksPerPanelRow = kRowBytes / 16;
-  static constexpr int kChunksPerRow = D / 8;
+  static constexpr int kChunksPerPanelRow = kDataRowBytes / 16;
+  static constexpr int kChunksPerRow = D / kElemsPerChunk;
+  static constexpr int kKSteps = kPanels * kRowBytes / 32;  // 32-byte reduction steps over all of d
   static constexpr int kAccRegs = kPanelCols / 2;  // f32 accumulators a thread per panel (m64, N = kPanelCols)
 
   static constexpr int kPanelBytes = kTileRows * kRowBytes;
-  static constexpr int kBytes = kTileRows * D * 2;  // a whole tile: every panel
+  static constexpr int kBytes = kPanels * kPanelBytes;  // a whole tile: every panel
 
   // Byte offset inside a panel of 16-byte chunk `chunk` of row `row`.
   static __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
@@ -74,17 +83,34 @@ __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // The 64 rows at `src` (row stride D) into the tile at shared address `dst`,
-// by the block's 128 threads, 16 bytes a copy, coalesced.
+// by the block's 128 threads, 16 bytes a copy, coalesced. T is a 16-bit type
+// or int8_t; only the data chunks of a padded row are written.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const T* __restrict__ src, int tid) {
-  using L = Tile<D>;
-  constexpr int kChunks = kTileRows * L::kChunksPerRow;  // a multiple of 128 for every D
+  using L = Tile<D, sizeof(T)>;
+  constexpr int kChunks = kTileRows * L::kChunksPerRow;  // 64 at int8, D = 16, else a multiple of 128
 #pragma unroll
   for (int i0 = 0; i0 < kChunks; i0 += kWgThreads) {
     const int i = i0 + tid;
+    if (kChunks % kWgThreads != 0 && i >= kChunks) break;
     const int row = i / L::kChunksPerRow, c = i % L::kChunksPerRow;
     const int panel = c / L::kChunksPerPanelRow, pc = c % L::kChunksPerPanelRow;
-    cp_async16(dst + panel * L::kPanelBytes + L::swizzled(row, pc), src + (size_t)row * D + c * 8);
+    cp_async16(dst + panel * L::kPanelBytes + L::swizzled(row, pc),
+               src + (size_t)row * D + c * L::kElemsPerChunk);
+  }
+}
+
+// Zeroes the pad chunk of every row of `tiles` consecutive padded tiles (int8,
+// D = 16) from `dst` on. A slot's pad positions are the same for every tile
+// that passes through it and no copy writes them, so once a kernel is enough.
+template <typename L>
+__device__ __forceinline__ void zero_row_padding(uint32_t dst, int tiles, int tid) {
+  if constexpr (L::kRowBytes != L::kDataRowBytes) {
+    for (int i = tid; i < tiles * kTileRows; i += kWgThreads)
+      asm volatile("st.shared.v4.b32 [%0], {%1,%1,%1,%1};\n" ::"r"(dst + (i / kTileRows) * L::kBytes +
+                                                                   L::swizzled(i % kTileRows, 1)),
+                   "r"(0)
+                   : "memory");
   }
 }
 
@@ -95,21 +121,20 @@ __device__ __forceinline__ void load_f32_async(uint32_t dst, const float* __rest
 
 // The 64-bit shared-memory matrix descriptor of wgmma: address, leading and
 // stride byte offsets in 16-byte units, swizzle mode in bits 62-63.
-template <int D>
+template <typename L>
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, int lbo_bytes) {
-  using L = Tile<D>;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(L::kSbo >> 4) << 32) | (L::kLayoutType << 62);
 }
 
 // K-major operand: rows from `row0` on (64 as A, N as B) of a tile, the
-// 16-deep chunk `ks` of d. Swizzled K-major layouts ignore the leading offset.
-template <int D>
+// 32-byte chunk `ks` of d (16 16-bit elements, 32 of int8). Swizzled K-major
+// layouts ignore the leading offset.
+template <int D, int kElemBytes = 2>
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int row0, int ks) {
-  using L = Tile<D>;
-  const int col = ks * 16;
-  return make_desc<D>(tile + (col / L::kPanelCols) * L::kPanelBytes + row0 * L::kRowBytes +
-                          (col % L::kPanelCols) * 2,
+  using L = Tile<D, kElemBytes>;
+  const int byte = ks * 32;
+  return make_desc<L>(tile + (byte / L::kRowBytes) * L::kPanelBytes + row0 * L::kRowBytes + byte % L::kRowBytes,
                       16);
 }
 
@@ -118,7 +143,7 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int row0, int ks)
 template <int D>
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int panel, int kc) {
   using L = Tile<D>;
-  return make_desc<D>(tile + panel * L::kPanelBytes + kc * 16 * L::kRowBytes, L::kPanelBytes);
+  return make_desc<L>(tile + panel * L::kPanelBytes + kc * 16 * L::kRowBytes, L::kPanelBytes);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -139,6 +164,11 @@ template <int kRegs>
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[kRegs]) {
 #pragma unroll
   for (int i = 0; i < kRegs; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+template <int kRegs>
+__device__ __forceinline__ void fence_regs(int (&d)[kRegs]) {  // s32 accumulators
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 template <int kPanels, int kRegs>
 __device__ __forceinline__ void fence_regs(float (&d)[kPanels][kRegs]) {
@@ -207,6 +237,18 @@ WC_DEFINE_WGMMA(bf16, "bf16")
 WC_DEFINE_WGMMA(f16, "f16")
 #undef WC_DEFINE_WGMMA
 
+// d (64 x 64, s32) = or += A (64 x 32, int8) . B (32 x 64, int8), both from
+// shared memory. Integer wgmma takes K-major operands only and has neither
+// transpose nor negate immediates, so its operand list ends at the predicate.
+#define WC_I4(d, i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define WC_I16(d, i) WC_I4(d, i), WC_I4(d, i + 4), WC_I4(d, i + 8), WC_I4(d, i + 12)
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " WC_R32 ", %32, %33, p;\n}\n"
+               : WC_I16(d, 0), WC_I16(d, 16)
+               : "l"(a), "l"(b), "r"(accumulate));
+}
+
 template <typename T>
 struct Wgmma;
 template <>
@@ -240,6 +282,24 @@ __device__ __forceinline__ void mma_rows_rows_t(float (&s)[kRegs], uint32_t a_ti
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks)
     Wgmma<T>::ss(s, desc_kmajor<D>(a_tile, 0, ks), desc_kmajor<D>(b_tile, b_row0, ks), ks > 0);
+}
+
+// The same with A from registers: a[4*ks ..] is the A fragment of this warp's
+// 16 rows for the 16-deep chunk ks of d; B the first 64 rows of `b_tile`, K-major.
+template <typename T, int D>
+__device__ __forceinline__ void mma_regs_rows_t(float (&s)[kTileRows / 2], const uint32_t* a, uint32_t b_tile) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) Wgmma<T>::template rs<0>(s, a + 4 * ks, desc_kmajor<D>(b_tile, 0, ks), ks > 0);
+}
+
+// s (64 x 64, s32) = A . B^T over all of d in int8: the 64 rows of the int8
+// tiles `a_tile` and `b_tile`, K-major. Queues D/32 MMAs (one at D = 16, over
+// the zero-padded rows).
+template <int D>
+__device__ __forceinline__ void mma_rows_rows_t_s8(int (&s)[kTileRows / 2], uint32_t a_tile, uint32_t b_tile) {
+#pragma unroll
+  for (int ks = 0; ks < Tile<D, 1>::kKSteps; ++ks)
+    wgmma_ss_s8(s, desc_kmajor<D, 1>(a_tile, 0, ks), desc_kmajor<D, 1>(b_tile, 0, ks), ks > 0);
 }
 
 // acc[panel] (64 x D) += A (64 x 16*kChunks, register fragments a[4*c ..]) .

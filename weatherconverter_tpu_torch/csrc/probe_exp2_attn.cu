@@ -7,43 +7,46 @@
 // Only the upper side is clamped, as in the script: a row whose scores all
 // lie below about -126 in the exp2 domain gives l = 0, as on the TPU.
 //
-// The probe's question: K1 (flash_fwd.cu) scales every score, clamps it on
-// both sides and calls __expf (a multiply by log2 e and ex2.approx). Folding
-// the scale and log2 e into q (N/D times fewer multiplies) and calling
-// ex2.approx directly takes three instructions off every score. Does that
-// pay on this card?
+// The probe's question: K1 (flash_fwd.cu) multiplies every score by
+// scale * log2 e, clamps it on both sides and calls ex2.approx.ftz, with Q
+// read from shared memory by every Q K^T product. This form folds the scale
+// into q (N/D times fewer multiplies), clamps from above only, and, since q
+// has to be scaled and re-rounded in registers anyway, keeps it there as the
+// A operand of Q K^T. Do two instructions fewer a score and a register Q pay
+// on this card?
 //
 // What bounds it: as K1, 4*N^2*D tensor-core FLOPs and N^2 exponentials per
-// head against 8*N*D bytes, so compute: the tensor cores at D >= 64, the
-// per-score instructions at D = 16/32, where this form should gain most.
-// The design is K1's (flash_common.cuh): 64 query rows per block, 64-key
-// K/V tiles through shared memory, O and l in f32 with no running max, p
-// from the QK^T accumulators to the PV product in registers.
-#include "flash_common.cuh"
+// head against 8*N*D bytes, so compute: the tensor cores at D >= 64 (at
+// D = 64 the exponentials cost as much), the per-score instructions at
+// D = 16/32, where this form should gain most.
+// What the design does about it: K1's (flash_wgmma.cuh, flash_fwd_loop.cuh),
+// so that the two differ in the question alone: both products on wgmma, K and
+// V tiles of 64 keys through the cp.async ring in swizzled shared memory, V as
+// loaded through an MN-major descriptor, the exponentials of tile j+1 over
+// the P V of tile j, O out through shared memory with 16-byte stores. Each
+// warp reads its 16 rows of Q from global memory once, as the A fragments of
+// wgmma with A from registers, so the block has no Q tile in shared memory
+// (a K1 block holds one for its whole life) and S = q2 K^T reads only the K
+// tile from it. Departures: K1's.
+// The answer (an H100 at 700 W, bf16, B*H = 32, probes/time_flash.py, both
+// kernels in turns in one process): the form pays where the per-score work
+// and the tensor cores weigh alike and is about even elsewhere, 0.3108 ms
+// against K1's 0.3308 at (4096, 64) (-6 %), 0.2011 against 0.2037 at
+// (4096, 16) (-1 %), 0.0219 against 0.0216 at (1024, 32); at (1024, 128) it
+// loses, 0.0509 against 0.0458 (+11 %), where q2 takes 32 more registers a
+// thread (192 against 160). Which of the two ideas carries the gain at
+// D = 64 this probe does not separate.
+#include "flash_fwd_loop.cuh"
 
 namespace wcprobe {
 namespace {
 
 using namespace wcflash;
 
-constexpr float kClamp2 = 60.f * 1.4426950408889634f;  // 60 * log2(e)
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// s[nt][*]: this warp's 16 x kBlockK scores in C layout, in the exp2 domain.
-// Clamp from above only, exponentiate, add the f32 row sums into l.
-__device__ __forceinline__ void clamp_exp2(float s[kBlockK / 8][4], float l[2]) {
-#pragma unroll
-  for (int nt = 0; nt < kBlockK / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = ex2(fminf(s[nt][e], kClamp2));
-    l[0] += s[nt][0] + s[nt][1];
-    l[1] += s[nt][2] + s[nt][3];
-  }
 }
 
 // Two q values times the folded scale, rounded back to T (the script's
@@ -55,69 +58,64 @@ __device__ __forceinline__ uint32_t scaled_pair(const T* p, float qscale) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    probe_exp2_attn_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                           T* __restrict__ o, int n, float qscale) {
-  constexpr int kKStride = D + kPad;
-  __shared__ __align__(16) T ks[kBlockK * kKStride];
-  __shared__ __align__(16) T vt[D * kVtStride];
+struct Exp2Policy {
+  using Score = float;
+  static constexpr int kQBytes = 0;
+  static constexpr int kKTileBytes = Tile<D>::kBytes;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* k_head;
+  uint32_t qa[D / 4];  // this warp's 16 rows of q2: four A-fragment registers for each 16-deep chunk of d
+
+  __device__ __forceinline__ void prologue(uint32_t, uint32_t, int) const {}
+  __device__ __forceinline__ void load_k(uint32_t dst, int tile, int tid) const {
+    load_tile_async<T, D>(dst, k_head + (size_t)tile * kTileRows * D, tid);
+  }
+  __device__ __forceinline__ void start(float (&s)[kTileRows / 2], uint32_t, uint32_t k_tile) const {
+    mma_regs_rows_t<T, D>(s, qa, k_tile);
+  }
+  // One score tile in the exp2 domain: clamp from above only, exponentiate,
+  // add the f32 row sums into l, pack p as the A fragments of the P V product.
+  __device__ __forceinline__ void exp_pack(const float (&s)[kTileRows / 2], float l[2],
+                                           uint32_t (&p)[kTileRows / 4]) const {
+#pragma unroll
+    for (int i = 0; i < kTileRows / 4; ++i) {  // pair i: row g + 8 * (i & 1)
+      const float x0 = ex2(fminf(s[2 * i], kClampLog2)), x1 = ex2(fminf(s[2 * i + 1], kClampLog2));
+      l[i & 1] += x0 + x1;
+      p[i] = Mma<T>::pack(x0, x1);
+    }
+  }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kWgThreads)
+    probe_exp2_attn_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                                 T* __restrict__ o, int n, float qscale) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const size_t head = (size_t)blockIdx.y * n * D;
-  const int row0 = blockIdx.x * kBlockQ + warp * 16;
+  const size_t row0 = (size_t)blockIdx.x * kTileRows * D;
 
-  // This warp's q2 rows as A fragments: read once, scaled, rounded to T.
-  uint32_t qa[D / 16][4];
-  const T* qw = q + head + (size_t)row0 * D;
+  Exp2Policy<T, D> policy;
+  policy.k_head = k + head;
+  const T* qw = q + head + row0 + (size_t)warp * 16 * D;
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc) {
-    qa[kc][0] = scaled_pair(qw + g * D + kc * 16 + 2 * t, qscale);
-    qa[kc][1] = scaled_pair(qw + (g + 8) * D + kc * 16 + 2 * t, qscale);
-    qa[kc][2] = scaled_pair(qw + g * D + kc * 16 + 8 + 2 * t, qscale);
-    qa[kc][3] = scaled_pair(qw + (g + 8) * D + kc * 16 + 8 + 2 * t, qscale);
+    policy.qa[4 * kc] = scaled_pair(qw + g * D + kc * 16 + 2 * t, qscale);
+    policy.qa[4 * kc + 1] = scaled_pair(qw + (g + 8) * D + kc * 16 + 2 * t, qscale);
+    policy.qa[4 * kc + 2] = scaled_pair(qw + g * D + kc * 16 + 8 + 2 * t, qscale);
+    policy.qa[4 * kc + 3] = scaled_pair(qw + (g + 8) * D + kc * 16 + 8 + 2 * t, qscale);
   }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < n; k0 += kBlockK) {
-    __syncthreads();  // every warp is done with the previous tile
-    constexpr int kVecPerRow = D / 8;
-    for (int i = threadIdx.x; i < kBlockK * kVecPerRow; i += kThreads) {
-      const int row = i / kVecPerRow;
-      const int col = (i % kVecPerRow) * 8;
-      *reinterpret_cast<uint4*>(ks + row * kKStride + col) =
-          *reinterpret_cast<const uint4*>(k + head + (size_t)(k0 + row) * D + col);
-    }
-    stage_v_transposed<T, D>(vt, v + head, k0);
-    __syncthreads();
-
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const T* krow = ks + (nt * 8 + g) * kKStride + 2 * t;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const uint32_t b[2] = {ld32(krow + kc * 16), ld32(krow + kc * 16 + 8)};
-        Mma<T>::run(s[nt], qa[kc], b);
-      }
-    }
-    clamp_exp2(s, l);
-    accumulate_pv<T, D>(acc, s, vt, lane);
-  }
-
-  write_output<T, D>(acc, l, o + head + (size_t)row0 * D, nullptr, lane);
+  flash_forward_loop<T, D>(policy, v + head, o + head + row0, nullptr, n);
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int n, float qscale,
                    cudaStream_t stream) {
-  const dim3 grid(n / kBlockQ, bh);
-  probe_exp2_attn_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  constexpr int smem = fwd_loop_smem_bytes<T, D, Exp2Policy<T, D>>();
+  auto kernel = probe_exp2_attn_wgmma_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n / kTileRows, bh), kWgThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), n,
       qscale);
   return cudaGetLastError();
@@ -142,7 +140,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int
 // qscale = d^-1/2 * log2(e). Returns the cudaError_t of the launch.
 extern "C" int wc_probe_exp2_attn(const void* q, const void* k, const void* v, void* o, int bh, int n, int d,
                                   int is_f16, float qscale, void* stream) {
-  if (bh <= 0 || bh > 65535 || n <= 0 || n % wcflash::kBlockQ != 0) return cudaErrorInvalidValue;
+  if (bh <= 0 || bh > 65535 || n <= 0 || n % wcflash::kTileRows != 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f16 ? wcprobe::dispatch_d<__half>(q, k, v, o, bh, n, d, qscale, s)
                 : wcprobe::dispatch_d<__nv_bfloat16>(q, k, v, o, bh, n, d, qscale, s);

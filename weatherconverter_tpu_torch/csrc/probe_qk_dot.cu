@@ -13,9 +13,9 @@
 // shape cannot show int8's twice-the-bf16 tensor rate.
 // What the design does about it: one block per 64 x 64 output tile, Q read
 // into A fragments from global memory, the tile's 64 K rows staged once in
-// shared memory; mma.sync (K2's m16n8k32 s8 and K1's m16n8k16 bf16, as laid
-// out in flash_common.cuh) and the accumulators stored straight to global
-// memory, each quad of lanes writing 32 contiguous bytes of one row.
+// shared memory; mma.sync (m16n8k32 s8 and m16n8k16 bf16, as laid out in
+// flash_common.cuh) and the accumulators stored straight to global memory,
+// each quad of lanes writing 32 contiguous bytes of one row.
 #include "flash_common.cuh"
 
 namespace wcprobe {

@@ -9,6 +9,9 @@ three hand-written CUDA kernels for Hopper (csrc/, built by ops/cuda_build.py):
                                 `_flash_bwd_dq_kernel_stream` and
                                 `_flash_bwd_dkv_kernel_stream`
 
+and the per-tensor quantization of Q and K in front of K2, which XLA fused on
+the TPU, a fourth: `quantize_qk_i8` (csrc/quantize_i8.cu).
+
 They compute the JAX kernels' clamped softmax, exp(clip(s, -60, 60)) with no
 row max, and its gradient, masked where the clamp fires, which a stock flash
 kernel or SDPA does not. Beside each kernel is its plain PyTorch version
@@ -24,6 +27,8 @@ require grad, on every device.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -66,23 +71,28 @@ def flash_attention_plain(
 
 def quantize_per_tensor(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int8: scale = max(max|x|, 1e-6) / 127, round half
-    to even (attention.py:173-179). Returns (int8 tensor, f32 scale)."""
+    to even (attention.py:173-179). Returns (int8 tensor, f32 scale). Every
+    divisor is a tensor on x's device: PyTorch's CUDA division by a Python
+    number multiplies by its reciprocal, which is not always the correctly
+    rounded quotient that the CPU, JAX and the quantizer kernel compute."""
     xf = x.float()
-    scale = xf.abs().amax().clamp_min(1e-6) / 127.0
+    scale = xf.abs().amax().clamp_min(1e-6) / xf.new_full((), 127.0)
     return torch.round(xf / scale).to(torch.int8), scale
 
 
-def _quantize_qk(q: torch.Tensor, k: torch.Tensor):
+def quantize_qk_i8_plain(q: torch.Tensor, k: torch.Tensor):
+    """The quantizer's plain version (attention.py:173-189): q and k quantized
+    per tensor, and the f32 score scale qs * ks / sqrt(D), shape (1,)."""
     q8, qs = quantize_per_tensor(q)
     k8, ks = quantize_per_tensor(k)
-    return q8, k8, (qs * ks / q.shape[-1] ** 0.5).reshape(1)
+    return q8, k8, (qs * ks / qs.new_full((), q.shape[-1] ** 0.5)).reshape(1)
 
 
 def flash_attention_qk_i8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K2's plain version: the same quantization, then int32-exact scores
     (an f32 product of int8 values: every partial sum is an integer below
     127*127*128 < 2^24) times qs*ks*D^-1/2, then K1's softmax and bf16 PV."""
-    q8, k8, qk_scale = _quantize_qk(q, k)
+    q8, k8, qk_scale = quantize_qk_i8_plain(q, k)
     s = torch.matmul(q8.float(), k8.float().transpose(-1, -2)) * qk_scale
     p = torch.exp(s.clamp(-_CLAMP, _CLAMP))
     l = p.sum(dim=-1, keepdim=True)
@@ -232,14 +242,81 @@ class FlashAttentionFunction(torch.autograd.Function):
         return flash_attention_bwd(q, k, v, o, do.to(q.dtype).contiguous(), l)
 
 
+_QUANTIZE_GROUP = 16  # elements the quantizer's threads take at a time (csrc/quantize_i8.cu kGroup)
+
+
+def _row_strides(t: torch.Tensor):
+    """The (B, H, N) element strides of `t` if the quantizer can read it in
+    place (rows of D contiguous, every row 16-byte aligned), else None."""
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+        return None
+    return (ctypes.c_longlong * 3)(*t.stride()[:3])
+
+
+def _readable_rows(t: torch.Tensor):
+    """`t` as the quantizer can read it, with its strides: `t` itself, or a
+    fresh contiguous copy (a new allocation is aligned)."""
+    strides = _row_strides(t)
+    if strides is None:
+        t = t.clone(memory_format=torch.contiguous_format)
+        strides = _row_strides(t)
+    return t, strides
+
+
+def quantize_qk_i8(q: torch.Tensor, k: torch.Tensor):
+    """The quantizer in front of K2, forward only: (B, H, N, D) q and k ->
+    (q8, k8, qk_scale), contiguous int8 tensors and the f32 score scale
+    qs * ks / sqrt(D), shape (1,). A CPU tensor takes `quantize_qk_i8_plain`;
+    a CUDA tensor (bf16/f16, D a multiple of 16) launches the kernel's two
+    passes (the maxima, then the division) or raises, and the result equals
+    the plain version's bit for bit. Head-split views of one projection are
+    read in place. One count in `.launches` for the two passes. Nothing here
+    synchronises with the host."""
+    if _wants_grad(q, k):
+        raise NotImplementedError("quantize_qk_i8 is forward-only: rounding has no useful gradient")
+    if q.device.type == "cpu":
+        return quantize_qk_i8_plain(q, k)
+    if q.device.type != "cuda" or k.device != q.device:
+        raise ValueError(f"quantize_qk_i8: q and k must lie on one CUDA device, got {q.device} and {k.device}")
+    if q.dim() != 4 or q.shape != k.shape:
+        raise ValueError(f"quantize_qk_i8: q and k must share one (B, H, N, D) shape, got {tuple(q.shape)} "
+                         f"and {tuple(k.shape)}")
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype:
+        raise ValueError(f"quantize_qk_i8: q and k must share one dtype of {KERNEL_DTYPES}, got {q.dtype} "
+                         f"and {k.dtype}")
+    b, h, n, d = q.shape
+    if d % _QUANTIZE_GROUP != 0:
+        raise ValueError(f"quantize_qk_i8: head dim {d} is not a multiple of {_QUANTIZE_GROUP}")
+    (q, q_strides), (k, k_strides) = _readable_rows(q), _readable_rows(k)
+    amax = torch.zeros(2, device=q.device, dtype=torch.float32)  # max|q|, max|k|: pass 1 -> pass 2
+    q8 = torch.empty(q.shape, device=q.device, dtype=torch.int8)
+    k8 = torch.empty(q.shape, device=q.device, dtype=torch.int8)
+    qk_scale = torch.empty(1, device=q.device, dtype=torch.float32)
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        err = lib.wc_quantize_qk_i8(
+            q.data_ptr(), k.data_ptr(), q_strides, k_strides, b, h, n, d, int(q.dtype == torch.float16),
+            amax.data_ptr(), q8.data_ptr(), k8.data_ptr(), qk_scale.data_ptr(), d**0.5,
+            cuda_build.stream(q.device),
+        )
+    cuda_build.check_launch("quantize_qk_i8", err)
+    quantize_qk_i8.launches += 1
+    return q8, k8, qk_scale
+
+
+quantize_qk_i8.launches = 0
+
+
 def flash_attention_qk_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K2, forward only, (B, H, N, D) -> O in v's dtype. Q and K are
-    quantized per tensor here, in PyTorch; the kernel takes the int8 tensors,
-    V and the f32 score scale. A CPU tensor takes
-    `flash_attention_qk_i8_plain`; a CUDA tensor launches the kernel or
-    raises. Inputs that require grad (under grad mode) raise on every
-    device: JAX has no VJP for this path, and autograd through the plain
-    version's rounding would give a meaningless gradient."""
+    """K2, forward only, (B, H, N, D) -> O in v's dtype. Q and K go through
+    `quantize_qk_i8`; the kernel takes the int8 tensors, V and the f32 score
+    scale on the device. A CPU tensor takes `flash_attention_qk_i8_plain`; a
+    CUDA tensor launches the kernels or raises. A call queues a two-float
+    fill, the quantizer's two passes and the forward (and a copy of V if it
+    is a view), and never synchronises with the host. Inputs that require
+    grad (under grad mode) raise on every device: JAX has no VJP for this
+    path, and autograd through the plain version's rounding would give a
+    meaningless gradient."""
     if _wants_grad(q, k, v):
         raise NotImplementedError(
             "flash_attention_qk_i8 is forward-only, as in JAX (no VJP through the int8 quantization); "
@@ -247,18 +324,28 @@ def flash_attention_qk_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     if q.device.type == "cpu":
         return flash_attention_qk_i8_plain(q, k, v)
     check_kernel_inputs("flash_attention_qk_i8", q, k, v)
-    b, h, n, d = q.shape
-    # contiguous first, so q8/k8 come out contiguous; every buffer the kernel
-    # reads stays referenced here until the launch has been queued
-    q8, k8, qk_scale = _quantize_qk(q.contiguous(), k.contiguous())
-    v = v.contiguous()
+    return flash_qk_i8_forward(*quantize_qk_i8(q, k), v)
+
+
+def flash_qk_i8_forward(q8: torch.Tensor, k8: torch.Tensor, qk_scale: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K2's kernel alone, on what `quantize_qk_i8` returns: contiguous int8
+    (B, H, N, D) q8 and k8, the f32 score scale on the device, and V (CUDA
+    only). It counts as one launch of `flash_attention_qk_i8`."""
+    check_kernel_inputs("flash_qk_i8_forward", v, v, v)
+    b, h, n, d = v.shape
+    if not (q8.is_contiguous() and k8.is_contiguous() and q8.dtype == k8.dtype == torch.int8
+            and q8.shape == k8.shape == v.shape and qk_scale.dtype == torch.float32
+            and q8.device == k8.device == qk_scale.device == v.device):
+        raise ValueError("flash_qk_i8_forward: q8 and k8 must be contiguous int8 of v's shape and qk_scale f32, "
+                         "all on v's device")
+    v = v.contiguous()  # q8, k8, qk_scale and v stay referenced here until the launch has been queued
     o = torch.empty_like(v)
     lib = cuda_build.library()
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(v.device):
         err = lib.wc_flash_fwd_qk_i8(
             q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
             qk_scale.data_ptr(), o.data_ptr(), b * h, n, d, int(v.dtype == torch.float16),
-            cuda_build.stream(q.device),
+            cuda_build.stream(v.device),
         )
     cuda_build.check_launch("flash_attention_qk_i8", err)
     flash_attention_qk_i8.launches += 1

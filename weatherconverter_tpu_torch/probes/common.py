@@ -110,6 +110,13 @@ def attention_roofline(peak: dict | None, shape, backward: bool = False, qk_int8
     return _bound({"hbm": bh * n * 4 * d * 2 / peak["hbm"], **tensor, "ex2": ex2})
 
 
+def quantizer_roofline(peak: dict | None, shape) -> dict:
+    """`roofline` of quantizing 16-bit (B, H, N, D) q and k per tensor to int8:
+    each read once and written once as int8, and one f32 scale. Bytes bind."""
+    b, h, n, d = shape
+    return roofline(peak, 2 * b * h * n * d * (2 + 1) + 4)
+
+
 def add_rooflines(*parts: dict) -> dict:
     """The roofline of several calls timed as one sum: the bounds add; the
     sum is bound by whatever binds the largest part."""

@@ -9,9 +9,13 @@ instead of N), clamps from above only and calls exp2:
     q2 = cast(q * D^-1/2 * log2 e);  p = exp2(min(q2 K^T, 60 log2 e));  O = cast(p) V / l
 
 `exp2_attention` is its kernel (csrc/probe_exp2_attn.cu); a CPU tensor takes
-`exp2_attention_plain`. The probe runs both forms at the production UNet's
-two N=4096 attention shapes, (8, 4, 4096, 64) and (8, 4, 4096, 16), bf16,
-and prints each one's error against softmax attention and its time.
+`exp2_attention_plain`. The kernel stands on K1's design (wgmma, the cp.async
+tile ring, the same schedule) and keeps the scaled q in registers as the A
+operand of Q K^T, where K1 reads its Q tile from shared memory. So the probe
+asks, on equal designs: do the folded scale, the one-sided clamp and a
+register Q pay? It runs both forms at the production UNet's two N=4096
+attention shapes, (8, 4, 4096, 64) and (8, 4, 4096, 16), bf16, and prints
+each one's error against softmax attention and its time.
 
     python -m weatherconverter_tpu_torch.probes.micro_attn     # on a machine with a CUDA card
 
