@@ -30,7 +30,7 @@
 //     m, p^T and m^T from the registers the first products left them in and
 //     the K, dO and Q tiles as loaded (MN-major descriptors): no operand is
 //     staged transposed, nothing of size N^2 leaves registers.
-//   * The streamed tiles come through a ring (three deep; two at D = 128)
+//   * The streamed tiles come through a ring (three deep; two at D >= 128)
 //     filled by 16-byte cp.async into the tensor cores' swizzled layout.
 //   * The recomputed p uses K1's exp2 form; the mask is taken on the score
 //     before the clamp. 1/l is folded into p and m before they are cast to
@@ -38,6 +38,16 @@
 //     p / l <= 1, so f16 cannot overflow where the clamp lets p reach e^60.
 //   * At D = 128 pass 2 forms its scores 32 queries at a time, so the f32 dK
 //     and dV (128 registers a thread) fit without spilling.
+//   * At D = 192 (three 64-column panels a tile) dK and dV together would be
+//     192 accumulator registers a thread, before S and dP: they cannot share
+//     a thread's 255. Pass 2 is launched twice there, once for dV (S^T and
+//     p^T dO: three products' worth of work) and once for dK (S^T, dP^T and
+//     m^T Q), each with 96 accumulators; S^T is formed twice, so the backward
+//     spends eight products where the other head dims spend seven. Pass 1
+//     forms its scores 32 keys at a time there (96 + 16 + 16 registers of
+//     accumulators). A simple design that is right; two warpgroups sharing
+//     one block's tiles, one for dK and one for dV, would save the second
+//     S^T and half the tile traffic.
 //   * One warpgroup a block: two sharing a ring measured 7 % slower at
 //     D = 64 and no faster elsewhere.
 // Left for later: overlapping the exp/mask work with the MMAs inside a
@@ -60,9 +70,13 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const T* rows, int stride,
 template <int D>
 struct BwdConfig {
   // D = 128: two stages, so two blocks fit an SM, and 32-query sub-tiles in
-  // pass 2, so the f32 dK and dV (128 registers a thread) do not spill
-  static constexpr int kStages = D == 128 ? 2 : 3;
-  static constexpr int kSub = D == 128 ? 32 : 64;
+  // pass 2, so the f32 dK and dV (128 registers a thread) do not spill.
+  // D = 192: the same, 32-key sub-tiles in pass 1 as well, and pass 2 split
+  // into a dV launch and a dK launch (96 accumulator registers each).
+  static constexpr int kStages = D >= 128 ? 2 : 3;
+  static constexpr int kSub = D >= 128 ? 32 : 64;
+  static constexpr int kSubDq = D > 128 ? 32 : 64;
+  static constexpr bool kSplitDkv = D > 128;
   static constexpr int kDqSmemBytes = 1024 + (2 + kStages * 2) * Tile<D>::kBytes;
   static constexpr int kDkvSmemBytes = kDqSmemBytes + kStages * 2 * kTileRows * 4;
 };
@@ -83,6 +97,7 @@ __global__ void __launch_bounds__(kWgThreads)
                               float scale, float scale_log2) {
   using L = Tile<D>;
   constexpr int kStages = BwdConfig<D>::kStages;
+  constexpr int kSub = BwdConfig<D>::kSubDq;
   constexpr int kTileBytes = L::kBytes;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [64][D]
@@ -160,34 +175,37 @@ __global__ void __launch_bounds__(kWgThreads)
     cp_async_commit();
     const uint32_t k_s = kv_s + stage * 2 * kTileBytes, v_s = k_s + kTileBytes;
 
-    float s[kTileRows / 2], dp[kTileRows / 2];
-    fence_regs(s);
-    fence_regs(dp);
-    wgmma_fence();
-    mma_rows_rows_t<T, D>(s, q_s, k_s, 0);
-    mma_rows_rows_t<T, D>(dp, do_s, v_s, 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-
-    uint32_t ma[kTileRows / 4];
 #pragma unroll
-    for (int i = 0; i < kTileRows / 4; ++i) {  // pair i: row g + 8 * (i & 1)
-      bool in0, in1;
-      const float p0 = clamped_exp2(s[2 * i] * scale_log2, in0);
-      const float p1 = clamped_exp2(s[2 * i + 1] * scale_log2, in1);
-      const float m0 = in0 ? p0 * (dp[2 * i] - dvr[i & 1]) * linv[i & 1] : 0.f;
-      const float m1 = in1 ? p1 * (dp[2 * i + 1] - dvr[i & 1]) * linv[i & 1] : 0.f;
-      ma[i] = Mma<T>::pack(m0, m1);
-    }
+    for (int h = 0; h < kTileRows / kSub; ++h) {  // kSub keys at a time
+      float s[kSub / 2], dp[kSub / 2];
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      mma_rows_rows_t<T, D>(s, q_s, k_s, h * kSub);
+      mma_rows_rows_t<T, D>(dp, do_s, v_s, h * kSub);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
 
-    fence_regs(acc);
-    wgmma_fence();
-    mma_regs_tile<T, D, kTileRows / 16>(acc, ma, k_s, 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
+      uint32_t ma[kSub / 4];
+#pragma unroll
+      for (int i = 0; i < kSub / 4; ++i) {  // pair i: row g + 8 * (i & 1)
+        bool in0, in1;
+        const float p0 = clamped_exp2(s[2 * i] * scale_log2, in0);
+        const float p1 = clamped_exp2(s[2 * i + 1] * scale_log2, in1);
+        const float m0 = in0 ? p0 * (dp[2 * i] - dvr[i & 1]) * linv[i & 1] : 0.f;
+        const float m1 = in1 ? p1 * (dp[2 * i + 1] - dvr[i & 1]) * linv[i & 1] : 0.f;
+        ma[i] = Mma<T>::pack(m0, m1);
+      }
+
+      fence_regs(acc);
+      wgmma_fence();
+      mma_regs_tile<T, D, kSub / 16>(acc, ma, k_s, h * kSub);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
 
     stage = stage + 1 == kStages ? 0 : stage + 1;
     fill = fill + 1 == kStages ? 0 : fill + 1;
@@ -203,7 +221,9 @@ __global__ void __launch_bounds__(kWgThreads)
 // dO, 1/l and Dv. The products are taken transposed (S^T = K Q^T,
 // dP^T = V dO^T), so p^T and m^T come out with keys as rows and feed
 // dV += p^T dO and dK += m^T Q from registers, with the dO and Q tiles as loaded.
-template <typename T, int D>
+// kOut says which gradients this launch owns: 3 both, 1 dV alone, 2 dK alone
+// (the two launches of D = 192; the dV one needs neither dP^T nor Dv).
+template <typename T, int D, int kOut>
 __global__ void __launch_bounds__(kWgThreads)
     flash_bwd_dkv_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                                const T* __restrict__ d_o, const float* __restrict__ linv,
@@ -212,6 +232,7 @@ __global__ void __launch_bounds__(kWgThreads)
   using L = Tile<D>;
   constexpr int kStages = BwdConfig<D>::kStages;
   constexpr int kSub = BwdConfig<D>::kSub;
+  constexpr bool kDoDv = (kOut & 1) != 0, kDoDk = (kOut & 2) != 0;
   constexpr int kTileBytes = L::kBytes;
   constexpr int kVecBytes = kTileRows * 4;
   extern __shared__ unsigned char smem_raw[];
@@ -245,11 +266,14 @@ __global__ void __launch_bounds__(kWgThreads)
     cp_async_commit();
   }
 
-  float dk_acc[L::kPanels][L::kAccRegs], dv_acc[L::kPanels][L::kAccRegs];
+  float dk_acc[L::kPanels][L::kAccRegs], dv_acc[L::kPanels][L::kAccRegs];  // the one not owned is never touched
 #pragma unroll
   for (int pn = 0; pn < L::kPanels; ++pn) {
 #pragma unroll
-    for (int i = 0; i < L::kAccRegs; ++i) dk_acc[pn][i] = dv_acc[pn][i] = 0.f;
+    for (int i = 0; i < L::kAccRegs; ++i) {
+      if constexpr (kDoDk) dk_acc[pn][i] = 0.f;
+      if constexpr (kDoDv) dv_acc[pn][i] = 0.f;
+    }
   }
 
   int stage = 0, fill = kStages - 1;
@@ -266,42 +290,44 @@ __global__ void __launch_bounds__(kWgThreads)
     for (int h = 0; h < kTileRows / kSub; ++h) {  // kSub queries at a time
       float s[kSub / 2], dp[kSub / 2];
       fence_regs(s);
-      fence_regs(dp);
+      if constexpr (kDoDk) fence_regs(dp);
       wgmma_fence();
       mma_rows_rows_t<T, D>(s, k_own, q_s, h * kSub);
-      mma_rows_rows_t<T, D>(dp, v_own, do_s, h * kSub);
+      if constexpr (kDoDk) mma_rows_rows_t<T, D>(dp, v_own, do_s, h * kSub);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
-      fence_regs(dp);
+      if constexpr (kDoDk) fence_regs(dp);
 
       uint32_t pl[kSub / 4], ml[kSub / 4];
 #pragma unroll
       for (int jj = 0; jj < kSub / 8; ++jj) {  // 8 queries: this thread's columns 8*jj + 2t, +1
-        float li0, li1, dv0, dv1;
+        float li0, li1, dv0 = 0.f, dv1 = 0.f;
         const uint32_t col = (h * kSub + jj * 8 + 2 * t) * 4;
         asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];\n" : "=f"(li0), "=f"(li1) : "r"(li_s + col));
-        asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];\n" : "=f"(dv0), "=f"(dv1) : "r"(dvs_s + col));
+        if constexpr (kDoDk)
+          asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];\n" : "=f"(dv0), "=f"(dv1) : "r"(dvs_s + col));
 #pragma unroll
         for (int r = 0; r < 2; ++r) {  // key rows g and g + 8
           const int i = 2 * jj + r;
           bool in0, in1;
           const float p0 = clamped_exp2(s[2 * i] * scale_log2, in0) * li0;
           const float p1 = clamped_exp2(s[2 * i + 1] * scale_log2, in1) * li1;
-          pl[i] = Mma<T>::pack(p0, p1);
-          ml[i] = Mma<T>::pack(in0 ? p0 * (dp[2 * i] - dv0) : 0.f, in1 ? p1 * (dp[2 * i + 1] - dv1) : 0.f);
+          if constexpr (kDoDv) pl[i] = Mma<T>::pack(p0, p1);
+          if constexpr (kDoDk)
+            ml[i] = Mma<T>::pack(in0 ? p0 * (dp[2 * i] - dv0) : 0.f, in1 ? p1 * (dp[2 * i + 1] - dv1) : 0.f);
         }
       }
 
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
+      if constexpr (kDoDv) fence_regs(dv_acc);
+      if constexpr (kDoDk) fence_regs(dk_acc);
       wgmma_fence();
-      mma_regs_tile<T, D, kSub / 16>(dv_acc, pl, do_s, h * kSub);
-      mma_regs_tile<T, D, kSub / 16>(dk_acc, ml, q_s, h * kSub);
+      if constexpr (kDoDv) mma_regs_tile<T, D, kSub / 16>(dv_acc, pl, do_s, h * kSub);
+      if constexpr (kDoDk) mma_regs_tile<T, D, kSub / 16>(dk_acc, ml, q_s, h * kSub);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
+      if constexpr (kDoDv) fence_regs(dv_acc);
+      if constexpr (kDoDk) fence_regs(dk_acc);
     }
 
     stage = stage + 1 == kStages ? 0 : stage + 1;
@@ -312,8 +338,20 @@ __global__ void __launch_bounds__(kWgThreads)
   const float by_scale[2] = {scale, scale}, by_one[2] = {1.f, 1.f};
   const size_t out = head + (size_t)key0 * D;
   __syncthreads();  // every warp's MMAs have read the block's K and V tiles: reuse them as stages
-  store_rows<T, D>(dk_acc, by_scale, k_own, dk + out, warp, lane);
-  store_rows<T, D>(dv_acc, by_one, v_own, dv + out, warp, lane);
+  if constexpr (kDoDk) store_rows<T, D>(dk_acc, by_scale, k_own, dk + out, warp, lane);
+  if constexpr (kDoDv) store_rows<T, D>(dv_acc, by_one, v_own, dv + out, warp, lane);
+}
+
+template <typename T, int D, int kOut>
+cudaError_t launch_dkv(const T* q, const T* k, const T* v, const T* d_o, const float* linv, const float* dvec, T* dk,
+                       T* dv, dim3 grid, int n, float scale, float scale_log2, cudaStream_t stream) {
+  constexpr int smem = BwdConfig<D>::kDkvSmemBytes;
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<T, D, kOut>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_wgmma_kernel<T, D, kOut>
+      <<<grid, kWgThreads, smem, stream>>>(q, k, v, d_o, linv, dvec, dk, dv, n, scale, scale_log2);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -324,7 +362,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
   const T* do_ = static_cast<const T*>(d_o);
-  constexpr int smem1 = BwdConfig<D>::kDqSmemBytes, smem2 = BwdConfig<D>::kDkvSmemBytes;
+  constexpr int smem1 = BwdConfig<D>::kDqSmemBytes;
   float* dvec = scratch;                   // Dv, pass 1 -> pass 2
   float* linv = scratch + (size_t)bh * n;  // 1 / l, pass 1 -> pass 2
   const dim3 grid(n / kTileRows, bh);
@@ -336,11 +374,15 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
       q_, k_, v_, static_cast<const T*>(o), do_, l, static_cast<T*>(dq), dvec, linv, n, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_wgmma_kernel<T, D><<<grid, kWgThreads, smem2, stream>>>(
-      q_, k_, v_, do_, linv, dvec, static_cast<T*>(dk), static_cast<T*>(dv), n, scale, scale_log2);
-  return cudaGetLastError();
+  T* dk_ = static_cast<T*>(dk);
+  T* dv_ = static_cast<T*>(dv);
+  if constexpr (BwdConfig<D>::kSplitDkv) {
+    err = launch_dkv<T, D, 1>(q_, k_, v_, do_, linv, dvec, dk_, dv_, grid, n, scale, scale_log2, stream);
+    if (err != cudaSuccess) return err;
+    return launch_dkv<T, D, 2>(q_, k_, v_, do_, linv, dvec, dk_, dv_, grid, n, scale, scale_log2, stream);
+  } else {
+    return launch_dkv<T, D, 3>(q_, k_, v_, do_, linv, dvec, dk_, dv_, grid, n, scale, scale_log2, stream);
+  }
 }
 
 template <typename T>
@@ -352,6 +394,7 @@ cudaError_t dispatch_bwd(const void* q, const void* k, const void* v, const void
     case 32: return launch_bwd<T, 32>(q, k, v, o, d_o, l, dq, dk, dv, dvec, bh, n, scale, stream);
     case 64: return launch_bwd<T, 64>(q, k, v, o, d_o, l, dq, dk, dv, dvec, bh, n, scale, stream);
     case 128: return launch_bwd<T, 128>(q, k, v, o, d_o, l, dq, dk, dv, dvec, bh, n, scale, stream);
+    case 192: return launch_bwd<T, 192>(q, k, v, o, d_o, l, dq, dk, dv, dvec, bh, n, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -35,6 +35,9 @@
 // tensor's address, so it would be encoded on the host at every call of an
 // already host-bound path); and S_{j+1} is not kept in flight across
 // iterations (ptxas then serializes every wgmma, see flash_fwd_loop.cuh).
+// D = 192 (the 256 px UNet's 768-channel layers) is the same kernel on tiles
+// of three 64-column panels: 96 O accumulators a thread and 169 KB of shared
+// memory, so one block an SM; right first, its time is written down.
 // Left for later: 128-key tiles at D = 16/32 (half the per-tile overhead),
 // Q as a register operand (K4, probe_exp2_attn.cu, measures it together with
 // a scale folded into q: a gain at D = 64, a loss at D = 128), and strided
@@ -113,6 +116,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, flo
     case 32: return launch<T, 32>(q, k, v, o, l, bh, n, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, l, bh, n, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, l, bh, n, scale, stream);
+    case 192: return launch<T, 192>(q, k, v, o, l, bh, n, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

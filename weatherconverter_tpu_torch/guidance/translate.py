@@ -1,10 +1,11 @@
 """Guided weather translation (port of `sample_with_sgg` and
-`make_translate_fn` from weatherconverter_tpu/guidance/translate.py), for the
-global guidance style (GSG) and the unguided chain.
+`make_translate_fn` from weatherconverter_tpu/guidance/translate.py): the
+alternating LCG/GSG schedule, either operator alone, and the unguided chain.
 
 The JAX scan becomes a Python loop over i = num_steps-1 .. 0; per step the
 UNet's eps-prediction, the DDPM posterior and, when i != 0 and
-i % guidance_every == 0, the GSG update. Noise comes from a torch.Generator;
+i % guidance_every == 0, the guidance update (LCG on even i and GSG on odd i
+under 'alternate'). Noise comes from a torch.Generator;
 `noise=(noise0, z_steps)` replays given draws instead (the JAX key stream,
 split as translate.py:171-177, 185, 189), so a test can hold the port
 against the JAX chain step for step. The public layout is the JAX one:
@@ -25,7 +26,8 @@ from weatherconverter_tpu_torch.diffusion.schedule import (
     posterior_sigma,
     q_sample,
 )
-from weatherconverter_tpu_torch.guidance.sgg import apply_gsg
+from weatherconverter_tpu_torch.guidance.sgg import apply_gsg, apply_lcg, present_class_ids
+from weatherconverter_tpu_torch.ops.attention import check_flash_precision
 from weatherconverter_tpu_torch.ops.image import normalize
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -36,7 +38,7 @@ ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 SegFn = Callable[[torch.Tensor], torch.Tensor]
 SRFn = Callable[[torch.Tensor], torch.Tensor]
 
-_STYLES = ("gsg", "none")
+_STYLES = ("alternate", "gsg", "lcg", "none")
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -57,7 +59,9 @@ def sample_with_sgg(
     generator: Optional[torch.Generator] = None,
     lam: float = 60.0,
     num_steps: int = 500,
+    num_classes: int = 19,
     mode: str = "fixed",
+    lcg_class_chunk: int = 4,
     lcg_present_k: Optional[int] = None,
     start_t: Optional[int] = None,
     normalize_seg_input: bool = False,
@@ -72,9 +76,14 @@ def sample_with_sgg(
     -> the translated image upscaled, (B, HR, HR, 3) in [0, 1], or with
     `final_sr=False` the final latent (B, h, w, 3).
 
-    `guidance_style` 'gsg' guides every fired step, 'none' runs the plain
-    ancestral chain; 'alternate' and 'lcg' (and `lcg_present_k`,
-    `spatial_mesh`) are not ported yet and raise. `guidance_space` 'sr'
+    `guidance_style` 'alternate' guides a fired step with LCG when i is even
+    and with GSG when i is odd; 'gsg' and 'lcg' use that operator on every
+    fired step; 'none' runs the plain ancestral chain. LCG sweeps
+    `num_classes` classes, `lcg_class_chunk` masked copies of the batch a seg
+    call; `lcg_present_k` packs the sweep into that many per-image slots
+    holding the classes present in each image's gt (found once, before the
+    loop), the same result bit for bit when K covers them. `spatial_mesh` is
+    not ported yet and raises. `guidance_space` 'sr'
     differentiates the seg CE on the SRGAN upscale and pools the field back;
     'latent' differentiates it on (x_t + 1) / 2 against gt[:, ::pool, ::pool]
     with lam / pool^2. `mode` 'fixed' keeps the guided x_t; 'reference'
@@ -84,12 +93,7 @@ def sample_with_sgg(
     step s (i = num_steps - 1 - s).
     """
     if guidance_style not in _STYLES:
-        raise NotImplementedError(
-            f"guidance_style {guidance_style!r}: the port has {_STYLES} so far; LCG and the "
-            "alternate schedule are ROADMAP Queue 1 item 9"
-        )
-    if lcg_present_k is not None:
-        raise NotImplementedError("lcg_present_k: LCG is ROADMAP Queue 1 item 9")
+        raise ValueError(f"unknown guidance_style {guidance_style!r}")
     if spatial_mesh is not None:
         raise NotImplementedError("spatial_mesh: spatial sharding is ROADMAP Queue 1 item 17")
     if guidance_space not in ("sr", "latent"):
@@ -107,6 +111,7 @@ def sample_with_sgg(
         lam = lam / float(pool * pool)
     else:
         gt_guide = gt
+    lcg_class_ids = None if lcg_present_k is None else present_class_ids(gt_guide, lcg_present_k, num_classes)
 
     def draw(like: torch.Tensor) -> torch.Tensor:
         return torch.randn(like.shape, generator=generator, device=device, dtype=like.dtype)
@@ -128,9 +133,13 @@ def sample_with_sgg(
                 xt = mu + sigma
                 continue
             z = draw(xt) if noise is None else _nchw(noise[1][s]).to(device, torch.float32)
-            if guidance_style == "gsg" and i != 0 and i % guidance_every == 0:
+            if guidance_style != "none" and i != 0 and i % guidance_every == 0:
                 guide_in = (xt + 1.0) * 0.5 if guide_latent else sr_fn(xt)
-                xt = apply_gsg(seg_fn, mu, sigma, guide_in, gt_guide, lam, noise=z, mode=mode)
+                if guidance_style == "lcg" or (guidance_style == "alternate" and i % 2 == 0):
+                    xt = apply_lcg(seg_fn, mu, sigma, guide_in, gt_guide, lam, num_classes=num_classes, noise=z,
+                                   mode=mode, class_chunk=lcg_class_chunk, class_ids=lcg_class_ids)
+                else:
+                    xt = apply_gsg(seg_fn, mu, sigma, guide_in, gt_guide, lam, noise=z, mode=mode)
             else:
                 xt = mu + sigma * z if i > 0 else mu
         out = sr_fn(xt) if final_sr else xt
@@ -153,11 +162,16 @@ def make_translate_fn(
     (requires_grad False), so the guidance gradient is taken with respect to
     the image alone. `dtype` (e.g. torch.bfloat16) runs the models under
     autocast: parameters stay f32 and are cast at use; None runs them in
-    their own dtype.
+    their own dtype. A CUDA UNet with a flash-length attention layer that
+    would so run in f32 is refused here, by name (the kernels take bf16/f16).
     """
     for m in (diff_model, seg_model, sr_model):
         m.eval()
     seg_model.requires_grad_(False)
+    if hasattr(diff_model, "attention_shapes"):
+        param = next(diff_model.parameters())
+        check_flash_precision(param.device.type, param.dtype if dtype is None else dtype,
+                              diff_model.attention_shapes(diff_model.config.im_size), "make_translate_fn")
 
     def translate(input_128, gt, generator=None, noise=None):
         ctx = (torch.autocast(input_128.device.type, dtype=dtype) if dtype is not None

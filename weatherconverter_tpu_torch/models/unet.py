@@ -15,7 +15,32 @@ from torch import nn
 
 from weatherconverter_tpu_torch.core.config import UnetModelConfig
 from weatherconverter_tpu_torch.models.layers import GroupNormSiLU, ResnetTimeBlock
+from weatherconverter_tpu_torch.ops.attention import check_flash_precision
 from weatherconverter_tpu_torch.ops.time_embed import timestep_embedding
+
+
+def unet_attention_shapes(config: UnetModelConfig, height: int, width: int | None = None) -> list[tuple[int, int]]:
+    """(N, D) of every self-attention layer of the UNet that `config`
+    describes, for an input of (height, width) pixels, in forward order: N
+    tokens of head dim D = channels / num_heads. A level attends by the
+    config's rule (`im_size // 2**i` in `attn_resolutions`), at the size the
+    input really has there."""
+    cfg, heads = config, config.num_heads
+    dc, mc, ds = list(cfg.down_channels), list(cfg.mid_channels), list(cfg.down_sample)
+    size = (height, height if width is None else width)
+    sizes, shapes = [], []
+    for i in range(len(dc) - 1):
+        sizes.append(size)
+        if (cfg.im_size // 2**i) in cfg.attn_resolutions:
+            shapes += [(size[0] * size[1], dc[i + 1] // heads)] * cfg.num_down_layers
+        if ds[i]:
+            size = (size[0] // 2, size[1] // 2)
+    for i in range(len(mc) - 1):
+        shapes += [(size[0] * size[1], mc[i + 1] // heads)] * cfg.num_mid_layers
+    for i in reversed(range(len(dc) - 1)):
+        if (cfg.im_size // 2**i) in cfg.attn_resolutions:
+            shapes += [(sizes[i][0] * sizes[i][1], (dc[i - 1] if i else dc[0]) // heads)] * cfg.num_up_layers
+    return shapes
 
 
 class DownBlock(ResnetTimeBlock):
@@ -102,8 +127,16 @@ class Unet(nn.Module):
         self.norm_out = GroupNormSiLU(dc[0])
         self.conv_out = nn.Conv2d(dc[0], cfg.im_channels, 3, padding=1)
 
+    def attention_shapes(self, height: int, width: int | None = None) -> list[tuple[int, int]]:
+        return unet_attention_shapes(self.config, height, width)
+
     def forward(self, x: torch.Tensor, t) -> torch.Tensor:
-        """x (B, C, H, W), t (B,) or scalar int timesteps -> eps (B, C, H, W) f32."""
+        """x (B, C, H, W), t (B,) or scalar int timesteps -> eps (B, C, H, W) f32.
+        On CUDA a model with a flash-length attention layer must compute in
+        bf16/f16 (autocast, or 16-bit parameters): f32 is refused here by name."""
+        dev = x.device.type
+        dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else self.conv_in.weight.dtype
+        check_flash_precision(dev, dtype, self.attention_shapes(*x.shape[2:]), "Unet.forward")
         t = torch.as_tensor(t, device=x.device).reshape(-1).expand(x.shape[0])
         t_emb = self.t_proj(timestep_embedding(t, self.config.time_emb_dim))
         out = self.conv_in(x)

@@ -41,9 +41,35 @@ _CLAMP = 60.0
 # (the JAX dispatch, attention.py:784-809).
 FLASH_MIN_SEQ = 1024
 
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 192)  # K1 and K3
+QK_I8_HEAD_DIMS = (16, 32, 64, 128)  # K2
 KERNEL_BLOCK = 64  # N must be a multiple of the kernels' query/key tile
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def is_flash_length(n: int) -> bool:
+    """Whether `multi_head_attention` sends N tokens to the flash kernels."""
+    return n >= FLASH_MIN_SEQ and n % 128 == 0
+
+
+def check_flash_precision(device_type: str, dtype: torch.dtype, attn_shapes, where: str) -> None:
+    """Refuse, where the user chose the dtype, a CUDA model that would reach a
+    flash-length attention layer in a dtype the kernels do not take.
+    `attn_shapes` is the model's (N, D) list, `dtype` what its attention
+    layers compute in (the autocast dtype, else the parameters'). The JAX
+    kernels take f32 and K1/K3 have no f32 instantiation yet, so nothing is
+    cast silently: the caller picks bf16. The CPU runs any dtype (plain
+    versions), and so does a CUDA model with no flash-length layer (plain
+    softmax attention)."""
+    if device_type != "cuda" or dtype in KERNEL_DTYPES:
+        return
+    flash = sorted({(n, d) for n, d in attn_shapes if is_flash_length(n)})
+    if flash:
+        raise ValueError(
+            f"{where}: this model attends at flash length, (N, D) = {flash}, and on CUDA the flash-attention "
+            f"kernels take bfloat16/float16, not {dtype}. Run it under autocast: "
+            f'make_translate_fn(..., dtype=torch.bfloat16), training.dtype="bfloat16", or '
+            f'torch.autocast("cuda", dtype=torch.bfloat16) around the call; float32 runs on the CPU')
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -107,15 +133,19 @@ def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Te
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q, k, v must be on one device")
-    b, h, n, d = q.shape
+    check_kernel_shape(name, *q.shape)
+    if v.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: dtype {v.dtype} not in {KERNEL_DTYPES}")
+
+
+def check_kernel_shape(name: str, b: int, h: int, n: int, d: int) -> None:
+    """The (B, H, N, D) the flash kernels K1 and K3 take; raises on another."""
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {KERNEL_HEAD_DIMS}")
     if n % KERNEL_BLOCK != 0:
         raise ValueError(f"{name}: N={n} is not a multiple of {KERNEL_BLOCK}")
     if b * h > 65535:
         raise ValueError(f"{name}: B*H={b * h} exceeds the grid's 65535")
-    if v.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"{name}: dtype {v.dtype} not in {KERNEL_DTYPES}")
 
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
@@ -125,7 +155,7 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_l: bool = False):
     """K1, (B, H, N, D) -> O in q's dtype (and l, (B, H, N, 1) f32, with
     `return_l`). A CPU tensor takes `flash_attention_plain`; a CUDA tensor
-    launches the kernel (bf16/f16, D in {16, 32, 64, 128}, N % 64 == 0) or
+    launches the kernel (bf16/f16, D in KERNEL_HEAD_DIMS, N % 64 == 0) or
     raises. Inputs that require grad (under grad mode) go through
     `FlashAttentionFunction`, so the backward is K3."""
     if _wants_grad(q, k, v):
@@ -324,7 +354,14 @@ def flash_attention_qk_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     if q.device.type == "cpu":
         return flash_attention_qk_i8_plain(q, k, v)
     check_kernel_inputs("flash_attention_qk_i8", q, k, v)
+    _check_qk_i8_head_dim(q.shape[-1])
     return flash_qk_i8_forward(*quantize_qk_i8(q, k), v)
+
+
+def _check_qk_i8_head_dim(d: int) -> None:
+    if d not in QK_I8_HEAD_DIMS:
+        raise ValueError(f"flash_attention_qk_i8: head dim {d} not in {QK_I8_HEAD_DIMS}: the int8 forward has no "
+                         f"such instantiation; use flash_attention (qk_int8=False), which takes {KERNEL_HEAD_DIMS}")
 
 
 def flash_qk_i8_forward(q8: torch.Tensor, k8: torch.Tensor, qk_scale: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -333,6 +370,7 @@ def flash_qk_i8_forward(q8: torch.Tensor, k8: torch.Tensor, qk_scale: torch.Tens
     only). It counts as one launch of `flash_attention_qk_i8`."""
     check_kernel_inputs("flash_qk_i8_forward", v, v, v)
     b, h, n, d = v.shape
+    _check_qk_i8_head_dim(d)
     if not (q8.is_contiguous() and k8.is_contiguous() and q8.dtype == k8.dtype == torch.int8
             and q8.shape == k8.shape == v.shape and qk_scale.dtype == torch.float32
             and q8.device == k8.device == qk_scale.device == v.device):
@@ -362,8 +400,7 @@ def multi_head_attention(
     for N < FLASH_MIN_SEQ or N % 128 != 0, else the clamped-softmax flash
     forward, with the int8-QK^T variant when `qk_int8` (forward only: it
     raises for inputs that require grad)."""
-    n = q.shape[2]
-    if n % 128 != 0 or n < FLASH_MIN_SEQ:
+    if not is_flash_length(q.shape[2]):
         return attention_reference(q, k, v)
     if qk_int8:
         return flash_attention_qk_i8(q, k, v)

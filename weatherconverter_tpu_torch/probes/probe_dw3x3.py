@@ -1,8 +1,10 @@
 """H100 micro-probe K6: a 3x3 depthwise conv, NHWC, against the SRGAN
 residual block's cuDNN depthwise conv (port of scripts/probe_dw3x3.py).
 
-`dw3x3` is the kernel (csrc/probe_dw3x3.cu); a CPU tensor takes
-`dw3x3_plain`. The probe runs it at the residual blocks' (8, 128, 128, 64)
+`dw3x3` is the kernel (csrc/probe_dw3x3.cu: a 16 x 32 pixel tile with its
+halo staged in shared memory, the taps in registers, a thread walking down
+the tile's rows); a CPU tensor takes `dw3x3_plain`. The probe runs it at
+the residual blocks' (8, 128, 128, 64)
 bf16 against what the port's SRGAN runs for the same layer, the depthwise
 `nn.Conv2d(64, 64, 3, padding=1, groups=64, bias=False)` of
 `models/srgan.ConvBlock` on cuDNN, in NCHW (the SRGAN's layout) and in
@@ -11,8 +13,8 @@ NCHW -> NHWC -> NCHW transposes the SRGAN would need around it.
 
     python -m weatherconverter_tpu_torch.probes.probe_dw3x3     # on a machine with a CUDA card
 
-The script padded W to 136 for the TPU's sublane tiling; the kernel masks
-the edge itself, so the port pads nothing.
+The script padded W to 136 for the TPU's sublane tiling; the kernel's copies
+fill zeros where the halo leaves the image, so the port pads nothing.
 """
 
 from __future__ import annotations
@@ -135,7 +137,9 @@ def run(device, card: str) -> dict:
         ("cuDNN grouped dw3x3 (NCHW, the SRGAN's layer)", _rotating(conv, xs_nchw)),
         ("cuDNN grouped dw3x3 (channels-last)", _rotating(conv, xs_cl)),
     )
-    times = {name: common.time_ms(fn, reps=15, inner=ROTATE * 5) for name, fn in cases}
+    # ROTATE calls a sample: their wrappers' host time (some 40 us a call) stays under the ~0.3 ms that
+    # the device spins before a sample, so a kernel shorter than its wrapper still reads its device time
+    times = {name: common.time_ms(fn, reps=25, inner=ROTATE) for name, fn in cases}
     plain = common.time_ms(lambda: dw3x3_plain(x, k), reps=3, warmup=1)
     for name, ms in times.items():
         common.log(f"{name}: {ms:.4f} ms/iter")
@@ -144,12 +148,15 @@ def run(device, card: str) -> dict:
     peak = common.peaks(card)
     floor = "not known for this card" if peak is None else f"{nbytes / peak['hbm'] * 1e3:.4f} ms"
     kernel = times["CUDA dw3x3 (NHWC)"]
+    library = times["cuDNN grouped dw3x3 (channels-last)"]
     common.log(f"floor: {nbytes / 1e6:.1f} MB read and written, {9 * x.numel() / 1e6:.1f} M FMA; at the card's "
-               f"published bandwidth {floor}; kernel {nbytes / (kernel * 1e-3) / 1e12:.2f} TB/s [{card}]")
+               f"published bandwidth {floor}; kernel {nbytes / (kernel * 1e-3) / 1e12:.2f} TB/s, "
+               f"{kernel / library:.2f}x the time of cuDNN's channels-last conv ({nbytes / (library * 1e-3) / 1e12:.2f} "
+               f"TB/s) [{card}]")
     # the one library call on the same NHWC memory is cuDNN's channels-last conv
     return dict(ms=kernel, plain_ms=plain, cudnn_ms=times["cuDNN grouped dw3x3 (NCHW, the SRGAN's layer)"],
                 cudnn_cl_ms=times["cuDNN grouped dw3x3 (channels-last)"],
-                library_ms=times["cuDNN grouped dw3x3 (channels-last)"],
+                library_ms=library,
                 **common.roofline(peak, nbytes, f32=2 * 9 * x.numel()),
                 transposed_ms=times["CUDA dw3x3 with NCHW<->NHWC transposes"])
 

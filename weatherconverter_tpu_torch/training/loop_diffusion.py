@@ -7,8 +7,9 @@ batches; the random crop, flip and [-1, 1] scaling run on the device inside
 the train step. One device: the CUDA card (`training.device="auto"`, the
 default, which raises when there is none) or the device the config names;
 the CPU only on request (`training.device="cpu"`). On CUDA the step runs
-under bf16 autocast when `training.dtype` is "bfloat16"; on the CPU it runs
-in f32, as the JAX loop does off the TPU.
+under bf16 autocast when `training.dtype` is "bfloat16"; another dtype is
+refused there if the UNet has a flash-length attention layer (the kernels
+take bf16/f16). On the CPU it runs in f32, as the JAX loop does off the TPU.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from weatherconverter_tpu_torch.core.preempt import PreemptionGuard, preempt_sav
 from weatherconverter_tpu_torch.core.rng import run_key, split_named
 from weatherconverter_tpu_torch.data.transforms import diffusion_train_augment
 from weatherconverter_tpu_torch.diffusion.schedule import make_schedule
-from weatherconverter_tpu_torch.models.unet import Unet
+from weatherconverter_tpu_torch.models.unet import Unet, unet_attention_shapes
+from weatherconverter_tpu_torch.ops.attention import check_flash_precision
 from weatherconverter_tpu_torch.training.diffusion import DDPMTrainState, create_ddpm_state, make_train_step
 
 
@@ -77,6 +79,10 @@ def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -
     if tr.fsdp:
         raise NotImplementedError("FSDP training is ROADMAP Queue 1 item 17, not ported yet")
     device = _device(tr.device)
+    dtype = torch.bfloat16 if tr.dtype == "bfloat16" else None
+    # parameters are f32 (param_dtype); without autocast the attention layers compute in f32
+    check_flash_precision(device.type, torch.float32 if dtype is None else dtype,
+                          unet_attention_shapes(cfg.model, cfg.model.im_size), f"train (training.dtype={tr.dtype!r})")
     keys = split_named(run_key(tr.random_seed), "init", "train", device=device)
 
     ds = dataset if dataset is not None else build_dataset(cfg)
@@ -104,7 +110,6 @@ def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -
         ds, batch_size=tr.batch_size, shuffle=True, drop_last=True, num_workers=tr.num_workers,
         generator=torch.Generator().manual_seed(tr.random_seed), pin_memory=device.type == "cuda",
     )
-    dtype = torch.bfloat16 if tr.dtype == "bfloat16" else None
     step_fn = make_augmented_train_step(sched, cfg.model.im_size, accum_steps=tr.accum_steps, dtype=dtype)
 
     global_step = state.step
