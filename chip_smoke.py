@@ -48,7 +48,21 @@ Phases, each of which fails the run (exit code != 0, no result line):
      bf16 QK^T, K6 the 3x3 depthwise conv, K5 the 81-FMA depthwise floor)
      against its plain version at the probe's full shapes, then run the
      probe (its comparison lines, CUDA-event times), whose launches of the
-     kernel are counted.
+     kernel are counted;
+ 10. run the samplers at full width with phase 3's models, each with K1 and
+     again with qk_int8 (K2 and its quantizer): ddpm_sample strided to 20 of
+     1000 steps (throughput extrapolated to 1000), and the fast guided
+     translations as the JAX bench runs them (GSG, lam 60, span 500),
+     sample_with_sgg_ddim at 50 steps and sample_with_sgg_dpm at 20 (measured
+     whole); each timed, profiled, its peak memory read, its kernels counted
+     (8 launches a UNet forward) and its output checked (finite, (8, 128,
+     128, 3) samples; (8, 256, 256, 3) translations in [0, 1]);
+ 11. hold 3-step DDIM and DPM guided chains at batch 1 on the card (bf16,
+     kernels) against the CPU (f32, plain versions), same weights and draws;
+ 12. the int8 quality check (probes/int8_quality.py) at the fast samplers:
+     K2 against K1 through the DPM chain at 20 steps and the DDIM chain at 50,
+     batch 8, against a chaos floor of 5 perturbed runs, and two identical
+     K1 runs; its verdict is printed, not gated.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors, times, bounds
 and library times.
@@ -99,6 +113,11 @@ REPEATS = 3
 # training: steps through loop_diffusion.train (one epoch, one checkpoint),
 # then WINDOWS timed windows of WINDOW_STEPS steps on one fixed batch
 TRAIN_STEPS, WINDOWS, WINDOW_STEPS = 24, 3, 20
+# phase 10: ddpm_sample's strided run, and the fast guided translations as the JAX bench runs them
+# (bench.py:403-412: GSG, lam 60, the default span; DDIM at eta 0); profiled runs take PROFILE_STEPS steps
+SAMPLE_STEPS, DDIM_STEPS, DPM_STEPS, PROFILE_STEPS = 20, 50, 20, 10
+FAST_GUIDED = dict(lam=60.0, num_classes=19, guidance_style="gsg")
+INT8_FLOOR_SEEDS = 5
 HEADLINE = dict(guidance_every=2, guidance_space="latent", lam=120.0)
 REFERENCE_EXACT = dict(guidance_every=1, guidance_space="sr", lam=60.0)
 # the alternate schedule in its exact-semantics setting, and with the class sweep packed into 8 slots an image
@@ -714,6 +733,147 @@ def phase_probes(torch, device, card):
     return results
 
 
+def _device_profile(torch, fn, steps: int):
+    """(wall ms, kernel ms, kernel launches) of one run of `fn` under the
+    profiler, device activity only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == cuda and getattr(e, "device_time_total", 0) > 0]
+    return wall_ms, sum(e.device_time_total for e in events) / 1e3, sum(e.count for e in events)
+
+
+def phase_samplers(torch, A, device, models, card):
+    """ddpm_sample, sample_with_sgg_ddim and sample_with_sgg_dpm at batch 8,
+    each through K1 and through K2 with its quantizer: warm-up, then REPEATS
+    rounds timing each in turn (host clock, ending in a synchronize), the
+    kernels counted in every run, peak memory per run; then one profiled run
+    of PROFILE_STEPS steps each for device time, idle share and launches."""
+    from weatherconverter_tpu_torch.core.config import UnetModelConfig
+    from weatherconverter_tpu_torch.diffusion.sampling import ddpm_sample
+    from weatherconverter_tpu_torch.diffusion.schedule import linear_schedule
+    from weatherconverter_tpu_torch.guidance.translate import sample_with_sgg_ddim, sample_with_sgg_dpm
+    from weatherconverter_tpu_torch.models.unet import Unet
+
+    unet, seg, gen = (m.to(device).eval() for m in models)
+    seg.requires_grad_(False)
+    unet_i8 = Unet(UnetModelConfig(), qk_int8=True).to(device).eval()
+    unet_i8.load_state_dict(unet.state_dict())
+    sched = linear_schedule(1000, device=device)
+    g = torch.Generator(device=device).manual_seed(21)
+    inp = torch.randn((BATCH, 128, 128, 3), generator=g, device=device) * 0.2
+    gt = torch.randint(0, 19, (BATCH, 256, 256), generator=g, device=device)
+
+    def runner(kind, model, steps):
+        if kind == "sample":
+            return lambda gen_: ddpm_sample(model, sched, (BATCH, 128, 128, 3), gen_, num_steps=steps)
+        chain = sample_with_sgg_ddim if kind == "ddim" else sample_with_sgg_dpm
+        return lambda gen_: chain(model, sched, seg, gen, inp, gt, gen_, num_steps=steps, **FAST_GUIDED)
+
+    paths = {}
+    for kind, steps in (("sample", SAMPLE_STEPS), ("ddim", DDIM_STEPS), ("dpm", DPM_STEPS)):
+        for int8, model in ((False, unet), (True, unet_i8)):
+            calls = FLASH_CALLS_PER_UNET * steps
+            paths[f"{kind}{'' if kind == 'sample' else steps}{'_qk_int8' if int8 else ''}"] = dict(
+                kind=kind, model=model, steps=steps, run=runner(kind, model, steps), times=[], peak=0.0,
+                expected=(0, calls, calls) if int8 else (calls, 0, 0))
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        for p in paths.values():  # warm-up: cuDNN picks its algorithms
+            p["run"](torch.Generator(device=device).manual_seed(29))
+        torch.cuda.synchronize()
+        for rep in range(REPEATS):
+            for name, p in paths.items():
+                A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = p["run"](torch.Generator(device=device).manual_seed(30 + rep))
+                torch.cuda.synchronize()
+                p["times"].append((time.perf_counter() - t0) * 1e3)
+                p["peak"] = max(p["peak"], torch.cuda.max_memory_allocated() / 2**30)
+                p["launches"] = (A.flash_attention.launches, A.flash_attention_qk_i8.launches,
+                                 A.quantize_qk_i8.launches)
+                if p["launches"] != p["expected"]:
+                    raise AssertionError(f"{name}: kernel launches (K1, K2, quantizer) = {p['launches']}, expected "
+                                         f"{p['expected']} ({FLASH_CALLS_PER_UNET} a UNet forward)")
+                shape = (BATCH, 128, 128, 3) if p["kind"] == "sample" else (BATCH, 256, 256, 3)
+                if tuple(out.shape) != shape or not torch.isfinite(out).all().item():
+                    raise AssertionError(f"{name}: output {tuple(out.shape)}, expected {shape}, or not finite")
+                if p["kind"] != "sample" and not (out.min().item() >= 0.0 and out.max().item() <= 1.0):
+                    raise AssertionError(f"{name}: translation outside [0, 1]")
+        for name, p in paths.items():
+            short = runner(p["kind"], p["model"], PROFILE_STEPS)
+            p["profile"] = _device_profile(torch, lambda: short(torch.Generator(device=device).manual_seed(40)),
+                                           PROFILE_STEPS)
+    for name, p in paths.items():
+        run_ms = statistics.median(p["times"])
+        ms_step = run_ms / p["steps"]
+        if p["kind"] == "sample":
+            metric = (f"unconditional_128px_1000step_samples_per_min_per_chip {60.0 * BATCH / ms_step:.3f} "
+                      f"(extrapolated from ms/step: a step costs the same at any stride)")
+        else:
+            tag = "ddim" if p["kind"] == "ddim" else "dpm2m"
+            metric = (f"guided_256px_{p['steps']}step_{tag}_translations_per_min_per_chip "
+                      f"{60e3 * BATCH / run_ms:.3f} (measured, whole runs)")
+        wall, kernel, count = p["profile"]
+        log(f"  {name}: {ms_step:.2f} ms/step wall (median of {REPEATS} runs of {p['steps']} steps: "
+            f"{', '.join(f'{t / p['steps']:.2f}' for t in p['times'])}); {metric} [{card}]; profiled "
+            f"{PROFILE_STEPS}-step run: device {kernel / PROFILE_STEPS:.2f} ms/step, wall {wall / PROFILE_STEPS:.2f} "
+            f"ms/step under the profiler, idle share ~{max(0.0, 1 - kernel / wall):.2f}, {count / PROFILE_STEPS:.0f} "
+            f"launches a step; K1/K2/quantizer launches a run {'/'.join(map(str, p['launches']))} "
+            f"({FLASH_CALLS_PER_UNET} a UNet forward); peak device memory {p['peak']:.2f} GiB")
+    return (unet, unet_i8, seg, gen, sched, inp, gt)
+
+
+def phase_fast_reference(torch, device, state):
+    """3-step DDIM and DPM guided chains at batch 1 ('sr' guidance, GSG, lam
+    60): card (bf16 autocast, kernels) against CPU (f32, plain versions),
+    the same weights and draws."""
+    import copy
+
+    from weatherconverter_tpu_torch.diffusion.schedule import linear_schedule
+    from weatherconverter_tpu_torch.guidance.translate import sample_with_sgg_ddim, sample_with_sgg_dpm
+
+    unet, _, seg, gen, sched, inp, gt = state
+    unet_c, seg_c, gen_c = (copy.deepcopy(m).to("cpu") for m in (unet, seg, gen))
+    g = torch.Generator().manual_seed(24)
+    n0, zs = torch.randn(1, 128, 128, 3, generator=g), torch.randn(REF_STEPS, 1, 128, 128, 3, generator=g)
+    for name, chain, noise in (("ddim", sample_with_sgg_ddim, (n0, zs)), ("dpm", sample_with_sgg_dpm, n0)):
+        kw = dict(num_steps=REF_STEPS, **FAST_GUIDED)
+        on_card = noise.to(device) if name == "dpm" else tuple(n.to(device) for n in noise)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            card = chain(unet, sched, seg, gen, inp[:1], gt[:1], noise=on_card, **kw).cpu()
+        t0 = time.perf_counter()
+        host = chain(unet_c, linear_schedule(1000), seg_c, gen_c, inp[:1].cpu(), gt[:1].cpu(), noise=noise, **kw)
+        rel = ((card - host).norm() / host.norm()).item()
+        log(f"  card bf16 vs CPU f32, {REF_STEPS}-step guided {name} chain at batch 1: relative L2 error {rel:.3e} "
+            f"(tol {CHAIN_REL_TOL}); max abs {(card - host).abs().max().item():.3e}; CPU run "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not rel <= CHAIN_REL_TOL:
+            raise AssertionError(f"card and CPU {name} chains disagree: relative L2 error {rel}")
+
+
+def phase_int8_quality(torch, state, card):
+    """probes/int8_quality at the fast samplers, on phase 10's models and
+    inputs: DPM at 20 steps, DDIM at 50. Fails on a non-finite or misshapen
+    output or a launch-count mismatch, never on the verdict."""
+    from weatherconverter_tpu_torch.probes import int8_quality
+
+    unet, unet_i8, seg, gen, sched, inp, gt = state
+    for sampler, steps in (("dpm", DPM_STEPS), ("ddim", DDIM_STEPS)):
+        t0 = time.perf_counter()
+        artifact, outs = int8_quality.run((unet, unet_i8, seg, gen), sched, inp, gt, sampler, steps, INT8_FLOOR_SEEDS,
+                                          torch.bfloat16, card)
+        int8_quality.check_launches(outs, steps)
+        int8_quality.report(artifact, log)
+        log(f"  {len(outs)} chains in {time.perf_counter() - t0:.1f} s; wrote {int8_quality.save(artifact)}")
+
+
 def _round(x):
     return None if x is None else round(x, 4)
 
@@ -818,6 +978,19 @@ def main() -> int:
 
     log(f"phase 9: the H100 micro-probes K4-K7 [{card}]")
     probes = phase_probes(torch, device, card)
+    train_launches = train_state[0]
+    del train_state
+    torch.cuda.empty_cache()
+
+    log(f"phase 10: the samplers at full width [{card}]")
+    sampler_state = phase_samplers(torch, A, device, build_models(torch), card)
+
+    log("phase 11: fast guided chains, card against CPU")
+    phase_fast_reference(torch, device, sampler_state)
+
+    log(f"phase 12: int8 quality at the fast samplers [{card}]")
+    phase_int8_quality(torch, sampler_state, card)
+    del sampler_state
 
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []
@@ -830,7 +1003,7 @@ def main() -> int:
          "weatherconverter_tpu/ops/attention.py:173-189 (plain jnp that XLA fused there, no Pallas kernel)",
          launches["headline_qk_int8"][2]),
         ("flash_attention_bwd", csrc + "flash_bwd.cu", "weatherconverter_tpu/ops/attention.py:305",
-         train_state[0][2]),
+         train_launches[2]),
     ):
         r = kernel_results[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -855,7 +1028,8 @@ def main() -> int:
         "includes its quantizer's; launches are from "
         "the headline run (K1), the int8 run (K2, quantizer) and the loop_diffusion.train run (K3); for the probes K4-K7 "
         "they are from phase 9's probe runs (K4: sums over D=64 and D=16, library the same sdpa forward; "
-        "qk_dot: int8 plus bf16, k_bf16 at scripts/probe_int8_dot.py:34; dw3x3: library cuDNN's channels-last "
+        "qk_dot: int8 plus bf16, k_bf16 at scripts/probe_int8_dot.py:34, library torch._int_mm plus "
+        "torch.mm(out_dtype=torch.float32), null if this torch lacks the latter; dw3x3: library cuDNN's channels-last "
         "depthwise conv; null where no single PyTorch call computes the function). bound_ms is the larger of "
         "bytes over 3.35 TB/s and operations over the peak of their type (989 TFLOP/s bf16, 1979 TOP/s int8, "
         "67 TFLOP/s f32, 3.86e12 exponentials/s)")

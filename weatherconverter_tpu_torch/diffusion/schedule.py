@@ -127,3 +127,17 @@ def posterior_sigma(sched: NoiseSchedule, t, mode: VarianceMode = "posterior") -
         var = (1.0 - prev) / (1.0 - sched.alpha_cum_prod[t]) * sched.betas[t]
         var = torch.where(t > 0, var, torch.zeros_like(var))
     return torch.sqrt(var)
+
+
+def ddpm_step(
+    sched: NoiseSchedule, xt: torch.Tensor, eps: torch.Tensor, t, noise: torch.Tensor, mode: VarianceMode = "posterior"
+) -> torch.Tensor:
+    """One ancestral reverse step: x_{t-1} = mu + sigma * z, with z suppressed
+    where t == 0. `t` a Python int (the sampling loop's case) or (B,)."""
+    mean = posterior_mean(sched, xt, eps, t)
+    sigma = posterior_sigma(sched, t, mode)
+    if isinstance(t, int):
+        return mean + sigma * noise if t > 0 else mean
+    t = torch.as_tensor(t, device=xt.device)
+    shape = t.shape + (1,) * (xt.dim() - t.dim())
+    return mean + torch.where(t.reshape(shape) > 0, sigma.reshape(shape) * noise, torch.zeros_like(noise))

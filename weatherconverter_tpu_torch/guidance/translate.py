@@ -1,6 +1,8 @@
-"""Guided weather translation (port of `sample_with_sgg` and
-`make_translate_fn` from weatherconverter_tpu/guidance/translate.py): the
-alternating LCG/GSG schedule, either operator alone, and the unguided chain.
+"""Guided weather translation (port of weatherconverter_tpu/guidance/translate.py):
+`sample_with_sgg` and `make_translate_fn` on the DDPM chain, with the
+alternating LCG/GSG schedule, either operator alone, and the unguided chain;
+the fast translations `sample_with_sgg_ddim` and `sample_with_sgg_dpm` on a
+strided DDIM or DPM-Solver++(2M) subsequence.
 
 The JAX scan becomes a Python loop over i = num_steps-1 .. 0; per step the
 UNet's eps-prediction, the DDPM posterior and, when i != 0 and
@@ -20,10 +22,20 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from weatherconverter_tpu_torch.diffusion.sampling import (
+    acp_prev,
+    dpm_2m_update,
+    draw_or_replay,
+    nchw,
+    nhwc,
+    step_noise,
+    strided_taus,
+)
 from weatherconverter_tpu_torch.diffusion.schedule import (
     NoiseSchedule,
     posterior_mean,
     posterior_sigma,
+    predict_x0,
     q_sample,
 )
 from weatherconverter_tpu_torch.guidance.sgg import apply_gsg, apply_lcg, present_class_ids
@@ -33,6 +45,11 @@ from weatherconverter_tpu_torch.ops.image import normalize
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
+# The diffusion span the fast translations noise within by default, min(500, T):
+# the original code's N = 500. Noising to T - 1 would leave almost nothing of the
+# input, and the chain would generate from the labels rather than translate.
+DEFAULT_TRANSLATE_SPAN = 500
+
 # (x_t NCHW, t (B,)) -> eps; NCHW image -> NCHW logits; NCHW latent -> NCHW upscale
 ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 SegFn = Callable[[torch.Tensor], torch.Tensor]
@@ -41,12 +58,27 @@ SRFn = Callable[[torch.Tensor], torch.Tensor]
 _STYLES = ("alternate", "gsg", "lcg", "none")
 
 
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)
+def _guidance(seg_fn: SegFn, gt: torch.Tensor, lam: float, *, guidance_style: str, mode: str, num_classes: int,
+              lcg_class_chunk: int, lcg_present_k: Optional[int], normalize_seg_input: bool):
+    """The guided update of a chain step, shared by the three chains:
+    guide(i, mean, scale, guide_in, z, noise_scale=None) applies LCG where
+    the style is 'lcg', or 'alternate' and i is even, and GSG otherwise.
+    Checks the style and finds the present classes (once: gt is fixed for
+    the chain)."""
+    if guidance_style not in _STYLES:
+        raise ValueError(f"unknown guidance_style {guidance_style!r}")
+    if normalize_seg_input:
+        raw_seg_fn = seg_fn
+        seg_fn = lambda x: raw_seg_fn(normalize(x, IMAGENET_MEAN, IMAGENET_STD))  # noqa: E731
+    class_ids = None if lcg_present_k is None else present_class_ids(gt, lcg_present_k, num_classes)
 
+    def guide(i, mean, scale, guide_in, z, noise_scale=None):
+        if guidance_style == "lcg" or (guidance_style == "alternate" and i % 2 == 0):
+            return apply_lcg(seg_fn, mean, scale, guide_in, gt, lam, num_classes=num_classes, noise=z, mode=mode,
+                             class_chunk=lcg_class_chunk, noise_scale=noise_scale, class_ids=class_ids)
+        return apply_gsg(seg_fn, mean, scale, guide_in, gt, lam, noise=z, mode=mode, noise_scale=noise_scale)
 
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1)
+    return guide
 
 
 def sample_with_sgg(
@@ -92,36 +124,27 @@ def sample_with_sgg(
     the generator's draws: noise0 for the forward q-sample, z_steps[s] for
     step s (i = num_steps - 1 - s).
     """
-    if guidance_style not in _STYLES:
-        raise ValueError(f"unknown guidance_style {guidance_style!r}")
     if spatial_mesh is not None:
         raise NotImplementedError("spatial_mesh: spatial sharding is ROADMAP Queue 1 item 17")
     if guidance_space not in ("sr", "latent"):
         raise ValueError(f"unknown guidance_space {guidance_space!r}")
-    if normalize_seg_input:
-        raw_seg_fn = seg_fn
-        seg_fn = lambda x: raw_seg_fn(normalize(x, IMAGENET_MEAN, IMAGENET_STD))  # noqa: E731
 
-    x_in = _nchw(input_128).float()
+    x_in = nchw(input_128).float()
     b, device = x_in.shape[0], x_in.device
     guide_latent = guidance_space == "latent"
     if guide_latent:
         pool = gt.shape[1] // x_in.shape[2]
-        gt_guide = gt[:, ::pool, ::pool] if pool > 1 else gt
+        gt = gt[:, ::pool, ::pool] if pool > 1 else gt
         lam = lam / float(pool * pool)
-    else:
-        gt_guide = gt
-    lcg_class_ids = None if lcg_present_k is None else present_class_ids(gt_guide, lcg_present_k, num_classes)
-
-    def draw(like: torch.Tensor) -> torch.Tensor:
-        return torch.randn(like.shape, generator=generator, device=device, dtype=like.dtype)
+    guide = _guidance(seg_fn, gt, lam, guidance_style=guidance_style, mode=mode, num_classes=num_classes,
+                      lcg_class_chunk=lcg_class_chunk, lcg_present_k=lcg_present_k,
+                      normalize_seg_input=normalize_seg_input)
 
     if start_t is None:
         t0 = torch.randint(0, num_steps, (b,), generator=generator, device=device)
     else:
         t0 = torch.full((b,), start_t, dtype=torch.long, device=device)
-    noise0 = draw(x_in) if noise is None else _nchw(noise[0]).to(device, torch.float32)
-    xt = q_sample(sched, x_in, noise0, t0)
+    xt = q_sample(sched, x_in, draw_or_replay(generator, x_in, None if noise is None else noise[0]), t0)
 
     with torch.no_grad():
         for s, i in enumerate(range(num_steps - 1, -1, -1)):
@@ -132,18 +155,127 @@ def sample_with_sgg(
                 # the guided x_t is discarded: the original code overwrites it
                 xt = mu + sigma
                 continue
-            z = draw(xt) if noise is None else _nchw(noise[1][s]).to(device, torch.float32)
+            z = step_noise(generator, xt, noise, s)
             if guidance_style != "none" and i != 0 and i % guidance_every == 0:
-                guide_in = (xt + 1.0) * 0.5 if guide_latent else sr_fn(xt)
-                if guidance_style == "lcg" or (guidance_style == "alternate" and i % 2 == 0):
-                    xt = apply_lcg(seg_fn, mu, sigma, guide_in, gt_guide, lam, num_classes=num_classes, noise=z,
-                                   mode=mode, class_chunk=lcg_class_chunk, class_ids=lcg_class_ids)
-                else:
-                    xt = apply_gsg(seg_fn, mu, sigma, guide_in, gt_guide, lam, noise=z, mode=mode)
+                xt = guide(i, mu, sigma, (xt + 1.0) * 0.5 if guide_latent else sr_fn(xt), z)
             else:
                 xt = mu + sigma * z if i > 0 else mu
         out = sr_fn(xt) if final_sr else xt
-    return _nhwc(out)
+    return nhwc(out)
+
+
+def _fast_start(sched: NoiseSchedule, input_128: torch.Tensor, span_t: Optional[int], num_steps: int, generator,
+                noise0: Optional[torch.Tensor]):
+    """The fast translations' start: the span (min(DEFAULT_TRANSLATE_SPAN, T)
+    unless given), its strided taus, and the input q-sampled to span - 1."""
+    span = min(DEFAULT_TRANSLATE_SPAN, sched.T) if span_t is None else span_t
+    taus, tau_prev = strided_taus(span, num_steps)
+    x_in = nchw(input_128).float()
+    return taus, tau_prev, q_sample(sched, x_in, draw_or_replay(generator, x_in, noise0), int(span) - 1)
+
+
+def sample_with_sgg_ddim(
+    diff_fn: ApplyFn,
+    sched: NoiseSchedule,
+    seg_fn: SegFn,
+    sr_fn: SRFn,
+    input_128: torch.Tensor,
+    gt: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    lam: float = 60.0,
+    num_steps: int = 50,
+    span_t: Optional[int] = None,
+    eta: float = 0.0,
+    num_classes: int = 19,
+    mode: str = "fixed",
+    lcg_class_chunk: int = 4,
+    lcg_present_k: Optional[int] = None,
+    normalize_seg_input: bool = False,
+    guidance_style: str = "alternate",
+    noise: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Fast guided translation on a strided DDIM subsequence: `num_steps`
+    guided steps (10-50) in place of 500-1000, at the same cost a step.
+    Inputs and output as `sample_with_sgg`'s.
+
+    The input is q-sampled to span - 1 (`span_t`, default min(500, T): the
+    DDPM translation's span; the full T is generation from the labels, not
+    translation) and the taus stride the span. Per step the DDIM update
+        mean = sqrt(acp_prev) x0_pred + sqrt(1 - acp_prev - sigma_ddim^2) eps
+    takes the place of the posterior mean; the guidance term keeps the DDPM
+    posterior std at t as its scale (lam * sigma_t * |grad|, the scale lam =
+    60 was tuned for), and the added noise is sigma_ddim * z (eta scales
+    sigma_ddim; at eta = 0 no step draws noise). Every step but the last is
+    guided, in `guidance_style`'s schedule; 'none' and mode 'reference' (which
+    has no fast analog in the original code) give the unguided chain.
+    `noise` = (the q-sample's draw, z_steps (num_steps, B, h, w, 3)) replays
+    the draws, in the JAX function's order."""
+    guide = _guidance(seg_fn, gt, lam, guidance_style=guidance_style, mode=mode, num_classes=num_classes,
+                      lcg_class_chunk=lcg_class_chunk, lcg_present_k=lcg_present_k,
+                      normalize_seg_input=normalize_seg_input)
+    guided = guidance_style != "none" and mode != "reference"
+    taus, tau_prev, xt = _fast_start(sched, input_128, span_t, num_steps, generator,
+                                     None if noise is None else noise[0])
+    with torch.no_grad():
+        for s, (t, tp) in enumerate(zip(taus, tau_prev)):
+            i = num_steps - 1 - s
+            eps = diff_fn(xt, torch.full((xt.shape[0],), t, dtype=torch.long, device=xt.device))
+            acp_t, acp_p = sched.alpha_cum_prod[t], acp_prev(sched, tp)
+            x0 = predict_x0(sched, xt, eps, t).clamp(-1.0, 1.0)
+            sigma_ddim = eta * torch.sqrt((1 - acp_p) / (1 - acp_t)) * torch.sqrt(torch.clamp_min(1 - acp_t / acp_p, 0.0))
+            mean = torch.sqrt(acp_p) * x0 + torch.sqrt(torch.clamp_min(1.0 - acp_p - sigma_ddim**2, 0.0)) * eps
+            z = step_noise(generator, xt, noise, s) if eta != 0 else None
+            if guided and i != 0:
+                xt = guide(i, mean, posterior_sigma(sched, t), sr_fn(xt), z, noise_scale=sigma_ddim)
+            else:
+                xt = mean + sigma_ddim * z if i > 0 and z is not None else mean
+        out = sr_fn(xt)
+    return nhwc(out)
+
+
+def sample_with_sgg_dpm(
+    diff_fn: ApplyFn,
+    sched: NoiseSchedule,
+    seg_fn: SegFn,
+    sr_fn: SRFn,
+    input_128: torch.Tensor,
+    gt: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    lam: float = 60.0,
+    num_steps: int = 20,
+    span_t: Optional[int] = None,
+    num_classes: int = 19,
+    mode: str = "fixed",
+    lcg_class_chunk: int = 4,
+    lcg_present_k: Optional[int] = None,
+    normalize_seg_input: bool = False,
+    guidance_style: str = "alternate",
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Guided fast translation on a DPM-Solver++(2M) subsequence
+    (`diffusion/sampling.dpm_2m_update`): `sample_with_sgg_ddim`'s structure
+    with the solver's update as the mean, second order where DDIM is first
+    (10-25 steps where DDIM wants 25-50). The solver adds no noise: the
+    guidance operators get a noise scale of exactly 0 and no noise tensor.
+    The first step is first order, as is the terminal one. `noise` (B, h, w,
+    3) replays the q-sample's draw, the only one the chain makes."""
+    guide = _guidance(seg_fn, gt, lam, guidance_style=guidance_style, mode=mode, num_classes=num_classes,
+                      lcg_class_chunk=lcg_class_chunk, lcg_present_k=lcg_present_k,
+                      normalize_seg_input=normalize_seg_input)
+    guided = guidance_style != "none" and mode != "reference"
+    taus, tau_prev, xt = _fast_start(sched, input_128, span_t, num_steps, generator, noise)
+    with torch.no_grad():
+        x0_prev, h_prev, zero = torch.zeros_like(xt), xt.new_ones(()), xt.new_zeros(())
+        for s, (t, tp) in enumerate(zip(taus, tau_prev)):
+            i = num_steps - 1 - s
+            eps = diff_fn(xt, torch.full((xt.shape[0],), t, dtype=torch.long, device=xt.device))
+            x0 = predict_x0(sched, xt, eps, t).clamp(-1.0, 1.0)
+            mean, h_prev = dpm_2m_update(sched, xt, x0, x0_prev, h_prev, t, tp, i != num_steps - 1 and tp >= 0)
+            x0_prev = x0
+            xt = guide(i, mean, posterior_sigma(sched, t), sr_fn(xt), None, noise_scale=zero) if guided and i != 0 \
+                else mean
+        out = sr_fn(xt)
+    return nhwc(out)
 
 
 def make_translate_fn(

@@ -139,6 +139,7 @@ def run(device, card: str) -> dict:
     tb = common.time_ms(lambda: qk_dot_bf16(qf, kf), reps=15, inner=10)
     p8 = common.time_ms(lambda: qk_dot_i8_plain(q8, k8), reps=5)
     pb = common.time_ms(lambda: qk_dot_bf16_plain(qf, kf), reps=5)
+    lib8, libb, libb_why = library_ms(qf, kf, q8, k8)
     ops = 2 * B * N * N * D
     peak = common.peaks(card)
     bounds = []
@@ -160,9 +161,25 @@ def run(device, card: str) -> dict:
     common.log(f"int8 QK^T ({B}x{N}x{N}, D={D}): {t8:.4f} ms -- COMPILES AND RUNS [{card}]")
     common.log(f"bf16 QK^T same shape: {tb:.4f} ms")
     common.log(f"speedup int8/bf16: {tb / t8:.2f}x   (plain versions: int8 {p8:.4f} ms, bf16 {pb:.4f} ms)")
-    # no single public PyTorch call gives int32 from int8, or f32 from bf16, operands
-    return dict(ms=t8 + tb, plain_ms=p8 + pb, int8_ms=t8, bf16_ms=tb, library_ms=None,
-                **common.add_rooflines(*bounds))
+    common.log(f"library: torch._int_mm (int8 -> int32) {lib8:.4f} ms; bf16 -> f32 "
+               + (f"torch.mm(out_dtype=torch.float32) {libb:.4f} ms" if libb is not None else f"none: {libb_why}"))
+    return dict(ms=t8 + tb, plain_ms=p8 + pb, int8_ms=t8, bf16_ms=tb, int8_library_ms=lib8, bf16_library_ms=libb,
+                library_ms=None if libb is None else lib8 + libb, **common.add_rooflines(*bounds))
+
+
+def library_ms(qf, kf, q8, k8) -> tuple[float, float | None, str | None]:
+    """The one PyTorch call computing each form on the same inputs, timed as the kernels are (a yardstick the
+    port never calls): `torch._int_mm` for int8 -> int32, and `torch.mm(..., out_dtype=torch.float32)` for bf16 ->
+    f32 where this torch takes that argument. Returns (int8 ms, bf16 ms or None, why None)."""
+    mats = [(q8[i], k8[i].t()) for i in range(B)]
+    t8 = common.time_ms(lambda: [torch._int_mm(a, b) for a, b in mats], reps=15, inner=10)
+    fmats = [(qf[i], kf[i].t()) for i in range(B)]
+    try:
+        torch.mm(*fmats[0], out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as err:
+        return t8, None, f"torch {torch.__version__} has no torch.mm(out_dtype=torch.float32) for bf16 ({err})"
+    return t8, common.time_ms(lambda: [torch.mm(a, b, out_dtype=torch.float32) for a, b in fmats], reps=15,
+                              inner=10), None
 
 
 def main() -> int:
