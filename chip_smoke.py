@@ -46,9 +46,11 @@ Phases, each of which fails the run (exit code != 0, no result line):
   9. run the four H100 micro-probes (weatherconverter_tpu_torch/probes):
      hold each probe kernel (K4 the exp2 flash forward, K7 the raw int8 and
      bf16 QK^T, K6 the 3x3 depthwise conv, K5 the 81-FMA depthwise floor)
-     against its plain version at the probe's full shapes, then run the
-     probe (its comparison lines, CUDA-event times), whose launches of the
-     kernel are counted;
+     against its plain version at the probe's full shapes (K7 also at
+     (2, 4160, 32) and (1, 1024, 128): int32 exactly, bf16 within 1e-5 of
+     max |S|), then run the probe (its comparison lines, CUDA-event times,
+     K7 beside torch._int_mm and torch.mm(out_dtype=torch.float32)), whose
+     launches of the kernel are counted;
  10. run the samplers at full width with phase 3's models, each with K1 and
      again with qk_int8 (K2 and its quantizer): ddpm_sample strided to 20 of
      1000 steps (throughput extrapolated to 1000), and the fast guided
@@ -60,9 +62,27 @@ Phases, each of which fails the run (exit code != 0, no result line):
  11. hold 3-step DDIM and DPM guided chains at batch 1 on the card (bf16,
      kernels) against the CPU (f32, plain versions), same weights and draws;
  12. the int8 quality check (probes/int8_quality.py) at the fast samplers:
-     K2 against K1 through the DPM chain at 20 steps and the DDIM chain at 50,
-     batch 8, against a chaos floor of 5 perturbed runs, and two identical
-     K1 runs; its verdict is printed, not gated.
+     K2 against K1 through the DPM chain at 20 steps and (when the run gets
+     there within INT8_DDIM_BEFORE_S) the DDIM chain at 50, batch 8, against a
+     chaos floor of 5 perturbed runs, and two identical K1 runs; its verdict
+     is printed, not gated;
+ 13. the CLI (cli/main.py) in-process at the shipped configs/translation.yaml
+     (the 128 px UNet, DeepLabV3+/ResNet-101 at OS16, the 4x SRGAN: 512 px
+     out) and configs/diffusion.yaml, seeded random weights, a synthetic
+     2048 x 1024 image and labelIds map: translate with DPM-20 and DDIM-50 on
+     K2 (the inference default) and DPM-20 with --no-int8-attn on K1, sample
+     (DPM-20, batch 8), super-resolve, train-ddpm (4 steps, K1 and K3); each
+     must exit 0, write a PNG of its shape with finite values in range before
+     the uint8 cast, and launch the kernels 8 times a UNet forward; then one
+     translate in a fresh process; its wall time beside the library path's;
+ 14. the server (serving/server.py) on the card at the same configuration,
+     sampler dpm, batch 4: 16 concurrent /v1/translate requests with labels
+     of 3-19 classes and 4 /v1/sample requests at 20 steps, under
+     lcg_present_k='auto' and under the full sweep (latency p50/p95,
+     translations a minute, occupancy, batches, buckets, peak memory); every
+     response 200 with a PNG of its shape, /stats counts that add up; one seed
+     solo and co-batched, within two solo runs' difference plus one uint8
+     level.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors, times, bounds
 and library times.
@@ -118,6 +138,8 @@ TRAIN_STEPS, WINDOWS, WINDOW_STEPS = 24, 3, 20
 SAMPLE_STEPS, DDIM_STEPS, DPM_STEPS, PROFILE_STEPS = 20, 50, 20, 10
 FAST_GUIDED = dict(lam=60.0, num_classes=19, guidance_style="gsg")
 INT8_FLOOR_SEEDS = 5
+# phase 12 runs its DDIM half only if the run reaches it this early, so that phases 13-14 fit the time limit
+INT8_DDIM_BEFORE_S = 420
 HEADLINE = dict(guidance_every=2, guidance_space="latent", lam=120.0)
 REFERENCE_EXACT = dict(guidance_every=1, guidance_space="sr", lam=60.0)
 # the alternate schedule in its exact-semantics setting, and with the class sweep packed into 8 slots an image
@@ -858,14 +880,18 @@ def phase_fast_reference(torch, device, state):
             raise AssertionError(f"card and CPU {name} chains disagree: relative L2 error {rel}")
 
 
-def phase_int8_quality(torch, state, card):
+def phase_int8_quality(torch, state, card, ddim: bool = True):
     """probes/int8_quality at the fast samplers, on phase 10's models and
-    inputs: DPM at 20 steps, DDIM at 50. Fails on a non-finite or misshapen
-    output or a launch-count mismatch, never on the verdict."""
+    inputs: DPM at 20 steps, and DDIM at 50 when `ddim`. Fails on a
+    non-finite or misshapen output or a launch-count mismatch, never on the
+    verdict."""
     from weatherconverter_tpu_torch.probes import int8_quality
 
     unet, unet_i8, seg, gen, sched, inp, gt = state
-    for sampler, steps in (("dpm", DPM_STEPS), ("ddim", DDIM_STEPS)):
+    if not ddim:
+        log(f"  the DDIM half is left out: the run reached phase 12 after {INT8_DDIM_BEFORE_S} s (its verdict, PASS at "
+            "50 steps, is recorded in PERF.md)")
+    for sampler, steps in (("dpm", DPM_STEPS), ("ddim", DDIM_STEPS))[:2 if ddim else 1]:
         t0 = time.perf_counter()
         artifact, outs = int8_quality.run((unet, unet_i8, seg, gen), sched, inp, gt, sampler, steps, INT8_FLOOR_SEEDS,
                                           torch.bfloat16, card)
@@ -874,13 +900,306 @@ def phase_int8_quality(torch, state, card):
         log(f"  {len(outs)} chains in {time.perf_counter() - t0:.1f} s; wrote {int8_quality.save(artifact)}")
 
 
+def _synthetic_pair(path_img, path_lbl, seed, classes=19, size=(2048, 1024)):
+    """A (1024, 2048) RGB image and a labelIds map of `classes` train classes
+    in vertical stripes (raw Cityscapes ids), both from `seed`, as PNGs."""
+    import numpy as np
+    from PIL import Image
+
+    from weatherconverter_tpu_torch.data.labels import LABELS
+
+    rng = np.random.default_rng(seed)
+    w, h = size
+    Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(path_img)
+    raw = rng.permutation([l.id for l in LABELS if l.trainId != 255])[:classes]
+    Image.fromarray(np.repeat(raw[(np.arange(w) * classes) // w][None], h, 0).astype(np.uint8)).save(path_lbl)
+
+
+class _Recorder:
+    """Wraps utils.images.to_uint8_image: records whether each array it casts
+    is finite and inside [0, 1] ('unit') or [-1, 1] ('pm1')."""
+
+    def __init__(self, images):
+        self.images, self.inner, self.seen = images, images.to_uint8_image, []
+
+    def __enter__(self):
+        def wrapped(x, from_range="pm1"):
+            import numpy as np
+
+            a = np.asarray(x.detach().float().cpu() if hasattr(x, "detach") else x, dtype=np.float32)
+            lo = 0.0 if from_range == "unit" else -np.inf  # samples are unclamped [-1, 1]-ish before the cast
+            self.seen.append((tuple(a.shape), bool(np.isfinite(a).all() and a.min() >= lo and
+                                                   (from_range != "unit" or a.max() <= 1.0))))
+            return self.inner(x, from_range)
+
+        self.images.to_uint8_image = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.images.to_uint8_image = self.inner
+
+
+def phase_cli(torch, A, device, card, tmp, tcfg=None, dcfg=None):
+    """The port's CLI in-process (main([...])) at configs/translation.yaml and
+    configs/diffusion.yaml, seeded random weights, a synthetic 2048 x 1024
+    image and labelIds map: translate (DPM-20 and DDIM-50 on K2, DPM-20 with
+    --no-int8-attn on K1), sample (DPM-20, batch 8), super-resolve (128 px to
+    512 px), train-ddpm (4 steps, K1 and K3); then one translate as a fresh
+    process. Gates: exit 0, the PNGs' shapes, finite values in [0, 1] before
+    the uint8 cast, the kernels' launch counts. Returns the CLI's and the
+    library path's seconds for one DPM-20 translation."""
+    import subprocess
+
+    import numpy as np
+    from PIL import Image
+
+    from weatherconverter_tpu_torch.cli import commands
+    from weatherconverter_tpu_torch.cli.main import main as cli_main
+    from weatherconverter_tpu_torch.core.config import load_translation_config
+    from weatherconverter_tpu_torch.utils import images
+
+    from weatherconverter_tpu_torch.core.config import load_diffusion_config
+
+    tcfg = tcfg or os.path.join(REPO, "configs", "translation.yaml")
+    dcfg = dcfg or os.path.join(REPO, "configs", "diffusion.yaml")
+    cfg = load_translation_config(tcfg)
+    size, up, ds = cfg.diffusion.model.im_size, cfg.srgan.upscale_factor, load_diffusion_config(dcfg).model.im_size
+    hr = size * up
+    img, lbl, small = (os.path.join(tmp, n) for n in ("img.png", "lbl.png", "small.png"))
+    _synthetic_pair(img, lbl, seed=50)
+    Image.open(img).resize((size, size)).save(small)
+    data = os.path.join(tmp, "data", "rgb_anon", "fog", "train")
+    os.makedirs(data)
+    rng = np.random.default_rng(51)
+    for i in range(BATCH * 4):
+        Image.fromarray(rng.integers(0, 256, (2 * ds, 2 * ds * 16 // 9, 3), dtype=np.uint8)).save(
+            os.path.join(data, f"{i}.png"))
+    unet_calls = lambda steps: FLASH_CALLS_PER_UNET * steps  # noqa: E731
+    out = lambda name: os.path.join(tmp, name)  # noqa: E731
+    translate = ["translate", "--config", tcfg, "--image", img, "--label", lbl]
+    grid = (hr + 4, hr + 4, 3)  # one image in a grid's 2 px border
+    runs = [  # argv, output, its PNG shape, launches (K1, K2, quantizer, K3)
+        (translate + ["--sampler", "dpm", "--out", out("dpm.png")], out("dpm.png"), grid,
+         (0, unet_calls(20), unet_calls(20), 0)),
+        (translate + ["--sampler", "ddim", "--steps", str(DDIM_STEPS), "--out", out("ddim.png")], out("ddim.png"),
+         grid, (0, unet_calls(DDIM_STEPS), unet_calls(DDIM_STEPS), 0)),
+        (translate + ["--sampler", "dpm", "--no-int8-attn", "--out", out("dpm_k1.png")], out("dpm_k1.png"),
+         grid, (unet_calls(20), 0, 0, 0)),
+        (["sample", "--config", dcfg, "--sampler", "dpm", "--steps", "20", "--batch", str(BATCH), "--out",
+          out("sample.png")], out("sample.png"), (2 + 2 * (ds + 2), 2 + 4 * (ds + 2), 3),
+         (0, unet_calls(20), unet_calls(20), 0)),
+        (["super-resolve", "--config", tcfg, "--image", small, "--out", out("sr.png")], out("sr.png"), (hr, hr, 3),
+         (0, 0, 0, 0)),
+        (["train-ddpm", "--config", dcfg, "--max-steps", "4", "--set", f"data.root_dir={os.path.join(tmp, 'data')}",
+          "data.acdc_images=rgb_anon", 'data.weather=["fog"]', f"training.batch_size={BATCH}",
+          "training.num_workers=0", "training.log_interval=1", f"folders.output={out('train')}"], None, None,
+         (unet_calls(4), 0, 0, unet_calls(4))),
+    ]
+    on_card = device.type == "cuda"  # the CLI's default; a CPU rehearsal passes --device cpu, and counts nothing
+    cli_s = None
+    for argv, path, shape, expected in runs:
+        argv = argv if on_card else argv + ["--device", "cpu"]
+        expected = expected if on_card else (0, 0, 0, 0)
+        A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
+        A.flash_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        with _Recorder(images) as rec:
+            code = cli_main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches,
+                  A.flash_attention_bwd.launches)
+        if code != 0 or counts != expected:
+            raise AssertionError(f"cli {argv[0]} {argv[-2:]}: exit {code}, launches (K1, K2, quantizer, K3) {counts}, "
+                                 f"expected 0 and {expected}")
+        if path is not None:
+            got = np.asarray(Image.open(path)).shape
+            if got != shape or not rec.seen or not all(ok for _, ok in rec.seen):
+                raise AssertionError(f"cli {argv[0]}: PNG {got}, expected {shape}; before the uint8 cast "
+                                     f"{rec.seen} (shape, finite and in range)")
+        elif not os.path.isfile(os.path.join(out("train"), "0", "metrics.jsonl")):
+            raise AssertionError("cli train-ddpm: no metrics.jsonl")
+        if cli_s is None:
+            cli_s = secs
+        flags = [a if i + 1 == len(argv) or argv[i + 1].startswith("--") else f"{a} {argv[i + 1]}"
+                 for i, a in enumerate(argv) if a.startswith("--") and a not in ("--config", "--image", "--label",
+                                                                                  "--out", "--set")]
+        log(f"  cli {argv[0]} {' '.join(flags)}: exit 0 in {secs:.1f} s (models built from the seed, first-shape "
+            f"autotuning included); launches K1/K2/quantizer/K3 {'/'.join(map(str, counts))}"
+            + (f"; PNG {shape}" if shape else ""))
+    # the library path of the first run: the same chain on models built once, timed alone
+    unet, seg, sr, sched = commands.build_translation(cfg, device, None, None, None, on_card, 0)
+    fn = commands.fast_translate_fn("dpm", unet, sched, seg, sr, device, lam=cfg.guidance.lambda_, num_steps=20,
+                                    span_t=cfg.guidance.num_steps, num_classes=cfg.seg.model.num_classes,
+                                    lcg_present_k=commands._resolve_lcg_present_k("auto", _gt(lbl, hr),
+                                                                                  cfg.seg.model.num_classes))
+    x = torch.from_numpy(commands._load_image(img, size) * 2.0 - 1.0)[None].to(device)
+    gt = torch.from_numpy(_gt(lbl, hr).astype(np.int64))[None].to(device)
+    fn(x, gt, torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(x, gt, torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    lib_s = time.perf_counter() - t0
+    # a fresh process through the console entry point's function
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "import sys; from weatherconverter_tpu_torch.cli.main import main; "
+                           "sys.exit(main())"] + translate + ["--sampler", "dpm", "--out", out("fresh.png")]
+                          + ([] if on_card else ["--device", "cpu"]), cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    fresh_s = time.perf_counter() - t0
+    if proc.returncode != 0 or np.asarray(Image.open(out("fresh.png"))).shape != grid:
+        raise AssertionError(f"cli translate in a fresh process: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+    log(f"  one DPM-20 translation at batch 1 ({hr} px out, K2 on the card): the CLI in-process {cli_s:.2f} s, in a fresh process "
+        f"{fresh_s:.2f} s (interpreter, imports, kernel library load, models from the seed, autotuning), the library "
+        f"path's chain alone on built, warm models {lib_s:.2f} s [{card}]")
+    return cli_s, lib_s
+
+
+def _gt(lbl_path, hr):
+    """A labelIds PNG as the CLI reads it: nearest-resized to (hr, hr), train ids."""
+    import numpy as np
+    from PIL import Image
+
+    from weatherconverter_tpu_torch.data.labels import encode_target
+
+    return encode_target(np.asarray(Image.open(lbl_path).resize((hr, hr), Image.NEAREST), dtype=np.uint8))
+
+
+def _percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, round(q / 100 * (len(xs) - 1))))]
+
+
+def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
+    """The server on the card at configs/translation.yaml, sampler dpm,
+    batch 4: 16 concurrent /v1/translate requests (labels of 3-19 classes
+    drawn from a seed) and 4 /v1/sample requests at 20 steps, once under
+    lcg_present_k='auto' and once under the full sweep; then one seed solo
+    twice and co-batched with three others. Gates: every response 200 with
+    a PNG of the right shape, /stats counts that add up, the co-batched image
+    within (two solo runs' difference + 1) uint8 levels of the solo one."""
+    import base64
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+
+    from weatherconverter_tpu_torch.core.config import load_translation_config
+    from weatherconverter_tpu_torch.serving.server import TranslationService, serve
+
+    rng = np.random.default_rng(60)
+    classes = [int(c) for c in rng.integers(3, 20, 16)]
+    payloads = []
+    for i, k in enumerate(classes):
+        _synthetic_pair(os.path.join(tmp, f"s{i}.png"), os.path.join(tmp, f"l{i}.png"), seed=100 + i, classes=k)
+        payloads.append({name: base64.b64encode(open(os.path.join(tmp, f"{p}{i}.png"), "rb").read()).decode()
+                         for name, p in (("image", "s"), ("label", "l"))})
+    cfg = load_translation_config(tcfg or os.path.join(REPO, "configs", "translation.yaml"))
+    hr, size = cfg.diffusion.model.im_size * cfg.srgan.upscale_factor, cfg.diffusion.model.im_size
+    on_card = device.type == "cuda"
+
+    def post(base, path, payload):
+        req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, body = r.status, json.load(r)
+        png = np.asarray(Image.open(__import__("io").BytesIO(base64.b64decode(body["image"]))))
+        return code, png, time.perf_counter() - t0
+
+    def traffic(base):
+        results = {}
+
+        def worker(key, path, payload):
+            results[key] = post(base, path, payload)
+
+        threads = [threading.Thread(target=worker, args=(("t", i), "/v1/translate", dict(p, seed=i)))
+                   for i, p in enumerate(payloads)]
+        threads += [threading.Thread(target=worker, args=(("s", i), "/v1/sample", {"steps": steps or 20, "seed": i}))
+                    for i in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return results, time.perf_counter() - t0
+
+    summary = {}
+    for name, present_k in (("auto", "auto"), ("full sweep", None)):
+        t0 = time.perf_counter()
+        service = TranslationService(cfg, batch=4, sampler="dpm", max_wait_ms=100.0, lcg_present_k=present_k,
+                                     device=device, steps=steps)
+        warm_s = time.perf_counter() - t0
+        httpd = serve(service, port=0, block=False, host="127.0.0.1")
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            A.flash_attention_qk_i8.launches = A.flash_attention.launches = 0
+            results, wall = traffic(base)
+            with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+                stats = json.load(r)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            bad = [(k, c, png.shape) for k, (c, png, _) in results.items()
+                   if c != 200 or png.shape != ((hr, hr, 3) if k[0] == "t" else (size, size, 3))]
+            tr = stats["translate"]
+            buckets = stats.get("lcg_k_buckets", {})
+            if bad or len(results) != 20 or tr["requests"] != 16 or stats["sample"]["requests"] != 4 or (
+                    present_k == "auto" and sum(buckets.values()) != 16) or (on_card and not A.flash_attention.launches) or \
+                    A.flash_attention_qk_i8.launches:
+                raise AssertionError(f"server ({name}): responses {bad}, stats {stats}, K1 / K2 launches "
+                                     f"{A.flash_attention.launches} / {A.flash_attention_qk_i8.launches}")
+            lat = [results[("t", i)][2] for i in range(16)]
+            summary[name] = dict(p50=_percentile(lat, 50), p95=_percentile(lat, 95), per_min=16 * 60.0 / wall)
+            log(f"  server, lcg {name}: 16 translations and 4 samples in {wall:.2f} s; translation latency p50 "
+                f"{summary[name]['p50']:.2f} s, p95 {summary[name]['p95']:.2f} s; {summary[name]['per_min']:.1f} "
+                f"translations/min; translate batches {tr['batches']}, mean occupancy {tr['mean_occupancy']:.2f}; "
+                f"sample batches {stats['sample']['batches']}; buckets {buckets or 'none (one width, 19 classes)'}; "
+                f"labels' classes {classes}; peak device memory {peak:.2f} GiB; start-up with warm-up of "
+                f"{len(service.shapes())} translate shapes {warm_s:.1f} s; K1 launches {A.flash_attention.launches} "
+                f"[{card}]")
+            if present_k is None:
+                # one seed solo twice, then co-batched with three other seeds: one width (the full sweep pads
+                # every batch to 4), so only the batch-mates change
+                solo = [post(base, "/v1/translate", dict(payloads[0], seed=7))[1].astype(int) for _ in range(2)]
+                co = {}
+
+                def one(seed):
+                    co[seed] = post(base, "/v1/translate", dict(payloads[0], seed=seed))[1].astype(int)
+
+                threads = [threading.Thread(target=one, args=(s,)) for s in (7, 8, 9, 10)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                self_diff = int(np.abs(solo[0] - solo[1]).max())
+                co_diff = int(np.abs(co[7] - solo[0]).max())
+                log(f"  per-seed determinism (full sweep, width 4, K1): two "
+                    f"solo runs of seed 7 differ by at most {self_diff} uint8 levels (mean "
+                    f"{np.abs(solo[0] - solo[1]).mean():.4f}), the solo and co-batched (with seeds 8-10) images by "
+                    f"{co_diff} (mean {np.abs(co[7] - solo[0]).mean():.4f}; gate: <= {self_diff + 1}); seeds 7 and 8 "
+                    f"differ by {int(np.abs(co[7] - co[8]).max())}")
+                if co_diff > self_diff + 1:
+                    raise AssertionError(f"server: a co-batched seed moved {co_diff} levels, solo runs {self_diff}")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            service.close()
+            del service
+            torch.cuda.empty_cache()
+    log(f"  mixed K against the full sweep: p50 {summary['auto']['p50']:.2f} / {summary['full sweep']['p50']:.2f} s, "
+        f"p95 {summary['auto']['p95']:.2f} / {summary['full sweep']['p95']:.2f} s, "
+        f"{summary['auto']['per_min']:.1f} / {summary['full sweep']['per_min']:.1f} translations/min [{card}]")
+
+
 def _round(x):
     return None if x is None else round(x, 4)
 
 
 PTXAS_KERNELS = ("flash_fwd_qk_i8_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                  "flash_fwd_wgmma_kernel", "absmax_qk_kernel", "quantize_qk_kernel",
-                 "probe_exp2_attn_wgmma_kernel", "probe_qk_i8_kernel", "probe_qk_bf16_kernel", "probe_dw3x3_kernel",
+                 "probe_exp2_attn_wgmma_kernel", "probe_qk_kernel", "probe_dw3x3_kernel",
                  "probe_dw_fma81_kernel")
 
 
@@ -891,7 +1210,8 @@ def ptxas_summary(build_log: str) -> list[str]:
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
             name = next((k for k in PTXAS_KERNELS if k in mangled), mangled)
-            args = ["f16"] if "6__half" in mangled else ["bf16"] if "13__nv_bfloat16" in mangled else []
+            args = (["f16"] if "6__half" in mangled else ["bf16"] if "13__nv_bfloat16" in mangled or "4Bf16E" in mangled
+                    else ["int8"] if "2I8E" in mangled else [])
             dim = re.search(r"Li(\d+)E", mangled)
             if dim:
                 args.append(f"D={dim.group(1)}")
@@ -989,8 +1309,18 @@ def main() -> int:
     phase_fast_reference(torch, device, sampler_state)
 
     log(f"phase 12: int8 quality at the fast samplers [{card}]")
-    phase_int8_quality(torch, sampler_state, card)
+    phase_int8_quality(torch, sampler_state, card, ddim=time.perf_counter() - _T0 < INT8_DDIM_BEFORE_S)
     del sampler_state
+    torch.cuda.empty_cache()
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"phase 13: the CLI on the card [{card}]")
+        phase_cli(torch, A, device, card, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 14: the server on the card [{card}]")
+        phase_server(torch, A, device, card, tmp)
 
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []

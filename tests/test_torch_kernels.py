@@ -540,6 +540,23 @@ def test_qk_dot_kernels_match_plain(cuda, shape):
     torch.testing.assert_close(sb, ref, rtol=1e-5, atol=K7.BF16_RTOL * ref.abs().max().item())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4096, 4160])
+@pytest.mark.parametrize("d", K7.HEAD_DIMS)
+def test_qk_dot_kernels_at_path_widths_batch_2(cuda, d, n):
+    """The persistent kernel at B = 2 (tile runs that cross from one batch
+    row to the next), every head dim, N = 4096 and 4160 (64 * 65: each row of
+    tiles ends in one 64 columns wide): int8 exactly equal, bf16 within
+    BF16_RTOL * max |S| (the same exact products added in other orders)."""
+    qf, kf = _qkv((2, n, d), torch.bfloat16, cuda, seed=11)[:2]
+    q8, k8 = K7.to_int8(qf), K7.to_int8(kf)
+    s8, sb = K7.qk_dot_i8(q8, k8), K7.qk_dot_bf16(qf, kf)
+    torch.cuda.synchronize()
+    assert torch.equal(s8, K7.qk_dot_i8_plain(q8, k8))
+    ref = K7.qk_dot_bf16_plain(qf, kf)
+    assert (sb - ref).abs().max().item() <= K7.BF16_RTOL * ref.abs().max().item()
+
+
 # one pixel; odd H and W; a row of 130 pixels (five column tiles, the last
 # ragged) of 3 vectors and two row tiles; 9 vectors a pixel (two channel
 # groups, the second of one vector) over ragged tiles; one whole tile; the

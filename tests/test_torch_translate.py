@@ -217,9 +217,10 @@ def test_parts_not_ported_raise(kw):
 
 
 def test_port_imports_no_jax():
-    """Every module of weatherconverter_tpu_torch, and chip_smoke (imported,
-    not run), imports in a fresh process without loading jax, jaxlib, flax or
-    anything of the JAX package."""
+    """Every module of weatherconverter_tpu_torch (the CLI's cli.main and the
+    server's serving.server among them), and chip_smoke (imported, not run),
+    imports in a fresh process without loading jax, jaxlib, flax or anything
+    of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import weatherconverter_tpu_torch as p\n"
@@ -227,6 +228,9 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 20, names\n"
         "assert 'weatherconverter_tpu_torch.data.datasets' in names and 'weatherconverter_tpu_torch.compat.from_jax' in names\n"
+        "assert {'weatherconverter_tpu_torch.cli.main', 'weatherconverter_tpu_torch.serving.server'} <= set(names)\n"
+        "from weatherconverter_tpu_torch.cli import main as cli\n"
+        "cli.build_parser().parse_args(['serve', '--device', 'cpu'])\n"
         "import chip_smoke\n"
         "assert callable(chip_smoke.main)\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -1,0 +1,220 @@
+"""The port's CLI: `python -m weatherconverter_tpu_torch.cli.main <command> ...`
+(console script `weatherconverter-tpu-torch`), the counterpart of
+weatherconverter_tpu/cli/main.py with the same subcommands, flags, defaults
+and choices, and one addition: `--device {cuda,cpu}`.
+
+Every command runs on the CUDA card unless `--device cpu` is given; without
+a card it stops with a message and a non-zero exit, and never goes on
+quietly on the CPU. Ported: train-ddpm, sample, translate, super-resolve and
+serve. The others parse as in the JAX CLI and stop with a message naming
+the ROADMAP item that ports their modules.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+# subcommand -> why it stops: the ROADMAP item that ports its modules
+NOT_PORTED = {
+    "train-seg": "segmentation training is ROADMAP Queue 1 item 13",
+    "infer-seg": "segmentation inference is ROADMAP Queue 1 item 13",
+    "train-srgan": "SRGAN training is ROADMAP Queue 1 item 15",
+    "quality": "the quality gates (FID, Inception) are ROADMAP Queue 1 item 15",
+    "export-hlo": "the torch.export counterpart of export-hlo is ROADMAP Queue 1 item 10 (its kernels must first be "
+                  "registered as custom ops)",
+    "visualize": "the process strips are ROADMAP Queue 1 item 19",
+}
+
+INT8_HELP = ("keep K1, the exact bf16 flash attention. On the card inference defaults to K2 (int8 Q K^T and its "
+             "quantizer), which passed the int8 quality check at 20, 50 and 1000 steps; the gain is small, 0.1-0.3 "
+             "ms of a 14-25 ms device step, and no wall-time change while the host binds (PERF.md)")
+
+
+def _device_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the command runs: the CUDA card (default; exits non-zero without one) or the CPU")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="weatherconverter-tpu-torch")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    for name, what, cfg_help in (("train-ddpm", "train the DDPM UNet", "diffusion config YAML"),
+                                 ("train-seg", "train DeepLabV3(+) segmentation (not ported)", "seg config YAML"),
+                                 ("train-srgan", "train Swift-SRGAN (not ported)", "srgan train config YAML")):
+        t = sub.add_parser(name, help=what)
+        t.add_argument("--config", default=None, help=cfg_help)
+        t.add_argument("--max-steps", type=int, default=None)
+        t.add_argument("--set", nargs="*", default=[], help="dotted overrides k=v")
+        _device_flag(t)
+
+    sr = sub.add_parser("super-resolve", help="SRGAN upscale of an image")
+    sr.add_argument("--config", default=None, help="translation config YAML (srgan section)")
+    sr.add_argument("--image", required=True)
+    sr.add_argument("--checkpoint", default=None, help="torch .pth.tar / .npz / a run directory of this package")
+    sr.add_argument("--out", default="outputs/super_resolved.png")
+    _device_flag(sr)
+
+    sa = sub.add_parser("sample", help="unconditional DDPM sampling")
+    sa.add_argument("--config", default=None)
+    sa.add_argument("--checkpoint", default=None, help=".npz / torch .ckpt / a run directory of this package")
+    sa.add_argument("--sampler", default="ddpm", choices=["ddpm", "ddim", "dpm", "legacy"],
+                    help="dpm = DPM-Solver++(2M), 10-25 steps; legacy is not ported (ROADMAP item 15)")
+    sa.add_argument("--steps", type=int, default=None)
+    sa.add_argument("--batch", type=int, default=8)
+    sa.add_argument("--out", default="outputs/samples/sample.png")
+    sa.add_argument("--seed", type=int, default=0)
+    sa.add_argument("--no-int8-attn", action="store_true", help=INT8_HELP)
+    _device_flag(sa)
+
+    tr = sub.add_parser("translate", help="guided weather translation")
+    tr.add_argument("--config", default=None, help="translation config YAML")
+    tr.add_argument("--image", required=True, help="input image path")
+    tr.add_argument("--label", required=True, help="gt labelIds path")
+    tr.add_argument("--ddpm-checkpoint", default=None)
+    tr.add_argument("--seg-checkpoint", default=None)
+    tr.add_argument("--srgan-checkpoint", default=None)
+    tr.add_argument("--out", default="outputs/translated.png")
+    tr.add_argument("--mode", default="fixed", choices=["fixed", "reference"])
+    tr.add_argument("--lambda", dest="lam", type=float, default=60.0)
+    tr.add_argument("--steps", type=int, default=None, help="default: 500 for ddpm, 50 for ddim, 20 for dpm")
+    tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("--sampler", default="ddpm", choices=["ddpm", "ddim", "dpm"],
+                    help="ddim / dpm = few-step guided translation (dpm = DPM-Solver++(2M))")
+    tr.add_argument("--eta", type=float, default=0.0, help="DDIM noise scale")
+    tr.add_argument("--span-t", type=int, default=None,
+                    help="diffusion span the fast samplers' taus stride (default: cfg.guidance.num_steps, which "
+                         "keeps the source's content)")
+    tr.add_argument("--no-int8-attn", action="store_true", help=INT8_HELP)
+    tr.add_argument("--lcg-present-k", default="auto",
+                    help="pack LCG's class sweep into K per-image slots holding the classes present in the label: "
+                         "'auto' (default) counts them (bit-exact against the full sweep), an integer truncates to "
+                         "the K largest, 'off' is the full sweep")
+    tr.add_argument("--debug-dir", default=None, help="chain dumps (not ported: ROADMAP item 19)")
+    tr.add_argument("--debug-every", type=int, default=100)
+    _device_flag(tr)
+
+    iv = sub.add_parser("infer-seg", help="segmentation inference (not ported)")
+    iv.add_argument("--config", default=None)
+    iv.add_argument("--checkpoint", default=None)
+    iv.add_argument("--image", required=True)
+    iv.add_argument("--label", default=None)
+    iv.add_argument("--out", default="outputs/seg")
+    _device_flag(iv)
+
+    q = sub.add_parser("quality", help="translation quality gates (not ported)")
+    q.add_argument("--config", default=None, help="translation config YAML")
+    q.add_argument("--images", default=None)
+    q.add_argument("--synthetic", type=int, default=8)
+    q.add_argument("--ddpm-checkpoint", default=None)
+    q.add_argument("--seg-checkpoint", default=None)
+    q.add_argument("--inception-checkpoint", default=None)
+    q.add_argument("--guidance", default="gsg", choices=["gsg", "lcg", "alternate", "none"])
+    q.add_argument("--lambda", dest="lam", type=float, default=60.0)
+    q.add_argument("--steps", type=int, default=100)
+    q.add_argument("--batch", type=int, default=4)
+    q.add_argument("--seed", type=int, default=0)
+    q.add_argument("--out", default=None)
+    _device_flag(q)
+
+    sv = sub.add_parser("serve", help="micro-batched HTTP inference server")
+    sv.add_argument("--config", default=None, help="translation config YAML")
+    sv.add_argument("--port", type=int, default=8700)
+    sv.add_argument("--batch", type=int, default=4, help="largest micro-batch")
+    sv.add_argument("--steps", type=int, default=None)
+    sv.add_argument("--sampler", default="ddpm", choices=["ddpm", "ddim", "dpm"],
+                    help="ddim / dpm = few-step translation for serving latency (dpm: ~20 steps)")
+    sv.add_argument("--max-wait-ms", type=float, default=25.0)
+    sv.add_argument("--lcg-present-k", default=None,
+                    help="LCG class slots: an int = one K for every request (truncates labels with more "
+                         "classes); 'auto' = each request goes to the smallest K bucket covering its label's "
+                         "classes (bit-exact); default: the full sweep")
+    sv.add_argument("--lcg-k-buckets", default="4,8,12",
+                    help="the K ladder of --lcg-present-k auto (num_classes always tops it)")
+    sv.add_argument("--ddpm-checkpoint", default=None)
+    sv.add_argument("--seg-checkpoint", default=None)
+    sv.add_argument("--srgan-checkpoint", default=None)
+    sv.add_argument("--no-int8-attn", action="store_true",
+                    help="accepted as in the JAX CLI; the server always runs K1, the exact flash attention: K2's "
+                         "int8 scale is one per tensor, over the micro-batch, so a request's image would move with "
+                         "its batch-mates (the JAX service's scale is per request)")
+    _device_flag(sv)
+
+    eh = sub.add_parser("export-hlo", help="export the inference program (not ported)")
+    eh.add_argument("--config", default=None, help="translation config YAML")
+    eh.add_argument("--program", default="translate", choices=["translate", "sample"])
+    eh.add_argument("--steps", type=int, default=None)
+    eh.add_argument("--batch", type=int, default=8)
+    eh.add_argument("--out", default="outputs/translate.stablehlo.mlir")
+    eh.add_argument("--attn", default="bf16", choices=["bf16", "int8"])
+    _device_flag(eh)
+
+    vz = sub.add_parser("visualize", help="forward/backward process strips (not ported)")
+    vz.add_argument("--config", default=None)
+    vz.add_argument("--image", required=True)
+    vz.add_argument("--checkpoint", default=None)
+    vz.add_argument("--out", default="outputs/strips")
+    vz.add_argument("--every", type=int, default=100)
+    _device_flag(vz)
+    return p
+
+
+def parse_overrides(pairs):
+    """["a.b=1", "c=x"] -> {"a": {"b": 1}, "c": "x"}: values as JSON where they parse, else strings."""
+    out = {}
+    for pair in pairs:
+        k, _, v = pair.partition("=")
+        cur = out
+        parts = k.split(".")
+        for part in parts[:-1]:
+            cur = cur.setdefault(part, {})
+        try:
+            cur[parts[-1]] = json.loads(v)
+        except ValueError:
+            cur[parts[-1]] = v
+    return out
+
+
+def run_serve(args) -> int:
+    from weatherconverter_tpu_torch.cli.commands import resolve_device
+    from weatherconverter_tpu_torch.core.config import load_translation_config
+    from weatherconverter_tpu_torch.serving.server import TranslationService, serve
+
+    device = resolve_device(args.device)
+    k = args.lcg_present_k
+    if k is not None and k != "auto":
+        try:
+            k = int(k)
+        except ValueError:
+            raise SystemExit(f"--lcg-present-k must be an int or 'auto'; got {k!r}")
+    try:
+        buckets = tuple(int(b) for b in str(args.lcg_k_buckets).split(",") if b)
+    except ValueError:
+        raise SystemExit(f"--lcg-k-buckets must be comma-separated ints; got {args.lcg_k_buckets!r}")
+    service = TranslationService(
+        load_translation_config(args.config), args.ddpm_checkpoint, args.seg_checkpoint, args.srgan_checkpoint,
+        batch=args.batch, steps=args.steps, max_wait_ms=args.max_wait_ms, sampler=args.sampler, lcg_present_k=k,
+        lcg_k_buckets=buckets, device=device,
+    )
+    print(f"serving on :{args.port} (batch={args.batch}, steps={service.steps}, sampler={args.sampler}, "
+          f"device={device})", flush=True)
+    serve(service, args.port)
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.command in NOT_PORTED:
+        print(f"{args.command}: not ported to the PyTorch package yet; {NOT_PORTED[args.command]}", file=sys.stderr)
+        return 2
+    from weatherconverter_tpu_torch.cli import commands
+
+    return {"train-ddpm": commands.run_train_ddpm, "sample": commands.run_sample,
+            "translate": commands.run_translate, "super-resolve": commands.run_super_resolve,
+            "serve": run_serve}[args.command](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

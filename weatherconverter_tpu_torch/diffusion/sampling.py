@@ -5,10 +5,12 @@ The JAX scan becomes a Python loop over Python-int timesteps, so every table
 lookup indexes without a host-to-device copy. The samplers run under
 `torch.no_grad()`. Public shapes are the JAX package's, NHWC; `apply_fn`
 (the port's `Unet`) takes and returns NCHW. Noise comes from a
-torch.Generator on the schedule's device; `noise=` replays given draws
-instead, in the order the JAX sampler draws from its key (`init` for the
-initial x, then one `z` a step), so a test can hold a sampler against the
-JAX scan step for step.
+torch.Generator on the schedule's device, or from a sequence of them, one a
+batch row (`Generators`), so that each row's draws are those of a batch-1
+run under its own generator, whatever shares the batch (the server's
+per-request seeds); `noise=` replays given draws instead, in the order the
+JAX sampler draws from its key (`init` for the initial x, then one `z` a
+step), so a test can hold a sampler against the JAX scan step for step.
 
 `ddpm_sample_legacy` needs the legacy UNet and is not ported yet (ROADMAP
 Queue 1 item 15).
@@ -16,7 +18,7 @@ Queue 1 item 15).
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -26,6 +28,8 @@ from weatherconverter_tpu_torch.diffusion.schedule import NoiseSchedule, Varianc
 ApplyFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 # (x_init (B, H, W, C), z_steps (S, B, H, W, C)): the draws of a sampler that adds noise every step
 Noise = tuple[torch.Tensor, torch.Tensor]
+# one generator for the batch, or one a batch row
+Generators = Union[torch.Generator, Sequence[torch.Generator], None]
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -60,23 +64,49 @@ def acp_prev(sched: NoiseSchedule, tp: int) -> torch.Tensor:
     return sched.alpha_cum_prod[tp] if tp >= 0 else sched.alpha_cum_prod.new_ones(())
 
 
-def draw_or_replay(generator, like: torch.Tensor, given: Optional[torch.Tensor]) -> torch.Tensor:
+def _per_row(generator: Generators, rows: int) -> bool:
+    if isinstance(generator, (list, tuple)):
+        if len(generator) != rows:
+            raise ValueError(f"{len(generator)} generators for a batch of {rows} rows")
+        return True
+    return False
+
+
+def randn(shape: Sequence[int], generator: Generators, device, dtype=torch.float32) -> torch.Tensor:
+    """N(0, I) of `shape`; with a sequence of generators, row i is drawn from
+    generator i alone, the draw a batch-1 run under it makes. That is one
+    small launch a row where one generator makes one launch: B more a draw,
+    against the ~1,800-5,800 kernels a chain step already launches."""
+    if _per_row(generator, shape[0]):
+        return torch.cat([torch.randn((1, *shape[1:]), generator=g, device=device, dtype=dtype) for g in generator])
+    return torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
+
+
+def randint(high: int, rows: int, generator: Generators, device) -> torch.Tensor:
+    """(rows,) integers in [0, high), one per row from its own generator when given a sequence."""
+    if _per_row(generator, rows):
+        return torch.cat([torch.randint(0, high, (1,), generator=g, device=device) for g in generator])
+    return torch.randint(0, high, (rows,), generator=generator, device=device)
+
+
+def draw_or_replay(generator: Generators, like: torch.Tensor, given: Optional[torch.Tensor]) -> torch.Tensor:
     """A N(0, I) draw shaped like the NCHW `like`, on its device: `given`
-    (NHWC, replayed) or, if None, drawn from the generator."""
+    (NHWC, replayed) or, if None, drawn from the generator(s)."""
     if given is not None:
         return nchw(given).to(like.device, torch.float32)
-    return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+    return randn(like.shape, generator, like.device, like.dtype)
 
 
-def _init_x(sched: NoiseSchedule, shape: Sequence[int], generator, init: Optional[torch.Tensor]) -> torch.Tensor:
+def _init_x(sched: NoiseSchedule, shape: Sequence[int], generator: Generators,
+            init: Optional[torch.Tensor]) -> torch.Tensor:
     """The initial N(0, I) draw, NCHW f32 on the schedule's device."""
     if init is not None:
         return nchw(init).to(sched.device, torch.float32)
     b, h, w, c = shape
-    return torch.randn((b, c, h, w), generator=generator, device=sched.device, dtype=torch.float32)
+    return randn((b, c, h, w), generator, sched.device)
 
 
-def step_noise(generator, like: torch.Tensor, noise: Optional[Noise], s: int) -> torch.Tensor:
+def step_noise(generator: Generators, like: torch.Tensor, noise: Optional[Noise], s: int) -> torch.Tensor:
     """Step s's draw: noise[1][s] replayed, or drawn from the generator."""
     return draw_or_replay(generator, like, None if noise is None else noise[1][s])
 
@@ -102,7 +132,7 @@ def ddpm_sample(
     apply_fn: ApplyFn,
     sched: NoiseSchedule,
     shape: Sequence[int],
-    generator: Optional[torch.Generator] = None,
+    generator: Generators = None,
     num_steps: Optional[int] = None,
     mode: VarianceMode = "posterior",
     return_trajectory_every: int = 0,
@@ -145,7 +175,7 @@ def ddim_sample(
     apply_fn: ApplyFn,
     sched: NoiseSchedule,
     shape: Sequence[int],
-    generator: Optional[torch.Generator] = None,
+    generator: Generators = None,
     num_steps: int = 50,
     eta: float = 0.0,
     noise: Optional[Noise] = None,
@@ -211,7 +241,7 @@ def dpm_solver_pp_2m_sample(
     apply_fn: ApplyFn,
     sched: NoiseSchedule,
     shape: Sequence[int],
-    generator: Optional[torch.Generator] = None,
+    generator: Generators = None,
     num_steps: int = 20,
     noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -236,7 +266,7 @@ def partial_forward_then_reverse(
     sched: NoiseSchedule,
     x0: torch.Tensor,
     start_t: int,
-    generator: Optional[torch.Generator] = None,
+    generator: Generators = None,
     mode: VarianceMode = "posterior",
     noise: Optional[Noise] = None,
 ) -> torch.Tensor:

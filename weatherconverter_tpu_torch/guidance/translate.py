@@ -7,7 +7,9 @@ strided DDIM or DPM-Solver++(2M) subsequence.
 The JAX scan becomes a Python loop over i = num_steps-1 .. 0; per step the
 UNet's eps-prediction, the DDPM posterior and, when i != 0 and
 i % guidance_every == 0, the guidance update (LCG on even i and GSG on odd i
-under 'alternate'). Noise comes from a torch.Generator;
+under 'alternate'). Noise comes from a torch.Generator, or one a batch
+row (`sampling.Generators`: row i draws what a batch-1 run under generator
+i draws);
 `noise=(noise0, z_steps)` replays given draws instead (the JAX key stream,
 split as translate.py:171-177, 185, 189), so a test can hold the port
 against the JAX chain step for step. The public layout is the JAX one:
@@ -23,11 +25,13 @@ import torch
 from torch import nn
 
 from weatherconverter_tpu_torch.diffusion.sampling import (
+    Generators,
     acp_prev,
     dpm_2m_update,
     draw_or_replay,
     nchw,
     nhwc,
+    randint,
     step_noise,
     strided_taus,
 )
@@ -88,7 +92,7 @@ def sample_with_sgg(
     sr_fn: SRFn,
     input_128: torch.Tensor,
     gt: torch.Tensor,
-    generator: Optional[torch.Generator] = None,
+    generator: Generators = None,
     lam: float = 60.0,
     num_steps: int = 500,
     num_classes: int = 19,
@@ -141,7 +145,7 @@ def sample_with_sgg(
                       normalize_seg_input=normalize_seg_input)
 
     if start_t is None:
-        t0 = torch.randint(0, num_steps, (b,), generator=generator, device=device)
+        t0 = randint(num_steps, b, generator, device)
     else:
         t0 = torch.full((b,), start_t, dtype=torch.long, device=device)
     xt = q_sample(sched, x_in, draw_or_replay(generator, x_in, None if noise is None else noise[0]), t0)
@@ -164,8 +168,8 @@ def sample_with_sgg(
     return nhwc(out)
 
 
-def _fast_start(sched: NoiseSchedule, input_128: torch.Tensor, span_t: Optional[int], num_steps: int, generator,
-                noise0: Optional[torch.Tensor]):
+def _fast_start(sched: NoiseSchedule, input_128: torch.Tensor, span_t: Optional[int], num_steps: int,
+                generator: Generators, noise0: Optional[torch.Tensor]):
     """The fast translations' start: the span (min(DEFAULT_TRANSLATE_SPAN, T)
     unless given), its strided taus, and the input q-sampled to span - 1."""
     span = min(DEFAULT_TRANSLATE_SPAN, sched.T) if span_t is None else span_t
@@ -181,7 +185,7 @@ def sample_with_sgg_ddim(
     sr_fn: SRFn,
     input_128: torch.Tensor,
     gt: torch.Tensor,
-    generator: Optional[torch.Generator] = None,
+    generator: Generators = None,
     lam: float = 60.0,
     num_steps: int = 50,
     span_t: Optional[int] = None,
@@ -240,7 +244,7 @@ def sample_with_sgg_dpm(
     sr_fn: SRFn,
     input_128: torch.Tensor,
     gt: torch.Tensor,
-    generator: Optional[torch.Generator] = None,
+    generator: Generators = None,
     lam: float = 60.0,
     num_steps: int = 20,
     span_t: Optional[int] = None,

@@ -30,16 +30,17 @@ SHAPES = [(8, 4, 4096, 64), (8, 4, 1024, 128), (8, 4, 1024, 32), (8, 4, 4096, 16
 THIS = types.SimpleNamespace(attention=A, micro_attn=micro_attn)
 
 
-def load_checkout(root: str):
-    """`ops.attention` (K1-K3's wrappers) and `probes.micro_attn` (K4's) of
-    the checkout at `root`, imported together beside this one's, so that they
-    share that checkout's kernel library: this package's modules are set aside
-    during the import and put back."""
+def load_checkout(root: str, modules=("ops.attention", "probes.micro_attn")):
+    """`modules` of the checkout at `root` (by default `ops.attention`, K1-K3's
+    wrappers, and `probes.micro_attn`, K4's), imported together beside this
+    one's, so that they share that checkout's kernel library: this package's
+    modules are set aside during the import and put back. Returns a namespace
+    keyed by each module's last name."""
     mine = {k: sys.modules.pop(k) for k in list(sys.modules) if k == PACKAGE or k.startswith(PACKAGE + ".")}
     sys.path.insert(0, root)
     try:
-        return types.SimpleNamespace(attention=importlib.import_module(PACKAGE + ".ops.attention"),
-                                     micro_attn=importlib.import_module(PACKAGE + ".probes.micro_attn"))
+        return types.SimpleNamespace(**{m.rsplit(".", 1)[-1]: importlib.import_module(f"{PACKAGE}.{m}")
+                                        for m in modules})
     finally:
         sys.path.remove(root)
         for k in [k for k in sys.modules if k == PACKAGE or k.startswith(PACKAGE + ".")]:
