@@ -82,7 +82,27 @@ Phases, each of which fails the run (exit code != 0, no result line):
      translations a minute, occupancy, batches, buckets, peak memory); every
      response 200 with a PNG of its shape, /stats counts that add up; one seed
      solo and co-batched, within two solo runs' difference plus one uint8
-     level.
+     level;
+ 15. segmentation at configs/segmentation.yaml (DeepLabV3+/ResNet-101 at
+     OS16, 19 classes, batch 8, 270 x 480 images cropped to 256 x 256, SGD
+     under PolyLR, bf16 autocast over f32 parameters, seeded random weights)
+     on a synthetic ACDC tree (fog and rain, 16 train and 4 val 960 x 540
+     pairs each, striped labelIds): loop_segmentation.train for 2 epochs
+     (finite losses and input-gradient magnitudes, parameters and BatchNorm
+     statistics that move, a Mean IoU each epoch, the best step restored
+     equal to the saved one); timed windows of the augmented train step on
+     one device-resident uint8 batch (ms/step, images/s, a profiled window's
+     device ms/step, idle share, launches and top kernels, peak memory, the
+     step's FLOPs from torch.utils.flop_counter and their bound at 989
+     TFLOP/s); one batch-2 step card against CPU (f32) with the same seeded
+     weights, each residual block's last BatchNorm scale x 0.1, and draws,
+     in f32 and in bf16, each held to its precision's limits on the loss,
+     the parameter update, the batch term of the BN statistics (all and the
+     worst buffer) and the eval-step predictions' agreement
+     (probes/seg_step_parity.py), and four planted faults, each of which
+     must break a limit; train-seg (4 steps) and infer-seg
+     on its best step through the CLI (exit 0, the three PNGs' shapes, finite
+     values in range before the uint8 cast). It launches no kernel of ours.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors, times, bounds
 and library times.
@@ -138,6 +158,28 @@ TRAIN_STEPS, WINDOWS, WINDOW_STEPS = 24, 3, 20
 SAMPLE_STEPS, DDIM_STEPS, DPM_STEPS, PROFILE_STEPS = 20, 50, 20, 10
 FAST_GUIDED = dict(lam=60.0, num_classes=19, guidance_style="gsg")
 INT8_FLOOR_SEEDS = 5
+# phase 15: the synthetic ACDC tree (train and val pairs per condition, (W, H) of its PNGs). One seg train
+# step at batch 2 on the card against the CPU (f32), on the seeded model with each residual block's last
+# BatchNorm scale x SEG_RESIDUAL_SCALE: on the fresh model the CPU's own f64 step is 16 % from its f32 one
+# in the update (in the stem and layer1), so nothing could be told from rounding there. Measures
+# (probes/seg_step_parity.py): loss relative error; relative L2 error of the update over every leaf
+# ("update") and without the ASPP pooling conv ("update_without_pooled": at batch 2 its bf16 gradient is
+# rounding, see pooled_leaves); relative L2 error of the BatchNorm statistics' batch term over all
+# buffers ("stats") and in the worst one ("stats_worst"); the share of equal eval-step predictions
+# ("agree"). Limits from H100 readings (PERF.md section 6), in that order: f32 8.0e-8, 3.3e-3, 5.5e-6,
+# 3.0e-5, 1.00000, and 1.3e-5, 2.0e-2, 1.5e-4, 3.9e-4, 0.99992 in a process that ran this phase alone
+# (the card's step identical, the CPU's reference moved in that process); bf16 1.4e-4-3.5e-4,
+# 0.154-0.168 (0.30-0.45 with the pooled leaf), 6.0e-3-7.5e-3, 1.5e-2-1.9e-2, 0.981-0.983 (the CPU's
+# bf16 step 2.9e-4, 0.171, 5.9e-3, 1.4e-2, 0.970). The faults of SEG_CONTROLS read there, on the measure
+# each breaks: head lr x 2, bf16 1.015; dropout, f32 0.27 and loss 2.1e-3; the unbiased running variance
+# 1.000 in the pooled BatchNorm's buffer; zero logits 0.006 of predictions equal. Dropout in bf16
+# (0.30-0.33 without the pooled leaf) clears its limit by too little to be a control.
+SEG_PAIRS, SEG_SIZE = (16, 4), (960, 540)
+SEG_RESIDUAL_SCALE = 0.1
+SEG_LIMITS = {"f32": dict(loss=1e-4, update=5e-2, stats=2e-2, stats_worst=1e-2, agree=0.99),
+              "bf16": dict(loss=1e-3, update_without_pooled=0.25, stats=2e-2, stats_worst=0.1, agree=0.95)}
+SEG_CONTROLS = (("bf16", "head_lr_x2"), ("bf16", "unbiased_running_var"), ("bf16", "zero_logits"),
+                ("f32", "dropout_on"))
 # phase 12 runs its DDIM half only if the run reaches it this early, so that phases 13-14 fit the time limit
 INT8_DDIM_BEFORE_S = 420
 HEADLINE = dict(guidance_every=2, guidance_space="latent", lam=120.0)
@@ -755,9 +797,10 @@ def phase_probes(torch, device, card):
     return results
 
 
-def _device_profile(torch, fn, steps: int):
+def _device_profile(torch, fn, steps: int, top: int = 0):
     """(wall ms, kernel ms, kernel launches) of one run of `fn` under the
-    profiler, device activity only."""
+    profiler, device activity only; with `top`, also the `top` kernels of
+    most device time as (name, ms, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -768,7 +811,11 @@ def _device_profile(torch, fn, steps: int):
     cuda = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == cuda and getattr(e, "device_time_total", 0) > 0]
-    return wall_ms, sum(e.device_time_total for e in events) / 1e3, sum(e.count for e in events)
+    total = (wall_ms, sum(e.device_time_total for e in events) / 1e3, sum(e.count for e in events))
+    if not top:
+        return total
+    ranked = sorted(events, key=lambda e: -e.device_time_total)[:top]
+    return total + ([(e.key, e.device_time_total / 1e3, e.count) for e in ranked],)
 
 
 def phase_samplers(torch, A, device, models, card):
@@ -1193,6 +1240,208 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
         f"{summary['auto']['per_min']:.1f} / {summary['full sweep']['per_min']:.1f} translations/min [{card}]")
 
 
+def _synthetic_acdc(root, seed, pairs=SEG_PAIRS, size=SEG_SIZE, classes=19):
+    """An ACDC tree under `root`: fog and rain, pairs[0] train and pairs[1] val
+    image/labelIds pairs each, `size` = (W, H) PNGs made by _synthetic_pair
+    from consecutive seeds. Returns root."""
+    n = 0
+    for cond in ("fog", "rain"):
+        for split, count in zip(("train", "val"), pairs):
+            for i in range(count):
+                paths = [os.path.join(root, top, cond, split, "GP010", f"GP010_frame_{i:06d}_{kind}.png")
+                         for top, kind in (("rgb_anon", "rgb_anon"), ("gt", "gt_labelIds"))]
+                for path in paths:
+                    os.makedirs(os.path.dirname(path), exist_ok=True)
+                _synthetic_pair(*paths, seed=seed + n, classes=classes, size=size)
+                n += 1
+    return root
+
+
+def _seg_breaks(c, limits):
+    """The measures of a seg_step_parity comparison `c` outside `limits`
+    (predictions: a floor; the rest: ceilings; NaN breaks either)."""
+    value = lambda k: c[k][1] if k == "stats_worst" else c[k]  # noqa: E731
+    return [k for k, lim in limits.items() if not (value(k) >= lim if k == "agree" else value(k) <= lim)]
+
+
+def phase_seg(torch, device, card, tmp, scfg=None, pairs=SEG_PAIRS, size=SEG_SIZE):
+    """Segmentation on the card at configs/segmentation.yaml: the trainer for 2
+    epochs on a synthetic ACDC tree, timed windows of the augmented train step,
+    one batch-2 step card against CPU (f32) in bf16 and in f32, then
+    train-seg and infer-seg through the CLI. `scfg`, `pairs` and `size` make a
+    tiny CPU rehearsal possible (no timing or profile there)."""
+    import numpy as np
+    from PIL import Image
+
+    from weatherconverter_tpu_torch.cli.main import main as cli_main
+    from weatherconverter_tpu_torch.core.checkpoint import CheckpointManager, restore_auto
+    from weatherconverter_tpu_torch.core.config import load_seg_config
+    from weatherconverter_tpu_torch.models.factory import make_seg_model
+    from weatherconverter_tpu_torch.probes import seg_step_parity as SP
+    from weatherconverter_tpu_torch.training import loop_segmentation
+    from weatherconverter_tpu_torch.training.losses import make_seg_loss
+    from weatherconverter_tpu_torch.training.segmentation import create_seg_state
+    from weatherconverter_tpu_torch.utils import images
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dtype = torch.bfloat16 if on_card else None
+    scfg = scfg or os.path.join(REPO, "configs", "segmentation.yaml")
+    t0 = time.perf_counter()
+    root = _synthetic_acdc(os.path.join(tmp, "acdc"), 70, pairs, size)
+    log(f"  synthetic ACDC tree: fog and rain, {pairs[0]} train and {pairs[1]} val pairs each, {size[0]} x {size[1]} "
+        f"PNGs, in {time.perf_counter() - t0:.1f} s")
+
+    # the trainer: 2 epochs, a validation and a checkpoint each
+    out = os.path.join(tmp, "seg_train")
+    cfg = load_seg_config(scfg, data={"root_dir": root}, folders={"output": out},
+                          training={"epochs": 2, "log_interval": 1, "device": device.type})
+    m, t = cfg.model, cfg.data.transform
+    t0 = time.perf_counter()
+    state = loop_segmentation.train(cfg)
+    sync()
+    loop_s = time.perf_counter() - t0
+    steps = 2 * (2 * pairs[0] // cfg.training.batch_size)
+    with open(os.path.join(out, "0", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    igs = [r["train/input_grad"] for r in records if "train/input_grad" in r]
+    mious = [r["val/mIoU"] for r in records if "val/mIoU" in r]
+    finite = lambda xs: all(x == x and abs(x) < float("inf") for x in xs)  # noqa: E731
+    if state.step != steps or len(losses) != steps or not finite(losses) or not (finite(igs) and min(igs) > 0):
+        raise AssertionError(f"seg train loop: step {state.step} (expected {steps}), losses {losses}, input "
+                             f"gradient magnitudes {igs}")
+    if len(mious) != 2 or not finite(mious):
+        raise AssertionError(f"seg train loop: 'Mean IoU' of the 2 epochs {mious}")
+    ckdir = os.path.join(out, "0", "checkpoints")
+    mgr = CheckpointManager(ckdir, best_metric_name="Mean IoU")
+    saved = {s: mgr.restore(step=s) for s in mgr.all_steps()}
+    if sorted(saved) != [1, 2] or mgr.best_step() not in saved:
+        raise AssertionError(f"seg train loop: checkpoints {sorted(saved)}, best step {mgr.best_step()}")
+    a, b = saved[1]["model"], saved[2]["model"]
+    params = [k for k, _ in state.model.named_parameters()]
+    moved = sum((b[k].float() - a[k].float()).abs().sum().item() for k in params)
+    bn_moved = sum((b[k] - a[k]).abs().sum().item() for k in b if k.endswith(("running_mean", "running_var")))
+    if not (moved > 0 and bn_moved > 0):
+        raise AssertionError(f"seg train loop: epoch 1 -> 2, |params| moved {moved}, BN statistics {bn_moved}")
+    max_iters = 2 * pairs[0] // cfg.training.batch_size * cfg.training.epochs
+    fresh = create_seg_state(make_seg_model(m.name, m.num_classes, m.output_stride, train=True,
+                                            bn_momentum=m.bn_momentum).to(device), cfg.optimizer, max_iters)
+    restore_auto(ckdir, fresh, prefer_best=True)
+    _state_dicts_equal(torch, saved[mgr.best_step()], fresh.state_dict())
+    del fresh
+    log(f"  loop_segmentation.train ({m.name}, OS{m.output_stride}, {m.num_classes} classes, batch "
+        f"{cfg.training.batch_size}, {cfg.training.num_workers} loader workers): {steps} steps and 2 validations in "
+        f"{loop_s:.1f} s (model build, loader start-up and cuDNN's first trials included); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, input-gradient magnitude {igs[0]:.3e} -> {igs[-1]:.3e}, Mean IoU {mious}; epoch 1 -> 2 "
+        f"|params| moved {moved:.3e}, BN statistics {bn_moved:.3e}; best step {mgr.best_step()} restored equal")
+
+    # timed windows of the augmented step on one device-resident uint8 batch
+    loss_fn = make_seg_loss(cfg.training.loss_function.type, cfg.training.loss_function.params)
+    step_fn = loop_segmentation.make_augmented_seg_train_step(cfg, loss_fn, dtype=dtype)
+    bsz, (h, w) = cfg.training.batch_size, t.resize_resolution
+    g = torch.Generator(device=device).manual_seed(5)
+    batch = torch.randint(0, 256, (bsz, h, w, 3), generator=g, device=device, dtype=torch.uint8)
+    labels = SP.stripes(bsz, h, w, g)
+    if on_card:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        for _ in range(3):
+            step_fn(state, batch, labels, g)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        times, window_losses = [], []
+        for _ in range(WINDOWS):
+            t0 = time.perf_counter()
+            outs = [step_fn(state, batch, labels, g)[1:] for _ in range(WINDOW_STEPS)]
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3 / WINDOW_STEPS)
+            window_losses += [v.item() for o in outs for v in o]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not finite(window_losses):
+            raise AssertionError("seg train windows: a loss or input-gradient magnitude is not finite")
+        profiled = 5
+        wall_ms, kernel_ms, n_launch, top = _device_profile(torch, lambda: [step_fn(state, batch, labels, g)
+                                                                          for _ in range(profiled)], profiled, 5)
+        with FlopCounterMode(display=False) as counter:
+            step_fn(state, batch, labels, g)
+        flops = counter.get_total_flops()
+        ms = statistics.median(times)
+        bound_ms = flops / 989e12 * 1e3
+        log(f"  seg train step (augment + fwd + bwd with the input gradient + SGD) at batch {bsz}, uint8 ({h}, {w}) -> "
+            f"{tuple(t.target_resolution)} crops, bf16: {ms:.2f} ms/step (median of {WINDOWS} windows of "
+            f"{WINDOW_STEPS} steps: {', '.join(f'{x:.2f}' for x in times)}), {1e3 * bsz / ms:.1f} images/s [{card}]; "
+            f"peak device memory {peak:.2f} GiB after warm-up; profiled {profiled} steps: device "
+            f"{kernel_ms / profiled:.2f} ms/step, wall {wall_ms / profiled:.2f} ms/step, idle share "
+            f"{max(0.0, 1 - kernel_ms / wall_ms):.2f}, {n_launch / profiled:.0f} launches a step; "
+            f"{flops / 1e12:.3f} TFLOP a step (torch.utils.flop_counter) -> bound {bound_ms:.3f} ms at 989 TFLOP/s "
+            f"bf16 ({100 * bound_ms / ms:.1f} % of the wall step)")
+        for name, dev_ms, count in top:
+            log(f"    {dev_ms / profiled:8.3f} ms/step {100 * dev_ms / kernel_ms:5.1f}% x{count // profiled:<4d} "
+                f"{name[:100]}")
+    del batch, labels
+
+    # one step at batch 2 against the CPU (f32), the same seeded weights, damped, and draws: in f32 and in
+    # bf16 as the trainer runs it, each held to every limit of its precision; then planted faults, each
+    # of which the same limits must reject
+    reference = SP.reference_model(cfg, SEG_RESIDUAL_SCALE)
+    pooled, data = SP.pooled_leaves(reference), SP.batch(cfg, 2)
+    cpu_ref = SP.run_step(cfg, reference, data, torch.device("cpu"))
+    log(f"  one seg train step at batch 2, card against CPU f32 (CPU step {cpu_ref['seconds']:.1f} s), each residual "
+        f"block's last BatchNorm scale x {SEG_RESIDUAL_SCALE}; limits {SEG_LIMITS}")
+    for tag, fault in (("f32", None), ("bf16", None)) + SEG_CONTROLS:
+        c = SP.compare(SP.run_step(cfg, reference, data, device, dtype if tag == "bf16" else None, fault), cpu_ref,
+                       pooled)
+        broken = _seg_breaks(c, SEG_LIMITS[tag])
+        log(f"    {SP.line(f'card {tag}' + (f' with the fault {fault}' if fault else ''), c)}; outside its limits: "
+            f"{', '.join(broken) or 'none'}")
+        if fault is None and broken:
+            raise AssertionError(f"card {tag} and CPU f32 seg train steps disagree on {broken}")
+        if fault is not None and not broken:
+            raise AssertionError(f"the card {tag} step with the planted fault {fault} ({SP.FAULTS[fault]}) passes "
+                                 "every limit")
+    del reference, cpu_ref
+    del state
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the CLI: train-seg, then infer-seg on its best step
+    big_img, big_lbl = os.path.join(tmp, "seg_img.png"), os.path.join(tmp, "seg_lbl.png")
+    _synthetic_pair(big_img, big_lbl, seed=80)
+    cli_out, inf_out = os.path.join(tmp, "seg_cli"), os.path.join(tmp, "seg_infer")
+    device_flag = [] if on_card else ["--device", "cpu"]
+    ck = os.path.join(cli_out, "0", "checkpoints")
+    runs = (["train-seg", "--config", scfg, "--max-steps", "4", "--set", f"data.root_dir={root}",
+             f"folders.output={cli_out}"],
+            ["infer-seg", "--config", scfg, "--checkpoint", ck, "--image", big_img, "--label", big_lbl, "--out",
+             inf_out])
+    th, tw = t.target_resolution
+    for argv in runs:
+        t0 = time.perf_counter()
+        with _Recorder(images) as rec:
+            code = cli_main(argv + device_flag)
+        sync()
+        secs = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"cli {argv[0]}: exit {code}")
+        if argv[0] == "train-seg":
+            best = CheckpointManager(ck, best_metric_name="Mean IoU").best_step()
+            if best is None:
+                raise AssertionError(f"cli train-seg: no best step under {ck}")
+            log(f"  cli train-seg --max-steps 4: exit 0 in {secs:.1f} s; best step {best}")
+            continue
+        shapes = {n: np.asarray(Image.open(os.path.join(inf_out, f"{n}.png"))).shape
+                  for n in ("pred", "gradient_magnitude", "panels")}
+        want = {"pred": (th, tw, 3), "gradient_magnitude": (th, tw), "panels": (th, 6 * tw, 3)}
+        if shapes != want or len(rec.seen) != 2 or not all(ok for _, ok in rec.seen):
+            raise AssertionError(f"cli infer-seg: PNGs {shapes}, expected {want}; before the uint8 cast {rec.seen} "
+                                 "(shape, finite and in range)")
+        log(f"  cli infer-seg --checkpoint <that run's checkpoints> on a 2048 x 1024 image and labelIds map: exit 0 "
+            f"in {secs:.1f} s; PNGs {shapes}, finite and in [0, 1] before the uint8 cast")
+    log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _round(x):
     return None if x is None else round(x, 4)
 
@@ -1321,6 +1570,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase 14: the server on the card [{card}]")
         phase_server(torch, A, device, card, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 15: segmentation on the card [{card}]")
+        phase_seg(torch, device, card, tmp)
 
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []

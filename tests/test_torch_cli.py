@@ -152,21 +152,54 @@ def test_parser_has_jax_subcommands_dests_defaults_and_choices():
     assert PM.parse_overrides(["a.b=1", "a.c=[1, 2]", "d=x"]) == JM.parse_overrides(["a.b=1", "a.c=[1, 2]", "d=x"])
 
 
-@pytest.mark.parametrize("command, item", [("train-seg", "item 13"), ("infer-seg", "item 13"),
-                                           ("train-srgan", "item 15"), ("quality", "item 15"),
+@pytest.mark.parametrize("command, item", [("train-srgan", "item 15"), ("quality", "item 15"),
                                            ("export-hlo", "item 10"), ("visualize", "item 19")])
 def test_unported_subcommands_exit_nonzero_naming_their_item(command, item, capsys):
-    argv = [command] + (["--image", "x.png"] if command in ("infer-seg", "visualize") else [])
+    argv = [command] + (["--image", "x.png"] if command == "visualize" else [])
     assert PM.main(argv) != 0
     err = capsys.readouterr().err
     assert "not ported" in err and item in err
+
+
+# a tiny seg config: ResNet-18 at 16 px crops of 24 x 40 images, the 19 train classes the labels hold
+SEG_YAML = """
+training: {random_seed: 0, epochs: 1, batch_size: 2, num_workers: 0, log_interval: 1}
+data:
+  weather: [fog]
+  transform: {resize_resolution: [24, 40], target_resolution: [16, 16]}
+model: {name: deeplabv3plus_resnet18, num_classes: 19, output_stride: 16}
+"""
+
+
+@pytest.mark.parametrize("command", ["train-seg", "infer-seg"])
+def test_seg_subcommands_run_on_the_cpu(command, tiny, tmp_path):
+    """The two subcommands the seg slice freed from the table above: each
+    runs to exit 0 with --device cpu and writes what it should."""
+    (tmp_path / "s.yaml").write_text(SEG_YAML)
+    if command == "train-seg":
+        for split in ("train", "val"):
+            for kind, src in (("rgb_anon", "img.png"), ("gt", "lbl.png")):
+                d = tmp_path / "acdc" / kind / "fog" / split
+                os.makedirs(d, exist_ok=True)
+                for i in range(2):
+                    suffix = "rgb_anon" if kind == "rgb_anon" else "gt_labelIds"
+                    (d / f"f{i}_{suffix}.png").write_bytes((tiny / src).read_bytes())
+        assert PM.main(["train-seg", "--config", str(tmp_path / "s.yaml"), "--max-steps", "1", "--device", "cpu",
+                        "--set", f"data.root_dir={tmp_path / 'acdc'}", f"folders.output={tmp_path / 'out'}"]) == 0
+        assert (tmp_path / "out" / "0" / "checkpoints" / "best.json").is_file()
+    else:
+        assert PM.main(["infer-seg", "--config", str(tmp_path / "s.yaml"), "--image", str(tiny / "img.png"),
+                        "--label", str(tiny / "lbl.png"), "--out", str(tmp_path / "seg"), "--device", "cpu"]) == 0
+        assert _png(tmp_path / "seg" / "panels.png").shape == (16, 96, 3)
+        assert _png(tmp_path / "seg" / "gradient_magnitude.png").shape == (16, 16)
 
 
 def test_commands_need_a_card_unless_device_cpu(tiny, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["sample", "--config", str(tiny / "d.yaml")],
                  ["translate", "--config", str(tiny / "t.yaml"), "--image", "i", "--label", "l"],
-                 ["super-resolve", "--image", "i"], ["train-ddpm"], ["serve"]):
+                 ["super-resolve", "--image", "i"], ["train-ddpm"], ["serve"], ["train-seg"],
+                 ["infer-seg", "--image", "i"]):
         with pytest.raises(SystemExit, match="--device cpu"):
             PM.main(argv)
 

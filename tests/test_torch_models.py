@@ -158,7 +158,9 @@ def test_translation_config_matches_jax(path):
         assert p.model_dump() == r.model_dump(), section
 
 
-def test_factory_refuses_models_not_ported():
-    for name in ("deeplabv3_resnet50", "deeplabv3plus_mobilenet", "deeplabv3plus_resnext50_32x4d"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_seg_model(name)
+@pytest.mark.parametrize("name, kw", [("deeplabv3plus_mobilenet", {}), ("deeplabv3_xception", {}),
+                                      ("deeplabv3plus_hrnetv2_32", {}),
+                                      ("deeplabv3plus_resnet50", {"separable": True})])
+def test_factory_refuses_models_not_ported(name, kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        make_seg_model(name, **kw)

@@ -266,7 +266,7 @@ def test_checkpoint_round_trip_restores_the_train_state(tmp_path, tiny):
         mgr.save(step, state)
     assert mgr.all_steps() == [2, 3] and mgr.latest_step() == 3
     fresh = PD.create_ddpm_state(Unet(PC.UnetModelConfig(**TINY_UNET)), lr=1e-3, ema_decay=0.9)
-    restored = restore_auto(str(tmp_path / "ckpt"), fresh)
+    restored = restore_auto(str(tmp_path / "ckpt"), fresh, prefer_best=False)
     assert (restored.step, restored.epoch) == (1, 4)
     saved, loaded = state.state_dict(), restored.state_dict()
     for part in ("model",):

@@ -217,8 +217,8 @@ def test_parts_not_ported_raise(kw):
 
 
 def test_port_imports_no_jax():
-    """Every module of weatherconverter_tpu_torch (the CLI's cli.main and the
-    server's serving.server among them), and chip_smoke (imported, not run),
+    """Every module of weatherconverter_tpu_torch (the CLI's cli.main, the
+    server's serving.server and the seg trainer's modules among them), and chip_smoke (imported, not run),
     imports in a fresh process without loading jax, jaxlib, flax or anything
     of the JAX package."""
     code = (
@@ -229,6 +229,8 @@ def test_port_imports_no_jax():
         "assert len(names) >= 20, names\n"
         "assert 'weatherconverter_tpu_torch.data.datasets' in names and 'weatherconverter_tpu_torch.compat.from_jax' in names\n"
         "assert {'weatherconverter_tpu_torch.cli.main', 'weatherconverter_tpu_torch.serving.server'} <= set(names)\n"
+        "assert {'weatherconverter_tpu_torch.training.loop_segmentation', 'weatherconverter_tpu_torch.metrics.stream',\n"
+        "        'weatherconverter_tpu_torch.models.norm'} <= set(names)\n"
         "from weatherconverter_tpu_torch.cli import main as cli\n"
         "cli.build_parser().parse_args(['serve', '--device', 'cpu'])\n"
         "import chip_smoke\n"

@@ -70,11 +70,40 @@ def tiny_unet_pair(qk_int8=False):
     return junet, params, load_strict(port, from_jax.unet_state_dict(params, UnetModelConfig(**TINY_UNET)))
 
 
-def seg_pair(name, hw):
-    jseg = j_make_seg_model(name, num_classes=19)
+def seg_pair(name, hw, num_classes=19):
+    jseg = j_make_seg_model(name, num_classes=num_classes)
     variables = jax.jit(jseg.init)(jax.random.PRNGKey(3), jnp.zeros((1, hw, hw, 3)))
     variables = {"params": perturb(variables["params"], 4), "batch_stats": perturb(variables["batch_stats"], 5)}
-    return jseg, variables, load_strict(make_seg_model(name, num_classes=19), from_jax.deeplab_state_dict(variables, name))
+    port = make_seg_model(name, num_classes=num_classes)
+    return jseg, variables, load_strict(port, from_jax.deeplab_state_dict(variables, name))
+
+
+def seg_pair_from_shapes(name, hw, num_classes, seed=0):
+    """(JAX model, variables, port in eval()) without JAX's init: parameters
+    drawn with numpy at He scale for the kernels (so activations keep their
+    size through a deep ResNet), BatchNorm scales near 1, statistics and
+    biases moved off their init values. Much faster than `seg_pair` for the
+    wide and grouped ResNets (no init compile, no torch init)."""
+    jseg = j_make_seg_model(name, num_classes=num_classes)
+    shapes = jax.eval_shape(lambda: jseg.init(jax.random.PRNGKey(0), jnp.zeros((1, hw, hw, 3))))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        key = path[-1].key
+        noise = rng.standard_normal(s.shape, dtype=np.float32)
+        if key == "kernel":
+            return noise * np.float32(np.sqrt(2.0 / np.prod(s.shape[:-1])))
+        if key == "scale":
+            return 1.0 + 0.1 * noise
+        if key == "var":
+            return np.exp(0.2 * noise)
+        return 0.05 * noise
+
+    variables = jax.tree_util.tree_map_with_path(leaf, shapes)
+    with torch.device("meta"):
+        port = make_seg_model(name, num_classes=num_classes)
+    port.load_state_dict(from_jax.deeplab_state_dict(variables, name), strict=True, assign=True)
+    return jseg, variables, port.eval()
 
 
 def generator_pair(upscale, num_blocks=2, hw=16):

@@ -1,12 +1,14 @@
 """The CLI's subcommands and the checkpoint loaders (port of
-weatherconverter_tpu/cli/commands.py): sample, translate, super-resolve and
-train-ddpm, on the CUDA card unless `--device cpu` asks for the CPU.
+weatherconverter_tpu/cli/commands.py): sample, translate, super-resolve,
+infer-seg, train-ddpm and train-seg, on the CUDA card unless `--device cpu`
+asks for the CPU.
 
 Checkpoints: a reference torch file (.pt, .pth, .ckpt, .tar; its
 `model_state_dict` / `state_dict` / `model` entry when wrapped) loads with
 `strict=True`, since the port keeps the reference's parameter names; a JAX
 .npz goes through `compat/from_jax.py`; a training-run directory of this
-package through `core/checkpoint.restore_auto`, the EMA preferred; None gives
+package through `core/checkpoint.restore_auto`, the EMA preferred and a seg
+run's best "Mean IoU" step taken; None gives
 random weights from the seed. An Orbax directory of the JAX package is
 refused by name: the port has no Orbax.
 
@@ -83,8 +85,10 @@ def load_npz_tree(path: str) -> dict:
 
 
 def _port_checkpoint(path: str):
-    """The saved tree of a training-run directory, step directory or state
-    file of this package; an Orbax directory is refused by name."""
+    """The saved tree of a training run's checkpoint directory (its best step
+    where the run recorded one, as a seg run records its best "Mean IoU";
+    else its latest), a step directory or a state file of this package; an
+    Orbax directory is refused by name."""
     from weatherconverter_tpu_torch.core.checkpoint import STATE_FILE, restore_auto
 
     if os.path.isdir(path):
@@ -94,7 +98,7 @@ def _port_checkpoint(path: str):
         if not ours:
             raise SystemExit(f"{path}: not a checkpoint of this package (no {STATE_FILE}); an Orbax checkpoint of the "
                              "JAX package cannot be read here (no Orbax on the card): export it as .npz")
-    return restore_auto(path, None)
+    return restore_auto(path, None, prefer_best=True)
 
 
 def load_state(model: torch.nn.Module, checkpoint: str | None, from_npz, what: str) -> torch.nn.Module:
@@ -131,7 +135,7 @@ def load_unet(model_cfg, checkpoint: str | None, seed: int, qk_int8: bool = Fals
 
 
 def load_seg_model(seg_cfg, checkpoint: str | None, seed: int):
-    """The DeepLabV3+ seg model in eval mode (counterpart of `load_seg_variables`)."""
+    """The DeepLabV3(+) seg model in eval mode (counterpart of `load_seg_variables`)."""
     from weatherconverter_tpu_torch.compat.from_jax import deeplab_state_dict
     from weatherconverter_tpu_torch.models.factory import make_seg_model
 
@@ -314,4 +318,65 @@ def run_train_ddpm(args) -> int:
     overrides.setdefault("training", {})["device"] = device.type
     cfg = load_diffusion_config(args.config, **overrides)
     loop_diffusion.train(cfg, max_steps=args.max_steps)
+    return 0
+
+
+def run_train_seg(args) -> int:
+    """Segmentation training through training/loop_segmentation.train, on `--device`."""
+    from weatherconverter_tpu_torch.cli.main import parse_overrides
+    from weatherconverter_tpu_torch.core.config import load_seg_config
+    from weatherconverter_tpu_torch.training import loop_segmentation
+
+    device = resolve_device(args.device)
+    overrides = parse_overrides(args.set)
+    overrides.setdefault("training", {})["device"] = device.type
+    loop_segmentation.train(load_seg_config(args.config, **overrides), max_steps=args.max_steps)
+    return 0
+
+
+def run_infer_seg(args) -> int:
+    """Seg inference of one image into `<out>/pred.png` and, given a labelIds
+    map, the input-gradient probe (`gradient_magnitude.png`) and the six-panel
+    strip `panels.png`: the image, the denormalized input, the colorized
+    prediction, the gradient magnitude, the train-id plane and the colorized
+    ground truth (reference: seg_model/inference.py:118-200)."""
+    from PIL import Image
+
+    from weatherconverter_tpu_torch.core.config import load_seg_config
+    from weatherconverter_tpu_torch.data.labels import decode_target, encode_target
+    from weatherconverter_tpu_torch.data.transforms import normalize
+    from weatherconverter_tpu_torch.guidance.sgg import gradient_magnitude, seg_input_gradients
+    from weatherconverter_tpu_torch.utils.images import to_uint8_image
+
+    device = resolve_device(args.device)
+    cfg = load_seg_config(args.config)
+    t = cfg.data.transform
+    hw = tuple(t.target_resolution)
+    model = load_seg_model(cfg, args.checkpoint or cfg.model.path or None, seed=0).to(device)
+
+    img = Image.open(args.image).convert("RGB").resize((hw[1], hw[0]), Image.BILINEAR)
+    x = torch.from_numpy(np.asarray(img, np.float32) / 255.0)[None]
+    xn = normalize(x, tuple(t.mean), tuple(t.std)).to(device).permute(0, 3, 1, 2)
+    with torch.no_grad(), autocast(device):
+        pred = model(xn).argmax(dim=1)[0].cpu().numpy().astype(np.int32)
+    os.makedirs(args.out, exist_ok=True)
+    pred_color = decode_target(pred).astype(np.uint8)
+    Image.fromarray(pred_color).save(os.path.join(args.out, "pred.png"))
+
+    if args.label:
+        lbl = Image.open(args.label).resize((hw[1], hw[0]), Image.NEAREST)
+        enc = encode_target(np.asarray(lbl, np.uint8))
+        gt = torch.from_numpy(enc.astype(np.int64))[None].to(device)
+        with autocast(device):
+            grads = seg_input_gradients(model, xn, gt)
+        m = gradient_magnitude(grads)[0, 0].cpu().numpy()
+        m = (m - m.min()) / max(m.max() - m.min(), 1e-12)
+        mag = to_uint8_image(m, "unit")
+        Image.fromarray(mag).save(os.path.join(args.out, "gradient_magnitude.png"))
+        ids = np.where(enc == 255, 0, enc) * (255 // max(cfg.model.num_classes - 1, 1))
+        panels = [np.asarray(img, np.uint8), to_uint8_image(x[0], "unit"), pred_color,
+                  np.repeat(mag[..., None], 3, -1), np.repeat(ids.astype(np.uint8)[..., None], 3, -1),
+                  decode_target(enc.astype(np.int32)).astype(np.uint8)]
+        Image.fromarray(np.concatenate(panels, axis=1)).save(os.path.join(args.out, "panels.png"))
+    print(f"saved outputs under {args.out}")
     return 0

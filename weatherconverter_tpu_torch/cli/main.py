@@ -5,9 +5,9 @@ and choices, and one addition: `--device {cuda,cpu}`.
 
 Every command runs on the CUDA card unless `--device cpu` is given; without
 a card it stops with a message and a non-zero exit, and never goes on
-quietly on the CPU. Ported: train-ddpm, sample, translate, super-resolve and
-serve. The others parse as in the JAX CLI and stop with a message naming
-the ROADMAP item that ports their modules.
+quietly on the CPU. Ported: train-ddpm, train-seg, sample, translate,
+super-resolve, infer-seg and serve. The others parse as in the JAX CLI and
+stop with a message naming the ROADMAP item that ports their modules.
 """
 
 from __future__ import annotations
@@ -18,8 +18,6 @@ import sys
 
 # subcommand -> why it stops: the ROADMAP item that ports its modules
 NOT_PORTED = {
-    "train-seg": "segmentation training is ROADMAP Queue 1 item 13",
-    "infer-seg": "segmentation inference is ROADMAP Queue 1 item 13",
     "train-srgan": "SRGAN training is ROADMAP Queue 1 item 15",
     "quality": "the quality gates (FID, Inception) are ROADMAP Queue 1 item 15",
     "export-hlo": "the torch.export counterpart of export-hlo is ROADMAP Queue 1 item 10 (its kernels must first be "
@@ -42,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
 
     for name, what, cfg_help in (("train-ddpm", "train the DDPM UNet", "diffusion config YAML"),
-                                 ("train-seg", "train DeepLabV3(+) segmentation (not ported)", "seg config YAML"),
+                                 ("train-seg", "train DeepLabV3(+) segmentation", "seg config YAML"),
                                  ("train-srgan", "train Swift-SRGAN (not ported)", "srgan train config YAML")):
         t = sub.add_parser(name, help=what)
         t.add_argument("--config", default=None, help=cfg_help)
@@ -96,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--debug-every", type=int, default=100)
     _device_flag(tr)
 
-    iv = sub.add_parser("infer-seg", help="segmentation inference (not ported)")
+    iv = sub.add_parser("infer-seg", help="segmentation inference + gradient probe")
     iv.add_argument("--config", default=None)
     iv.add_argument("--checkpoint", default=None)
     iv.add_argument("--image", required=True)
@@ -211,9 +209,9 @@ def main(argv=None) -> int:
         return 2
     from weatherconverter_tpu_torch.cli import commands
 
-    return {"train-ddpm": commands.run_train_ddpm, "sample": commands.run_sample,
+    return {"train-ddpm": commands.run_train_ddpm, "train-seg": commands.run_train_seg, "sample": commands.run_sample,
             "translate": commands.run_translate, "super-resolve": commands.run_super_resolve,
-            "serve": run_serve}[args.command](args)
+            "infer-seg": commands.run_infer_seg, "serve": run_serve}[args.command](args)
 
 
 if __name__ == "__main__":

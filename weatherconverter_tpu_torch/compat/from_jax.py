@@ -6,10 +6,13 @@ numpy in, strict state dicts out; load the result with
 `load_state_dict(..., strict=True)`. The trees may hold numpy arrays or
 anything `np.asarray` takes. The exporters below are the port's own copy of
 the JAX package's `compat/torch_export` (UNet, Swift-SRGAN generator,
-DeepLabV3(+)/ResNet); the tests hold the two against each other key for key
-and bit for bit. Nothing here imports JAX, flax or the JAX package.
+DeepLabV3(+) over the ResNet family); the tests hold the two against each
+other key for key and bit for bit. Nothing here imports JAX, flax or the JAX
+package.
 
-Trees carried across: the UNet's, the DeepLabV3+/ResNet's and the SRGAN
+Trees carried across: the UNet's, the DeepLabV3/V3+'s (over resnet18-152,
+ResNeXt and the wide ResNets; a grouped 3x3 kernel (3, 3, I/groups, O)
+takes the same transpose, the groups implied by the shapes) and the SRGAN
 generator's parameters (with BatchNorm statistics for the latter two).
 `unet_state_dict` takes any tree shaped like the UNet's parameters, so a
 gradient tree or an EMA shadow maps the same way, which is how the tests
@@ -30,6 +33,10 @@ RESNET_LAYERS = {
     "resnet50": (3, 4, 6, 3),
     "resnet101": (3, 4, 23, 3),
     "resnet152": (3, 8, 36, 3),
+    "resnext50_32x4d": (3, 4, 6, 3),
+    "resnext101_32x8d": (3, 4, 23, 3),
+    "wide_resnet50_2": (3, 4, 6, 3),
+    "wide_resnet101_2": (3, 4, 23, 3),
 }
 RESNET_BASIC = {"resnet18", "resnet34"}
 
@@ -240,8 +247,8 @@ def unet_state_dict(params: Mapping[str, Any], config) -> dict[str, torch.Tensor
 
 
 def deeplab_state_dict(variables: Mapping[str, Any], model_name: str) -> dict[str, torch.Tensor]:
-    """flax DeepLabV3 {'params', 'batch_stats'} for `deeplabv3plus_resnet*`
-    -> models.factory.make_seg_model(model_name) state dict."""
+    """flax DeepLabV3 {'params', 'batch_stats'} of `deeplabv3[plus]_<ResNet
+    family>` -> models.factory.make_seg_model(model_name) state dict."""
     backbone = model_name.split("_", 1)[1]
     return to_torch_state_dict(
         export_deeplab_resnet(variables["params"], variables["batch_stats"], backbone)

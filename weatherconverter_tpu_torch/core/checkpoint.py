@@ -1,15 +1,23 @@
 """Checkpoint save/restore with torch.save (port of the subset of
-weatherconverter_tpu/core/checkpoint.py that the training loop uses).
+weatherconverter_tpu/core/checkpoint.py that the training loops use).
 
 A checkpoint is one step directory, `<dir>/<step>/state.pt`, holding the
-train state's `state_dict()` (model, Adam, EMA, step, epoch). A save writes
-a temporary file and renames it, so a reader never sees half a file; saves
-are synchronous, so `wait` has nothing to wait for (the JAX package's Orbax
-saves are asynchronous). Orbax itself is not carried over.
+train state's `state_dict()` (model, optimizer, EMA where there is one,
+step, epoch). A save writes a temporary file and renames it, so a reader
+never sees half a file; saves are synchronous, so `wait` has nothing to
+wait for (the JAX package's Orbax saves are asynchronous). Orbax itself is
+not carried over.
+
+Best-metric bookkeeping as in the JAX manager: a manager made with
+`best_metric_name` records in `<dir>/best.json` the step whose metric was
+best so far ("max" or "min" mode), and `restore_auto(prefer_best=True)`
+loads that step from a run's checkpoint directory. Unlike Orbax's keep-N,
+the pruning of old steps never deletes the best one.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import shutil
@@ -18,17 +26,23 @@ from typing import Any, Optional
 import torch
 
 STATE_FILE = "state.pt"
+BEST_FILE = "best.json"
 
 
 class CheckpointManager:
     """Step-indexed checkpoints in one directory; keeps the newest
-    `max_to_keep`. (The JAX manager's best-metric bookkeeping serves
-    segmentation training and comes with that slice.)"""
+    `max_to_keep` and, with `best_metric_name`, the best step."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, best_metric_name: Optional[str] = None,
+                 best_mode: str = "max"):
+        if best_mode not in ("max", "min"):
+            raise ValueError(f"best_mode must be 'max' or 'min', not {best_mode!r}")
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.best_metric_name = best_metric_name
+        self.best_mode = best_mode
+        self._best_path = os.path.join(self.directory, BEST_FILE)
 
     def _file(self, step: int) -> str:
         return os.path.join(self.directory, str(step), STATE_FILE)
@@ -41,15 +55,38 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: Any) -> None:
-        """`state` is anything with `state_dict()`, or a tree torch.save takes."""
+    def save(self, step: int, state: Any, metrics: Optional[dict] = None) -> None:
+        """`state` is anything with `state_dict()`, or a tree torch.save takes.
+        `metrics[best_metric_name]`, when given, may make this the best step."""
         path = self._file(step)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tree = state.state_dict() if hasattr(state, "state_dict") else state
         torch.save(tree, path + ".tmp")
         os.replace(path + ".tmp", path)
+        if metrics and self.best_metric_name and self.best_metric_name in metrics:
+            current, best = float(metrics[self.best_metric_name]), self.best_value()
+            if best is None or (current > best if self.best_mode == "max" else current < best):
+                with open(self._best_path + ".tmp", "w") as f:
+                    json.dump({"step": step, self.best_metric_name: current}, f)
+                os.replace(self._best_path + ".tmp", self._best_path)
+        keep = self.best_step()
         for old in self.all_steps()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self.directory, str(old)))
+            if old != keep:
+                shutil.rmtree(os.path.join(self.directory, str(old)))
+
+    def _best(self) -> Optional[dict]:
+        if not os.path.exists(self._best_path):
+            return None
+        with open(self._best_path) as f:
+            return json.load(f)
+
+    def best_value(self) -> Optional[float]:
+        best = self._best()
+        return None if best is None else float(best[self.best_metric_name])
+
+    def best_step(self) -> Optional[int]:
+        best = self._best()
+        return None if best is None else int(best["step"])
 
     def restore(self, step: Optional[int] = None, target: Any = None) -> Any:
         """The saved tree of `step` (the latest by default), loaded into
@@ -87,12 +124,15 @@ def create_run(base: str) -> str:
     return run_dir
 
 
-def restore_auto(path: str, target: Any) -> Any:
+def restore_auto(path: str, target: Any, *, prefer_best: bool) -> Any:
     """Restore `target` from any checkpoint artifact this package writes: a
-    state file, a CheckpointManager directory (its latest step) or one step
-    directory."""
+    state file, a CheckpointManager directory (its best step when it
+    recorded one and `prefer_best`, else its latest) or one step directory.
+    `prefer_best` has no default: a load (inference, a seg model for
+    guidance) takes the best step, a resume the latest."""
     if os.path.isfile(path):
         return _load_into(path, target)
     if any(d.isdigit() for d in os.listdir(path)):
-        return CheckpointManager(path).restore(target=target)
+        mgr = CheckpointManager(path)
+        return mgr.restore(step=mgr.best_step() if prefer_best else None, target=target)
     return _load_into(os.path.join(path, STATE_FILE), target)

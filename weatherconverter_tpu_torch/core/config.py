@@ -1,15 +1,14 @@
-"""Configuration schema for DDPM training and guided translation (the
-sections the port uses).
+"""Configuration schema for DDPM training, segmentation training and guided
+translation (the sections the port uses).
 
-A copy of the diffusion and translation parts of
+A copy of the diffusion, segmentation and translation parts of
 weatherconverter_tpu/core/config.py, with the same field names and defaults,
-so the same YAML files (configs/diffusion.yaml, configs/translation*.yaml)
-load here. It is a copy because importing the JAX package's `core` loads JAX
-(its core/__init__ imports core/rng.py).
+so the same YAML files (configs/diffusion.yaml, configs/segmentation.yaml,
+configs/translation*.yaml) load here. It is a copy because importing the JAX
+package's `core` loads JAX (its core/__init__ imports core/rng.py).
 
-Sections the port does not use yet (the seg training, data and optimizer
-sections, SRGAN training) are left out; pydantic ignores their keys in a
-YAML file.
+The SRGAN training section is left out (ROADMAP Queue 1 item 15); pydantic
+ignores its keys in a YAML file.
 """
 
 from __future__ import annotations
@@ -98,17 +97,104 @@ class DiffusionConfig(BaseModel):
     folders: FolderConfig = Field(default_factory=FolderConfig)
 
 
+class LossConfig(BaseModel):
+    type: str = "CrossEntropyLoss"
+    params: dict[str, Any] = Field(default_factory=lambda: {"ignore_index": 255, "reduction": "mean"})
+
+
+class LRSchedulerConfig(BaseModel):
+    type: str = "PolyLR"
+    params: dict[str, Any] = Field(default_factory=lambda: {"power": 0.9})
+
+
+class SegTrainingConfig(BaseModel):
+    device: str = "auto"
+    random_seed: int = 42
+    epochs: int = 20
+    batch_size: int = 8
+    num_workers: int = 0
+    log_interval: int = 10
+    save_interval: int = 5
+    resume_training: bool = False
+    resume_checkpoint: str = ""
+    loss_function: LossConfig = Field(default_factory=LossConfig)
+    scheduler: LRSchedulerConfig = Field(default_factory=LRSchedulerConfig)
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    data_axis: str = "data"
+    scale_batch_to_mesh: bool = True
+    scale_lr_with_batch: bool = False
+    fsdp: bool = False
+    accum_steps: int = 1
+
+
+class JitterConfig(BaseModel):
+    brightness: float = 0.2
+    contrast: float = 0.2
+    saturation: float = 0.2
+
+
+class RandomNoiseConfig(BaseModel):
+    mean: float = 0.1
+    std_range: list[float] = Field(default_factory=lambda: [0.0, 0.05])
+
+
+class ClassWiseMaskingConfig(BaseModel):
+    p: float = 0.1
+    num_classes_to_keep: int = 1
+
+
+class SegTransformConfig(BaseModel):
+    resize_resolution: list[int] = Field(default_factory=lambda: [270, 480])
+    target_resolution: list[int] = Field(default_factory=lambda: [256, 256])
+    mean: list[float] = Field(default_factory=lambda: [0.485, 0.456, 0.406])
+    std: list[float] = Field(default_factory=lambda: [0.229, 0.224, 0.225])
+    horizontal_flip: float = 0.5
+    # the geometric legs (None/0 = off, as in the shipped config); the port's
+    # seg_train_augment refuses them until they are ported
+    scale_range: list[float] | None = None
+    rotation_degrees: float = 0.0
+    hue: float = 0.0
+    jitter: JitterConfig = Field(default_factory=JitterConfig)
+    random_noise: RandomNoiseConfig = Field(default_factory=RandomNoiseConfig)
+    class_wise_masking: ClassWiseMaskingConfig = Field(default_factory=ClassWiseMaskingConfig)
+
+
+class SegDataConfig(BaseModel):
+    root_dir: str = "data/ACDC"
+    labels: str = "gt"
+    images: str = "rgb_anon"
+    train_split: str = "train"
+    val_split: str = "val"
+    weather: list[str] = Field(default_factory=lambda: ["fog", "rain"])
+    transform: SegTransformConfig = Field(default_factory=SegTransformConfig)
+
+
+class OptimizerConfig(BaseModel):
+    """SGD; `layerwise_lr` gives the backbone's and the rest's ("classifier") learning rates."""
+
+    type: str = "SGD"
+    params: dict[str, Any] = Field(default_factory=lambda: {"lr": 1e-4, "momentum": 0.9, "weight_decay": 1e-4})
+    layerwise_lr: dict[str, float] = Field(default_factory=lambda: {"backbone": 1e-5, "classifier": 1e-4})
+
+
 class SegModelConfig(BaseModel):
     path: str = ""
     name: str = "deeplabv3plus_resnet101"
     num_classes: int = 19
+    # ImageNet backbone init: a classification checkpoint's .pth path, or
+    # 'imagenet'/'auto' for the file torch.hub would have cached (never fetched)
     pretrained_backbone: str = ""
     output_stride: int = 16
     bn_momentum: float = 0.01
 
 
 class SegConfig(BaseModel):
+    training: SegTrainingConfig = Field(default_factory=SegTrainingConfig)
+    data: SegDataConfig = Field(default_factory=SegDataConfig)
+    optimizer: OptimizerConfig = Field(default_factory=OptimizerConfig)
     model: SegModelConfig = Field(default_factory=SegModelConfig)
+    folders: FolderConfig = Field(default_factory=FolderConfig)
 
 
 class SRGANConfig(BaseModel):
@@ -144,6 +230,12 @@ def load_diffusion_config(path: Optional[str] = None, **overrides) -> DiffusionC
     """Load a diffusion config YAML (configs/diffusion.yaml's schema)."""
     data = load_yaml(path) if path else {}
     return DiffusionConfig(**_deep_update(data, overrides))
+
+
+def load_seg_config(path: Optional[str] = None, **overrides) -> SegConfig:
+    """Load a segmentation config YAML (configs/segmentation.yaml's schema)."""
+    data = load_yaml(path) if path else {}
+    return SegConfig(**_deep_update(data, overrides))
 
 
 def load_translation_config(path: Optional[str] = None, **overrides) -> TranslationConfig:

@@ -1,27 +1,34 @@
-"""Filesystem dataset of the diffusion flavour: an image glob.
+"""Filesystem datasets: an image glob (diffusion) and image+label pairs
+(segmentation).
 
-Port of `DiffusionImageDataset`, `load_image_resized` and `_glob_images`
-from weatherconverter_tpu/data/datasets.py, with the same discovery rules:
+Port of `DiffusionImageDataset`, `SegPairedDataset`, `load_image_resized`,
+`load_image_exact` and `_glob_images` from
+weatherconverter_tpu/data/datasets.py, with the same discovery rules:
 {root}/{condition}/{train,val,test}/**/*.jpg|png, recursively, sorted within
-each folder, plus BDD/DAWN-style trees merged by `add_images`. Decoding is
-numpy and PIL on the host; the random crop, flip and [-1, 1] scaling run on
-the device (data/transforms.py). The JAX package's optional C++ decoder has
-no port: every image goes through PIL, its documented fallback. The paired
-image+label dataset of the segmentation flavour comes with segmentation
-training.
+each folder, plus BDD/DAWN-style trees merged by `add_images`; and the ACDC
+pairs {root}/{images}/{condition}/{split}/**/*_rgb_anon.* with
+{root}/{labels}/.../*_gt_labelIds.*. Decoding is numpy and PIL on the host;
+the random crops, flips, jitter and the rest run on the device
+(data/transforms.py). The JAX package's optional C++ decoder has no port
+(ROADMAP Queue 1 item 16): every image goes through PIL, its documented
+fallback.
 
 PIL is imported here, so import this module where a dataset is built
-(`training.loop_diffusion.build_dataset`), not at package import.
+(`training.loop_diffusion.build_dataset`,
+`training.loop_segmentation.build_datasets`), not at package import.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
 from PIL import Image
+
+from weatherconverter_tpu_torch.data.labels import encode_target
 
 
 def _glob_images(folder: str) -> list[str]:
@@ -58,6 +65,12 @@ def load_image_resized(
     return arr
 
 
+def load_image_exact(path: str, hw: tuple[int, int], resample=Image.BILINEAR) -> np.ndarray:
+    """Decode as RGB and resize to exactly (H, W) = `hw`; HWC uint8."""
+    img = Image.open(path).convert("RGB")
+    return np.array(img.resize((hw[1], hw[0]), resample), dtype=np.uint8)
+
+
 class DiffusionImageDataset:
     """Image-only dataset: HWC uint8 at the fixed pre-crop box (`resize_to`,
     round(`resize_to` * `aspect`)), out of which the train step takes its
@@ -90,3 +103,47 @@ class DiffusionImageDataset:
 
     def __getitem__(self, idx: int) -> np.ndarray:
         return load_image_resized(self.img_paths[idx], self.resize_to, self.out_wh)
+
+
+class SegPairedDataset:
+    """ACDC image+label pairs: (HWC uint8 image, HW uint8 train-id label),
+    both at `resize_hw`, the image bilinear and the label NEAREST (ids are
+    never interpolated), the label encoded from labelIds to train-ids."""
+
+    def __init__(
+        self,
+        root_dir: str,
+        split: str = "train",
+        weather: Sequence[str] | str = "all",
+        images_dir: str = "rgb_anon",
+        labels_dir: str = "gt",
+        resize_hw: tuple[int, int] = (270, 480),
+    ):
+        self.root_dir = Path(root_dir)
+        self.resize_hw = resize_hw
+        if weather == "all":
+            conditions = ["fog", "night", "rain", "snow"]
+        elif isinstance(weather, str):
+            conditions = [weather]  # a bare condition name, not its characters
+        else:
+            conditions = list(weather)
+        self.image_paths: list[Path] = []
+        self.label_paths: list[Path] = []
+        for condition in conditions:
+            rgb_dir = self.root_dir / images_dir / condition / split
+            gt_dir = self.root_dir / labels_dir / condition / split
+            for image_path in sorted(rgb_dir.glob("**/*_rgb_anon.*")):
+                rel = image_path.relative_to(rgb_dir)
+                label_path = gt_dir / rel.parent / image_path.name.replace("_rgb_anon", "_gt_labelIds")
+                if label_path.exists():
+                    self.image_paths.append(image_path)
+                    self.label_paths.append(label_path)
+
+    def __len__(self) -> int:
+        return len(self.image_paths)
+
+    def __getitem__(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
+        h, w = self.resize_hw
+        img = load_image_exact(str(self.image_paths[idx]), (h, w))
+        lbl = Image.open(self.label_paths[idx]).resize((w, h), Image.NEAREST)
+        return img, encode_target(np.asarray(lbl, dtype=np.uint8))

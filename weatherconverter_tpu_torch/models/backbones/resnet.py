@@ -4,9 +4,12 @@ weatherconverter_tpu/models/backbones/resnet.py).
 Torchvision's layout and parameter names (conv1/bn1, layer{1..4}.{i}.conv{k},
 .bn{k}, .downsample.{0,1}), so compat/torch_export.export_deeplab_resnet
 output loads with strict=True. `replace_stride_with_dilation` turns later
-stages' strides into dilation for output stride 8/16. The stem is a plain
-7x7/s2 conv: the JAX package's shift-packed stem backward was a rewrite for
-the TPU's matrix unit, and autograd gives this conv's input gradient directly.
+stages' strides into dilation for output stride 8/16. The bottleneck's 3x3
+takes `groups` and `base_width` (width = planes * base_width / 64 * groups),
+which make the ResNeXt and wide variants. The stem is a plain 7x7/s2 conv:
+the JAX package's shift-packed stem backward was a rewrite for the TPU's
+matrix unit, and autograd gives this conv's input gradient directly.
+BatchNorm is models/norm.BatchNorm2d, which trains as flax's does.
 """
 
 from __future__ import annotations
@@ -17,11 +20,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from weatherconverter_tpu_torch.models.norm import BatchNorm2d
 
-def _conv_bn(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1):
+
+def _conv_bn(cin: int, cout: int, kernel: int, stride: int = 1, dilation: int = 1, groups: int = 1):
     pad = dilation * (kernel - 1) // 2
-    conv = nn.Conv2d(cin, cout, kernel, stride, pad, dilation=dilation, bias=False)
-    return conv, nn.BatchNorm2d(cout)
+    conv = nn.Conv2d(cin, cout, kernel, stride, pad, dilation=dilation, groups=groups, bias=False)
+    return conv, BatchNorm2d(cout)
 
 
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
@@ -33,8 +38,10 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None, groups=1, base_width=64):
         super().__init__()
+        if groups != 1 or base_width != 64:
+            raise ValueError("BasicBlock only supports groups=1 and base_width=64")
         self.conv1, self.bn1 = _conv_bn(inplanes, planes, 3, stride, dilation)
         self.conv2, self.bn2 = _conv_bn(planes, planes, 3, 1, dilation)
         self.downsample = downsample
@@ -46,15 +53,17 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """resnet50/101/152 block: 1x1 -> 3x3 (stride, dilation) -> 1x1 x4, expansion 4."""
+    """resnet50/101/152 block: 1x1 -> 3x3 (stride, dilation, groups) -> 1x1 x4,
+    expansion 4; the inner width is planes * base_width / 64 * groups."""
 
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None):
+    def __init__(self, inplanes, planes, stride=1, dilation=1, downsample=None, groups=1, base_width=64):
         super().__init__()
-        self.conv1, self.bn1 = _conv_bn(inplanes, planes, 1)
-        self.conv2, self.bn2 = _conv_bn(planes, planes, 3, stride, dilation)
-        self.conv3, self.bn3 = _conv_bn(planes, planes * 4, 1)
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1, self.bn1 = _conv_bn(inplanes, width, 1)
+        self.conv2, self.bn2 = _conv_bn(width, width, 3, stride, dilation, groups)
+        self.conv3, self.bn3 = _conv_bn(width, planes * 4, 1)
         self.downsample = downsample
 
     def forward(self, x):
@@ -72,6 +81,8 @@ class ResNet(nn.Module):
         layers: Sequence[int],
         block: type[nn.Module] = Bottleneck,
         replace_stride_with_dilation: Sequence[bool] = (False, False, True),
+        groups: int = 1,
+        base_width: int = 64,
     ):
         super().__init__()
         self.conv1, self.bn1 = _conv_bn(3, 64, 7, 2)
@@ -87,7 +98,7 @@ class ResNet(nn.Module):
             for b in range(blocks):
                 down = _downsample(inplanes, out, stride) if b == 0 and (stride != 1 or inplanes != out) else None
                 mods.append(block(inplanes, planes, stride if b == 0 else 1,
-                                  previous_dilation if b == 0 else dilation, down))
+                                  previous_dilation if b == 0 else dilation, down, groups, base_width))
                 inplanes = out
             setattr(self, f"layer{stage + 1}", nn.Sequential(*mods))
 
@@ -116,3 +127,20 @@ def resnet101(**kw) -> ResNet:
 
 def resnet152(**kw) -> ResNet:
     return ResNet((3, 8, 36, 3), Bottleneck, **kw)
+
+
+def resnext50_32x4d(**kw) -> ResNet:
+    return ResNet((3, 4, 6, 3), Bottleneck, groups=32, base_width=4, **kw)
+
+
+def resnext101_32x8d(**kw) -> ResNet:
+    return ResNet((3, 4, 23, 3), Bottleneck, groups=32, base_width=8, **kw)
+
+
+def wide_resnet50_2(**kw) -> ResNet:
+    """The inner 3x3 twice as wide; the outer 1x1 channels unchanged."""
+    return ResNet((3, 4, 6, 3), Bottleneck, base_width=128, **kw)
+
+
+def wide_resnet101_2(**kw) -> ResNet:
+    return ResNet((3, 4, 23, 3), Bottleneck, base_width=128, **kw)

@@ -1,10 +1,15 @@
-"""DeepLabV3+ head and the assembled segmentation model, NCHW (port of
-weatherconverter_tpu/models/deeplab.py).
+"""DeepLabV3 and DeepLabV3+ heads and the assembled segmentation model, NCHW
+(port of weatherconverter_tpu/models/deeplab.py).
 
-Torchvision's module layout (classifier.aspp.convs.{0..4}, .project,
-classifier.project, classifier.classifier.{0,1,3}), so
-compat/torch_export output loads with strict=True. BatchNorm runs in eval
-mode with its running statistics: the factory returns the model in eval().
+Torchvision's module layout (V3+: classifier.aspp.convs.{0..4}, .project,
+classifier.project, classifier.classifier.{0,1,3}; V3:
+classifier.classifier.{0 (the ASPP),1,2,4}), so compat/torch_export output
+loads with strict=True. The mode is torch's: in train() BatchNorm
+normalizes with the batch's statistics and updates its running ones as flax
+does (models/norm.py), in eval() it uses them. ASPP's dropout exists only
+when the model is built with deterministic=False; the JAX trainer builds
+its train model deterministic, so its dropout never fires, and neither does
+the port's.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from weatherconverter_tpu_torch.models.norm import BatchNorm2d
 from weatherconverter_tpu_torch.ops.image import global_avg_pool, resize_bilinear
 
 
@@ -22,7 +28,7 @@ class ConvBNReLU(nn.Sequential):
         pad = dilation * (kernel - 1) // 2
         super().__init__(
             nn.Conv2d(cin, cout, kernel, padding=pad, dilation=dilation, bias=False),
-            nn.BatchNorm2d(cout),
+            BatchNorm2d(cout),
             nn.ReLU(),
         )
 
@@ -40,16 +46,17 @@ class ASPPPooling(nn.Sequential):
 
 class ASPP(nn.Module):
     """1x1 + three dilated 3x3 + global-pool branches, concatenated and
-    projected by 1x1 (+ dropout 0.1, inactive in eval)."""
+    projected by 1x1, then dropout 0.1 in train mode unless `deterministic`."""
 
-    def __init__(self, cin: int, atrous_rates: Sequence[int], cout: int = 256):
+    def __init__(self, cin: int, atrous_rates: Sequence[int], cout: int = 256, deterministic: bool = True):
         super().__init__()
         self.convs = nn.ModuleList(
             [ConvBNReLU(cin, cout)]
             + [ConvBNReLU(cin, cout, 3, rate) for rate in atrous_rates]
             + [ASPPPooling(cin, cout)]
         )
-        self.project = nn.Sequential(*ConvBNReLU(5 * cout, cout), nn.Dropout(0.1))
+        self.project = nn.Sequential(*ConvBNReLU(5 * cout, cout),
+                                     nn.Identity() if deterministic else nn.Dropout(0.1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.project(torch.cat([conv(x) for conv in self.convs], dim=1))
@@ -58,10 +65,11 @@ class ASPP(nn.Module):
 class DeepLabHeadV3Plus(nn.Module):
     """low_level -> 1x1 to 48ch; ASPP(out) upsampled to it; concat -> 3x3 256 -> 1x1 classes."""
 
-    def __init__(self, low_channels: int, in_channels: int, num_classes: int, aspp_dilate: Sequence[int]):
+    def __init__(self, low_channels: int, in_channels: int, num_classes: int, aspp_dilate: Sequence[int],
+                 deterministic: bool = True):
         super().__init__()
         self.project = ConvBNReLU(low_channels, 48)
-        self.aspp = ASPP(in_channels, aspp_dilate)
+        self.aspp = ASPP(in_channels, aspp_dilate, deterministic=deterministic)
         self.classifier = nn.Sequential(
             *ConvBNReLU(48 + 256, 256, 3), nn.Conv2d(256, num_classes, 1)
         )
@@ -70,6 +78,20 @@ class DeepLabHeadV3Plus(nn.Module):
         low = self.project(feats["low_level"])
         aspp = resize_bilinear(self.aspp(feats["out"]), low.shape[-2:])
         return self.classifier(torch.cat([low, aspp], dim=1))
+
+
+class DeepLabHead(nn.Module):
+    """ASPP(out) -> 3x3 256 -> 1x1 classes (the V3 head; no low-level branch)."""
+
+    def __init__(self, in_channels: int, num_classes: int, aspp_dilate: Sequence[int], deterministic: bool = True):
+        super().__init__()
+        self.classifier = nn.Sequential(
+            ASPP(in_channels, aspp_dilate, deterministic=deterministic), *ConvBNReLU(256, 256, 3),
+            nn.Conv2d(256, num_classes, 1),
+        )
+
+    def forward(self, feats: dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.classifier(feats["out"])
 
 
 class DeepLabV3(nn.Module):

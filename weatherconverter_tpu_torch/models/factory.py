@@ -1,14 +1,22 @@
-"""Segmentation model factory (port of weatherconverter_tpu/models/factory.py),
-for the DeepLabV3+ models over plain ResNets. The other names of the JAX
-factory (the DeepLabV3 head, mobilenet, xception, hrnetv2, ResNeXt and
-wide ResNets) are ROADMAP work and raise NotImplementedError."""
+"""Segmentation model factory (port of weatherconverter_tpu/models/factory.py)
+for the DeepLabV3 and DeepLabV3+ heads over the ResNet family: resnet18-152,
+ResNeXt (32x4d, 32x8d) and the wide ResNets. The JAX factory's other
+backbones (mobilenet, xception, hrnetv2) and its atrous-separable head are
+ROADMAP Queue 1 item 13 and raise NotImplementedError naming it.
+"""
 
 from __future__ import annotations
 
-from weatherconverter_tpu_torch.models.backbones import resnet
-from weatherconverter_tpu_torch.models.deeplab import DeepLabHeadV3Plus, DeepLabV3
+from typing import Optional
 
-_RESNETS = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
+from weatherconverter_tpu_torch.models.backbones import resnet
+from weatherconverter_tpu_torch.models.deeplab import DeepLabHead, DeepLabHeadV3Plus, DeepLabV3
+from weatherconverter_tpu_torch.models.norm import set_bn_momentum
+
+RESNET_FAMILY = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "resnext50_32x4d",
+                 "resnext101_32x8d", "wide_resnet50_2", "wide_resnet101_2")
+SUPPORTED_MODELS = [f"{arch}_{bb}" for arch in ("deeplabv3", "deeplabv3plus") for bb in RESNET_FAMILY]
+NOT_PORTED = "ROADMAP Queue 1 item 13"
 
 
 def _resnet_cfg(output_stride: int):
@@ -18,17 +26,35 @@ def _resnet_cfg(output_stride: int):
     return (False, False, True), (6, 12, 18)
 
 
-def make_seg_model(name: str, num_classes: int = 19, output_stride: int = 16) -> DeepLabV3:
-    """`deeplabv3plus_resnet{18,34,50,101,152}` in eval mode (BatchNorm on its
-    running statistics), parameters on the CPU in f32."""
-    backbone_name = name[len("deeplabv3plus_"):] if name.startswith("deeplabv3plus_") else None
-    if backbone_name not in _RESNETS:
-        raise NotImplementedError(
-            f"{name!r}: the port has only deeplabv3plus over {_RESNETS} so far; the other "
-            "seg models are ROADMAP Queue 1 item 13"
-        )
+def make_seg_model(
+    name: str,
+    num_classes: int = 19,
+    output_stride: int = 16,
+    train: bool = False,
+    deterministic: bool = True,
+    bn_momentum: Optional[float] = None,
+    separable: bool = False,
+) -> DeepLabV3:
+    """`deeplabv3_<backbone>` or `deeplabv3plus_<backbone>`, parameters on the
+    CPU in f32, in train() mode if `train` else eval(). `deterministic`
+    leaves ASPP's dropout out (the JAX trainer's setting). `bn_momentum`
+    (torch's convention) is the backbone's BatchNorm momentum; the head's
+    stays at torch's default 0.1, as the JAX model scopes it."""
+    arch, _, backbone_name = name.partition("_")
+    if arch not in ("deeplabv3", "deeplabv3plus"):
+        raise NotImplementedError(f"unknown model name {name!r}")
+    if backbone_name not in RESNET_FAMILY:
+        raise NotImplementedError(f"{name!r}: the port builds the DeepLab heads over {RESNET_FAMILY} so far; the "
+                                  f"{backbone_name!r} backbone is {NOT_PORTED}")
+    if separable:
+        raise NotImplementedError(f"the atrous-separable head (separable=True) is {NOT_PORTED}")
     rswd, aspp = _resnet_cfg(output_stride)
     backbone = getattr(resnet, backbone_name)(replace_stride_with_dilation=rswd)
     expansion = backbone.layer1[0].expansion
-    head = DeepLabHeadV3Plus(64 * expansion, 512 * expansion, num_classes, aspp)
-    return DeepLabV3(backbone, head).eval()
+    if arch == "deeplabv3plus":
+        head = DeepLabHeadV3Plus(64 * expansion, 512 * expansion, num_classes, aspp, deterministic)
+    else:
+        head = DeepLabHead(512 * expansion, num_classes, aspp, deterministic)
+    if bn_momentum is not None:
+        set_bn_momentum(backbone, bn_momentum)
+    return DeepLabV3(backbone, head).train(train)

@@ -147,7 +147,8 @@ def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -
     return state
 
 
-def ckpt_restore_into(path: str, state: DDPMTrainState) -> DDPMTrainState:
+def ckpt_restore_into(path: str, state):
     """Restore a checkpoint file, a CheckpointManager directory (its latest
-    step) or one step directory into `state`, in place."""
-    return restore_auto(path, state)
+    step, not its best: a resume continues the run) or one step directory
+    into `state`, in place."""
+    return restore_auto(path, state, prefer_best=False)

@@ -1,0 +1,212 @@
+"""Segmentation training loop (port of weatherconverter_tpu/training/loop_segmentation.py).
+
+Epochs over the ACDC pairs: the augmented train step (crop, flip, jitter,
+noise, class-wise masking, normalize on the device; SGD in two groups under
+PolyLR stepped once a batch; the input-gradient magnitude logged beside the
+loss), then a validation pass (a confusion matrix kept on the device,
+mIoU on the host) and a checkpoint every epoch, the best "Mean IoU" step
+recorded (core/checkpoint.py). Resume restores the latest step and restarts
+its epoch; SIGTERM flushes a checkpoint and returns.
+
+One device: the CUDA card (`training.device="auto"`, the default, which
+raises when there is none) or the device the config names; the CPU only on
+request. On CUDA the step runs under bf16 autocast when `training.dtype`
+is "bfloat16"; on the CPU in f32, as the JAX loop does off the TPU. The
+train model is built deterministic (ASPP's dropout off), with the
+backbone's BatchNorm momentum at `model.bn_momentum`, as in JAX.
+
+What differs from JAX: `max_steps` ends the run after that many steps, as
+in JAX, but the epoch it ends in is validated and checkpointed first, so a
+short run leaves a best step to load. Data parallelism and FSDP raise
+(ROADMAP Queue 1 item 17). `model.pretrained_backbone` takes a .pth file on
+disk; 'imagenet'/'auto' look for the file torch.hub would have cached and
+are refused by name when it is absent: nothing is fetched.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import time
+from typing import Optional
+
+import torch
+
+from weatherconverter_tpu_torch.core.checkpoint import CheckpointManager, create_run
+from weatherconverter_tpu_torch.core.config import SegConfig
+from weatherconverter_tpu_torch.core.logging import MetricsLogger
+from weatherconverter_tpu_torch.core.preempt import PreemptionGuard, preempt_save_index
+from weatherconverter_tpu_torch.core.rng import run_key, split_named
+from weatherconverter_tpu_torch.data.transforms import seg_eval_preprocess, seg_train_augment
+from weatherconverter_tpu_torch.metrics.stream import StreamSegMetrics, init_confusion
+from weatherconverter_tpu_torch.models.factory import make_seg_model
+from weatherconverter_tpu_torch.training.loop_diffusion import _device, ckpt_restore_into
+from weatherconverter_tpu_torch.training.losses import make_seg_loss
+from weatherconverter_tpu_torch.training.segmentation import (
+    SegTrainState,
+    create_seg_state,
+    make_seg_eval_step,
+    make_seg_train_step,
+)
+
+
+def build_datasets(cfg: SegConfig):
+    """(train, val) SegPairedDatasets at the config's resize resolution."""
+    from weatherconverter_tpu_torch.data.datasets import SegPairedDataset
+
+    d = cfg.data
+    return tuple(SegPairedDataset(d.root_dir, split=split, weather=d.weather, images_dir=d.images,
+                                  labels_dir=d.labels, resize_hw=tuple(d.transform.resize_resolution))
+                 for split in (d.train_split, d.val_split))
+
+
+def make_augment(cfg: SegConfig):
+    """augment(images_u8, labels, generator, draws) -> (images, labels): the
+    config's seg_train_augment."""
+    t = cfg.data.transform
+
+    def augment(images_u8, labels, generator=None, draws=None):
+        return seg_train_augment(
+            images_u8, labels, generator, crop=tuple(t.target_resolution), hflip_p=t.horizontal_flip,
+            jitter=(t.jitter.brightness, t.jitter.contrast, t.jitter.saturation), noise_mean=t.random_noise.mean,
+            noise_std_range=tuple(t.random_noise.std_range), masking_p=t.class_wise_masking.p,
+            num_classes_to_keep=t.class_wise_masking.num_classes_to_keep, mean=tuple(t.mean), std=tuple(t.std),
+            scale_range=tuple(t.scale_range) if t.scale_range else None, rotation_degrees=t.rotation_degrees,
+            hue=t.hue, draws=draws)
+
+    return augment
+
+
+def make_augmented_seg_train_step(cfg: SegConfig, loss_fn, mesh=None, input_grad: bool = True,
+                                  dtype: Optional[torch.dtype] = None):
+    """The train step on RAW uint8 paired batches, through make_seg_train_step's augment_fn hook."""
+    return make_seg_train_step(loss_fn, mesh=mesh, input_grad=input_grad, augment_fn=make_augment(cfg),
+                               fsdp=cfg.training.fsdp, accum_steps=cfg.training.accum_steps, dtype=dtype)
+
+
+def make_val_fns(cfg: SegConfig, model, mesh=None, dtype: Optional[torch.dtype] = None):
+    """(eval_step, prep), built once a run: the eval step and the center-crop
+    preprocessing of a uint8 batch."""
+    t = cfg.data.transform
+
+    def prep(images_u8, labels):
+        return seg_eval_preprocess(images_u8, labels, crop=tuple(t.target_resolution), mean=tuple(t.mean),
+                                   std=tuple(t.std))
+
+    return make_seg_eval_step(model, cfg.model.num_classes, mesh=mesh, dtype=dtype), prep
+
+
+def validate(cfg: SegConfig, model, val_loader, device, val_fns=None, dtype: Optional[torch.dtype] = None) -> dict:
+    """The metrics of one pass over `val_loader`, the confusion matrix kept on `device`."""
+    eval_step, prep = val_fns if val_fns is not None else make_val_fns(cfg, model, dtype=dtype)
+    conf = init_confusion(cfg.model.num_classes, device)
+    for images_u8, labels in val_loader:
+        conf = eval_step(conf, *prep(images_u8.to(device), labels.to(device)))
+    metrics = StreamSegMetrics(cfg.model.num_classes)
+    metrics.update_confusion(conf)
+    return metrics.get_results()
+
+
+def resolve_backbone_checkpoint(spec: str, model_name: str) -> str:
+    """A .pth path as it is; 'imagenet'/'auto'/'hub' -> the backbone's file in
+    the torch.hub cache (`<backbone>-*.pth`), refused when it is absent."""
+    if spec not in ("auto", "imagenet", "hub"):
+        if not os.path.isfile(spec):
+            raise FileNotFoundError(f"pretrained_backbone {spec!r} is neither an existing file nor 'imagenet'/'auto'")
+        return spec
+    backbone = model_name.partition("_")[2]
+    cache = os.path.join(torch.hub.get_dir(), "checkpoints")
+    found = sorted(glob.glob(os.path.join(cache, f"{backbone}-*.pth")) + glob.glob(os.path.join(cache, f"{backbone}.pth")))
+    if not found:
+        raise FileNotFoundError(f"pretrained_backbone={spec!r} needs {backbone}'s ImageNet checkpoint, absent from "
+                                f"the torch.hub cache {cache}; the port fetches nothing: give the .pth path")
+    return found[0]
+
+
+def load_pretrained_backbone(model, spec: str, model_name: str) -> None:
+    """A torchvision classification checkpoint into `model.backbone` (its
+    `fc` dropped; a file without `num_batches_tracked` is accepted)."""
+    sd = torch.load(resolve_backbone_checkpoint(spec, model_name), map_location="cpu", weights_only=True)
+    sd = sd.get("state_dict", sd)
+    missing, unexpected = model.backbone.load_state_dict(
+        {k: v for k, v in sd.items() if not k.startswith("fc.")}, strict=False)
+    bad = unexpected + [k for k in missing if not k.endswith("num_batches_tracked")]
+    if bad:
+        raise RuntimeError(f"pretrained backbone {spec!r} does not fit {model_name}: {bad[:8]}")
+
+
+def train(cfg: SegConfig, max_steps: Optional[int] = None, datasets=None) -> SegTrainState:
+    """Full training run; returns the final state. `max_steps` stops early
+    (smoke runs); `datasets` = (train, val) replaces the ACDC folders:
+    anything indexable that yields (uint8 (H, W, 3), uint8 (H, W)) pairs."""
+    tr = cfg.training
+    if tr.fsdp:
+        raise NotImplementedError("FSDP training is ROADMAP Queue 1 item 17, not ported yet")
+    device = _device(tr.device)
+    dtype = torch.bfloat16 if tr.dtype == "bfloat16" and device.type == "cuda" else None
+    keys = split_named(run_key(tr.random_seed), "init", "train", device=device)
+
+    train_ds, val_ds = datasets if datasets is not None else build_datasets(cfg)
+    if len(train_ds) == 0:
+        raise FileNotFoundError(f"seg train set is empty: no *_rgb_anon/*_gt_labelIds pairs under "
+                                f"{cfg.data.root_dir!r} for {list(cfg.data.weather)!r}, split {cfg.data.train_split!r}")
+    m = cfg.model
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(keys["init"].initial_seed())
+        model = make_seg_model(m.name, m.num_classes, m.output_stride, train=True, bn_momentum=m.bn_momentum)
+    if m.pretrained_backbone:
+        load_pretrained_backbone(model, m.pretrained_backbone, m.name)
+    model = model.to(device)
+
+    pin = device.type == "cuda"
+    loader = torch.utils.data.DataLoader(
+        train_ds, batch_size=tr.batch_size, shuffle=True, drop_last=True, num_workers=tr.num_workers,
+        generator=torch.Generator().manual_seed(tr.random_seed), pin_memory=pin)
+    val_loader = torch.utils.data.DataLoader(val_ds, batch_size=tr.batch_size, shuffle=False, drop_last=False,
+                                             num_workers=tr.num_workers, pin_memory=pin)
+    max_iters = max(1, len(loader) * tr.epochs)
+    state = create_seg_state(model, cfg.optimizer, max_iters, tr.scheduler.type, tr.scheduler.params)
+    step_fn = make_augmented_seg_train_step(cfg, make_seg_loss(tr.loss_function.type, tr.loss_function.params),
+                                            dtype=dtype)
+    val_fns = make_val_fns(cfg, model, dtype=dtype)
+
+    run_dir = create_run(cfg.folders.output)
+    logger = MetricsLogger(run_dir, config=cfg.model_dump())
+    ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"), best_metric_name="Mean IoU", best_mode="max")
+    start_epoch = 0
+    if tr.resume_training and tr.resume_checkpoint:
+        state = ckpt_restore_into(tr.resume_checkpoint, state)
+        start_epoch = state.step // max(1, len(loader))
+        logger.print(f"resumed from {tr.resume_checkpoint} at step {state.step} (epoch {start_epoch})")
+
+    global_step = state.step
+    with PreemptionGuard() as guard:
+        for epoch in range(start_epoch, tr.epochs):
+            t0, stop = time.time(), False
+            for images_u8, labels in loader:
+                state, loss, ig = step_fn(state, images_u8.to(device, non_blocking=True),
+                                          labels.to(device, non_blocking=True), keys["train"])
+                global_step += 1
+                if global_step % tr.log_interval == 0:
+                    logger.log({"train/loss": loss, "train/input_grad": ig, "epoch": epoch}, step=global_step)
+                if guard.triggered:
+                    # SIGTERM mid-epoch: flush the post-step state; a resume restarts this epoch
+                    ckpt.save(preempt_save_index(ckpt, global_step), state)
+                    ckpt.wait()
+                    logger.print(f"preempted (signal {guard.received}): checkpoint flushed at step "
+                                 f"{global_step} (epoch {epoch}), exiting")
+                    logger.finish()
+                    return state
+                if max_steps is not None and global_step >= max_steps:
+                    stop = True
+                    break
+            results = validate(cfg, model, val_loader, device, val_fns)
+            logger.log({"val/mIoU": results["Mean IoU"], "val/OverallAcc": results["Overall Acc"], "epoch": epoch,
+                        "epoch/sec": time.time() - t0}, step=global_step)
+            state.epoch = epoch + 1
+            ckpt.save(epoch + 1, state, metrics={"Mean IoU": results["Mean IoU"]})
+            if stop:
+                break
+    ckpt.wait()
+    logger.finish()
+    return state

@@ -1,7 +1,8 @@
-"""Losses: the eps-MSE of DDPM training and cross-entropy with an ignore
-index (port of weatherconverter_tpu/training/losses.py; focal loss waits for
-the segmentation-training slice). Logits are (B, C, ...), torch's
-class-second convention; labels (B, ...) integer train-ids."""
+"""Losses: the eps-MSE of DDPM training, and cross-entropy and focal loss
+with an ignore index for segmentation (port of
+weatherconverter_tpu/training/losses.py but its SRGAN half). Logits are
+(B, C, ...), torch's class-second convention; labels (B, ...) integer
+train-ids."""
 
 from __future__ import annotations
 
@@ -41,3 +42,31 @@ def cross_entropy_loss(
     if reduction == "sum":
         return ce.sum()
     return ce.sum() / valid.sum().clamp_min(1)
+
+
+def focal_loss(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    alpha: float = 1.0,
+    gamma: float = 2.0,
+    ignore_index: int = IGNORE_INDEX,
+) -> torch.Tensor:
+    """alpha * (1 - exp(-ce))^gamma * ce per pixel, averaged over the
+    non-ignored pixels (the JAX package's normalization; the reference
+    divides by every pixel)."""
+    ce, valid = _per_pixel_ce(logits, labels, ignore_index)
+    focal = alpha * (1.0 - torch.exp(-ce)) ** gamma * ce
+    return torch.where(valid, focal, torch.zeros_like(focal)).sum() / valid.sum().clamp_min(1)
+
+
+def make_seg_loss(loss_type: str, params: dict | None = None):
+    """The config's loss section (`training.loss_function`) as loss(logits, labels)."""
+    params = dict(params or {})
+    ignore = params.get("ignore_index", IGNORE_INDEX)
+    if loss_type in ("CrossEntropyLoss", "ce", "cross_entropy"):
+        reduction = params.get("reduction", "mean")
+        return lambda logits, labels: cross_entropy_loss(logits, labels, ignore, reduction)
+    if loss_type in ("FocalLoss", "focal"):
+        alpha, gamma = params.get("alpha", 1.0), params.get("gamma", 2.0)
+        return lambda logits, labels: focal_loss(logits, labels, alpha, gamma, ignore)
+    raise ValueError(f"unknown loss type {loss_type!r}")
