@@ -102,7 +102,35 @@ Phases, each of which fails the run (exit code != 0, no result line):
      (probes/seg_step_parity.py), and four planted faults, each of which
      must break a limit; train-seg (4 steps) and infer-seg
      on its best step through the CLI (exit 0, the three PNGs' shapes, finite
-     values in range before the uint8 cast). It launches no kernel of ours.
+     values in range before the uint8 cast). It launches no kernel of ours;
+ 16. the rest of the DeepLab family at configs/segmentation.yaml (batch 8,
+     256 x 256 crops of 270 x 480 images, bf16 autocast over f32
+     parameters, seeded random weights) with the geometric legs of the
+     augment on (scale 0.5-2.0, rotation 10 degrees, hue 0.1): DeepLabV3+
+     over MobileNetV2, Xception, HRNetV2-W32 and HRNetV2-W48, and over
+     ResNet-101 with the atrous-separable head; each model a few augmented
+     train steps (finite losses, parameters and BatchNorm statistics that
+     move), timed windows (ms/step, images/s, a profiled window's device
+     ms/step, idle share and launches, peak memory, the step's FLOPs from
+     torch.utils.flop_counter and their bound at 989 TFLOP/s), and an eval
+     forward at batch 2, card f32 against CPU f32, on the logits' relative
+     L2 error and the predictions' agreement; HRNet's stem with a ReLU put
+     back between its convs must break those limits. No kernel of ours;
+ 17. Swift-SRGAN training at the JAX defaults (G 64 channels, 16 blocks,
+     4x; the default discriminator; 96 px HR crops, batch 4, bf16 autocast
+     over f32 parameters) on a synthetic tree of 16 HR PNGs:
+     loop_srgan.train for a pretrain epoch and a GAN epoch (finite g and d
+     losses, G and D that move, a checkpoint restored equal, a resume that
+     goes on in the GAN phase), timed windows of the pretrain and the GAN
+     step at batch 4 and 16 (the fields of phase 16), one pretrain step and
+     one GAN step at batch 2 card f32 against CPU f32 (the losses, every
+     parameter's update, Adam's first moments, the BatchNorm statistics'
+     change), where two planted faults must each break a limit: D's
+     statistics left updated in the G step, and the adversarial term
+     detached from G's update; then
+     train-srgan --max-steps 4 and super-resolve with that run's generator
+     through the CLI (exit 0, a PNG of 4x the input, finite values in range
+     before the uint8 cast). No kernel of ours.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors, times, bounds
 and library times.
@@ -182,6 +210,29 @@ SEG_CONTROLS = (("bf16", "head_lr_x2"), ("bf16", "unbiased_running_var"), ("bf16
                 ("f32", "dropout_on"))
 # phase 12 runs its DDIM half only if the run reaches it this early, so that phases 13-14 fit the time limit
 INT8_DDIM_BEFORE_S = 420
+# phase 16: the rest of the DeepLab family at configs/segmentation.yaml with the geometric legs on, each
+# model (name, separable head) a few steps, FAMILY_WINDOWS timed windows of FAMILY_WINDOW_STEPS, a profiled
+# window of FAMILY_PROFILED steps; its eval forward at batch 2, card f32 against CPU f32, held on the
+# logits' relative L2 error and the predictions' agreement. H100 readings (PERF.md section 6): 4.5e-7-7.0e-7
+# and 1.00000 (MobileNetV2, Xception, HRNet-W32); HRNet's stem with a ReLU put back 1.8e-2 and 0.99845
+SEG_FAMILY = (("deeplabv3plus_mobilenet", False), ("deeplabv3plus_xception", False),
+              ("deeplabv3plus_hrnetv2_32", False), ("deeplabv3plus_hrnetv2_48", False),
+              ("deeplabv3plus_resnet101", True))
+SEG_GEOMETRIC = dict(scale_range=[0.5, 2.0], rotation_degrees=10.0, hue=0.1)
+FAMILY_STEPS, FAMILY_WINDOWS, FAMILY_WINDOW_STEPS, FAMILY_PROFILED = 3, 2, 5, 3
+FAMILY_EVAL_LIMITS = dict(rel=1e-4, agree=0.999)
+# phase 17: SRGAN training at the JAX defaults (G 64 channels, 16 blocks, 4x; the default D; 96 px HR
+# crops, batch 4) on a synthetic HR tree of SRGAN_IMAGES (W, H) PNGs; timed windows of both phases at
+# SRGAN_BATCHES; one pretrain and one GAN step card f32 against CPU f32 at batch 2, held on the losses'
+# relative error, the relative L2 error of the parameters' update, of Adam's first moments (0.1 g: the
+# gradients' scale, which the first updates, about lr * sign(g), do not carry) of G's pretrain step, G's GAN
+# step and D's step, and of the BatchNorm statistics' change. H100 readings (PERF.md section 6): 8.1e-7,
+# 1.47e-2 (a gradient entry near 0 that rounds to the other sign moves by 2 lr), 3.7e-5, 7.9e-3-2.1e-2,
+# 5.6e-4-4.6e-3 (D's BatchNorms over batch 2 and 6 x 6 maps amplify f32 rounding; G's GAN gradient takes it
+# through D), 1.1e-6; D's statistics left updated in the G step 0.32 on the statistics; the adversarial term
+# detached from G's update 0.34 on G's GAN-step moments
+SRGAN_IMAGES, SRGAN_SIZE, SRGAN_BATCHES = 16, (384, 216), (4, 16)
+SRGAN_LIMITS = dict(loss=1e-5, update=0.1, moments_g_pretrain=1e-3, moments_g_gan=0.1, moments_d=5e-2, stats=1e-4)
 HEADLINE = dict(guidance_every=2, guidance_space="latent", lam=120.0)
 REFERENCE_EXACT = dict(guidance_every=1, guidance_space="sr", lam=60.0)
 # the alternate schedule in its exact-semantics setting, and with the class sweep packed into 8 slots an image
@@ -1345,41 +1396,18 @@ def phase_seg(torch, device, card, tmp, scfg=None, pairs=SEG_PAIRS, size=SEG_SIZ
     batch = torch.randint(0, 256, (bsz, h, w, 3), generator=g, device=device, dtype=torch.uint8)
     labels = SP.stripes(bsz, h, w, g)
     if on_card:
-        from torch.utils.flop_counter import FlopCounterMode
-
-        for _ in range(3):
-            step_fn(state, batch, labels, g)
-        sync()
-        torch.cuda.reset_peak_memory_stats()
-        times, window_losses = [], []
-        for _ in range(WINDOWS):
-            t0 = time.perf_counter()
-            outs = [step_fn(state, batch, labels, g)[1:] for _ in range(WINDOW_STEPS)]
-            sync()
-            times.append((time.perf_counter() - t0) * 1e3 / WINDOW_STEPS)
-            window_losses += [v.item() for o in outs for v in o]
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        if not finite(window_losses):
+        outs, profiled = [], 5
+        times, peak, prof, flops = _timed_windows(
+            torch, lambda: outs.append(step_fn(state, batch, labels, g)[1:]), WINDOWS, WINDOW_STEPS, profiled, top=5)
+        if not finite([v.item() for o in outs for v in o]):
             raise AssertionError("seg train windows: a loss or input-gradient magnitude is not finite")
-        profiled = 5
-        wall_ms, kernel_ms, n_launch, top = _device_profile(torch, lambda: [step_fn(state, batch, labels, g)
-                                                                          for _ in range(profiled)], profiled, 5)
-        with FlopCounterMode(display=False) as counter:
-            step_fn(state, batch, labels, g)
-        flops = counter.get_total_flops()
-        ms = statistics.median(times)
-        bound_ms = flops / 989e12 * 1e3
-        log(f"  seg train step (augment + fwd + bwd with the input gradient + SGD) at batch {bsz}, uint8 ({h}, {w}) -> "
-            f"{tuple(t.target_resolution)} crops, bf16: {ms:.2f} ms/step (median of {WINDOWS} windows of "
-            f"{WINDOW_STEPS} steps: {', '.join(f'{x:.2f}' for x in times)}), {1e3 * bsz / ms:.1f} images/s [{card}]; "
-            f"peak device memory {peak:.2f} GiB after warm-up; profiled {profiled} steps: device "
-            f"{kernel_ms / profiled:.2f} ms/step, wall {wall_ms / profiled:.2f} ms/step, idle share "
-            f"{max(0.0, 1 - kernel_ms / wall_ms):.2f}, {n_launch / profiled:.0f} launches a step; "
-            f"{flops / 1e12:.3f} TFLOP a step (torch.utils.flop_counter) -> bound {bound_ms:.3f} ms at 989 TFLOP/s "
-            f"bf16 ({100 * bound_ms / ms:.1f} % of the wall step)")
-        for name, dev_ms, count in top:
-            log(f"    {dev_ms / profiled:8.3f} ms/step {100 * dev_ms / kernel_ms:5.1f}% x{count // profiled:<4d} "
+        log("  " + _window_line(f"seg train step (augment + fwd + bwd with the input gradient + SGD), uint8 ({h}, {w}) "
+                                f"-> {tuple(t.target_resolution)} crops, bf16", bsz, times, peak, prof, flops,
+                                profiled, card))
+        for name, dev_ms, count in prof[3]:
+            log(f"    {dev_ms / profiled:8.3f} ms/step {100 * dev_ms / prof[1]:5.1f}% x{count // profiled:<4d} "
                 f"{name[:100]}")
+        del outs
     del batch, labels
 
     # one step at batch 2 against the CPU (f32), the same seeded weights, damped, and draws: in f32 and in
@@ -1440,6 +1468,368 @@ def phase_seg(torch, device, card, tmp, scfg=None, pairs=SEG_PAIRS, size=SEG_SIZ
         log(f"  cli infer-seg --checkpoint <that run's checkpoints> on a 2048 x 1024 image and labelIds map: exit 0 "
             f"in {secs:.1f} s; PNGs {shapes}, finite and in [0, 1] before the uint8 cast")
     log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _timed_windows(torch, step, windows, window_steps, profiled, top=0):
+    """(wall ms/step of each window, peak GiB, (profiled wall ms, device ms, launches[, top kernels]), FLOPs
+    of one call) of `step()` on the card, after two warm-up calls; `top` as in _device_profile."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(window_steps):
+            step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / window_steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = _device_profile(torch, lambda: [step() for _ in range(profiled)], profiled, top)
+    with FlopCounterMode(display=False) as counter:
+        step()
+    return times, peak, prof, counter.get_total_flops()
+
+
+def _window_line(what, bsz, times, peak, prof, flops, profiled, card):
+    """The report of `_timed_windows` for a step of `bsz` images."""
+    wall, dev, launches = prof[:3]
+    ms = statistics.median(times)
+    bound = flops / 989e12 * 1e3
+    return (f"{what} at batch {bsz}: {ms:.2f} ms/step (windows {', '.join(f'{x:.2f}' for x in times)}), "
+            f"{1e3 * bsz / ms:.1f} images/s [{card}]; profiled {profiled} steps: device {dev / profiled:.2f} "
+            f"ms/step, wall {wall / profiled:.2f}, idle share {max(0.0, 1 - dev / wall):.2f}, "
+            f"{launches / profiled:.0f} launches a step; peak {peak:.2f} GiB; {flops / 1e12:.4f} TFLOP a step "
+            f"(torch.utils.flop_counter) -> bound {bound:.4f} ms at 989 TFLOP/s bf16 ({100 * bound / ms:.2f} % "
+            f"of the wall step)")
+
+
+def _rel_l2(a, b):
+    """||a - b|| / ||b|| over two lists of tensors, in f64 on the CPU."""
+    num = sum(((x.double().cpu() - y.double().cpu()) ** 2).sum().item() for x, y in zip(a, b))
+    den = sum((y.double().cpu() ** 2).sum().item() for y in b)
+    return (num / den) ** 0.5 if den > 0 else float("nan")
+
+
+def phase_seg_family(torch, device, card, scfg=None):
+    """The rest of the DeepLab family on the card at configs/segmentation.yaml
+    with the geometric legs on: each model a few augmented train steps
+    (finite losses, parameters and BatchNorm statistics that move), timed and
+    profiled windows, and an eval forward at batch 2 card f32 against CPU
+    f32; HRNet's stem with a ReLU put back must break that comparison.
+    `scfg` makes a tiny CPU rehearsal possible (no timing there)."""
+    import copy
+
+    from weatherconverter_tpu_torch.core.config import load_seg_config
+    from weatherconverter_tpu_torch.data.transforms import seg_eval_preprocess
+    from weatherconverter_tpu_torch.models.factory import make_seg_model
+    from weatherconverter_tpu_torch.probes import seg_step_parity as SP
+    from weatherconverter_tpu_torch.training import loop_segmentation
+    from weatherconverter_tpu_torch.training.losses import make_seg_loss
+    from weatherconverter_tpu_torch.training.segmentation import create_seg_state
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dtype = torch.bfloat16 if on_card else None
+    cfg = load_seg_config(scfg or os.path.join(REPO, "configs", "segmentation.yaml"),
+                          data={"transform": SEG_GEOMETRIC})
+    m, t = cfg.model, cfg.data.transform
+    (h, w), bsz = t.resize_resolution, cfg.training.batch_size
+    crop = tuple(t.target_resolution)
+    g = torch.Generator(device=device).manual_seed(16)
+    batch = torch.randint(0, 256, (bsz, h, w, 3), generator=g, device=device, dtype=torch.uint8)
+    labels = SP.stripes(bsz, h, w, g)
+    step_fn = loop_segmentation.make_augmented_seg_train_step(
+        cfg, make_seg_loss(cfg.training.loss_function.type, cfg.training.loss_function.params), dtype=dtype)
+    cpu_g = torch.Generator().manual_seed(17)
+    x_eval = seg_eval_preprocess(torch.randint(0, 256, (2, h, w, 3), generator=cpu_g, dtype=torch.uint8), crop=crop,
+                                 mean=tuple(t.mean), std=tuple(t.std)).permute(0, 3, 1, 2).contiguous()
+    log(f"  augment: crop {crop} of uint8 ({h}, {w}) with {SEG_GEOMETRIC}; batch {bsz}, "
+        f"{'bf16 autocast' if on_card else 'f32'}; eval limits {FAMILY_EVAL_LIMITS}")
+
+    def eval_compare(card_model, cpu_logits):
+        with torch.no_grad():
+            got = card_model(x_eval.to(device)).float().cpu()
+        return _rel_l2([got], [cpu_logits]), (got.argmax(1) == cpu_logits.argmax(1)).float().mean().item()
+
+    for name, separable in SEG_FAMILY:
+        t0 = time.perf_counter()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = make_seg_model(name, m.num_classes, m.output_stride, train=True, bn_momentum=m.bn_momentum,
+                                   separable=separable).to(device)
+        state = create_seg_state(model, cfg.optimizer, 100)
+        before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        outs = [step_fn(state, batch, labels, g)[1:] for _ in range(FAMILY_STEPS)]
+        sync()
+        losses = [o[0].item() for o in outs]
+        after = model.state_dict()
+        params = [k for k, _ in model.named_parameters()]
+        moved = sum((after[k] - before[k]).abs().sum().item() for k in params)
+        bn_moved = sum((after[k] - before[k]).abs().sum().item() for k in after
+                       if k.endswith(("running_mean", "running_var")))
+        if not (all(x == x and abs(x) < float("inf") for x in losses) and moved > 0 and bn_moved > 0):
+            raise AssertionError(f"{name}: losses {losses}, |params| moved {moved}, BN statistics {bn_moved}")
+        head = f"  {name}{' (separable head)' if separable else ''}: {FAMILY_STEPS} steps in " \
+               f"{time.perf_counter() - t0:.1f} s (build and cuDNN's first trials included), loss " \
+               f"{losses[0]:.4f} -> {losses[-1]:.4f}, |params| moved {moved:.3e}, BN statistics {bn_moved:.3e}"
+        log(head)
+        if on_card:
+            times, peak, prof, flops = _timed_windows(torch, lambda: step_fn(state, batch, labels, g), FAMILY_WINDOWS,
+                                                      FAMILY_WINDOW_STEPS, FAMILY_PROFILED)
+            log("    " + _window_line("train step (augment + fwd + bwd with the input gradient + SGD)", bsz, times,
+                                      peak, prof, flops, FAMILY_PROFILED, card))
+        model.eval()
+        cpu_model = copy.deepcopy(model).cpu()
+        with torch.no_grad():
+            cpu_logits = cpu_model(x_eval).float()
+        rel, agree = eval_compare(model, cpu_logits)
+        log(f"    eval forward at batch 2, card f32 against CPU f32: logits' relative L2 error {rel:.3e}, "
+            f"predictions equal {agree:.5f}")
+        if not (rel <= FAMILY_EVAL_LIMITS["rel"] and agree >= FAMILY_EVAL_LIMITS["agree"]):
+            raise AssertionError(f"{name}: card f32 eval forward against the CPU's: {rel:.3e}, {agree:.5f}")
+        if name == "deeplabv3plus_hrnetv2_32":
+            bn1 = model.backbone.bn1
+            model.backbone.bn1 = torch.nn.Sequential(bn1, torch.nn.ReLU())
+            f_rel, f_agree = eval_compare(model, cpu_logits)
+            model.backbone.bn1 = bn1
+            log(f"    planted fault, a ReLU between HRNet's stem convs: {f_rel:.3e}, {f_agree:.5f}")
+            if f_rel <= FAMILY_EVAL_LIMITS["rel"] and f_agree >= FAMILY_EVAL_LIMITS["agree"]:
+                raise AssertionError("the HRNet stem with a ReLU put back passes the eval limits")
+        del model, state, cpu_model, before, after
+        if on_card:
+            torch.cuda.empty_cache()
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _srgan_tree(root, n, size, seed=90):
+    """`n` random (W, H) = `size` PNGs under <root>/ACDC/rgb_anon/fog/train; returns root."""
+    import numpy as np
+    from PIL import Image
+
+    folder = os.path.join(root, "ACDC", "rgb_anon", "fog", "train")
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (size[1], size[0], 3), dtype=np.uint8)).save(
+            os.path.join(folder, f"hr_{i:03d}.png"))
+    return root
+
+
+def phase_srgan(torch, device, card, tmp, overrides=None, images=SRGAN_IMAGES, size=SRGAN_SIZE):
+    """SRGAN training on the card at the JAX defaults: loop_srgan.train for a
+    pretrain epoch and a GAN epoch on a synthetic HR tree (finite losses,
+    parameters that move, the checkpoint restored equal, a resume that goes
+    on in the GAN phase), timed windows of both steps, one pretrain and one
+    GAN step card f32 against CPU f32 (D's statistics left updated in the G
+    step must break the comparison), then train-srgan and super-resolve on
+    its generator through the CLI. `overrides` (config sections), `images`
+    and `size` make a tiny CPU rehearsal possible (no timing)."""
+    import contextlib
+    import copy
+
+    import numpy as np
+    import yaml
+    from PIL import Image
+
+    from weatherconverter_tpu_torch.cli.main import main as cli_main
+    from weatherconverter_tpu_torch.core.checkpoint import CheckpointManager, restore_auto
+    from weatherconverter_tpu_torch.core.config import load_srgan_train_config
+    from weatherconverter_tpu_torch.models.srgan import Discriminator, Generator
+    from weatherconverter_tpu_torch.training import loop_srgan
+    from weatherconverter_tpu_torch.training import srgan as S
+    from weatherconverter_tpu_torch.utils import images as image_utils
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    root = _srgan_tree(os.path.join(tmp, "srgan_data"), images, size)
+    out = os.path.join(tmp, "srgan_train")
+    sections = copy.deepcopy(overrides or {})
+    sections.setdefault("data", {}).update(root_dir=root, weather=["fog"])
+    sections.setdefault("folders", {})["output"] = out
+    base_training = dict(sections.pop("training", {}))
+    cfg = load_srgan_train_config(None, training=dict(base_training, epochs=2, pretrain_epochs=1, save_interval=1,
+                                                      log_interval=1, device=device.type), **sections)
+    s, tr = cfg.srgan, cfg.training
+    per_epoch = images // tr.batch_size
+
+    # the loop: a pretrain epoch, a GAN epoch, a checkpoint each; then a resume into the GAN phase
+    t0 = time.perf_counter()
+    gs, ds = loop_srgan.train(cfg)
+    sync()
+    loop_s = time.perf_counter() - t0
+    with open(os.path.join(out, "0", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if "train/g_loss" in line]
+    g_losses = [r["train/g_loss"] for r in recs]
+    d_losses = [r["train/d_loss"] for r in recs if "train/d_loss" in r]
+    finite = lambda xs: all(x == x and abs(x) < float("inf") for x in xs)  # noqa: E731
+    if (gs.step, ds.step) != (2 * per_epoch, per_epoch) or len(d_losses) != per_epoch or not finite(
+            g_losses + d_losses) or [r["phase"] for r in recs] != ["pretrain"] * per_epoch + ["gan"] * per_epoch:
+        raise AssertionError(f"srgan loop: steps G {gs.step}, D {ds.step}; records {recs}")
+    ckdir = os.path.join(out, "0", "checkpoints")
+    mgr = CheckpointManager(ckdir)
+    saved = {e: mgr.restore(step=e) for e in mgr.all_steps()}
+    if sorted(saved) != [1, 2]:
+        raise AssertionError(f"srgan loop: checkpoints {sorted(saved)}")
+    g_moved = sum((saved[2]["model"][k] - saved[1]["model"][k]).abs().sum().item()
+                  for k, _ in gs.model.named_parameters())
+    d_moved = sum((saved[2]["disc"][k] - saved[1]["disc"][k]).abs().sum().item()
+                  for k, _ in ds.model.named_parameters())
+    if not (g_moved > 0 and d_moved > 0):
+        raise AssertionError(f"srgan loop: epoch 1 -> 2, G moved {g_moved}, D moved {d_moved}")
+    fresh = S.SRGANStates(*S.create_srgan_states(Generator(s.in_channels, s.num_channels, s.num_blocks,
+                                                           s.upscale_factor).to(device),
+                                                 Discriminator(s.in_channels).to(device)))
+    restore_auto(ckdir, fresh, prefer_best=False)
+    _state_dicts_equal(torch, saved[2], fresh.state_dict())
+    del fresh
+    resumed = load_srgan_train_config(None, training=dict(base_training, epochs=3, pretrain_epochs=1, log_interval=1,
+                                                          device=device.type, resume_training=True,
+                                                          resume_checkpoint=ckdir), **sections)
+    gs2, ds2 = loop_srgan.train(resumed)
+    with open(os.path.join(out, "1", "metrics.jsonl")) as f:
+        phases = {json.loads(line)["phase"] for line in f if "train/g_loss" in line}
+    if (gs2.step, ds2.step, gs2.epoch) != (3 * per_epoch, 2 * per_epoch, 3) or phases != {"gan"}:
+        raise AssertionError(f"srgan resume: G {gs2.step}, D {ds2.step}, epoch {gs2.epoch}, phases {phases}")
+    log(f"  loop_srgan.train (G {s.num_channels} channels, {s.num_blocks} blocks, {s.upscale_factor}x; HR crop "
+        f"{tr.hr_crop}, batch {tr.batch_size}, {tr.dtype if on_card else 'f32'}): {2 * per_epoch} steps (a pretrain "
+        f"epoch, a GAN epoch) in {loop_s:.1f} s (build, loader start-up and cuDNN's first trials included); g loss "
+        f"{g_losses[0]:.4f} -> {g_losses[-1]:.4f}, d loss {d_losses[0]:.4f} -> {d_losses[-1]:.4f}; epoch 1 -> 2 G "
+        f"moved {g_moved:.3e}, D {d_moved:.3e}; checkpoint restored equal; a resume went on in the GAN phase to "
+        f"step {gs2.step}")
+    del gs, ds, gs2, ds2, saved
+
+    def seeded_states(to):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            gen = Generator(s.in_channels, s.num_channels, s.num_blocks, s.upscale_factor)
+            disc = Discriminator(s.in_channels)
+        return S.create_srgan_states(gen.to(to), disc.to(to), tr.g_lr, tr.d_lr)
+
+    # timed windows of both phases' steps on one device-resident uint8 batch
+    if on_card:
+        dtype = torch.bfloat16 if tr.dtype == "bfloat16" else None
+        pair_fn = loop_srgan.make_pair_fn(tr.hr_crop, s.upscale_factor)
+        pre = S.make_pretrain_step(tr.pixel_loss, dtype=dtype)
+        gan = S.make_gan_step(tr.adv_weight, pixel_loss=tr.pixel_loss, dtype=dtype)
+        g = torch.Generator(device=device).manual_seed(18)
+        h, w = tr.hr_crop, int(round(tr.hr_crop * 16 / 9))
+        for bsz in SRGAN_BATCHES:
+            gst, dst = seeded_states(device)
+            batch = torch.randint(0, 256, (bsz, h, w, 3), generator=g, device=device, dtype=torch.uint8)
+            for what, step in (("pretrain step (pairs + G fwd/bwd + Adam)", lambda: pre(gst, *pair_fn(batch, g))),
+                               ("GAN step (pairs + D update + G update)", lambda: gan(gst, dst, *pair_fn(batch, g)))):
+                times, peak, prof, flops = _timed_windows(torch, step, FAMILY_WINDOWS, FAMILY_WINDOW_STEPS,
+                                                          FAMILY_PROFILED)
+                log("    " + _window_line(what, bsz, times, peak, prof, flops, FAMILY_PROFILED, card))
+            del gst, dst, batch
+            torch.cuda.empty_cache()
+
+    # one pretrain and one GAN step, card f32 against CPU f32, the same seeded weights and batch
+    cpu = torch.device("cpu")
+    gcpu = torch.Generator().manual_seed(19)
+    hr = torch.rand((2, tr.hr_crop, tr.hr_crop, 3), generator=gcpu)
+    lr = torch.nn.functional.avg_pool2d(hr.permute(0, 3, 1, 2), s.upscale_factor).permute(0, 2, 3, 1)
+
+    @contextlib.contextmanager
+    def adversarial_term_detached(module):
+        hook = module.register_forward_pre_hook(lambda m, args: (args[0].detach(),))
+        try:
+            with frozen(module):
+                yield
+        finally:
+            hook.remove()
+
+    frozen = S.frozen_statistics
+    faults = {"d_statistics_left_updated": lambda module: contextlib.nullcontext(),
+              "adversarial_term_detached": adversarial_term_detached}
+
+    def both_steps(to, fault=None):
+        gst, dst = seeded_states(to)
+        snap = lambda st: {k: v.detach().clone().cpu() for k, v in st.model.state_dict().items()}  # noqa: E731
+        # Adam's first moments, 0.1 g after a first step, by parameter name: they carry the gradients' scale,
+        # which the first updates (about lr * sign(g)) do not
+        moments = lambda st: {n: st.optimizer.state[p]["exp_avg"].detach().clone().cpu()  # noqa: E731
+                              for n, p in st.model.named_parameters()}
+        g0, d0 = snap(gst), snap(dst)
+        _, pre_loss = S.make_pretrain_step(tr.pixel_loss)(gst, lr.to(to), hr.to(to))
+        mid, mom_mid = snap(gst), moments(gst)
+        if fault:
+            S.frozen_statistics = faults[fault]
+        try:
+            _, _, g_loss, d_loss = S.make_gan_step(tr.adv_weight, pixel_loss=tr.pixel_loss)(gst, dst, lr.to(to),
+                                                                                          hr.to(to))
+        finally:
+            S.frozen_statistics = frozen
+        mom_g1 = moments(gst)
+        return dict(losses=[pre_loss.item(), g_loss.item(), d_loss.item()], g0=g0, d0=d0, mid=mid, g1=snap(gst),
+                    d1=snap(dst), names=(list(mom_mid), list(moments(dst))),
+                    # per step and network, each times 0.1: G's pretrain gradient, G's GAN-step gradient (its
+                    # moment less the decayed first one), D's gradient
+                    moments_g_pretrain=list(mom_mid.values()),
+                    moments_g_gan=[mom_g1[n] - 0.9 * mom_mid[n] for n in mom_g1],
+                    moments_d=list(moments(dst).values()))
+
+    def measures(run, ref):
+        gp, dp = ref["names"]
+        stats = lambda sd: [k for k in sd if k.endswith(("running_mean", "running_var"))]  # noqa: E731
+        delta = lambda r, a, b, keys: [r[b][k].double() - r[a][k].double() for k in keys]  # noqa: E731
+        return dict(
+            loss=max(abs(x - y) / abs(y) for x, y in zip(run["losses"], ref["losses"])),
+            update=_rel_l2(delta(run, "g0", "mid", gp) + delta(run, "mid", "g1", gp) + delta(run, "d0", "d1", dp),
+                           delta(ref, "g0", "mid", gp) + delta(ref, "mid", "g1", gp) + delta(ref, "d0", "d1", dp)),
+            **{k: _rel_l2(run[k], ref[k]) for k in ("moments_g_pretrain", "moments_g_gan", "moments_d")},
+            stats=_rel_l2(delta(run, "g0", "g1", stats(ref["g1"])) + delta(run, "d0", "d1", stats(ref["d1"])),
+                          delta(ref, "g0", "g1", stats(ref["g1"])) + delta(ref, "d0", "d1", stats(ref["d1"]))))
+
+    t0 = time.perf_counter()
+    ref = both_steps(cpu)
+    cpu_s = time.perf_counter() - t0
+    sound = measures(both_steps(device), ref)
+    fmt = lambda c: ", ".join(f"{k} {v:.3e}" for k, v in c.items())  # noqa: E731
+    log(f"  a pretrain step then a GAN step at batch 2, card f32 against CPU f32 (CPU {cpu_s:.1f} s; the largest "
+        f"relative error of the three losses; relative L2 errors of every parameter's update, of Adam's first "
+        f"moments of G's pretrain step, G's GAN step and D's step, and of the BatchNorm statistics' change), limits "
+        f"{SRGAN_LIMITS}: {fmt(sound)}")
+    if any(sound[k] > lim or sound[k] != sound[k] for k, lim in SRGAN_LIMITS.items()):
+        raise AssertionError(f"card f32 and CPU f32 SRGAN steps disagree: {sound}")
+    for fault in faults:
+        faulty = measures(both_steps(device, fault), ref)
+        broken = [k for k, lim in SRGAN_LIMITS.items() if not faulty[k] <= lim]
+        log(f"    planted fault {fault}: {fmt(faulty)}; outside its limits: {', '.join(broken) or 'none'}")
+        if not broken:
+            raise AssertionError(f"the GAN step with the planted fault {fault} passes every limit: {faulty}")
+
+    # the CLI: train-srgan, then super-resolve with the run's generator
+    yml = os.path.join(tmp, "srgan.yaml")
+    with open(yml, "w") as f:
+        yaml.safe_dump({"srgan": cfg.srgan.model_dump(), "data": {"root_dir": root, "weather": ["fog"]},
+                        "training": dict(base_training, log_interval=1)}, f)
+    cli_out, png = os.path.join(tmp, "srgan_cli"), os.path.join(tmp, "srgan_cli.png")
+    small = os.path.join(tmp, "srgan_in.png")
+    Image.fromarray(np.random.default_rng(91).integers(0, 256, (30, 40, 3), dtype=np.uint8)).save(small)
+    device_flag = [] if on_card else ["--device", "cpu"]
+    for argv in (["train-srgan", "--config", yml, "--max-steps", "4", "--set", f"folders.output={cli_out}"],
+                 ["super-resolve", "--config", yml, "--image", small, "--checkpoint",
+                  os.path.join(cli_out, "0", "checkpoints"), "--out", png]):
+        t0 = time.perf_counter()
+        with _Recorder(image_utils) as rec:
+            code = cli_main(argv + device_flag)
+        sync()
+        if code != 0:
+            raise AssertionError(f"cli {argv[0]}: exit {code}")
+        log(f"  cli {argv[0]}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    shape = Image.open(png).size
+    want = (40 * s.upscale_factor, 30 * s.upscale_factor)
+    if shape != want or len(rec.seen) != 1 or not rec.seen[0][1]:
+        raise AssertionError(f"cli super-resolve: PNG {shape}, expected {want}; before the uint8 cast {rec.seen}")
+    log(f"  super-resolve with that run's generator: a {shape[0]} x {shape[1]} PNG, finite and in [0, 1] before the "
+        f"uint8 cast")
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def _round(x):
@@ -1573,6 +1963,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase 15: segmentation on the card [{card}]")
         phase_seg(torch, device, card, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 16: the rest of the DeepLab family on the card [{card}]")
+        phase_seg_family(torch, device, card)
+        torch.cuda.empty_cache()
+        log(f"phase 17: SRGAN training on the card [{card}]")
+        phase_srgan(torch, device, card, tmp)
 
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []

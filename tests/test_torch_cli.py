@@ -155,7 +155,16 @@ def test_parser_has_jax_subcommands_dests_defaults_and_choices():
 @pytest.mark.parametrize("command, item", [("train-srgan", "item 15"), ("quality", "item 15"),
                                            ("export-hlo", "item 10"), ("visualize", "item 19")])
 def test_unported_subcommands_exit_nonzero_naming_their_item(command, item, capsys):
+    """train-srgan (item 15's first part) is ported: like every ported
+    command it runs on the card by default and, without one, exits non-zero
+    saying so (its CPU run is in tests/test_torch_srgan_training.py)."""
     argv = [command] + (["--image", "x.png"] if command == "visualize" else [])
+    if command == "train-srgan":
+        assert command not in PM.NOT_PORTED
+        if not torch.cuda.is_available():
+            with pytest.raises(SystemExit, match="no CUDA device"):
+                PM.main(argv)
+        return
     assert PM.main(argv) != 0
     err = capsys.readouterr().err
     assert "not ported" in err and item in err

@@ -162,9 +162,17 @@ def test_seg_train_augment_draws_from_its_generator():
 
 @pytest.mark.parametrize("leg", [dict(scale_range=(0.5, 2.0)), dict(rotation_degrees=10.0), dict(hue=0.1)])
 def test_seg_train_augment_refuses_the_geometric_legs_by_name(leg):
+    """The geometric legs were refused by name until they were ported; each
+    now runs (tests/test_torch_seg_geometric.py holds them against JAX) and
+    changes the chain's output, and a leg the chain does not know is still
+    refused by name."""
     x, y = _t(_images(2, 20, 30, 1)), _t(_labels(2, 20, 30, 1))
-    with pytest.raises(NotImplementedError, match=f"{next(iter(leg))}.*item 13"):
-        PT.seg_train_augment(x, y, crop=(16, 16), **leg)
+    plain = PT.seg_train_augment(x, y, torch.Generator().manual_seed(0), crop=(16, 16))
+    got = PT.seg_train_augment(x, y, torch.Generator().manual_seed(0), crop=(16, 16), **leg)
+    assert got[0].shape == plain[0].shape and not torch.equal(got[0], plain[0])
+    assert set(got[1].unique().tolist()) <= set(y.unique().tolist()) | {255}
+    with pytest.raises(TypeError, match="shear"):
+        PT.seg_train_augment(x, y, crop=(16, 16), shear=5.0, **leg)
 
 
 def test_seg_eval_preprocess_matches_jax():

@@ -218,7 +218,9 @@ def test_parts_not_ported_raise(kw):
 
 def test_port_imports_no_jax():
     """Every module of weatherconverter_tpu_torch (the CLI's cli.main, the
-    server's serving.server and the seg trainer's modules among them), and chip_smoke (imported, not run),
+    server's serving.server, the seg trainer's modules, the MobileNetV2,
+    Xception and HRNetV2 backbones and the SRGAN trainer's modules among
+    them), and chip_smoke (imported, not run),
     imports in a fresh process without loading jax, jaxlib, flax or anything
     of the JAX package."""
     code = (
@@ -231,8 +233,13 @@ def test_port_imports_no_jax():
         "assert {'weatherconverter_tpu_torch.cli.main', 'weatherconverter_tpu_torch.serving.server'} <= set(names)\n"
         "assert {'weatherconverter_tpu_torch.training.loop_segmentation', 'weatherconverter_tpu_torch.metrics.stream',\n"
         "        'weatherconverter_tpu_torch.models.norm'} <= set(names)\n"
+        "assert {'weatherconverter_tpu_torch.models.backbones.mobilenetv2',\n"
+        "        'weatherconverter_tpu_torch.models.backbones.xception',\n"
+        "        'weatherconverter_tpu_torch.models.backbones.hrnetv2', 'weatherconverter_tpu_torch.training.srgan',\n"
+        "        'weatherconverter_tpu_torch.training.loop_srgan'} <= set(names)\n"
         "from weatherconverter_tpu_torch.cli import main as cli\n"
         "cli.build_parser().parse_args(['serve', '--device', 'cpu'])\n"
+        "cli.build_parser().parse_args(['train-srgan', '--device', 'cpu'])\n"
         "import chip_smoke\n"
         "assert callable(chip_smoke.main)\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -78,14 +78,10 @@ def seg_pair(name, hw, num_classes=19):
     return jseg, variables, load_strict(port, from_jax.deeplab_state_dict(variables, name))
 
 
-def seg_pair_from_shapes(name, hw, num_classes, seed=0):
-    """(JAX model, variables, port in eval()) without JAX's init: parameters
-    drawn with numpy at He scale for the kernels (so activations keep their
-    size through a deep ResNet), BatchNorm scales near 1, statistics and
-    biases moved off their init values. Much faster than `seg_pair` for the
-    wide and grouped ResNets (no init compile, no torch init)."""
-    jseg = j_make_seg_model(name, num_classes=num_classes)
-    shapes = jax.eval_shape(lambda: jseg.init(jax.random.PRNGKey(0), jnp.zeros((1, hw, hw, 3))))
+def seeded_leaves(shapes, seed):
+    """numpy values for a tree of shapes: kernels at He scale (so activations
+    keep their size through a deep network), BatchNorm scales near 1,
+    statistics and biases moved off their init values."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, s):
@@ -99,9 +95,20 @@ def seg_pair_from_shapes(name, hw, num_classes, seed=0):
             return np.exp(0.2 * noise)
         return 0.05 * noise
 
-    variables = jax.tree_util.tree_map_with_path(leaf, shapes)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def seg_pair_from_shapes(name, hw, num_classes, seed=0, output_stride=16, separable=False):
+    """(JAX model, variables, port in eval()) without JAX's init: parameters
+    drawn with numpy (`seeded_leaves`). Much faster than `seg_pair` for the
+    wide and grouped ResNets (no init compile, no torch init). `hw` is a
+    side or (H, W)."""
+    h, w = (hw, hw) if isinstance(hw, int) else hw
+    jseg = j_make_seg_model(name, num_classes=num_classes, output_stride=output_stride, separable=separable)
+    shapes = jax.eval_shape(lambda: jseg.init(jax.random.PRNGKey(0), jnp.zeros((1, h, w, 3))))
+    variables = seeded_leaves(shapes, seed)
     with torch.device("meta"):
-        port = make_seg_model(name, num_classes=num_classes)
+        port = make_seg_model(name, num_classes=num_classes, output_stride=output_stride, separable=separable)
     port.load_state_dict(from_jax.deeplab_state_dict(variables, name), strict=True, assign=True)
     return jseg, variables, port.eval()
 

@@ -334,6 +334,20 @@ def run_train_seg(args) -> int:
     return 0
 
 
+def run_train_srgan(args) -> int:
+    """Swift-SRGAN training through training/loop_srgan.train, on `--device`.
+    The run's checkpoint directory loads into super-resolve and translate."""
+    from weatherconverter_tpu_torch.cli.main import parse_overrides
+    from weatherconverter_tpu_torch.core.config import load_srgan_train_config
+    from weatherconverter_tpu_torch.training import loop_srgan
+
+    device = resolve_device(args.device)
+    overrides = parse_overrides(args.set)
+    overrides.setdefault("training", {})["device"] = device.type
+    loop_srgan.train(load_srgan_train_config(args.config, **overrides), max_steps=args.max_steps)
+    return 0
+
+
 def run_infer_seg(args) -> int:
     """Seg inference of one image into `<out>/pred.png` and, given a labelIds
     map, the input-gradient probe (`gradient_magnitude.png`) and the six-panel

@@ -5,8 +5,8 @@ and choices, and one addition: `--device {cuda,cpu}`.
 
 Every command runs on the CUDA card unless `--device cpu` is given; without
 a card it stops with a message and a non-zero exit, and never goes on
-quietly on the CPU. Ported: train-ddpm, train-seg, sample, translate,
-super-resolve, infer-seg and serve. The others parse as in the JAX CLI and
+quietly on the CPU. Ported: train-ddpm, train-seg, train-srgan, sample,
+translate, super-resolve, infer-seg and serve. The others parse as in the JAX CLI and
 stop with a message naming the ROADMAP item that ports their modules.
 """
 
@@ -18,7 +18,6 @@ import sys
 
 # subcommand -> why it stops: the ROADMAP item that ports its modules
 NOT_PORTED = {
-    "train-srgan": "SRGAN training is ROADMAP Queue 1 item 15",
     "quality": "the quality gates (FID, Inception) are ROADMAP Queue 1 item 15",
     "export-hlo": "the torch.export counterpart of export-hlo is ROADMAP Queue 1 item 10 (its kernels must first be "
                   "registered as custom ops)",
@@ -41,7 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     for name, what, cfg_help in (("train-ddpm", "train the DDPM UNet", "diffusion config YAML"),
                                  ("train-seg", "train DeepLabV3(+) segmentation", "seg config YAML"),
-                                 ("train-srgan", "train Swift-SRGAN (not ported)", "srgan train config YAML")):
+                                 ("train-srgan", "train Swift-SRGAN (pretrain + adversarial)", "srgan train config YAML")):
         t = sub.add_parser(name, help=what)
         t.add_argument("--config", default=None, help=cfg_help)
         t.add_argument("--max-steps", type=int, default=None)
@@ -209,7 +208,8 @@ def main(argv=None) -> int:
         return 2
     from weatherconverter_tpu_torch.cli import commands
 
-    return {"train-ddpm": commands.run_train_ddpm, "train-seg": commands.run_train_seg, "sample": commands.run_sample,
+    return {"train-ddpm": commands.run_train_ddpm, "train-seg": commands.run_train_seg,
+            "train-srgan": commands.run_train_srgan, "sample": commands.run_sample,
             "translate": commands.run_translate, "super-resolve": commands.run_super_resolve,
             "infer-seg": commands.run_infer_seg, "serve": run_serve}[args.command](args)
 

@@ -6,14 +6,18 @@ numpy in, strict state dicts out; load the result with
 `load_state_dict(..., strict=True)`. The trees may hold numpy arrays or
 anything `np.asarray` takes. The exporters below are the port's own copy of
 the JAX package's `compat/torch_export` (UNet, Swift-SRGAN generator,
-DeepLabV3(+) over the ResNet family); the tests hold the two against each
-other key for key and bit for bit. Nothing here imports JAX, flax or the JAX
-package.
+DeepLabV3(+) over every backbone of the factory); the tests hold the two
+against each other key for key and bit for bit. Two conversions have no
+JAX exporter and use the port's own module names, held by round-trip tests:
+the atrous-separable head (a separable conv under `<conv>.body.{0,1}`,
+depthwise then pointwise) and the SRGAN discriminator (`blocks.{i}`,
+`classifier.{2,4}`). Nothing here imports JAX, flax or the JAX package.
 
 Trees carried across: the UNet's, the DeepLabV3/V3+'s (over resnet18-152,
-ResNeXt and the wide ResNets; a grouped 3x3 kernel (3, 3, I/groups, O)
-takes the same transpose, the groups implied by the shapes) and the SRGAN
-generator's parameters (with BatchNorm statistics for the latter two).
+ResNeXt, the wide ResNets, MobileNetV2, Xception and HRNetV2; a grouped 3x3
+kernel (3, 3, I/groups, O) takes the same transpose, the groups implied by
+the shapes) and the SRGAN generator's and discriminator's parameters (with
+BatchNorm statistics for the last three).
 `unet_state_dict` takes any tree shaped like the UNet's parameters, so a
 gradient tree or an EMA shadow maps the same way, which is how the tests
 hold the port's gradients and EMA against JAX's.
@@ -184,7 +188,11 @@ def export_srgan_generator(
 
 def _export_deeplab_head(sd, hp, hs):
     def conv_bn(torch_conv, torch_bn, p, s):
-        _put_conv(sd, torch_conv, p["conv"])
+        if "depthwise" in p:  # the atrous-separable head
+            _put_conv(sd, f"{torch_conv}.body.0", p["depthwise"], depthwise=True)
+            _put_conv(sd, f"{torch_conv}.body.1", p["pointwise"])
+        else:
+            _put_conv(sd, torch_conv, p["conv"])
         _put_bn(sd, torch_bn, p["bn"], s["bn"])
 
     is_plus = "project" in hp
@@ -236,6 +244,153 @@ def export_deeplab_resnet(
     return sd
 
 
+def export_deeplab_mobilenet(params, stats) -> dict:
+    """MobileNetV2: the stem and blocks 1-3 under `low_level_features`, 4-17
+    under `high_level_features`, indices kept."""
+    sd: dict = {}
+    bp, bs = params["backbone"], stats["backbone"]
+
+    def attr_for(idx):
+        return "low_level_features" if idx < 4 else "high_level_features"
+
+    _put_conv(sd, "backbone.low_level_features.0.0", bp["stem"]["conv"])
+    _put_bn(sd, "backbone.low_level_features.0.1", bp["stem"]["bn"], bs["stem"]["bn"])
+    for idx in range(1, 18):
+        name = f"block{idx}"
+        t = f"backbone.{attr_for(idx)}.{idx}"
+        p, s = bp[name], bs[name]
+        base = 0
+        if "expand" in p:
+            _put_conv(sd, f"{t}.conv.0.0", p["expand"]["conv"])
+            _put_bn(sd, f"{t}.conv.0.1", p["expand"]["bn"], s["expand"]["bn"])
+            base = 1
+        _put_conv(sd, f"{t}.conv.{base}.0", p["depthwise"]["conv"], depthwise=True)
+        _put_bn(sd, f"{t}.conv.{base}.1", p["depthwise"]["bn"], s["depthwise"]["bn"])
+        _put_conv(sd, f"{t}.conv.{base+1}", p["project"]["conv"])
+        _put_bn(sd, f"{t}.conv.{base+2}", p["project"]["bn"], s["project"]["bn"])
+    _export_deeplab_head(sd, params["head"], stats["head"])
+    return sd
+
+
+def _xception_sep_positions(n_seps: int, starts_with_relu: bool):
+    """Indices of the separable convs in a block's `rep`: [ReLU] SepConv BN
+    repeats, so (0, 3) for block1 (no leading ReLU), (1, 4[, 7]) otherwise."""
+    first = 0 if not starts_with_relu else 1
+    return [first + 3 * i for i in range(n_seps)]
+
+
+def export_deeplab_xception(params, stats) -> dict:
+    sd: dict = {}
+    bp, bs = params["backbone"], stats["backbone"]
+    for name in ("conv1", "conv2"):
+        _put_conv(sd, f"backbone.{name}", bp[name])
+    for name in ("bn1", "bn2", "bn3"):
+        _put_bn(sd, f"backbone.{name}", bp[name], bs[name])
+
+    def sep(torch_name, p):
+        _put_conv(sd, f"{torch_name}.conv1", p["conv1"], depthwise=True)
+        _put_conv(sd, f"{torch_name}.pointwise", p["pointwise"])
+
+    sep("backbone.conv3", bp["conv3"])
+    sep("backbone.conv4", bp["conv4"])
+    for n in range(1, 13):
+        blk_p, blk_s = bp[f"block{n}"], bs[f"block{n}"]
+        n_seps = sum(1 for k in blk_p if k.startswith("sep"))
+        pos = _xception_sep_positions(n_seps, starts_with_relu=(n != 1))
+        for idx in range(n_seps):
+            sep(f"backbone.block{n}.rep.{pos[idx]}", blk_p[f"sep{idx}"])
+            _put_bn(sd, f"backbone.block{n}.rep.{pos[idx] + 1}", blk_p[f"bn{idx}"], blk_s[f"bn{idx}"])
+        if "skip" in blk_p:
+            _put_conv(sd, f"backbone.block{n}.skip", blk_p["skip"])
+            _put_bn(sd, f"backbone.block{n}.skipbn", blk_p["skipbn"], blk_s["skipbn"])
+    _export_deeplab_head(sd, params["head"], stats["head"])
+    return sd
+
+
+def export_deeplab_hrnet(params, stats, num_blocks=(1, 4, 3)) -> dict:
+    sd: dict = {}
+    bp, bs = params["backbone"], stats["backbone"]
+
+    def conv_bn(torch_conv, torch_bn, p, s):
+        _put_conv(sd, torch_conv, p["conv"])
+        _put_bn(sd, torch_bn, p["bn"], s["bn"])
+
+    conv_bn("backbone.conv1", "backbone.bn1", bp["stem1"], bs["stem1"])
+    conv_bn("backbone.conv2", "backbone.bn2", bp["stem2"], bs["stem2"])
+    for i in range(4):
+        t = f"backbone.layer1.{i}"
+        for k in (1, 2, 3):
+            conv_bn(f"{t}.conv{k}", f"{t}.bn{k}", bp[f"layer1_{i}"][f"conv{k}"], bs[f"layer1_{i}"][f"conv{k}"])
+        if "downsample" in bp[f"layer1_{i}"]:
+            conv_bn(f"{t}.downsample.0", f"{t}.downsample.1",
+                    bp[f"layer1_{i}"]["downsample"], bs[f"layer1_{i}"]["downsample"])
+    conv_bn("backbone.transition1.0.0", "backbone.transition1.0.1", bp["transition1_0"], bs["transition1_0"])
+    conv_bn("backbone.transition1.1.0.0", "backbone.transition1.1.0.1", bp["transition1_1"], bs["transition1_1"])
+    conv_bn("backbone.transition2.0", "backbone.transition2.1", bp["transition2"], bs["transition2"])
+    conv_bn("backbone.transition3.0", "backbone.transition3.1", bp["transition3"], bs["transition3"])
+    for stage, n_branches, blocks in ((2, 2, num_blocks[0]), (3, 3, num_blocks[1]), (4, 4, num_blocks[2])):
+        for b in range(blocks):
+            t = f"backbone.stage{stage}.{b}"
+            mod_p, mod_s = bp[f"stage{stage}_{b}"], bs[f"stage{stage}_{b}"]
+            for i in range(n_branches):
+                for blk in range(4):
+                    bt = f"{t}.branches.{i}.{blk}"
+                    for k in (1, 2):
+                        conv_bn(f"{bt}.conv{k}", f"{bt}.bn{k}", mod_p[f"branch{i}_block{blk}"][f"conv{k}"],
+                                mod_s[f"branch{i}_block{blk}"][f"conv{k}"])
+            for o in range(n_branches):
+                for i in range(n_branches):
+                    if i == o:
+                        continue
+                    ft = f"{t}.fuse_layers.{o}.{i}"
+                    if i > o:
+                        conv_bn(f"{ft}.0", f"{ft}.1", mod_p[f"fuse{o}_{i}"], mod_s[f"fuse{o}_{i}"])
+                    else:
+                        n_down = o - i
+                        for sdx in range(n_down - 1):
+                            conv_bn(f"{ft}.{sdx}.0", f"{ft}.{sdx}.1", mod_p[f"fuse{o}_{i}_down{sdx}"],
+                                    mod_s[f"fuse{o}_{i}_down{sdx}"])
+                        conv_bn(f"{ft}.{n_down-1}.0", f"{ft}.{n_down-1}.1", mod_p[f"fuse{o}_{i}_down_last"],
+                                mod_s[f"fuse{o}_{i}_down_last"])
+    _export_deeplab_head(sd, params["head"], stats["head"])
+    return sd
+
+
+def export_deeplab(params, stats, model_name: str) -> dict:
+    """Dispatch on the factory's model name; HRNet's stage modules are
+    counted in the tree (the factory builds (1, 4, 3))."""
+    backbone = model_name.split("_", 1)[1]
+    if backbone.startswith(("resnet", "resnext", "wide_resnet")):
+        return export_deeplab_resnet(params, stats, backbone)
+    if backbone == "mobilenet":
+        return export_deeplab_mobilenet(params, stats)
+    if backbone == "xception":
+        return export_deeplab_xception(params, stats)
+    if backbone.startswith("hrnetv2"):
+        bp = params["backbone"]
+        return export_deeplab_hrnet(params, stats, tuple(sum(k.startswith(f"stage{i}_") for k in bp) for i in (2, 3, 4)))
+    raise ValueError(f"unknown deeplab backbone in {model_name!r}")
+
+
+def export_srgan_discriminator(params: Mapping[str, Any], stats: Mapping[str, Any]) -> dict:
+    """flax Discriminator -> models.srgan.Discriminator's layout (no JAX
+    exporter has it): `blocks.{i}.cnn.{depthwise,pointwise}`, `blocks.{i}.bn`,
+    fc1 and fc2 as `classifier.2` and `classifier.4`. The flax model flattens
+    in NCHW order, so fc1's kernel only transposes."""
+    sd: dict[str, Any] = {}
+    i = 0
+    while f"block{i}" in params:
+        p = params[f"block{i}"]
+        _put_conv(sd, f"blocks.{i}.cnn.depthwise", p["cnn"]["depthwise"], depthwise=True)
+        _put_conv(sd, f"blocks.{i}.cnn.pointwise", p["cnn"]["pointwise"])
+        if "bn" in p:
+            _put_bn(sd, f"blocks.{i}.bn", p["bn"], stats[f"block{i}"]["bn"])
+        i += 1
+    _put_linear(sd, "classifier.2", params["fc1"])
+    _put_linear(sd, "classifier.4", params["fc2"])
+    return sd
+
+
 def to_torch_state_dict(sd: Mapping[str, np.ndarray]) -> dict:
     """numpy dict -> torch tensor dict ready for torch.save / load_state_dict."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
@@ -247,12 +402,9 @@ def unet_state_dict(params: Mapping[str, Any], config) -> dict[str, torch.Tensor
 
 
 def deeplab_state_dict(variables: Mapping[str, Any], model_name: str) -> dict[str, torch.Tensor]:
-    """flax DeepLabV3 {'params', 'batch_stats'} of `deeplabv3[plus]_<ResNet
-    family>` -> models.factory.make_seg_model(model_name) state dict."""
-    backbone = model_name.split("_", 1)[1]
-    return to_torch_state_dict(
-        export_deeplab_resnet(variables["params"], variables["batch_stats"], backbone)
-    )
+    """flax DeepLabV3 {'params', 'batch_stats'} of any factory name, plain or
+    separable head -> models.factory.make_seg_model(model_name) state dict."""
+    return to_torch_state_dict(export_deeplab(variables["params"], variables["batch_stats"], model_name))
 
 
 def srgan_generator_state_dict(variables: Mapping[str, Any], num_blocks: int = 16) -> dict[str, torch.Tensor]:
@@ -260,3 +412,8 @@ def srgan_generator_state_dict(variables: Mapping[str, Any], num_blocks: int = 1
     return to_torch_state_dict(
         export_srgan_generator(variables["params"], variables.get("batch_stats", {}), num_blocks)
     )
+
+
+def srgan_discriminator_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """flax Discriminator {'params', 'batch_stats'} -> models.srgan.Discriminator state dict."""
+    return to_torch_state_dict(export_srgan_discriminator(variables["params"], variables.get("batch_stats", {})))

@@ -1,14 +1,11 @@
-"""Configuration schema for DDPM training, segmentation training and guided
-translation (the sections the port uses).
+"""Configuration schema for DDPM training, segmentation training, Swift-SRGAN
+training and guided translation.
 
-A copy of the diffusion, segmentation and translation parts of
-weatherconverter_tpu/core/config.py, with the same field names and defaults,
-so the same YAML files (configs/diffusion.yaml, configs/segmentation.yaml,
-configs/translation*.yaml) load here. It is a copy because importing the JAX
-package's `core` loads JAX (its core/__init__ imports core/rng.py).
-
-The SRGAN training section is left out (ROADMAP Queue 1 item 15); pydantic
-ignores its keys in a YAML file.
+A copy of weatherconverter_tpu/core/config.py, with the same field names and
+defaults, so the same YAML files (configs/diffusion.yaml,
+configs/segmentation.yaml, configs/translation*.yaml, an SRGAN training
+YAML) load here. It is a copy because importing the JAX package's `core`
+loads JAX (its core/__init__ imports core/rng.py).
 """
 
 from __future__ import annotations
@@ -205,6 +202,25 @@ class SRGANConfig(BaseModel):
     checkpoint: str = ""
 
 
+class SRGANTrainingConfig(TrainingConfig):
+    """Swift-SRGAN training: `pretrain_epochs` of pixel-loss pretraining, then
+    adversarial fine-tuning (the reference ships no SRGAN training)."""
+
+    pretrain_epochs: int = 5
+    g_lr: float = 1e-4
+    d_lr: float = 1e-4
+    pixel_loss: str = "l1"  # 'l1' | 'l2'
+    adv_weight: float = 1e-3
+    hr_crop: int = 96  # HR patch size; LR patch = hr_crop / upscale_factor
+
+
+class SRGANTrainConfig(BaseModel):
+    srgan: SRGANConfig = Field(default_factory=SRGANConfig)
+    data: DiffusionDataConfig = Field(default_factory=DiffusionDataConfig)
+    training: SRGANTrainingConfig = Field(default_factory=SRGANTrainingConfig)
+    folders: FolderConfig = Field(default_factory=FolderConfig)
+
+
 class GuidanceConfig(BaseModel):
     lambda_: float = Field(default=60.0, alias="lambda")
     num_steps: int = 500
@@ -236,6 +252,12 @@ def load_seg_config(path: Optional[str] = None, **overrides) -> SegConfig:
     """Load a segmentation config YAML (configs/segmentation.yaml's schema)."""
     data = load_yaml(path) if path else {}
     return SegConfig(**_deep_update(data, overrides))
+
+
+def load_srgan_train_config(path: Optional[str] = None, **overrides) -> SRGANTrainConfig:
+    """Load a Swift-SRGAN training config YAML."""
+    data = load_yaml(path) if path else {}
+    return SRGANTrainConfig(**_deep_update(data, overrides))
 
 
 def load_translation_config(path: Optional[str] = None, **overrides) -> TranslationConfig:

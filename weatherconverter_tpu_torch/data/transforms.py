@@ -1,11 +1,12 @@
 """Batched on-device augmentation for DDPM and segmentation training (port
-of weatherconverter_tpu/data/transforms.py but its geometric legs).
+of weatherconverter_tpu/data/transforms.py).
 
 Images are (B, H, W, C), the JAX package's NHWC layout, labels (B, H, W)
 train-ids, on the device the train step runs on. Every random function
 draws from a `torch.Generator` on that device, or takes its draws
 explicitly (`offsets=`, `flip=`, `factors=`, `std=`/`noise=`,
-`apply=`/`gumbel=`, `SegDraws`), so a test can replay the JAX draws. Paired
+`apply=`/`gumbel=`, `scale=`/`crop=`, `angle=`, `hue=`, `SegDraws`), so a
+test can replay the JAX draws. Paired
 transforms move image and label together; labels are never interpolated,
 and what a transform blanks out gets label 255 (ignore), never 0 (road).
 
@@ -19,18 +20,25 @@ and what a transform blanks out gets label 255 (ignore), never 0 (road).
   class_wise_masking     <- ClassWiseMasking(p, num_classes_to_keep)
   normalize              <- ExtNormalize
   diffusion_train_augment <- RandomCrop -> RandomHorizontalFlip -> [0,1] -> [-1,1]
-  seg_train_augment      <- crop -> hflip -> jitter -> noise -> masking -> normalize
+  random_scale_crop      <- ExtRandomScale + ExtRandomCrop, fused
+  random_rotation        <- ExtRandomRotation (expand=False)
+  pad_to_multiple        <- ExtPad
+  hue_jitter             <- ColorJitter's hue leg
+  apply_affine           <- RandomAffine's transform family, deterministic
+  seg_train_augment      <- [scale+]crop -> [rotation] -> hflip -> jitter [-> hue] -> noise -> masking -> normalize
   seg_eval_preprocess    <- center crop -> normalize
 
-The geometric legs of the seg chain (random_scale_crop, random_rotation,
-hue_jitter, pad_to_multiple, apply_affine) are off in the shipped config and
-not ported yet (ROADMAP Queue 1 item 13); seg_train_augment refuses them by
-name.
+The geometric legs resample on a fixed canvas (`_paired_gather`): bilinear
+for images with the coordinates clamped to the edge inside the half-pixel
+border band, nearest (half to even, as jnp.round) for labels, and the fill
+(0 for images, 255 for labels) outside the source. They are off in the
+shipped config.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -241,19 +249,214 @@ def diffusion_train_augment(
     return to_diffusion_range(to_float(x))
 
 
+def _paired_gather(images, labels, ys, xs, img_fill=0.0, lbl_fill=255):
+    """Sample (B, H', W') float source coordinates from (B, H, W, C) images,
+    bilinearly, and from (B, H, W) labels, at the nearest pixel (never
+    interpolated); outside [-0.5, size - 0.5] the fill. Inside the border
+    band the coordinates are clamped to the edge (PIL's convention)."""
+    b, h, w = images.shape[:3]
+    valid = (ys >= -0.5) & (ys <= h - 0.5) & (xs >= -0.5) & (xs <= w - 0.5)
+    y = ys.clamp(0.0, h - 1.0)
+    x = xs.clamp(0.0, w - 1.0)
+    y0, x0 = y.floor(), x.floor()
+    wy, wx = (y - y0)[..., None], (x - x0)[..., None]
+    y0i, x0i = y0.long().clamp(0, h - 1), x0.long().clamp(0, w - 1)
+    y1i, x1i = (y0i + 1).clamp(0, h - 1), (x0i + 1).clamp(0, w - 1)
+    bi = torch.arange(b, device=images.device)[:, None, None]
+    v = (images[bi, y0i, x0i] * (1 - wy) * (1 - wx) + images[bi, y0i, x1i] * (1 - wy) * wx
+         + images[bi, y1i, x0i] * wy * (1 - wx) + images[bi, y1i, x1i] * wy * wx)
+    v = torch.where(valid[..., None], v, torch.as_tensor(img_fill, dtype=v.dtype, device=v.device))
+    if labels is None:
+        return v, None
+    yn, xn = torch.round(y).long().clamp(0, h - 1), torch.round(x).long().clamp(0, w - 1)
+    out_l = torch.where(valid, labels[bi, yn, xn], torch.as_tensor(lbl_fill, dtype=labels.dtype, device=labels.device))
+    return v, out_l
+
+
+def random_scale_crop(
+    images: torch.Tensor,
+    size: tuple[int, int],
+    labels: Optional[torch.Tensor] = None,
+    scale_range: tuple[float, float] = (0.5, 2.0),
+    generator: Optional[torch.Generator] = None,
+    img_fill: float = 0.0,
+    lbl_fill: int = 255,
+    *,
+    scale: Optional[torch.Tensor] = None,
+    crop: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+):
+    """Scale s ~ U(scale_range) per example, a virtual resize to
+    (floor(H s), floor(W s)) and a `size` crop at u * (scaled - size) with
+    u = (u_y, u_x) ~ U[0, 1) (`scale=` (B,) and `crop=` replay them); crop
+    pixels past the scaled extent take the fill. Images f32 (B, H, W, C)."""
+    b, h, w = images.shape[:3]
+    th, tw = size
+    dev = images.device
+    if scale is None:
+        scale = _uniform((b,), scale_range[0], scale_range[1], generator, dev)
+    if crop is None:
+        crop = (torch.rand((b,), generator=generator, device=dev), torch.rand((b,), generator=generator, device=dev))
+    s = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+    u_y, u_x = (torch.as_tensor(u, dtype=torch.float32, device=dev) for u in crop)
+    sh, sw = torch.floor(h * s), torch.floor(w * s)
+    y0 = u_y * torch.clamp(sh - th, min=0.0)
+    x0 = u_x * torch.clamp(sw - tw, min=0.0)
+    ii = torch.arange(th, dtype=torch.float32, device=dev)
+    jj = torch.arange(tw, dtype=torch.float32, device=dev)
+    # half-pixel centres of the virtual (H s, W s) plane mapped back to the source
+    ys = (y0[:, None] + ii[None, :] + 0.5) / s[:, None] - 0.5
+    xs = (x0[:, None] + jj[None, :] + 0.5) / s[:, None] - 0.5
+    ys = torch.where((y0[:, None] + ii[None, :]) >= sh[:, None], -1e6, ys)
+    xs = torch.where((x0[:, None] + jj[None, :]) >= sw[:, None], -1e6, xs)
+    return _paired_gather(images, labels, ys[:, :, None].expand(b, th, tw), xs[:, None, :].expand(b, th, tw),
+                          img_fill, lbl_fill)
+
+
+def _rotation_coords(angle_rad, h, w, dev):
+    """Source coordinates of a rotation by `angle_rad` (B,) about the centre:
+    the inverse rotation of each output pixel."""
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    dy = (torch.arange(h, dtype=torch.float32, device=dev) - cy)[None, :, None]
+    dx = (torch.arange(w, dtype=torch.float32, device=dev) - cx)[None, None, :]
+    cos, sin = torch.cos(angle_rad)[:, None, None], torch.sin(angle_rad)[:, None, None]
+    return cos * dy + sin * dx + cy, -sin * dy + cos * dx + cx
+
+
+def random_rotation(
+    images: torch.Tensor,
+    labels: Optional[torch.Tensor] = None,
+    degrees: float | tuple[float, float] = 10.0,
+    generator: Optional[torch.Generator] = None,
+    img_fill: float = 0.0,
+    lbl_fill: int = 255,
+    *,
+    angle: Optional[torch.Tensor] = None,
+):
+    """Rotation by angle ~ U(-degrees, degrees) (or U(degrees) for a pair)
+    degrees per example about the image centre, on the same canvas;
+    `angle=` (B,) in degrees replays the draw. Labels fill with 255: they are
+    train-ids here, where 0 is road."""
+    lo, hi = (-degrees, degrees) if isinstance(degrees, (int, float)) else degrees
+    b, h, w = images.shape[:3]
+    dev = images.device
+    if angle is None:
+        angle = _uniform((b,), lo, hi, generator, dev)
+    ys, xs = _rotation_coords(torch.as_tensor(angle, dtype=torch.float32, device=dev) * (math.pi / 180.0), h, w, dev)
+    return _paired_gather(images, labels, ys.expand(b, h, w), xs.expand(b, h, w), img_fill, lbl_fill)
+
+
+def pad_to_multiple(
+    images: torch.Tensor,
+    labels: Optional[torch.Tensor] = None,
+    diviser: int = 32,
+    img_fill: float = 0.0,
+    lbl_fill: int = 255,
+):
+    """Centred padding of (B, H, W, C) images (and (B, H, W) labels) up to the
+    next multiple of `diviser` on both sides (the argument is honoured)."""
+    h, w = images.shape[1], images.shape[2]
+    ph = 0 if h % diviser == 0 else (h // diviser + 1) * diviser - h
+    pw = 0 if w % diviser == 0 else (w // diviser + 1) * diviser - w
+    pads = (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2)
+    out_i = torch.nn.functional.pad(images, (0, 0) + pads, value=img_fill)
+    out_l = None if labels is None else torch.nn.functional.pad(labels, pads, value=lbl_fill)
+    return out_i, out_l
+
+
+def _rgb_to_hsv(x: torch.Tensor):
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    mx, mn = x.amax(dim=-1), x.amin(dim=-1)
+    d = mx - mn
+    safe = torch.where(d == 0, 1.0, d)
+    h = torch.where(mx == r, torch.remainder((g - b) / safe, 6.0),  # floor-mod, as jnp's %
+                    torch.where(mx == g, (b - r) / safe + 2.0, (r - g) / safe + 4.0))
+    h = torch.where(d == 0, 0.0, h) / 6.0
+    s = torch.where(mx == 0, 0.0, d / torch.where(mx == 0, 1.0, mx))
+    return h, s, mx
+
+
+def _hsv_to_rgb(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1 - s)
+    q = v * (1 - f * s)
+    t = v * (1 - (1 - f) * s)
+    i = torch.remainder(i.int(), 6).long()
+    table = torch.stack([torch.stack(c, dim=-1) for c in ((v, q, p, p, t, v), (t, v, v, q, p, p),
+                                                          (p, p, t, v, v, q))], dim=-2)  # (..., 3, 6)
+    return table.gather(-1, i[..., None, None].expand(*i.shape, 3, 1))[..., 0]
+
+
+def hue_jitter(
+    images: torch.Tensor,
+    hue: float = 0.1,
+    generator: Optional[torch.Generator] = None,
+    *,
+    factor: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """torchvision's adjust_hue with factor ~ U[-hue, hue] per example
+    (`factor=` (B,) replays it): the HSV hue shifted cyclically, saturation
+    and value kept. Images f32 in [0, 1]."""
+    b = images.shape[0]
+    if factor is None:
+        factor = _uniform((b,), -hue, hue, generator, images.device)
+    f = torch.as_tensor(factor, dtype=torch.float32, device=images.device).reshape(b, 1, 1)
+    h, s, v = _rgb_to_hsv(images.clamp(0.0, 1.0))
+    return _hsv_to_rgb(torch.remainder(h + f, 1.0), s, v)
+
+
+def apply_affine(
+    images: torch.Tensor,
+    labels: Optional[torch.Tensor] = None,
+    *,
+    angle: float = 0.0,
+    translate: tuple[float, float] = (0.0, 0.0),
+    scale: float = 1.0,
+    shear: float = 0.0,
+    img_fill: float = 0.0,
+    lbl_fill: int = 255,
+):
+    """A deterministic affine about the image centre (rotation degrees,
+    translation as a fraction of H/W, isotropic scale, x-shear degrees):
+    each output pixel samples R(-angle) Shear^-1 (dst - c - t) / scale + c."""
+    b, h, w = images.shape[:3]
+    dev = images.device
+
+    def f32(v: float) -> torch.Tensor:  # JAX keeps a Python scalar as a weak f32 value
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    ty, tx = translate[0] * h, translate[1] * w
+    dy = ((torch.arange(h, dtype=torch.float32, device=dev)[:, None] - cy - ty) / f32(scale)).expand(h, w)
+    dx = ((torch.arange(w, dtype=torch.float32, device=dev)[None, :] - cx - tx) / f32(scale)).expand(h, w)
+    dx = dx - torch.tan(f32(shear * math.pi / 180.0)) * dy
+    th = f32(angle * math.pi / 180.0)
+    cos, sin = torch.cos(th), torch.sin(th)
+    ys = cos * dy + sin * dx + cy
+    xs = -sin * dy + cos * dx + cx
+    return _paired_gather(images, labels, ys.expand(b, h, w), xs.expand(b, h, w), img_fill, lbl_fill)
+
+
 class SegDraws(NamedTuple):
     """The draws of one seg_train_augment call, in the JAX chain's order:
     crop offsets (ys, xs), flip (B,), jitter factors (brightness, contrast,
     saturation), noise std (B,) and noise (B, th, tw, C), masking's apply
-    (B,) and Gumbel scores (B, 20)."""
+    (B,) and Gumbel scores (B, 20); and for the geometric legs, where they
+    are on, the scale (B,) and crop fractions (u_y, u_x) of
+    random_scale_crop (which then replaces `offsets`), the rotation angle
+    (B,) in degrees and the hue factor (B,)."""
 
-    offsets: tuple
+    offsets: Optional[tuple]
     flip: torch.Tensor
     jitter: tuple
     noise_std: torch.Tensor
     noise: torch.Tensor
     mask_apply: torch.Tensor
     gumbel: torch.Tensor
+    scale: Optional[torch.Tensor] = None
+    crop: Optional[tuple] = None
+    angle: Optional[torch.Tensor] = None
+    hue: Optional[torch.Tensor] = None
 
 
 def seg_train_augment(
@@ -276,18 +479,27 @@ def seg_train_augment(
     draws: Optional[SegDraws] = None,
 ):
     """The seg train chain on uint8 (B, H, W, C) images and (B, H, W)
-    train-id labels: random crop -> hflip -> color jitter -> gaussian noise
-    -> class-wise masking -> ImageNet normalize; returns (f32 images,
-    labels). Crop and flip move uint8 values, so they run before the
-    conversion to f32. `draws` replays given draws instead of the generator."""
-    for name, value in (("scale_range", scale_range), ("rotation_degrees", rotation_degrees), ("hue", hue)):
-        if value:
-            raise NotImplementedError(f"seg_train_augment: {name}={value!r} needs the geometric legs of the seg "
-                                      "augment, which are ROADMAP Queue 1 item 13, not ported yet")
+    train-id labels, in JAX's order: random crop, or with `scale_range`
+    random_scale_crop on f32 images instead -> [random_rotation] -> hflip ->
+    color jitter -> [hue_jitter] -> gaussian noise -> class-wise masking ->
+    ImageNet normalize; returns (f32 images, labels). Without the scale leg,
+    crop and flip move uint8 values and run before the conversion to f32 (on
+    a quarter of the bytes; the result is the same). `draws` replays given
+    draws instead of the generator."""
     d = draws
-    x, y = random_crop(images_u8, crop, generator, None if d is None else d.offsets, labels=labels)
+    if scale_range is not None:
+        x, y = random_scale_crop(to_float(images_u8), crop, labels, tuple(scale_range), generator,
+                                 **({} if d is None else dict(scale=d.scale, crop=d.crop)))
+    else:
+        x, y = random_crop(images_u8, crop, generator, None if d is None else d.offsets, labels=labels)
+    if rotation_degrees:
+        x, y = random_rotation(x if x.is_floating_point() else to_float(x), y, rotation_degrees, generator,
+                               angle=None if d is None else d.angle)
     x, y = random_hflip(x, hflip_p, generator, None if d is None else d.flip, labels=y)
-    x = color_jitter(to_float(x), *jitter, generator=generator, factors=None if d is None else d.jitter)
+    x = color_jitter(x if x.is_floating_point() else to_float(x), *jitter, generator=generator,
+                     factors=None if d is None else d.jitter)
+    if hue:
+        x = hue_jitter(x, hue, generator, factor=None if d is None else d.hue)
     x = add_gaussian_noise(x, noise_mean, noise_std_range, generator,
                            *((None, None) if d is None else (d.noise_std, d.noise)))
     x, y = class_wise_masking(x, y, masking_p, num_classes_to_keep, generator=generator,

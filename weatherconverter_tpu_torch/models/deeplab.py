@@ -10,6 +10,14 @@ does (models/norm.py), in eval() it uses them. ASPP's dropout exists only
 when the model is built with deterministic=False; the JAX trainer builds
 its train model deterministic, so its dropout never fires, and neither does
 the port's.
+
+`separable=True` is the atrous-separable head (the reference's
+`convert_to_separable_conv`): every conv of the head with a kernel larger
+than 1 (ASPP's three atrous branches and the 3x3 after it) becomes a
+depthwise conv with C_in groups and no bias, then a pointwise 1x1 with no
+bias, under the reference's module name `body.{0,1}` in place of the conv.
+The heads take their input widths explicitly (flax infers them): the
+backbone's low-level and high-level channels.
 """
 
 from __future__ import annotations
@@ -23,14 +31,26 @@ from weatherconverter_tpu_torch.models.norm import BatchNorm2d
 from weatherconverter_tpu_torch.ops.image import global_avg_pool, resize_bilinear
 
 
-class ConvBNReLU(nn.Sequential):
-    def __init__(self, cin: int, cout: int, kernel: int = 1, dilation: int = 1):
-        pad = dilation * (kernel - 1) // 2
-        super().__init__(
-            nn.Conv2d(cin, cout, kernel, padding=pad, dilation=dilation, bias=False),
-            BatchNorm2d(cout),
-            nn.ReLU(),
+class AtrousSeparableConvolution(nn.Module):
+    """Depthwise (groups = C_in, no bias) then pointwise 1x1 (no bias)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, padding: int, dilation: int):
+        super().__init__()
+        self.body = nn.Sequential(
+            nn.Conv2d(cin, cin, kernel, padding=padding, dilation=dilation, groups=cin, bias=False),
+            nn.Conv2d(cin, cout, 1, bias=False),
         )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.body(x)
+
+
+class ConvBNReLU(nn.Sequential):
+    def __init__(self, cin: int, cout: int, kernel: int = 1, dilation: int = 1, separable: bool = False):
+        pad = dilation * (kernel - 1) // 2
+        conv = (AtrousSeparableConvolution(cin, cout, kernel, pad, dilation) if separable and kernel > 1
+                else nn.Conv2d(cin, cout, kernel, padding=pad, dilation=dilation, bias=False))
+        super().__init__(conv, BatchNorm2d(cout), nn.ReLU())
 
 
 class ASPPPooling(nn.Sequential):
@@ -48,11 +68,12 @@ class ASPP(nn.Module):
     """1x1 + three dilated 3x3 + global-pool branches, concatenated and
     projected by 1x1, then dropout 0.1 in train mode unless `deterministic`."""
 
-    def __init__(self, cin: int, atrous_rates: Sequence[int], cout: int = 256, deterministic: bool = True):
+    def __init__(self, cin: int, atrous_rates: Sequence[int], cout: int = 256, deterministic: bool = True,
+                 separable: bool = False):
         super().__init__()
         self.convs = nn.ModuleList(
             [ConvBNReLU(cin, cout)]
-            + [ConvBNReLU(cin, cout, 3, rate) for rate in atrous_rates]
+            + [ConvBNReLU(cin, cout, 3, rate, separable) for rate in atrous_rates]
             + [ASPPPooling(cin, cout)]
         )
         self.project = nn.Sequential(*ConvBNReLU(5 * cout, cout),
@@ -66,12 +87,12 @@ class DeepLabHeadV3Plus(nn.Module):
     """low_level -> 1x1 to 48ch; ASPP(out) upsampled to it; concat -> 3x3 256 -> 1x1 classes."""
 
     def __init__(self, low_channels: int, in_channels: int, num_classes: int, aspp_dilate: Sequence[int],
-                 deterministic: bool = True):
+                 deterministic: bool = True, separable: bool = False):
         super().__init__()
         self.project = ConvBNReLU(low_channels, 48)
-        self.aspp = ASPP(in_channels, aspp_dilate, deterministic=deterministic)
+        self.aspp = ASPP(in_channels, aspp_dilate, deterministic=deterministic, separable=separable)
         self.classifier = nn.Sequential(
-            *ConvBNReLU(48 + 256, 256, 3), nn.Conv2d(256, num_classes, 1)
+            *ConvBNReLU(48 + 256, 256, 3, separable=separable), nn.Conv2d(256, num_classes, 1)
         )
 
     def forward(self, feats: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -83,10 +104,12 @@ class DeepLabHeadV3Plus(nn.Module):
 class DeepLabHead(nn.Module):
     """ASPP(out) -> 3x3 256 -> 1x1 classes (the V3 head; no low-level branch)."""
 
-    def __init__(self, in_channels: int, num_classes: int, aspp_dilate: Sequence[int], deterministic: bool = True):
+    def __init__(self, in_channels: int, num_classes: int, aspp_dilate: Sequence[int], deterministic: bool = True,
+                 separable: bool = False):
         super().__init__()
         self.classifier = nn.Sequential(
-            ASPP(in_channels, aspp_dilate, deterministic=deterministic), *ConvBNReLU(256, 256, 3),
+            ASPP(in_channels, aspp_dilate, deterministic=deterministic, separable=separable),
+            *ConvBNReLU(256, 256, 3, separable=separable),
             nn.Conv2d(256, num_classes, 1),
         )
 

@@ -1,17 +1,25 @@
-"""Swift-SRGAN generator, NCHW (port of the Generator in
+"""Swift-SRGAN generator and discriminator, NCHW (port of
 weatherconverter_tpu/models/srgan.py).
 
-Parameter names are those of compat/torch_export.export_srgan_generator.
-Separable convs are depthwise + pointwise Conv2d. The JAX package's
+The generator's parameter names are those of
+compat/torch_export.export_srgan_generator; the discriminator's are the
+reference's (`blocks.{i}`, `classifier.{2,4}`), filled by
+compat/from_jax.srgan_discriminator_state_dict. Separable convs are
+depthwise + pointwise Conv2d. BatchNorm is models/norm.BatchNorm2d at
+torch momentum 0.1 (flax's 0.9): in train mode it updates the running
+variance with the biased batch variance, as flax does. The JAX package's
 dense-composed stem and shift-packed 9x9 tail were rewrites for the TPU's
 matrix unit and do not come across.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 from torch import nn
 
+from weatherconverter_tpu_torch.models.norm import BatchNorm2d
 from weatherconverter_tpu_torch.ops.image import pixel_shuffle
 
 
@@ -41,13 +49,15 @@ class SeparableConv(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """SepConv -> [BN] -> [PReLU]."""
+    """SepConv -> [BN] -> [PReLU, or LeakyReLU(0.2) in the discriminator]."""
 
-    def __init__(self, cin, cout, kernel=3, stride=1, padding=1, use_act=True, use_bn=True):
+    def __init__(self, cin, cout, kernel=3, stride=1, padding=1, use_act=True, use_bn=True, discriminator=False):
         super().__init__()
         self.cnn = SeparableConv(cin, cout, kernel, stride, padding, bias=not use_bn)
-        self.bn = nn.BatchNorm2d(cout) if use_bn else None
-        self.act = PReLU(cout) if use_act else None
+        self.bn = BatchNorm2d(cout) if use_bn else None
+        self.act = None
+        if use_act:
+            self.act = nn.LeakyReLU(0.2) if discriminator else PReLU(cout)
 
     def forward(self, x):
         h = self.cnn(x)
@@ -98,3 +108,23 @@ class Generator(nn.Module):
         h = self.convblock(self.residual(initial)) + initial
         h = self.final_conv(self.upsampler(h)).float()
         return (torch.tanh(h) + 1.0) / 2.0
+
+
+class Discriminator(nn.Module):
+    """Swift-SRGAN discriminator: ConvBlocks at `features` widths, stride
+    1 + idx % 2, LeakyReLU 0.2, BN on all but the first -> adaptive average
+    pool to 6 x 6 (torch's bin edges, as the JAX function has them) ->
+    flatten in NCHW order -> fc 1024 -> LeakyReLU 0.2 -> fc 1 -> sigmoid, f32.
+    The input is cast to the parameters' type first, as the flax module does."""
+
+    def __init__(self, in_channels: int = 3, features: Sequence[int] = (64, 64, 128, 128, 256, 256, 512, 512)):
+        super().__init__()
+        widths = [in_channels, *features]
+        self.blocks = nn.Sequential(*(ConvBlock(widths[i], f, 3, 1 + i % 2, 1, use_bn=i != 0, discriminator=True)
+                                      for i, f in enumerate(features)))
+        self.classifier = nn.Sequential(nn.AdaptiveAvgPool2d((6, 6)), nn.Flatten(), nn.Linear(features[-1] * 36, 1024),
+                                        nn.LeakyReLU(0.2), nn.Linear(1024, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.classifier[2].weight.dtype)  # the generator's output is f32 whatever the parameters' type
+        return torch.sigmoid(self.classifier(self.blocks(x))).float()

@@ -77,7 +77,8 @@ def explicit_draws(b: int, hw: tuple[int, int], crop: tuple[int, int], generator
 
 
 def _draws_to(draws: SegDraws, device) -> SegDraws:
-    return SegDraws(*[tuple(x.to(device) for x in f) if isinstance(f, tuple) else f.to(device) for f in draws])
+    return SegDraws(*[None if f is None else tuple(x.to(device) for x in f) if isinstance(f, tuple) else f.to(device)
+                      for f in draws])
 
 
 def reference_model(cfg, residual_scale: float | None = None) -> nn.Module:

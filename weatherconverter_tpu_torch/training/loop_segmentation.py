@@ -13,14 +13,17 @@ raises when there is none) or the device the config names; the CPU only on
 request. On CUDA the step runs under bf16 autocast when `training.dtype`
 is "bfloat16"; on the CPU in f32, as the JAX loop does off the TPU. The
 train model is built deterministic (ASPP's dropout off), with the
-backbone's BatchNorm momentum at `model.bn_momentum`, as in JAX.
+backbone's BatchNorm momentum at `model.bn_momentum`, as in JAX. The
+config's geometric legs (`scale_range`, `rotation_degrees`, `hue`) go to
+the augment as the JAX loop passes them.
 
 What differs from JAX: `max_steps` ends the run after that many steps, as
 in JAX, but the epoch it ends in is validated and checkpointed first, so a
 short run leaves a best step to load. Data parallelism and FSDP raise
 (ROADMAP Queue 1 item 17). `model.pretrained_backbone` takes a .pth file on
-disk; 'imagenet'/'auto' look for the file torch.hub would have cached and
-are refused by name when it is absent: nothing is fetched.
+disk; 'imagenet'/'auto' look for the file torch.hub would have cached,
+under the names the JAX resolver uses for each backbone, and are refused
+by name when it is absent: nothing is fetched.
 """
 
 from __future__ import annotations
@@ -107,29 +110,67 @@ def validate(cfg: SegConfig, model, val_loader, device, val_fns=None, dtype: Opt
     return metrics.get_results()
 
 
+def _checkpoint_patterns(backbone: str) -> list[str]:
+    """File names of a backbone's ImageNet checkpoint in the torch.hub cache
+    (the JAX resolver's list)."""
+    if backbone.startswith("mobilenet"):
+        return ["mobilenet_v2-*.pth", "mobilenet_v2*.pth"]
+    if backbone.startswith("hrnetv2_"):
+        w = backbone.split("_")[-1]
+        return [f"hrnetv2_w{w}*.pth", f"hrnet_w{w}*.pth", f"*hrnetv2_w{w}*.pth"]
+    if backbone == "xception":
+        return ["xception-*.pth", "xception*.pth"]
+    return [f"{backbone}-*.pth", f"{backbone}.pth"]
+
+
 def resolve_backbone_checkpoint(spec: str, model_name: str) -> str:
     """A .pth path as it is; 'imagenet'/'auto'/'hub' -> the backbone's file in
-    the torch.hub cache (`<backbone>-*.pth`), refused when it is absent."""
+    the torch.hub cache (by the JAX resolver's names), refused when absent."""
     if spec not in ("auto", "imagenet", "hub"):
         if not os.path.isfile(spec):
             raise FileNotFoundError(f"pretrained_backbone {spec!r} is neither an existing file nor 'imagenet'/'auto'")
         return spec
     backbone = model_name.partition("_")[2]
     cache = os.path.join(torch.hub.get_dir(), "checkpoints")
-    found = sorted(glob.glob(os.path.join(cache, f"{backbone}-*.pth")) + glob.glob(os.path.join(cache, f"{backbone}.pth")))
-    if not found:
-        raise FileNotFoundError(f"pretrained_backbone={spec!r} needs {backbone}'s ImageNet checkpoint, absent from "
-                                f"the torch.hub cache {cache}; the port fetches nothing: give the .pth path")
-    return found[0]
+    patterns = _checkpoint_patterns(backbone)
+    for pattern in patterns:
+        found = sorted(glob.glob(os.path.join(cache, pattern)))
+        if found:
+            return found[0]
+    raise FileNotFoundError(f"pretrained_backbone={spec!r} needs {backbone}'s ImageNet checkpoint ({patterns}), "
+                            f"absent from the torch.hub cache {cache}; the port fetches nothing: give the .pth path")
+
+
+def backbone_keys(sd: dict, model_name: str) -> dict:
+    """A classification checkpoint's keys -> the seg backbone's: MobileNetV2's
+    `features.{i}` split at 4 into `low_level_features` / `high_level_features`
+    (features.18 and the classifier dropped); the ResNets' and Xception's
+    `fc` (and Xception's `bn4`, after the tapped conv4) and HRNet's
+    `bn_classifier` dropped."""
+    backbone = model_name.partition("_")[2]
+    if backbone == "mobilenet":
+        out = {}
+        for k, v in sd.items():
+            parts = k.split(".")
+            if parts[0] == "features" and int(parts[1]) < 18:
+                attr = "low_level_features" if int(parts[1]) < 4 else "high_level_features"
+                out[f"{attr}.{k.split('.', 1)[1]}"] = v
+        return out
+    if backbone == "xception":
+        drop = ("fc.", "bn4.")
+    elif backbone.startswith("hrnetv2"):
+        drop = ("bn_classifier.",)
+    else:
+        drop = ("fc.",)
+    return {k: v for k, v in sd.items() if not k.startswith(drop)}
 
 
 def load_pretrained_backbone(model, spec: str, model_name: str) -> None:
-    """A torchvision classification checkpoint into `model.backbone` (its
-    `fc` dropped; a file without `num_batches_tracked` is accepted)."""
+    """A classification checkpoint into `model.backbone` by torch parameter
+    name (`backbone_keys`; a file without `num_batches_tracked` is accepted)."""
     sd = torch.load(resolve_backbone_checkpoint(spec, model_name), map_location="cpu", weights_only=True)
     sd = sd.get("state_dict", sd)
-    missing, unexpected = model.backbone.load_state_dict(
-        {k: v for k, v in sd.items() if not k.startswith("fc.")}, strict=False)
+    missing, unexpected = model.backbone.load_state_dict(backbone_keys(sd, model_name), strict=False)
     bad = unexpected + [k for k in missing if not k.endswith("num_batches_tracked")]
     if bad:
         raise RuntimeError(f"pretrained backbone {spec!r} does not fit {model_name}: {bad[:8]}")

@@ -1,8 +1,7 @@
-"""Losses: the eps-MSE of DDPM training, and cross-entropy and focal loss
-with an ignore index for segmentation (port of
-weatherconverter_tpu/training/losses.py but its SRGAN half). Logits are
-(B, C, ...), torch's class-second convention; labels (B, ...) integer
-train-ids."""
+"""Losses: the eps-MSE of DDPM training, cross-entropy and focal loss with an
+ignore index for segmentation, and the SRGAN's adversarial BCE (port of
+weatherconverter_tpu/training/losses.py). Logits are (B, C, ...), torch's
+class-second convention; labels (B, ...) integer train-ids."""
 
 from __future__ import annotations
 
@@ -70,3 +69,11 @@ def make_seg_loss(loss_type: str, params: dict | None = None):
         alpha, gamma = params.get("alpha", 1.0), params.get("gamma", 2.0)
         return lambda logits, labels: focal_loss(logits, labels, alpha, gamma, ignore)
     raise ValueError(f"unknown loss type {loss_type!r}")
+
+
+def bce_logits(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy on PROBABILITIES (the discriminator ends in a
+    sigmoid), despite the JAX name: pred clipped to [1e-7, 1 - 1e-7], then
+    -mean(t log p + (1 - t) log(1 - p)), in f32."""
+    pred = pred.float().clamp(1e-7, 1 - 1e-7)
+    return -torch.mean(target * torch.log(pred) + (1 - target) * torch.log(1 - pred))
