@@ -14,7 +14,11 @@ Phases, each of which fails the run (exit code != 0, no result line):
      K2's quantizer must equal its plain version exactly (int8 tensors and
      scale), K2's time is split into quantizer and forward, and two K2 calls
      must agree bit for bit; K1 and K3 also at the 256 px UNet's (N, D) =
-     (1024, 192), and one forward and backward of that UNet under bf16;
+     (1024, 192), K1 at the legacy UNet's (1024, 24) (D = 32 tiles with
+     zero-filled tails), K1-f32 at the legacy UNet's (1024, 16) and (1024,
+     24) in f32 (beside sdpa's f32 forward); one forward and backward of the
+     256 px UNet under bf16, and one forward of it with qk_int8 (K2 at its
+     eight layers of D <= 128, K1 at its four of D = 192);
   3. run guided translation at full width -- the production 128px UNet,
      DeepLabV3+/ResNet-101 at output stride 16 with 19 classes, a 2x
      Swift-SRGAN, batch 8, bf16 autocast over f32 parameters, random weights
@@ -130,7 +134,22 @@ Phases, each of which fails the run (exit code != 0, no result line):
      detached from G's update; then
      train-srgan --max-steps 4 and super-resolve with that run's generator
      through the CLI (exit 0, a PNG of 4x the input, finite values in range
-     before the uint8 cast). No kernel of ours.
+     before the uint8 cast). No kernel of ours;
+ 18. the legacy UNet (models/unet_legacy.py) at 128 px, seeded weights
+     scaled to unit-variance eps, batch 8, 20 strided steps of
+     ddpm_sample_legacy, in f32 (K1-f32 at attn_down3 and attn_up2, no TF32:
+     what the CLI runs) and under bf16 with qk_int8 (K2 at attn_down3, K1 at
+     attn_up2): each timed, profiled, its launches a forward asserted, its
+     peak memory read; the precision check of probes/legacy_precision.py at
+     batch 2 (the bf16 and the f32 card chains against the f32 CPU chain and
+     its 5-run chaos floor; printed, not gated); `sample --sampler legacy`
+     through the CLI (exit 0, the PNG's shape, K1-f32 twice a forward);
+ 19. `quality --synthetic 8 --batch 8 --steps 20` through the CLI at
+     configs/translation.yaml, with the seg backbone's FID and with
+     InceptionV3 pool3 from a seeded torchvision-layout .pth written by
+     compat/from_jax.export_inception_v3 (exit 0, the report's keys, finite
+     numbers, K2 and its quantizer 8 times a UNet forward), then
+     Inception's time for a 299 px batch of 8 and FID's eigh at D = 2048.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors, times, bounds
 and library times.
@@ -159,6 +178,13 @@ PATH_SHAPES = [(BATCH, 4, 4096, 64), (BATCH, 4, 1024, 128), (BATCH, 4, 1024, 32)
 # attend at N = 1024 on 768 channels. Checked and timed beside the path
 # shapes, not summed with them (no run of this script's main paths goes there)
 D192_SHAPE = (BATCH, 4, 1024, 192)
+# the legacy UNet's attn_up2 at batch 8 (96 channels over 4 heads on the 32 x 32 map): K1's D = 24, checked and timed
+# beside the path shapes; and its two flash-length layers in f32, K1-f32's shapes on the legacy sampler's path
+D24_SHAPE = (BATCH, 4, 1024, 24)
+F32_SHAPES = [(BATCH, 4, 1024, 16), (BATCH, 4, 1024, 24)]
+# K1-f32 against its plain version in f32: max |err| / max |ref| (the same products in another order, exp2 by
+# ex2.approx: 2 ulp)
+F32_REL_TOL = 1e-5
 # bf16 outputs of attention over N(0,1) inputs are O(0.1-1): one bf16 ulp is
 # <= 2^-8 there; kernel and plain version differ in f32 summation order and
 # exp rounding, so some entries round to the neighbouring bf16 value
@@ -232,6 +258,11 @@ FAMILY_EVAL_LIMITS = dict(rel=1e-4, agree=0.999)
 # through D), 1.1e-6; D's statistics left updated in the G step 0.32 on the statistics; the adversarial term
 # detached from G's update 0.34 on G's GAN-step moments
 SRGAN_IMAGES, SRGAN_SIZE, SRGAN_BATCHES = 16, (384, 216), (4, 16)
+# phase 18: the legacy UNet at 128 px, batch 8, LEGACY_STEPS strided steps; the precision check (bf16 card chain and
+# f32 card chain against the f32 CPU chain, a 5-run floor) at LEGACY_CHECK_BATCH
+LEGACY_STEPS, LEGACY_CHECK_BATCH = 20, 2
+# phase 19: the quality command on configs/translation.yaml: --synthetic QUALITY_N --batch BATCH --steps
+QUALITY_N, QUALITY_STEPS = 8, 20
 SRGAN_LIMITS = dict(loss=1e-5, update=0.1, moments_g_pretrain=1e-3, moments_g_gan=0.1, moments_d=5e-2, stats=1e-4)
 HEADLINE = dict(guidance_every=2, guidance_space="latent", lam=120.0)
 REFERENCE_EXACT = dict(guidance_every=1, guidance_space="sr", lam=60.0)
@@ -296,7 +327,7 @@ def phase_kernels(torch, A, device, card):
         ("flash_attention_qk_i8", A.flash_attention_qk_i8, A.flash_attention_qk_i8_plain),
     ):
         total, bounds = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0), []
-        for shape in PATH_SHAPES + ([D192_SHAPE] if kernel is A.flash_attention else []):
+        for shape in PATH_SHAPES + ([D192_SHAPE, D24_SHAPE] if kernel is A.flash_attention else []):
             q, k, v = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
             out = kernel(q, k, v)
             torch.cuda.synchronize()
@@ -312,15 +343,48 @@ def phase_kernels(torch, A, device, card):
                 f"{rel:.3e} (tol {KERNEL_REL_TOL}); "
                 f"kernel {k_ms:.4f} ms ({tflops:.1f} TFLOP/s of QK^T+PV), plain {p_ms:.3f} ms, "
                 f"{_bound_text(bound)}, sdpa forward {lib_ms:.4f} ms (yardstick, never called by the port)"
-                + (" [the 256 px UNet's shape: not in the sums]" if shape == D192_SHAPE else ""))
-            if shape == D192_SHAPE:
+                + (" [the 256 px UNet's shape: not in the sums]" if shape == D192_SHAPE else "")
+                + (" [the legacy UNet's attn_up2, D = 24 on zero-filled 32-wide tiles: not in the sums]"
+                   if shape == D24_SHAPE else ""))
+            if shape in (D192_SHAPE, D24_SHAPE):
                 continue
             bounds.append(bound)
             total = dict(err=max(total["err"], err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms,
                          library_ms=total["library_ms"] + lib_ms)
             del q, k, v, out, ref
         results[name] = dict(total, bound=add_rooflines(*bounds))
+    results["flash_attention_f32"] = _f32_kernel(torch, A, device, card, gen)
     return results
+
+
+def _f32_kernel(torch, A, device, card, gen):
+    """K1-f32 against its plain version in f32 at the legacy UNet's two
+    flash-length shapes, with its bound (f32 FLOPs at 67 TFLOP/s) and
+    scaled_dot_product_attention's f32 time; sums over the two shapes."""
+    from weatherconverter_tpu_torch.probes.common import add_rooflines, attention_roofline, peaks, time_ms
+
+    total, bounds = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0), []
+    for shape in F32_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
+        out = A.flash_attention_f32(q, k, v)
+        torch.cuda.synchronize()
+        ref = A.flash_attention_plain(q, k, v)
+        err = (out - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        if not (rel <= F32_REL_TOL and torch.isfinite(out).all().item()):
+            raise AssertionError(f"flash_attention_f32 {shape}: max|err|/max|ref| {rel} > {F32_REL_TOL} or not finite")
+        k_ms = time_ms(lambda: A.flash_attention_f32(q, k, v), reps=20)
+        p_ms = time_ms(lambda: A.flash_attention_plain(q, k, v), reps=5)
+        lib_ms = _sdpa_ms(torch, q, k, v)
+        bound = attention_roofline(peaks(card), shape, f32=True)
+        b, h, n, d = shape
+        log(f"  flash_attention_f32 B*H={b * h} N={n} D={d}: max_abs_err {err:.3e}, max|err|/max|ref| {rel:.3e} "
+            f"(tol {F32_REL_TOL}); kernel {k_ms:.4f} ms ({4 * b * h * n * n * d / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s "
+            f"f32), plain {p_ms:.3f} ms, {_bound_text(bound)}, sdpa forward in f32 {lib_ms:.4f} ms (yardstick)")
+        bounds.append(bound)
+        total = dict(err=max(total["err"], err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms,
+                     library_ms=total["library_ms"] + lib_ms)
+    return dict(total, bound=add_rooflines(*bounds))
 
 
 def phase_backward_kernel(torch, A, device, card):
@@ -457,6 +521,21 @@ def phase_unet_256(torch, A, device):
     log(f"  the default UNet at im_size 256, batch 1, bf16 autocast: forward and backward in "
         f"{(time.perf_counter() - t0) * 1e3:.0f} ms (first call), K1 and K3 launched {counts[0]} times each at "
         f"(N, D) = {sorted(set(shapes))}; in f32 Unet.forward refuses it by name")
+    # what the CLI builds on the card: qk_int8, which takes K2 where K2 has the head dim and K1 at D = 192
+    int8 = Unet(UnetModelConfig(im_size=256), qk_int8=True).to(device).eval()
+    int8.load_state_dict(model.state_dict())
+    kinds = [kind for _, _, kind in int8.attention_kernels(256)]
+    A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        out = int8(x, 5)
+    torch.cuda.synchronize()
+    counts = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
+    expected = (kinds.count("K1"), kinds.count("K2"), kinds.count("K2"))
+    if counts != expected or expected != (4, 8, 8) or not torch.isfinite(out).all().item():
+        raise AssertionError(f"256 px UNet with qk_int8: launches (K1, K2, quantizer) {counts}, expected {expected} "
+                             "= (4, 8, 8); or not finite")
+    log(f"  the same UNet with qk_int8 (the CLI's default on the card): a forward takes K2 and its quantizer at its "
+        f"{counts[1]} layers of D <= 128 and K1 at its {counts[0]} of D = 192, which K2 lacks; output finite")
 
 
 def build_models(torch):
@@ -1832,12 +1911,201 @@ def phase_srgan(torch, device, card, tmp, overrides=None, images=SRGAN_IMAGES, s
     log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_legacy(torch, A, device, card, tmp):
+    """The legacy UNet (models/unet_legacy.py) at 128 px with seeded weights
+    (probes/legacy_precision.build: eps at unit scale), batch 8,
+    LEGACY_STEPS strided steps of ddpm_sample_legacy, in f32 (K1-f32 at
+    attn_down3 and attn_up2, no TF32: the CLI's precision) and under bf16
+    autocast with qk_int8 (K2 at attn_down3, K1 at attn_up2): each timed
+    (REPEATS runs), profiled, its launches a forward asserted, its peak
+    memory read; then the precision check at LEGACY_CHECK_BATCH (printed,
+    not gated) and `sample --sampler legacy` through the CLI. Returns the
+    f32 run's launches (K1-f32's count for the kernels line)."""
+    import numpy as np
+    from PIL import Image
+
+    from weatherconverter_tpu_torch.cli.main import main as cli_main
+    from weatherconverter_tpu_torch.diffusion.sampling import ddpm_sample_legacy
+    from weatherconverter_tpu_torch.diffusion.schedule import linear_schedule
+    from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet, full_f32
+    from weatherconverter_tpu_torch.probes import legacy_precision
+
+    on_card = device.type == "cuda"  # a CPU rehearsal runs the plain versions and counts nothing
+    base = legacy_precision.build()
+    sched = linear_schedule(1000, device=device)
+    shape = (BATCH, 128, 128, 3)
+    counters = (A.flash_attention, A.flash_attention_qk_i8, A.quantize_qk_i8, A.flash_attention_f32)
+    launches = {}
+    for name, dtype, qk_int8 in (("f32", None, False), ("bf16_qk_int8", torch.bfloat16, True)):
+        model = LegacyUNet(128, qk_int8=qk_int8)
+        model.load_state_dict(base.state_dict())
+        model = model.to(device)
+        kinds = [k for _, _, k in model.attention_kernels(128)]
+        per = (kinds.count("K1"), kinds.count("K2"))
+        expected = [0, per[1], per[1], per[0]] if dtype is None else [per[0], per[1], per[1], 0]
+        expected = expected if on_card else [0] * 4
+        ctx = (lambda: torch.autocast(device.type, dtype=dtype)) if dtype is not None else full_f32
+
+        def run(seed, steps=LEGACY_STEPS):
+            with ctx():
+                return ddpm_sample_legacy(model, sched, shape, torch.Generator(device=device).manual_seed(seed),
+                                          num_steps=steps)
+
+        run(60)  # warm-up: cuDNN picks its algorithms
+        times, peak = [], 0.0
+        for rep in range(REPEATS):
+            for fn in counters:
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(61 + rep)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / LEGACY_STEPS)
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+            counts = [fn.launches for fn in counters]
+            if counts != [e * LEGACY_STEPS for e in expected] or tuple(out.shape) != shape \
+                    or not torch.isfinite(out).all().item():
+                raise AssertionError(f"legacy {name}: launches (K1, K2, quantizer, K1-f32) {counts}, expected "
+                                     f"{[e * LEGACY_STEPS for e in expected]} ({expected} a forward); output "
+                                     f"{tuple(out.shape)} or not finite")
+        launches[name] = counts
+        wall, kernel, count = _device_profile(torch, lambda: run(70, PROFILE_STEPS), PROFILE_STEPS)
+        log(f"  legacy {name} (layers {kinds}): {statistics.median(times):.2f} ms/step wall (median of {REPEATS} "
+            f"runs of {LEGACY_STEPS} steps at batch {BATCH}: {', '.join(f'{t:.2f}' for t in times)}); profiled "
+            f"{PROFILE_STEPS}-step run: device {kernel / PROFILE_STEPS:.2f} ms/step, idle share ~"
+            f"{max(0.0, 1 - kernel / wall):.2f}, {count / PROFILE_STEPS:.0f} launches a step; K1/K2/quantizer/K1-f32 "
+            f"a forward {'/'.join(map(str, expected))}; peak {peak:.2f} GiB [{card}]")
+        del model
+    t0 = time.perf_counter()
+    artifact = legacy_precision.run(base, (LEGACY_CHECK_BATCH, 128, 128, 3), LEGACY_STEPS, INT8_FLOOR_SEEDS, device)
+    artifact["card"] = card
+    if on_card:
+        legacy_precision.check_launches(artifact)
+    legacy_precision.report(artifact, card, log)
+    log(f"  the check in {time.perf_counter() - t0:.1f} s; wrote {legacy_precision.save(artifact)}")
+    # the CLI: the legacy UNet at configs/diffusion.yaml's im_size (128), f32, seeded weights
+    path = os.path.join(tmp, "legacy.png")
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    code = cli_main(["sample", "--config", os.path.join(REPO, "configs", "diffusion.yaml"), "--sampler", "legacy",
+                     "--steps", str(LEGACY_STEPS), "--batch", str(BATCH), "--out", path]
+                    + ([] if on_card else ["--device", "cpu"]))
+    torch.cuda.synchronize()
+    counts = [fn.launches for fn in counters]
+    png = np.asarray(Image.open(path)).shape
+    expected = [0, 0, 0, 2 * LEGACY_STEPS] if on_card else [0] * 4
+    rows = -(-BATCH // 4)
+    if code != 0 or counts != expected or png != (2 + rows * 130, 2 + 4 * 130, 3):
+        raise AssertionError(f"cli sample --sampler legacy: exit {code}, launches (K1, K2, quantizer, K1-f32) "
+                             f"{counts}, expected {expected}; PNG {png}")
+    log(f"  cli sample --sampler legacy --steps {LEGACY_STEPS} --batch {BATCH}: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s (model from the seed, f32), K1-f32 launched {counts[3]} times; PNG {png}")
+    return launches["f32"]
+
+
+def _seeded_inception_pth(torch, path, seed=80):
+    """A torchvision-layout InceptionV3 .pth written by
+    compat/from_jax.export_inception_v3 from a flax-layout tree of numpy
+    draws (He-scale kernels, BatchNorm near identity), with AuxLogits keys
+    as torchvision's file has them."""
+    import numpy as np
+
+    from weatherconverter_tpu_torch.compat.from_jax import export_inception_v3
+    from weatherconverter_tpu_torch.models.inception import InceptionV3
+
+    rng = np.random.default_rng(seed)
+    params, stats = {}, {}
+    for name, t in InceptionV3(classify=True).state_dict().items():
+        *parents, mod, leaf = name.split(".")
+        p, st = params, stats
+        for part in parents + [mod]:
+            p, st = p.setdefault(part, {}), st.setdefault(part, {})
+        shape = tuple(t.shape)
+        if mod == "conv":
+            kernel = rng.standard_normal((shape[2], shape[3], shape[1], shape[0]), dtype=np.float32)
+            p["kernel"] = kernel * np.float32(np.sqrt(2.0 / np.prod(kernel.shape[:-1])))
+        elif mod == "bn" and leaf in ("weight", "bias"):
+            p["scale" if leaf == "weight" else "bias"] = (1.0 if leaf == "weight" else 0.0) + \
+                0.05 * rng.standard_normal(shape, dtype=np.float32)
+        elif mod == "bn" and leaf in ("running_mean", "running_var"):
+            st["mean" if leaf == "running_mean" else "var"] = (
+                0.05 * rng.standard_normal(shape, dtype=np.float32) if leaf == "running_mean"
+                else np.exp(0.2 * rng.standard_normal(shape, dtype=np.float32)))
+        elif mod == "fc":
+            p["kernel" if leaf == "weight" else "bias"] = 0.01 * rng.standard_normal(
+                shape[::-1] if leaf == "weight" else shape, dtype=np.float32)
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in export_inception_v3(params, stats).items()}
+    sd["AuxLogits.fc.weight"] = torch.zeros(1000, 768)
+    torch.save(sd, path)
+
+
+def phase_quality(torch, A, device, card, tmp, tcfg=None):
+    """`quality` through the CLI in-process on configs/translation.yaml
+    (the 128 px UNet, DeepLabV3+/ResNet-101, the 4x SRGAN: 512 px), seeded
+    weights, --synthetic QUALITY_N --batch BATCH --steps QUALITY_STEPS: once
+    with the seg backbone's FID and once with InceptionV3 pool3 from a seeded
+    torchvision-layout .pth. Gates: exit 0, the report's keys, finite
+    numbers, K2 and its quantizer 8 times a UNet forward (the CLI's qk_int8:
+    every layer of the production UNet has a head dim K2 takes), K1 never.
+    Then Inception's time for a 299 px batch and FID's eigh at D = 2048."""
+    import json
+
+    from weatherconverter_tpu_torch.cli.main import main as cli_main
+    from weatherconverter_tpu_torch.cli.commands import load_inception
+    from weatherconverter_tpu_torch.metrics.fid import _psd_sqrt
+    from weatherconverter_tpu_torch.models.inception import fid_input_resize
+    from weatherconverter_tpu_torch.probes.common import time_ms
+
+    tcfg = tcfg or os.path.join(REPO, "configs", "translation.yaml")
+    on_card = device.type == "cuda"  # a CPU rehearsal runs the plain versions and counts nothing
+    pth = os.path.join(tmp, "inception.pth")
+    _seeded_inception_pth(torch, pth)
+    keys = ["data", "weights", "guidance", "steps", "fid_kind", "fid_original_vs_translated", "miou_original",
+            "miou_translated", "miou_consistency_gap"]
+    forwards = QUALITY_STEPS * -(-QUALITY_N // BATCH)
+    for kind, extra in (("backbone", []), ("inception", ["--inception-checkpoint", pth])):
+        out = os.path.join(tmp, f"quality_{kind}.json")
+        A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
+        t0 = time.perf_counter()
+        code = cli_main(["quality", "--config", tcfg, "--synthetic", str(QUALITY_N), "--batch", str(BATCH), "--steps",
+                         str(QUALITY_STEPS), "--out", out] + extra + ([] if on_card else ["--device", "cpu"]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
+        expected = (0, FLASH_CALLS_PER_UNET * forwards, FLASH_CALLS_PER_UNET * forwards) if on_card else (0, 0, 0)
+        report = json.load(open(out))
+        numbers = [report.get(k) for k in keys[5:]]
+        if code != 0 or counts != expected or list(report) != keys or not all(
+                isinstance(v, float) and v == v and abs(v) != float("inf") for v in numbers):
+            raise AssertionError(f"cli quality ({kind}): exit {code}, launches (K1, K2, quantizer) {counts}, expected "
+                                 f"{expected}; report {report}")
+        log(f"  cli quality --synthetic {QUALITY_N} --batch {BATCH} --steps {QUALITY_STEPS} ({report['fid_kind']}): "
+            f"exit 0 in {secs:.1f} s (models from the seed, first-shape autotuning included); FID "
+            f"{report['fid_original_vs_translated']}, mIoU original {report['miou_original']} / translated "
+            f"{report['miou_translated']}, gap {report['miou_consistency_gap']}; K1/K2/quantizer "
+            f"{'/'.join(map(str, counts))} [{card}]")
+    inception = load_inception(pth).to(device)
+    x = torch.rand((BATCH, 3, 512, 512), generator=torch.Generator(device=device).manual_seed(81), device=device)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        feats = inception(fid_input_resize(x))
+        inc_ms = time_ms(lambda: inception(fid_input_resize(x)), reps=5)
+    f = feats.float()
+    cov = (f.T @ f) / BATCH + torch.eye(2048, device=device)
+    eigh_ms = time_ms(lambda: torch.linalg.eigh(cov), reps=3, warmup=1)
+    psd_ms = time_ms(lambda: _psd_sqrt(cov), reps=3, warmup=1)
+    log(f"  InceptionV3 pool3 at batch {BATCH} (512 px resized to 299, bf16 autocast): {inc_ms:.2f} ms a batch; "
+        f"FID at D = 2048: torch.linalg.eigh {eigh_ms:.1f} ms, one PSD square root {psd_ms:.1f} ms (a distance "
+        f"takes two) [{card}]")
+
+
 def _round(x):
     return None if x is None else round(x, 4)
 
 
 PTXAS_KERNELS = ("flash_fwd_qk_i8_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
-                 "flash_fwd_wgmma_kernel", "absmax_qk_kernel", "quantize_qk_kernel",
+                 "flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel", "absmax_qk_kernel", "quantize_qk_kernel",
                  "probe_exp2_attn_wgmma_kernel", "probe_qk_kernel", "probe_dw3x3_kernel",
                  "probe_dw_fma81_kernel")
 
@@ -1851,9 +2119,9 @@ def ptxas_summary(build_log: str) -> list[str]:
             name = next((k for k in PTXAS_KERNELS if k in mangled), mangled)
             args = (["f16"] if "6__half" in mangled else ["bf16"] if "13__nv_bfloat16" in mangled or "4Bf16E" in mangled
                     else ["int8"] if "2I8E" in mangled else [])
-            dim = re.search(r"Li(\d+)E", mangled)
-            if dim:
-                args.append(f"D={dim.group(1)}")
+            dims = re.findall(r"Li(\d+)E", mangled)  # K1: <T, D, G>, G the head dim on D-wide tiles
+            if dims:
+                args.append(f"D={dims[-1]}" + (f" on {dims[0]}-wide tiles" if dims[0] != dims[-1] else ""))
             name += f"<{', '.join(args)}>" if args else ""
         elif "spill stores" in ln:
             spill = ln.strip()
@@ -1969,6 +2237,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase 17: SRGAN training on the card [{card}]")
         phase_srgan(torch, device, card, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 18: the legacy UNet on the card [{card}]")
+        legacy_launches = phase_legacy(torch, A, device, card, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 19: the quality command on the card [{card}]")
+        phase_quality(torch, A, device, card, tmp)
 
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []
@@ -1982,6 +2256,8 @@ def main() -> int:
          launches["headline_qk_int8"][2]),
         ("flash_attention_bwd", csrc + "flash_bwd.cu", "weatherconverter_tpu/ops/attention.py:305",
          train_launches[2]),
+        ("flash_attention_f32", csrc + "flash_fwd_f32.cu", "weatherconverter_tpu/ops/attention.py:78",
+         legacy_launches[3]),
     ):
         r = kernel_results[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2002,9 +2278,11 @@ def main() -> int:
     log("kernels: for K1-K3 and K2's quantizer, ms, plain_ms, bound_ms and library_ms (scaled_dot_product_attention: "
         "its forward for K1 and K2, its backward alone for K3; none for the quantizer, whose plain_ms is the eager "
         "quantization it replaces and whose launches count calls of two kernels each) are sums over the four "
-        "path shapes (K1's and K3's lines at (1024, 192) stand beside them in phase 2, not in the sums); K2's ms "
-        "includes its quantizer's; launches are from "
-        "the headline run (K1), the int8 run (K2, quantizer) and the loop_diffusion.train run (K3); for the probes K4-K7 "
+        "path shapes (K1's and K3's lines at (1024, 192) and K1's at (1024, 24) stand beside them in phase 2, not in "
+        "the sums); K2's ms includes its quantizer's; K1-f32's are sums over the legacy UNet's (1024, 16) and "
+        "(1024, 24) in f32, its library sdpa's f32 forward; launches are from "
+        "the headline run (K1), the int8 run (K2, quantizer), the loop_diffusion.train run (K3) and phase 18's f32 "
+        "legacy run (K1-f32); for the probes K4-K7 "
         "they are from phase 9's probe runs (K4: sums over D=64 and D=16, library the same sdpa forward; "
         "qk_dot: int8 plus bf16, k_bf16 at scripts/probe_int8_dot.py:34, library torch._int_mm plus "
         "torch.mm(out_dtype=torch.float32), null if this torch lacks the latter; dw3x3: library cuDNN's channels-last "

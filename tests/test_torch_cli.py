@@ -155,11 +155,12 @@ def test_parser_has_jax_subcommands_dests_defaults_and_choices():
 @pytest.mark.parametrize("command, item", [("train-srgan", "item 15"), ("quality", "item 15"),
                                            ("export-hlo", "item 10"), ("visualize", "item 19")])
 def test_unported_subcommands_exit_nonzero_naming_their_item(command, item, capsys):
-    """train-srgan (item 15's first part) is ported: like every ported
-    command it runs on the card by default and, without one, exits non-zero
-    saying so (its CPU run is in tests/test_torch_srgan_training.py)."""
+    """train-srgan and quality (item 15) are ported: like every ported
+    command they run on the card by default and, without one, exit non-zero
+    saying so (their CPU runs: tests/test_torch_srgan_training.py and
+    test_cli_quality_on_the_cpu below)."""
     argv = [command] + (["--image", "x.png"] if command == "visualize" else [])
-    if command == "train-srgan":
+    if command in ("train-srgan", "quality"):
         assert command not in PM.NOT_PORTED
         if not torch.cuda.is_available():
             with pytest.raises(SystemExit, match="no CUDA device"):
@@ -208,7 +209,8 @@ def test_commands_need_a_card_unless_device_cpu(tiny, monkeypatch):
     for argv in (["sample", "--config", str(tiny / "d.yaml")],
                  ["translate", "--config", str(tiny / "t.yaml"), "--image", "i", "--label", "l"],
                  ["super-resolve", "--image", "i"], ["train-ddpm"], ["serve"], ["train-seg"],
-                 ["infer-seg", "--image", "i"]):
+                 ["infer-seg", "--image", "i"], ["sample", "--sampler", "legacy", "--config", str(tiny / "d.yaml")],
+                 ["quality", "--config", str(tiny / "t.yaml")]):
         with pytest.raises(SystemExit, match="--device cpu"):
             PM.main(argv)
 
@@ -307,11 +309,15 @@ def test_cli_translate_on_the_cpu(tiny, tmp_path, sampler):
 
 
 def test_cli_translate_refuses_debug_dir_and_legacy_by_name(tiny, tmp_path):
+    """--debug-dir is not ported (item 19). The legacy sampler is (item 15):
+    it refuses, by name, a checkpoint that is not a reference torch file,
+    where JAX would go on with random weights."""
     with pytest.raises(SystemExit, match="item 19"):
         PM.main(["translate", "--config", str(tiny / "t.yaml"), "--image", "i", "--label", "l", "--debug-dir",
                  str(tmp_path), "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 15"):
-        PM.main(["sample", "--sampler", "legacy", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="legacy UNet loads a reference torch file"):
+        PM.main(["sample", "--sampler", "legacy", "--config", str(tiny / "d.yaml"), "--checkpoint",
+                 str(tmp_path / "w.npz"), "--device", "cpu"])
 
 
 @pytest.mark.parametrize("sampler", ["ddpm", "dpm"])
@@ -324,6 +330,85 @@ def test_cli_sample_and_super_resolve_on_the_cpu(tiny, tmp_path, sampler):
     assert PM.main(["super-resolve", "--config", str(tiny / "t.yaml"), "--image", str(tiny / "img.png"), "--out",
                     str(sr), "--device", "cpu"]) == 0
     assert _png(sr).shape == (80, 104, 3)
+
+
+def test_cli_sample_legacy_on_the_cpu(tiny, tmp_path):
+    """`sample --sampler legacy`: the legacy UNet at the config's im_size (16),
+    seeded weights or a reference-layout torch file (with the reference's
+    dead `res.weight` keys, which the loader drops), 2 strided steps; one
+    seed, one image."""
+    from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet
+
+    out = tmp_path / "legacy.png"
+    argv = ["sample", "--config", str(tiny / "d.yaml"), "--sampler", "legacy", "--steps", "2", "--batch", "2",
+            "--out", str(out), "--device", "cpu"]
+    assert PM.main(argv) == 0
+    first = _png(out)
+    assert first.shape == (2 + 16 + 2, 4 * 18 + 2, 3)
+    assert PM.main(argv) == 0 and np.array_equal(_png(out), first)
+    torch.manual_seed(5)
+    sd = LegacyUNet(16).state_dict()
+    for key in from_jax.dead_legacy_keys():
+        sd[key] = torch.zeros(1)  # present in the reference's file, never applied
+    torch.save({"model_state_dict": sd}, tmp_path / "old.ckpt")
+    assert PM.main(argv + ["--checkpoint", str(tmp_path / "old.ckpt")]) == 0
+    assert not np.array_equal(_png(out), first)
+
+
+@pytest.mark.parametrize("fid", ["backbone", "inception"])
+def test_cli_quality_on_the_cpu(tiny, tmp_path, fid):
+    """`quality --synthetic 4 --batch 2 --steps 2`: the report's keys are the
+    JAX command's, its numbers finite; the FID on the seg backbone's pooled
+    features, or on InceptionV3 pool3 from a seeded torchvision-layout .pth
+    (AuxLogits included: the loader drops them, and fc)."""
+    import json
+
+    from weatherconverter_tpu_torch.models.inception import InceptionV3
+
+    argv = ["quality", "--config", str(tiny / "t.yaml"), "--synthetic", "4", "--batch", "2", "--steps", "2",
+            "--out", str(tmp_path / "q.json"), "--device", "cpu"]
+    if fid == "inception":
+        torch.manual_seed(6)
+        sd = InceptionV3(classify=True).state_dict()
+        sd["AuxLogits.fc.weight"] = torch.zeros(1000, 768)
+        torch.save(sd, tmp_path / "inception.pth")
+        argv += ["--inception-checkpoint", str(tmp_path / "inception.pth")]
+    assert PM.main(argv) == 0
+    report = json.loads((tmp_path / "q.json").read_text())
+    assert list(report) == ["data", "weights", "guidance", "steps", "fid_kind", "fid_original_vs_translated",
+                            "miou_original", "miou_translated", "miou_consistency_gap"]
+    assert report["fid_kind"] == ("inception_v3_pool3" if fid == "inception"
+                                  else "seg_backbone_pooled (relative tracking only)")
+    assert report["data"] == "synthetic (seeded random, n=4)" and report["steps"] == 2
+    numbers = [report[k] for k in ("fid_original_vs_translated", "miou_original", "miou_translated")]
+    # finite; not necessarily >= 0: 4 samples give rank-3 covariances in 2048 dims, where the clamped square
+    # roots' rounding can put a distance of two near sets slightly below 0 (JAX's form does the same)
+    assert all(np.isfinite(v) for v in numbers)
+    assert report["miou_consistency_gap"] == pytest.approx(report["miou_original"] - report["miou_translated"],
+                                                           abs=2e-4)
+
+
+def test_quality_pairs_by_stem_and_refuses_sorted_order(tmp_path):
+    """--images' two layouts as JAX pairs them; equal counts with unmatched
+    stems are refused rather than paired by sorted order."""
+    acdc = tmp_path / "acdc" / "rgb_anon" / "fog"
+    os.makedirs(acdc)
+    os.makedirs(tmp_path / "acdc" / "gt" / "fog")
+    for i in range(2):
+        (acdc / f"a{i}_rgb_anon.png").write_bytes(b"")
+        (tmp_path / "acdc" / "gt" / "fog" / f"a{i}_gt_labelIds.png").write_bytes(b"")
+    root = str(tmp_path / "acdc")
+    assert PC._discover_image_label_pairs(root) == JC._discover_image_label_pairs(root)
+    assert len(PC._discover_image_label_pairs(root)) == 2
+    flat = tmp_path / "flat"
+    for d, names in (("rgb", ["x.png", "y.png"]), ("gt", ["x.png", "z.png"])):
+        os.makedirs(flat / d)
+        for n in names:
+            (flat / d / n).write_bytes(b"")
+    with pytest.raises(SystemExit, match="refusing to pair by sorted order"):
+        PC._discover_image_label_pairs(str(flat))
+    (flat / "gt" / "y.png").write_bytes(b"")
+    assert PC._discover_image_label_pairs(str(flat)) == JC._discover_image_label_pairs(str(flat))
 
 
 def test_cli_train_ddpm_on_the_cpu(tiny, tmp_path):

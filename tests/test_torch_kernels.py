@@ -29,6 +29,12 @@ HEAD_DIMS = [16, 32, 64, 128]
 D192_SHAPES = [(1, 2, 64, 192), (1, 2, 192, 192), (2, 4, 1024, 192)]
 FLASH_SHAPES = ALL_SHAPES + D192_SHAPES
 FLASH_HEAD_DIMS = HEAD_DIMS + [192]
+# K1 alone also takes D = 24 (D = 32 tiles whose last 8 columns the copy
+# zero-fills): the legacy UNet's attn_up2 at batch 8, 4 heads, and one, three
+# and 32 tiles of it
+D24_SHAPES = [(1, 1, 64, 24), (2, 3, 192, 24), (1, 2, 2048, 24), (8, 4, 1024, 24)]
+K1_SHAPES = FLASH_SHAPES + D24_SHAPES
+K1_HEAD_DIMS = FLASH_HEAD_DIMS + [24]
 
 
 @pytest.fixture()
@@ -62,7 +68,7 @@ def _within_forward_gate(out, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("shape", K1_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = _qkv(shape, dtype, cuda)
@@ -125,7 +131,7 @@ def test_flash_kernel_clamp_fires(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("d", K1_HEAD_DIMS)
 @pytest.mark.parametrize("n", [192, 256])
 def test_flash_kernel_at_both_clamp_rails(cuda, d, n):
     """q and k scaled so that scores pass +60 and -60 at every head dim, at
@@ -311,6 +317,138 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         A.flash_qk_i8_forward(q8.float(), k8, qk_scale, v)
     with pytest.raises(ValueError, match="int8"):  # v's shape, but not contiguous
         A.flash_qk_i8_forward(q8.transpose(1, 2).contiguous().transpose(1, 2), k8, qk_scale, v)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_d24_takes_head_split_views_and_keeps_heads_apart(cuda):
+    """K1 at D = 24 reads rows of 48 bytes: on head-split views of a (B, N,
+    3C) projection, as the legacy UNet's attn_up2 passes them, it matches
+    its plain version, and one batch row's result does not move when
+    another's values do."""
+    b, n, h, d = 2, 1024, 4, 24
+    qkv = _qkv((b, n, 3 * h * d), torch.bfloat16, cuda)[0]
+    views = [t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]
+    assert _within_forward_gate(A.flash_attention(*views), A.flash_attention_plain(*views))
+    q, k, v = _qkv((2, 2, 128, 24), torch.bfloat16, cuda, seed=24)
+    o = A.flash_attention(q, k, v)
+    q2, k2, v2 = (t.clone() for t in (q, k, v))
+    for t in (q2, k2, v2):
+        t[1] = 1e4  # another batch row: far outside the clamp if it leaked in
+    o2 = A.flash_attention(q2, k2, v2)
+    assert torch.equal(o[0], o2[0])
+    assert _within_forward_gate(o, A.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.gpu
+def test_flash_bwd_refuses_head_dim_24_by_name(cuda):
+    """K3 has no D = 24 instantiation (the legacy UNet only samples): the
+    backward and a differentiable K1 call refuse it by name, before any
+    forward runs; K1 without grad takes it."""
+    q, k, v = _qkv((1, 2, 128, 24), torch.bfloat16, cuda)
+    o, l = A.flash_attention(q, k, v, return_l=True)
+    with pytest.raises(ValueError, match="flash_attention_bwd: head dim 24"):
+        A.flash_attention_bwd(q, k, v, o, q, l)
+    before = A.flash_attention.launches
+    with pytest.raises(ValueError, match="flash_attention_bwd: head dim 24"):
+        A.flash_attention(q.requires_grad_(True), k, v)
+    assert A.flash_attention.launches == before
+
+
+@pytest.mark.gpu
+def test_256px_unet_with_qk_int8_takes_k2_where_it_has_the_head_dim(cuda):
+    """The default ladder at im_size 256 with qk_int8 (what the CLI builds on
+    the card) attends at D = 192 in four layers, which K2 lacks: those take
+    K1, the other eight flash-length layers K2 and its quantizer."""
+    from weatherconverter_tpu_torch.core.config import UnetModelConfig
+    from weatherconverter_tpu_torch.models.unet import Unet
+
+    torch.manual_seed(0)
+    model = Unet(UnetModelConfig(im_size=256), qk_int8=True).to(cuda).eval()
+    kernels = [kind for _, _, kind in model.attention_kernels(256)]
+    x = torch.randn(1, 3, 256, 256, device=cuda)
+    before = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        out = model(x, 5)
+    torch.cuda.synchronize()
+    after = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
+    assert [a - b for a, b in zip(after, before)] == [kernels.count("K1"), kernels.count("K2"), kernels.count("K2")]
+    assert (kernels.count("K1"), kernels.count("K2")) == (4, 8)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+
+
+# K1-f32 against its plain version in f32: the same products in another
+# order, exp2 by ex2.approx (2 ulp): 1e-5 of max |ref|, l to 1e-5 relative
+F32_SHAPES = [(1, 1, 64, 16), (2, 3, 192, 24), (8, 4, 1024, 16), (8, 4, 1024, 24)]
+F32_REL_TOL = 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_flash_f32_kernel_matches_plain(cuda, shape):
+    q, k, v = _qkv(shape, torch.float32, cuda, seed=32)
+    before = (A.flash_attention.launches, A.flash_attention_f32.launches)
+    o, l = A.flash_attention(q, k, v, return_l=True)  # f32 CUDA inputs go to K1-f32
+    torch.cuda.synchronize()
+    assert (A.flash_attention.launches, A.flash_attention_f32.launches) == (before[0], before[1] + 1)
+    ref_o, ref_l = A.flash_attention_plain(q, k, v, return_l=True)
+    assert o.dtype == torch.float32 and o.shape == q.shape and torch.isfinite(o).all()
+    assert _rel_err(o, ref_o) <= F32_REL_TOL
+    torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 24])
+def test_flash_f32_kernel_at_both_clamp_rails(cuda, d):
+    q, k, v = _qkv((2, 2, 192, d), torch.float32, cuda, seed=d)
+    gain = 2.0 * (60.0 / d**0.5) ** 0.5
+    q, k = q * gain, k * gain
+    s = torch.matmul(q, k.transpose(-1, -2)) / d**0.5
+    assert (s > 60).any() and (s < -60).any()
+    o = A.flash_attention_f32(q, k, v)
+    assert torch.isfinite(o).all() and _rel_err(o, A.flash_attention_plain(q, k, v)) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_flash_f32_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv((1, 1, 128, 32), torch.float32, cuda)
+    with pytest.raises(ValueError, match="flash_attention_f32: head dim 32"):
+        A.flash_attention(q, k, v)
+    q, k, v = _qkv((1, 1, 96, 16), torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        A.flash_attention_f32(q, k, v)
+    q, k, v = _qkv((1, 1, 128, 16), torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="f32"):
+        A.flash_attention(q.requires_grad_(True), k, v)
+    with pytest.raises(ValueError, match="float32"):
+        A.flash_attention_f32(q.detach().to(torch.bfloat16), k, v)
+
+
+@pytest.mark.gpu
+def test_legacy_unet_on_the_card_in_bf16_and_f32(cuda):
+    """The legacy UNet at 128 px, batch 2: under bf16 autocast with qk_int8
+    a forward launches K2 and its quantizer once (attn_down3, D = 16) and K1
+    once (attn_up2, D = 24); in f32 (full_f32) K1-f32 twice, and its output
+    is the CPU's f32 forward's to 1e-4 of max |ref|."""
+    from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet, full_f32
+
+    torch.manual_seed(0)
+    cpu = LegacyUNet(128)
+    x, t = torch.randn(2, 3, 128, 128), torch.tensor([0.3, 0.9])
+    counters = (A.flash_attention, A.flash_attention_qk_i8, A.quantize_qk_i8, A.flash_attention_f32)
+    for qk_int8, dtype, expected in ((True, torch.bfloat16, [1, 1, 1, 0]), (False, None, [0, 0, 0, 2])):
+        model = LegacyUNet(128, qk_int8=qk_int8)
+        model.load_state_dict(cpu.state_dict())
+        model = model.to(cuda)
+        before = [fn.launches for fn in counters]
+        ctx = torch.autocast("cuda", dtype=dtype) if dtype else full_f32()
+        with torch.no_grad(), ctx:
+            out = model(x.to(cuda), t.to(cuda))
+        torch.cuda.synchronize()
+        assert [fn.launches - b for fn, b in zip(counters, before)] == expected
+        assert out.dtype == torch.float32 and out.shape == x.shape and torch.isfinite(out).all()
+    with torch.no_grad():
+        ref = cpu(x, t)
+    assert _rel_err(out.cpu(), ref) <= 1e-4
 
 
 # K3 against its plain version: max |err| / max |ref| of each gradient, the

@@ -454,7 +454,10 @@ def test_train_with_a_dataset_imports_neither_pil_nor_jax(tmp_path):
         f"cfg = DiffusionConfig(model={LOOP_MODEL!r}, diffusion={{'num_timesteps': 20}},\n"
         "    training={'batch_size': 2, 'epochs': 1, 'device': 'cpu'}, folders={'output': sys.argv[1]})\n"
         "assert loop_diffusion.train(cfg, dataset=D()).step == 1\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'jax', 'flax'))\n"
+        "import weatherconverter_tpu_torch.models.unet_legacy, weatherconverter_tpu_torch.models.inception\n"
+        "import weatherconverter_tpu_torch.metrics.fid, weatherconverter_tpu_torch.metrics.quality\n"
+        "import weatherconverter_tpu_torch.probes.legacy_precision, weatherconverter_tpu_torch.cli.commands\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'jax', 'flax', 'weatherconverter_tpu'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -1,7 +1,7 @@
 """The CLI's subcommands and the checkpoint loaders (port of
-weatherconverter_tpu/cli/commands.py): sample, translate, super-resolve,
-infer-seg, train-ddpm and train-seg, on the CUDA card unless `--device cpu`
-asks for the CPU.
+weatherconverter_tpu/cli/commands.py): sample (the legacy UNet's loop too),
+translate, super-resolve, infer-seg, quality, train-ddpm, train-seg and
+train-srgan, on the CUDA card unless `--device cpu` asks for the CPU.
 
 Checkpoints: a reference torch file (.pt, .pth, .ckpt, .tar; its
 `model_state_dict` / `state_dict` / `model` entry when wrapped) loads with
@@ -13,11 +13,14 @@ random weights from the seed. An Orbax directory of the JAX package is
 refused by name: the port has no Orbax.
 
 int8 attention: on the card the inference commands build the UNet with
-`qk_int8=True` (K2, the int8 Q K^T flash forward, and its quantizer), as the
-JAX CLI defaults to its int8 kernel on the TPU; `--no-int8-attn` keeps K1.
-The quality check (`probes/int8_quality.py`) passed K2 at 20, 50 and 1000
-steps on the H100 (PERF.md section 6). The CPU has no int8 path, and
-training never takes K2 (it has no backward).
+`qk_int8=True`, as the JAX CLI defaults to its int8 kernel on the TPU;
+`--no-int8-attn` keeps K1. Such a model takes K2 (the int8 Q K^T flash
+forward, and its quantizer) in the layers whose head dim K2 has, and K1 in
+the others (D = 24 in the legacy UNet, D = 192 in a 256 px UNet): JAX's
+int8 kernel takes any head dim, the port's does not yet. The quality check
+(`probes/int8_quality.py`) passed K2 at 20, 50 and 1000 steps on the H100
+(PERF.md section 6). The CPU has no int8 path, and training never takes K2
+(it has no backward).
 """
 
 from __future__ import annotations
@@ -157,6 +160,24 @@ def load_srgan(sr_cfg, checkpoint: str | None, seed: int):
                       "the SRGAN generator").eval()
 
 
+def load_legacy_unet(image_size: int, checkpoint: str | None, seed: int):
+    """The legacy UNet (the reference's old_modules.UNet): a reference torch
+    file (old_model/1000-checkpoint.ckpt) through
+    `compat/from_jax.load_legacy_reference`, or seeded random weights."""
+    from weatherconverter_tpu_torch.compat.from_jax import load_legacy_reference
+    from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet
+
+    with seeded(seed):
+        model = LegacyUNet(image_size=image_size)
+    if checkpoint is None:
+        return model
+    if not (checkpoint.endswith(TORCH_SUFFIXES) and os.path.isfile(checkpoint)):
+        raise SystemExit(f"{checkpoint}: the legacy UNet loads a reference torch file ({', '.join(TORCH_SUFFIXES)})")
+    load_legacy_reference(model, load_torch_checkpoint(checkpoint))
+    print(f"loaded the legacy UNet from {checkpoint}")
+    return model
+
+
 def make_schedule_from(process_cfg, device):
     from weatherconverter_tpu_torch.diffusion.schedule import make_schedule
 
@@ -191,26 +212,36 @@ def _resolve_lcg_present_k(spec, gt, num_classes: int):
 
 
 def run_sample(args) -> int:
-    """Unconditional sampling (ddpm, ddim, dpm) into a PNG grid."""
+    """Unconditional sampling (ddpm, ddim, dpm, and legacy: the legacy UNet
+    at the config's im_size through `ddpm_sample_legacy`) into a PNG grid.
+    The legacy UNet runs in f32 on the card too, as in JAX (K1-f32 at its
+    flash-length layers, no TF32): its bf16 chain failed the precision
+    check of probes/legacy_precision.py on the H100 (PERF.md section 6)."""
     from weatherconverter_tpu_torch.core.config import load_diffusion_config
-    from weatherconverter_tpu_torch.diffusion.sampling import ddim_sample, ddpm_sample, dpm_solver_pp_2m_sample
+    from weatherconverter_tpu_torch.diffusion.sampling import (ddim_sample, ddpm_sample, ddpm_sample_legacy,
+                                                               dpm_solver_pp_2m_sample)
     from weatherconverter_tpu_torch.utils.images import save_images
 
-    if args.sampler == "legacy":
-        raise SystemExit("--sampler legacy needs the legacy UNet, which is not ported yet (ROADMAP Queue 1 item 15)")
     device = resolve_device(args.device)
     cfg = load_diffusion_config(args.config)
-    unet = load_unet(cfg.model, args.checkpoint, args.seed, use_qk_int8(args, device)).to(device).eval()
     sched = make_schedule_from(cfg.diffusion, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     shape = (args.batch, cfg.model.im_size, cfg.model.im_size, cfg.model.im_channels)
-    with autocast(device):
-        if args.sampler == "ddim":
-            out = ddim_sample(unet, sched, shape, gen, num_steps=args.steps or 50)
-        elif args.sampler == "dpm":
-            out = dpm_solver_pp_2m_sample(unet, sched, shape, gen, num_steps=args.steps or 20)
-        else:
-            out = ddpm_sample(unet, sched, shape, gen, num_steps=args.steps)
+    if args.sampler == "legacy":
+        from weatherconverter_tpu_torch.models.unet_legacy import full_f32
+
+        unet = load_legacy_unet(cfg.model.im_size, args.checkpoint, args.seed).to(device)
+        with full_f32():
+            out = ddpm_sample_legacy(unet, sched, shape, gen, num_steps=args.steps)
+    else:
+        unet = load_unet(cfg.model, args.checkpoint, args.seed, use_qk_int8(args, device)).to(device).eval()
+        with autocast(device):
+            if args.sampler == "ddim":
+                out = ddim_sample(unet, sched, shape, gen, num_steps=args.steps or 50)
+            elif args.sampler == "dpm":
+                out = dpm_solver_pp_2m_sample(unet, sched, shape, gen, num_steps=args.steps or 20)
+            else:
+                out = ddpm_sample(unet, sched, shape, gen, num_steps=args.steps)
     path = save_images(out, args.out, nrow=4)
     print(f"saved {path}")
     return 0
@@ -393,4 +424,160 @@ def run_infer_seg(args) -> int:
                   decode_target(enc.astype(np.int32)).astype(np.uint8)]
         Image.fromarray(np.concatenate(panels, axis=1)).save(os.path.join(args.out, "panels.png"))
     print(f"saved outputs under {args.out}")
+    return 0
+
+
+def _discover_image_label_pairs(root: str) -> list:
+    """Paired (image, labelIds) paths under `root`, in two layouts: (a) ACDC
+    naming anywhere under the tree, `*_rgb_anon.*` beside `*_gt_labelIds.*`;
+    (b) flat `rgb/` and `gt/` directories paired by basename stem. Sorted
+    order alone never pairs: a mispaired label would corrupt the
+    mIoU-consistency gate."""
+    import glob
+    import sys
+
+    pairs = []
+    for img in sorted(glob.glob(os.path.join(root, "**", "*_rgb_anon.*"), recursive=True)):
+        label = img.replace("_rgb_anon", "_gt_labelIds")
+        for cand in (label, label.replace(f"{os.sep}rgb_anon{os.sep}", f"{os.sep}gt{os.sep}")):
+            if os.path.exists(cand) and cand != img:
+                pairs.append((img, cand))
+                break
+    if pairs:
+        return pairs
+    rgb_dir, gt_dir = os.path.join(root, "rgb"), os.path.join(root, "gt")
+    if not (os.path.isdir(rgb_dir) and os.path.isdir(gt_dir)):
+        return []
+
+    def images(d):
+        return sorted(p for p in glob.glob(os.path.join(d, "*")) if p.lower().endswith((".png", ".jpg", ".jpeg")))
+
+    def stem(p):
+        return os.path.splitext(os.path.basename(p))[0]
+
+    rgbs, gts = images(rgb_dir), images(gt_dir)
+    if not rgbs:
+        return []
+    gt_by_stem = {stem(p): p for p in gts}
+    by_stem = [(r, gt_by_stem[stem(r)]) for r in rgbs if stem(r) in gt_by_stem]
+    if len(by_stem) == len(rgbs):
+        return by_stem
+    if by_stem and len(rgbs) != len(gts):
+        print(f"quality: pairing {len(by_stem)}/{len(rgbs)} images by basename stem (unmatched files skipped)",
+              file=sys.stderr)
+        return by_stem
+    if len(rgbs) == len(gts):
+        raise SystemExit(f"--images: rgb/ and gt/ hold {len(rgbs)} files each but only {len(by_stem)} basename stems "
+                         "match; refusing to pair by sorted order (a mispaired label silently corrupts the "
+                         "mIoU-consistency gate). Name labels after their images.")
+    return []
+
+
+def quality_inputs(args, size: int, hr: int, num_classes: int) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    """(inputs (N, size, size, 3) in [-1, 1], labels (N, hr, hr) train ids,
+    synthetic?): seeded random ones with --synthetic N (no --images), else the
+    pairs under --images."""
+    if args.images is None:
+        g = torch.Generator().manual_seed(args.seed)
+        inputs = torch.rand((args.synthetic, size, size, 3), generator=g) * 2.0 - 1.0
+        return inputs, torch.randint(0, num_classes, (args.synthetic, hr, hr), generator=g), True
+    from PIL import Image
+
+    from weatherconverter_tpu_torch.data.labels import encode_target
+
+    pairs = _discover_image_label_pairs(args.images)
+    if not pairs:
+        raise SystemExit(f"--images {args.images}: no pairs found. Expected either ACDC naming (*_rgb_anon.* with "
+                         "matching *_gt_labelIds.*) anywhere under the directory, or rgb/ + gt/ subdirectories with "
+                         "the same basenames.")
+    imgs = [_load_image(img, size) * 2.0 - 1.0 for img, _ in pairs]
+    lbls = [encode_target(np.asarray(Image.open(lbl).resize((hr, hr), Image.NEAREST), dtype=np.uint8))
+            for _, lbl in pairs]
+    print(f"quality: {len(pairs)} image/label pairs from {args.images}")
+    return torch.from_numpy(np.stack(imgs)), torch.from_numpy(np.stack(lbls).astype(np.int64)), False
+
+
+def load_inception(checkpoint: str):
+    """InceptionV3 (pool3 features) from a torchvision-layout torch file."""
+    from weatherconverter_tpu_torch.compat.from_jax import load_torchvision_inception
+    from weatherconverter_tpu_torch.models.inception import InceptionV3
+
+    return load_torchvision_inception(InceptionV3(), load_torch_checkpoint(checkpoint), classify=False)
+
+
+def run_quality(args) -> int:
+    """The translation quality gates (BASELINE.md north-star: throughput "at
+    FID and mIoU-consistency parity"): translate the inputs batch by batch,
+    then report the mIoU of seg(original) and of seg(translated) against the
+    labels and their gap (metrics/quality.consistency_gap), and the FID
+    between the original and the translated images (metrics/fid), on
+    InceptionV3 pool3 features with --inception-checkpoint, else on the seg
+    backbone's pooled features ("relative tracking only": not comparable to
+    published FIDs). The SRGAN has seeded random weights, as in JAX."""
+    import json
+
+    from weatherconverter_tpu_torch.core.config import load_translation_config
+    from weatherconverter_tpu_torch.diffusion.sampling import nchw, nhwc
+    from weatherconverter_tpu_torch.guidance.translate import make_translate_fn
+    from weatherconverter_tpu_torch.metrics.fid import fid_from_batches
+    from weatherconverter_tpu_torch.metrics.quality import consistency_gap
+    from weatherconverter_tpu_torch.models.inception import fid_input_resize
+    from weatherconverter_tpu_torch.ops.image import resize_bilinear
+
+    device = resolve_device(args.device)
+    cfg = load_translation_config(args.config)
+    size = cfg.diffusion.model.im_size
+    hr = size * cfg.srgan.upscale_factor
+    num_classes = cfg.seg.model.num_classes
+    inputs, gts, synthetic = quality_inputs(args, size, hr, num_classes)
+    unet, seg, sr, sched = build_translation(cfg, device, args.ddpm_checkpoint, args.seg_checkpoint, None,
+                                             use_qk_int8(args, device), args.seed)
+    translate = make_translate_fn(unet, sched, seg, sr, dtype=torch.bfloat16 if device.type == "cuda" else None,
+                                  lam=args.lam, num_steps=args.steps, num_classes=num_classes, mode="fixed",
+                                  guidance_style=args.guidance)
+    originals_hr, translated, gt_batches = [], [], []
+    for i in range(0, inputs.shape[0], args.batch):
+        xb, gb = inputs[i:i + args.batch].to(device), gts[i:i + args.batch].to(device)
+        translated.append(translate(xb, gb, torch.Generator(device=device).manual_seed(args.seed + i)))
+        originals_hr.append(nhwc(resize_bilinear(nchw((xb + 1.0) / 2.0), (hr, hr))))
+        gt_batches.append(gb)
+
+    def seg_fn(x):
+        with autocast(device):
+            return seg(nchw(x))
+
+    gap = consistency_gap(seg_fn, list(zip(originals_hr, gt_batches)), list(zip(translated, gt_batches)), num_classes)
+    if args.inception_checkpoint:
+        inception = load_inception(args.inception_checkpoint).to(device)
+
+        def feature_fn(x):
+            with autocast(device):
+                return inception(fid_input_resize(nchw(x)))
+
+        fid_kind = "inception_v3_pool3"
+    else:
+        def feature_fn(x):
+            with autocast(device):
+                return seg.backbone(nchw(x))["out"].float().mean(dim=(2, 3))
+
+        fid_kind = "seg_backbone_pooled (relative tracking only)"
+    fid = fid_from_batches(feature_fn, originals_hr, translated)
+    report = {
+        "data": f"synthetic (seeded random, n={inputs.shape[0]})" if synthetic else args.images,
+        "weights": {"ddpm": args.ddpm_checkpoint or "random-init", "seg": args.seg_checkpoint or "random-init",
+                    "srgan": "random-init"},
+        "guidance": args.guidance,
+        "steps": args.steps,
+        "fid_kind": fid_kind,
+        "fid_original_vs_translated": round(fid, 4),
+        "miou_original": round(gap["original_miou"], 4),
+        "miou_translated": round(gap["translated_miou"], 4),
+        "miou_consistency_gap": round(gap["miou_consistency_gap"], 4),
+    }
+    print(json.dumps(report, indent=2))
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"saved {args.out}")
     return 0

@@ -5,9 +5,10 @@ and choices, and one addition: `--device {cuda,cpu}`.
 
 Every command runs on the CUDA card unless `--device cpu` is given; without
 a card it stops with a message and a non-zero exit, and never goes on
-quietly on the CPU. Ported: train-ddpm, train-seg, train-srgan, sample,
-translate, super-resolve, infer-seg and serve. The others parse as in the JAX CLI and
-stop with a message naming the ROADMAP item that ports their modules.
+quietly on the CPU. Ported: train-ddpm, train-seg, train-srgan, sample (with
+--sampler legacy), translate, super-resolve, infer-seg, quality and serve.
+The others parse as in the JAX CLI and stop with a message naming the
+ROADMAP item that ports their modules.
 """
 
 from __future__ import annotations
@@ -18,15 +19,15 @@ import sys
 
 # subcommand -> why it stops: the ROADMAP item that ports its modules
 NOT_PORTED = {
-    "quality": "the quality gates (FID, Inception) are ROADMAP Queue 1 item 15",
     "export-hlo": "the torch.export counterpart of export-hlo is ROADMAP Queue 1 item 10 (its kernels must first be "
                   "registered as custom ops)",
     "visualize": "the process strips are ROADMAP Queue 1 item 19",
 }
 
 INT8_HELP = ("keep K1, the exact bf16 flash attention. On the card inference defaults to K2 (int8 Q K^T and its "
-             "quantizer), which passed the int8 quality check at 20, 50 and 1000 steps; the gain is small, 0.1-0.3 "
-             "ms of a 14-25 ms device step, and no wall-time change while the host binds (PERF.md)")
+             "quantizer) in the attention layers whose head dim K2 has (16-128; K1 at 24 and 192), which passed the "
+             "int8 quality check at 20, 50 and 1000 steps; the gain is small, 0.1-0.3 ms of a 14-25 ms device step, "
+             "and no wall-time change while the host binds (PERF.md)")
 
 
 def _device_flag(p: argparse.ArgumentParser) -> None:
@@ -56,9 +57,13 @@ def build_parser() -> argparse.ArgumentParser:
 
     sa = sub.add_parser("sample", help="unconditional DDPM sampling")
     sa.add_argument("--config", default=None)
-    sa.add_argument("--checkpoint", default=None, help=".npz / torch .ckpt / a run directory of this package")
+    sa.add_argument("--checkpoint", default=None,
+                    help=".npz / torch .ckpt / a run directory of this package; with --sampler legacy a reference "
+                         "torch file (old_model/1000-checkpoint.ckpt)")
     sa.add_argument("--sampler", default="ddpm", choices=["ddpm", "ddim", "dpm", "legacy"],
-                    help="dpm = DPM-Solver++(2M), 10-25 steps; legacy is not ported (ROADMAP item 15)")
+                    help="dpm = DPM-Solver++(2M), 10-25 steps; legacy = the reference's legacy UNet (its shipped "
+                         "checkpoint's architecture) and its beta-variance loop, conditioned on 1 - alpha_bar, in f32 "
+                         "(--no-int8-attn changes nothing there)")
     sa.add_argument("--steps", type=int, default=None)
     sa.add_argument("--batch", type=int, default=8)
     sa.add_argument("--out", default="outputs/samples/sample.png")
@@ -101,13 +106,15 @@ def build_parser() -> argparse.ArgumentParser:
     iv.add_argument("--out", default="outputs/seg")
     _device_flag(iv)
 
-    q = sub.add_parser("quality", help="translation quality gates (not ported)")
+    q = sub.add_parser("quality", help="translation quality gates: FID and mIoU-consistency")
     q.add_argument("--config", default=None, help="translation config YAML")
     q.add_argument("--images", default=None)
     q.add_argument("--synthetic", type=int, default=8)
     q.add_argument("--ddpm-checkpoint", default=None)
     q.add_argument("--seg-checkpoint", default=None)
-    q.add_argument("--inception-checkpoint", default=None)
+    q.add_argument("--inception-checkpoint", default=None,
+                   help="a torchvision-layout InceptionV3 .pth: FID on its pool3 features (default: the seg "
+                        "backbone's pooled features, for relative tracking only)")
     q.add_argument("--guidance", default="gsg", choices=["gsg", "lcg", "alternate", "none"])
     q.add_argument("--lambda", dest="lam", type=float, default=60.0)
     q.add_argument("--steps", type=int, default=100)
@@ -211,7 +218,8 @@ def main(argv=None) -> int:
     return {"train-ddpm": commands.run_train_ddpm, "train-seg": commands.run_train_seg,
             "train-srgan": commands.run_train_srgan, "sample": commands.run_sample,
             "translate": commands.run_translate, "super-resolve": commands.run_super_resolve,
-            "infer-seg": commands.run_infer_seg, "serve": run_serve}[args.command](args)
+            "infer-seg": commands.run_infer_seg, "quality": commands.run_quality,
+            "serve": run_serve}[args.command](args)
 
 
 if __name__ == "__main__":

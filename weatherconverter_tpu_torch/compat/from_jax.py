@@ -7,7 +7,12 @@ numpy in, strict state dicts out; load the result with
 anything `np.asarray` takes. The exporters below are the port's own copy of
 the JAX package's `compat/torch_export` (UNet, Swift-SRGAN generator,
 DeepLabV3(+) over every backbone of the factory); the tests hold the two
-against each other key for key and bit for bit. Two conversions have no
+against each other key for key and bit for bit; the legacy UNet's too.
+InceptionV3's exporter is the inverse of the JAX package's
+`convert_inception_v3` (torchvision's `inception_v3` layout), held by a
+round-trip test. Two loaders take the reference's own files: a legacy
+`.ckpt` (its dead `res.weight` keys dropped) and a torchvision `.pth` of
+InceptionV3 (its `AuxLogits` dropped). Two conversions have no
 JAX exporter and use the port's own module names, held by round-trip tests:
 the atrous-separable head (a separable conv under `<conv>.body.{0,1}`,
 depthwise then pointwise) and the SRGAN discriminator (`blocks.{i}`,
@@ -151,6 +156,61 @@ def export_unet(params: Mapping[str, Any], config) -> dict:
             res_block(sd, f"ups.{i}", j, blk[f"res{j}"])
             if f"attn{j}" in blk:
                 attn_block(sd, f"ups.{i}", j, blk[f"attn{j}"])
+    return sd
+
+
+def export_legacy_unet(params: Mapping[str, Any], stats: Mapping[str, Any], block_depth: int = 3) -> dict:
+    """flax LegacyUNet (params, batch_stats) -> numpy dict in
+    models.unet_legacy.LegacyUNet's layout (the reference's old_modules.UNet
+    without its dead `res.weight` of the non-residual blocks)."""
+    sd: dict[str, Any] = {}
+    _put_conv(sd, "pre_conv", params["pre_conv"])
+    _put_conv(sd, "output", params["output"])
+
+    def res_block(prefix, p, s):
+        _put_bn(sd, f"{prefix}.double_conv.0", p["bn"], s["bn"])
+        _put_conv(sd, f"{prefix}.double_conv.1", p["conv1"])
+        _put_conv(sd, f"{prefix}.double_conv.3", p["conv2"])
+        if "res" in p:
+            _put_conv(sd, f"{prefix}.res", p["res"])
+
+    for n in range(1, 5):
+        for i in range(block_depth):
+            for half in ("down", "up"):
+                res_block(f"{half}{n}.residual_blocks.{i}", params[f"{half}{n}"][f"res{i}"],
+                          stats[f"{half}{n}"][f"res{i}"])
+    for name in ("bottleneck1", "bottleneck2"):
+        res_block(name, params[name], stats[name])
+    for name in ("attn_down3", "attn_down4", "attn_bottleneck", "attn_up1", "attn_up2"):
+        p = params[name]
+        sd[f"{name}.ln.weight"] = _np(p["ln"]["scale"])
+        sd[f"{name}.ln.bias"] = _np(p["ln"]["bias"])
+        _put_mha(sd, f"{name}.mha", p)
+        sd[f"{name}.ff_self.0.weight"] = _np(p["ff_ln"]["scale"])
+        sd[f"{name}.ff_self.0.bias"] = _np(p["ff_ln"]["bias"])
+        _put_linear(sd, f"{name}.ff_self.1", p["ff1"])
+        _put_linear(sd, f"{name}.ff_self.3", p["ff2"])
+    return sd
+
+
+def export_inception_v3(params: Mapping[str, Any], stats: Mapping[str, Any]) -> dict:
+    """flax InceptionV3 (params, batch_stats) -> numpy dict in torchvision's
+    `inception_v3` layout (models.inception.InceptionV3's): every
+    BasicConv2d at `<path>.conv` / `<path>.bn`, and `fc` when the tree has
+    the classifier. The inverse of the JAX package's convert_inception_v3."""
+    sd: dict[str, Any] = {}
+
+    def walk(p, s, path):
+        if "conv" in p and "bn" in p:
+            _put_conv(sd, f"{path}.conv", p["conv"])
+            _put_bn(sd, f"{path}.bn", p["bn"], s["bn"])
+            return
+        for key in p:
+            walk(p[key], s[key], f"{path}.{key}" if path else key)
+
+    walk({k: v for k, v in params.items() if k != "fc"}, stats, "")
+    if "fc" in params:
+        _put_linear(sd, "fc", params["fc"])
     return sd
 
 
@@ -417,3 +477,41 @@ def srgan_generator_state_dict(variables: Mapping[str, Any], num_blocks: int = 1
 def srgan_discriminator_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """flax Discriminator {'params', 'batch_stats'} -> models.srgan.Discriminator state dict."""
     return to_torch_state_dict(export_srgan_discriminator(variables["params"], variables.get("batch_stats", {})))
+
+
+def legacy_unet_state_dict(variables: Mapping[str, Any], block_depth: int = 3) -> dict[str, torch.Tensor]:
+    """flax LegacyUNet {'params', 'batch_stats'} -> models.unet_legacy.LegacyUNet state dict."""
+    return to_torch_state_dict(export_legacy_unet(variables["params"], variables["batch_stats"], block_depth))
+
+
+def inception_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """flax InceptionV3 {'params', 'batch_stats'} -> models.inception.InceptionV3 state dict."""
+    return to_torch_state_dict(export_inception_v3(variables["params"], variables["batch_stats"]))
+
+
+def dead_legacy_keys(block_depth: int = 3) -> list[str]:
+    """The parameters the reference's legacy UNet creates and never applies:
+    the 1x1 `res` conv of every down block's non-residual blocks
+    (old_modules.py:146; weatherconverter_tpu/compat/torch_export.py:148-150)."""
+    return [f"down{n}.residual_blocks.{i}.res.weight" for n in range(1, 5) for i in range(1, block_depth)]
+
+
+def load_legacy_reference(model: torch.nn.Module, sd: Mapping[str, Any], block_depth: int = 3) -> torch.nn.Module:
+    """A reference legacy checkpoint's state dict (old_model/1000-checkpoint.ckpt)
+    into `model` (a LegacyUNet): exactly the dead keys of `dead_legacy_keys`
+    are dropped, then it loads with strict=True, so any other missing or extra
+    key raises."""
+    dead = set(dead_legacy_keys(block_depth))
+    model.load_state_dict({k: v for k, v in sd.items() if k not in dead}, strict=True)
+    return model
+
+
+def load_torchvision_inception(model: torch.nn.Module, sd: Mapping[str, Any], classify: bool) -> torch.nn.Module:
+    """A torchvision-layout InceptionV3 state dict (torchvision's own weights or
+    the pytorch-fid port of the TF FID weights) into `model` (a
+    models.inception.InceptionV3): `AuxLogits.*`, the train-time head, is
+    dropped, and `fc.*` too unless `classify`; then it loads with strict=True."""
+    kept = {k: v for k, v in sd.items()
+            if not k.startswith("AuxLogits.") and (classify or not k.startswith("fc."))}
+    model.load_state_dict(kept, strict=True)
+    return model

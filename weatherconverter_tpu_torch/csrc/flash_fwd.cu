@@ -38,6 +38,16 @@
 // D = 192 (the 256 px UNet's 768-channel layers) is the same kernel on tiles
 // of three 64-column panels: 96 O accumulators a thread and 169 KB of shared
 // memory, so one block an SM; right first, its time is written down.
+// D = 24 (the legacy UNet's attn_up2, 96 channels over 4 heads) runs the
+// D = 32 schedule on rows of 24 (G below): each Q, K and V row is staged
+// with its last 16 of 64 bytes zero-filled by cp.async (src-size 0, chosen by
+// a select; two forms with branches around the copies had their wgmma
+// serialized, see cp_async16_zfill). So Q K^T's extra terms are exactly 0,
+// P V runs at n = 32 and O's columns 24-31, which are 0, are not stored. The
+// scale stays 24^-1/2. Padding the tensors to 32 in the wrapper would add
+// three copies and a slice to every call. Measured on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md section 6): 0.028 ms at (8, 4, 1024, 24), 1.3x
+// D = 32's time on three quarters of its data.
 // Left for later: 128-key tiles at D = 16/32 (half the per-tile overhead),
 // Q as a register operand (K4, probe_exp2_attn.cu, measures it together with
 // a scale folded into q: a gain at D = 64, a loss at D = 128), and strided
@@ -49,7 +59,7 @@ namespace wcflash {
 // How K1 makes a score tile and turns it into p (flash_fwd_loop.cuh has the
 // schedule): Q from its own swizzled tile in shared memory, one multiply by
 // scale * log2 e, the two-sided clamp, ex2.approx.ftz.
-template <typename T, int D>
+template <typename T, int D, int G = D>
 struct FwdPolicy {
   using Score = float;
   static constexpr int kQBytes = Tile<D>::kBytes;
@@ -60,10 +70,10 @@ struct FwdPolicy {
   float scale_log2;  // D^-1/2 * log2 e
 
   __device__ __forceinline__ void prologue(uint32_t q_s, uint32_t, int tid) const {
-    load_tile_async<T, D>(q_s, q_rows, tid);
+    load_tile_async<T, D, G>(q_s, q_rows, tid);
   }
   __device__ __forceinline__ void load_k(uint32_t dst, int tile, int tid) const {
-    load_tile_async<T, D>(dst, k_head + (size_t)tile * kTileRows * D, tid);
+    load_tile_async<T, D, G>(dst, k_head + (size_t)tile * kTileRows * G, tid);
   }
   __device__ __forceinline__ void start(float (&s)[kTileRows / 2], uint32_t q_s, uint32_t k_tile) const {
     mma_rows_rows_t<T, D>(s, q_s, k_tile, 0);
@@ -83,26 +93,27 @@ struct FwdPolicy {
   }
 };
 
-template <typename T, int D>
+// D: the tile's width; G: the tensors' head dim (row stride), D unless G = 24.
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(kWgThreads)
     flash_fwd_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                            T* __restrict__ o, float* __restrict__ l_out, int n, float scale_log2) {
-  const size_t head = (size_t)blockIdx.y * n * D;
+  const size_t head = (size_t)blockIdx.y * n * G;
   const size_t row0 = (size_t)blockIdx.x * kTileRows;
-  FwdPolicy<T, D> policy{q + head + row0 * D, k + head, scale_log2};
-  flash_forward_loop<T, D>(policy, v + head, o + head + row0 * D,
-                           l_out == nullptr ? nullptr : l_out + (size_t)blockIdx.y * n + row0, n);
+  FwdPolicy<T, D, G> policy{q + head + row0 * G, k + head, scale_log2};
+  flash_forward_loop<T, D, FwdPolicy<T, D, G>, G>(policy, v + head, o + head + row0 * G,
+                                                  l_out == nullptr ? nullptr : l_out + (size_t)blockIdx.y * n + row0, n);
 }
 
-template <typename T, int D>
+template <typename T, int D, int G = D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* l, int bh, int n,
                    float scale, cudaStream_t stream) {
-  constexpr int smem = fwd_loop_smem_bytes<T, D, FwdPolicy<T, D>>();
+  constexpr int smem = fwd_loop_smem_bytes<T, D, FwdPolicy<T, D, G>>();
   cudaError_t err =
-      cudaFuncSetAttribute(flash_fwd_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(flash_fwd_wgmma_kernel<T, D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n / kTileRows, bh);
-  flash_fwd_wgmma_kernel<T, D><<<grid, kWgThreads, smem, stream>>>(
+  flash_fwd_wgmma_kernel<T, D, G><<<grid, kWgThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), l, n,
       scale * kLog2e);
   return cudaGetLastError();
@@ -113,6 +124,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, flo
                        int d, float scale, cudaStream_t stream) {
   switch (d) {
     case 16: return launch<T, 16>(q, k, v, o, l, bh, n, scale, stream);
+    case 24: return launch<T, 32, 24>(q, k, v, o, l, bh, n, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, l, bh, n, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, l, bh, n, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, l, bh, n, scale, stream);

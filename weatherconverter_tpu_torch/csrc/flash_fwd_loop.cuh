@@ -40,10 +40,13 @@ constexpr int fwd_loop_smem_bytes() {
   return 1024 + Policy::kQBytes + kFwdStages * (Policy::kKTileBytes + Tile<D>::kBytes);
 }
 
-// O (64 rows at `o_rows`, row stride D) = (sum over the n / 64 key tiles of
+// O (64 rows at `o_rows`, row stride G) = (sum over the n / 64 key tiles of
 // p_j V_j) / l, with v_head the head's V rows; the 64 row sums l go to
-// `l_rows` unless it is null. Called by all 128 threads.
-template <typename T, int D, typename Policy>
+// `l_rows` unless it is null. Called by all 128 threads. D is the tile's
+// width, G the tensors' head dim: G < D (K1 at 24 on D = 32 tiles) stages V
+// with its columns from G on zero-filled and stores only the first G columns
+// of O.
+template <typename T, int D, typename Policy, int G = D>
 __device__ __forceinline__ void flash_forward_loop(const Policy& policy, const T* __restrict__ v_head,
                                                    T* __restrict__ o_rows, float* __restrict__ l_rows, int n) {
   using L = Tile<D>;
@@ -62,7 +65,7 @@ __device__ __forceinline__ void flash_forward_loop(const Policy& policy, const T
   };
   auto load_v = [&](int tile) {
     if (tile >= 0 && tile < tiles)
-      load_tile_async<T, D>(v_ring + (tile % kStages) * L::kBytes, v_head + (size_t)tile * kTileRows * D, tid);
+      load_tile_async<T, D, G>(v_ring + (tile % kStages) * L::kBytes, v_head + (size_t)tile * kTileRows * G, tid);
   };
   auto start_scores = [&](Score(&s)[kTileRows / 2], int tile) {  // asynchronous
     fence_regs(s);
@@ -137,7 +140,7 @@ __device__ __forceinline__ void flash_forward_loop(const Policy& policy, const T
   }
   const float inv[2] = {1.f / l[0], 1.f / l[1]};
   __syncthreads();  // every warp's last P V has read its V tile: the ring's first slot is the O stage
-  store_rows<T, D>(acc, inv, v_ring, o_rows, warp, lane);
+  store_rows<T, D, G>(acc, inv, v_ring, o_rows, warp, lane);
 }
 
 }  // namespace wcflash

@@ -15,6 +15,10 @@
 //   D = 32: one panel, 64-byte rows, 64-byte swizzle
 //   D = 64: one panel, 128-byte rows, 128-byte swizzle
 //   D = 128: two panels of 64 columns, 128-byte swizzle each
+//   D = 24 (K1 only): a D = 32 tile whose rows get three 16-byte chunks
+//     of data and a fourth of zeros, in the same copies
+//     (`load_tile_async<T, 32, 24>`: cp.async with src-size 0), so the extra
+//     Q K^T terms are exactly 0 and P V's columns 24-31 are 0 and never stored
 // An int8 tile (Tile<D, 1>: Q8 and K8 of K2, K-major operands only, which is
 // all integer wgmma takes) has rows of D bytes and is one panel at every D:
 //   D = 128/64/32: 128/64/32-byte rows and swizzle, D/32 k-steps of 32 bytes
@@ -72,6 +76,16 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
+// The same, or 16 zero bytes when !`data` (src-size 0: nothing is read, but
+// `src` must still be a valid address). One instruction either way, the
+// choice a select. (K1 at D = 24 with an if/else between a copy and a
+// zero-filling copy, and again with the tails zeroed once in the prologue
+// and three copies a row, which needs a guard, had every wgmma serialized by
+// ptxas, C7513; this form has not.)
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool data) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(data ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
@@ -82,21 +96,30 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-// The 64 rows at `src` (row stride D) into the tile at shared address `dst`,
-// by the block's 128 threads, 16 bytes a copy, coalesced. T is a 16-bit type
-// or int8_t; only the data chunks of a padded row are written.
-template <typename T, int D>
+// The 64 rows at `src` (row stride G, the tensor's head dim) into the tile at
+// shared address `dst`, by the block's 128 threads, 16 bytes a copy,
+// coalesced. T is a 16-bit type or int8_t; only the data chunks of a padded
+// int8 row are written. G < D (D = 32, G = 24) fills each row's chunks past
+// G with zeros in the same copies, by select, never a branch.
+template <typename T, int D, int G = D>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const T* __restrict__ src, int tid) {
   using L = Tile<D, sizeof(T)>;
+  static_assert(G <= D && (G * sizeof(T)) % 16 == 0, "a row is whole 16-byte chunks");
   constexpr int kChunks = kTileRows * L::kChunksPerRow;  // 64 at int8, D = 16, else a multiple of 128
+  constexpr int kDataChunks = G / L::kElemsPerChunk;     // chunks a row holds in global memory
 #pragma unroll
   for (int i0 = 0; i0 < kChunks; i0 += kWgThreads) {
     const int i = i0 + tid;
     if (kChunks % kWgThreads != 0 && i >= kChunks) break;
     const int row = i / L::kChunksPerRow, c = i % L::kChunksPerRow;
     const int panel = c / L::kChunksPerPanelRow, pc = c % L::kChunksPerPanelRow;
-    cp_async16(dst + panel * L::kPanelBytes + L::swizzled(row, pc),
-               src + (size_t)row * D + c * L::kElemsPerChunk);
+    const uint32_t at = dst + panel * L::kPanelBytes + L::swizzled(row, pc);
+    if constexpr (G == D) {
+      cp_async16(at, src + (size_t)row * D + c * L::kElemsPerChunk);
+    } else {
+      const bool data = c < kDataChunks;
+      cp_async16_zfill(at, src + (size_t)row * G + (data ? c : 0) * L::kElemsPerChunk, data);
+    }
   }
 }
 
@@ -327,11 +350,12 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return y;
 }
 
-// This warp's 16 rows of a 64-row accumulator set (row stride D in global
-// memory), times mul[0] (row g) and mul[1] (row g + 8), cast to T: staged in
-// the swizzled 64-row tile at shared address `stage`, then written with
-// 16-byte stores. Only this warp touches its 16 rows, so a warp barrier suffices.
-template <typename T, int D>
+// This warp's 16 rows of a 64-row accumulator set (row stride G in global
+// memory, its first G of D columns), times mul[0] (row g) and mul[1] (row
+// g + 8), cast to T: staged in the swizzled 64-row tile at shared address
+// `stage`, then written with 16-byte stores. Only this warp touches its 16
+// rows, so a warp barrier suffices.
+template <typename T, int D, int G = D>
 __device__ __forceinline__ void store_rows(const float (&acc)[Tile<D>::kPanels][Tile<D>::kAccRegs],
                                            const float mul[2], uint32_t stage, T* __restrict__ dst, int warp,
                                            int lane) {
@@ -350,17 +374,19 @@ __device__ __forceinline__ void store_rows(const float (&acc)[Tile<D>::kPanels][
     }
   }
   __syncwarp();
+  constexpr int kOutChunks = G / 8;  // 16-byte chunks of an output row
 #pragma unroll
-  for (int i0 = 0; i0 < 16 * L::kChunksPerRow; i0 += 32) {
+  for (int i0 = 0; i0 < 16 * kOutChunks; i0 += 32) {
     const int i = i0 + lane;
-    const int row = warp * 16 + i / L::kChunksPerRow, c = i % L::kChunksPerRow;
+    if ((16 * kOutChunks) % 32 != 0 && i >= 16 * kOutChunks) break;
+    const int row = warp * 16 + i / kOutChunks, c = i % kOutChunks;
     const int panel = c / L::kChunksPerPanelRow, pc = c % L::kChunksPerPanelRow;
     uint4 val;
     asm volatile("ld.shared.v4.b32 {%0,%1,%2,%3}, [%4];\n"
                  : "=r"(val.x), "=r"(val.y), "=r"(val.z), "=r"(val.w)
                  : "r"(stage + panel * L::kPanelBytes + L::swizzled(row, pc))
                  : "memory");
-    *reinterpret_cast<uint4*>(dst + (size_t)row * D + c * 8) = val;
+    *reinterpret_cast<uint4*>(dst + (size_t)row * G + c * 8) = val;
   }
 }
 

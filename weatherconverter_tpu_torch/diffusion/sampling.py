@@ -11,9 +11,8 @@ run under its own generator, whatever shares the batch (the server's
 per-request seeds); `noise=` replays given draws instead, in the order the
 JAX sampler draws from its key (`init` for the initial x, then one `z` a
 step), so a test can hold a sampler against the JAX scan step for step.
-
-`ddpm_sample_legacy` needs the legacy UNet and is not ported yet (ROADMAP
-Queue 1 item 15).
+`ddpm_sample_legacy` is the loop of the legacy UNet (models/unet_legacy.py),
+conditioned on 1 - alpha_bar[t] instead of t.
 """
 
 from __future__ import annotations
@@ -169,6 +168,42 @@ def ddpm_sample(
             if k and s % k == 0:
                 frames[s // k] = nhwc(xt)
     return (nhwc(xt), frames) if k else nhwc(xt)
+
+
+def ddpm_sample_legacy(
+    apply_fn: ApplyFn,
+    sched: NoiseSchedule,
+    shape: Sequence[int],
+    generator: Generators = None,
+    num_steps: Optional[int] = None,
+    noise: Optional[Noise] = None,
+) -> torch.Tensor:
+    """The legacy checkpoint's sampling loop (reference:
+    sample_integrated.py:40-67): `apply_fn` (the legacy UNet) takes the
+    scalar 1 - alpha_bar[t] per row, and the reverse step at stride 1 has
+    sigma^2 = beta_t. `num_steps` < T strides the whole span like
+    `ddpm_sample`, with the subsequence posterior (beta-variance has no
+    strided form), not a truncated chain. Returns x_0 (NHWC). `noise` =
+    (x_init, z_steps (S, *shape)) replays the draws in the JAX split order."""
+    T = sched.T
+    S = num_steps if num_steps is not None else T
+    strided = S != T
+    if strided:
+        taus, tau_prev = strided_taus(T, S)
+    else:
+        taus = list(range(T - 1, -1, -1))
+        tau_prev = [t - 1 for t in taus]
+    with torch.no_grad():
+        xt = _init_x(sched, shape, generator, None if noise is None else noise[0])
+        for s, (t, tp) in enumerate(zip(taus, tau_prev)):
+            cond = sched.one_minus_cum_prod[t].expand(xt.shape[0])
+            eps = apply_fn(xt, cond)
+            z = step_noise(generator, xt, noise, s)
+            if strided:
+                xt = strided_posterior_step(sched, xt, eps, t, tp, z)
+            else:
+                xt = ddpm_step(sched, xt, eps, t, z, "beta")
+    return nhwc(xt)
 
 
 def ddim_sample(

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from weatherconverter_tpu_torch.ops.attention import multi_head_attention
+from weatherconverter_tpu_torch.ops.attention import layer_kernel, multi_head_attention, qk_int8_takes
 from weatherconverter_tpu_torch.ops.groupnorm import group_norm_reference
 
 GN_GROUPS = 8
@@ -49,11 +49,14 @@ class SelfAttention2D(nn.Module):
     takes a contiguous channel slice. Its forward calls the port's
     `multi_head_attention` (the flash kernels at N >= 1024), not MHA's fused
     path. The pre-norm and the residual add belong to the block.
+    `qk_int8` takes K2 only where K2 has this layer's head dim (the
+    layer's `qk_int8` says which); K1 elsewhere (`ops/attention.py`).
     """
 
     def __init__(self, channels: int, num_heads: int, qk_int8: bool = False):
         super().__init__()
-        self.num_heads, self.qk_int8 = num_heads, qk_int8
+        self.num_heads, self.head_dim = num_heads, channels // num_heads
+        self.qk_int8 = qk_int8_takes(self.head_dim, qk_int8)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * channels, channels))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * channels))
         self.out_proj = nn.Linear(channels, channels)
@@ -62,16 +65,27 @@ class SelfAttention2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        n, hn = h * w, self.num_heads
-        tokens = x.flatten(2).transpose(1, 2)  # (B, N, C)
+        out = self.attend_tokens(x.flatten(2).transpose(1, 2))
+        return out.transpose(1, 2).reshape(b, c, h, w)
+
+    def attend_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, N, C) tokens -> (B, N, C): the projections and the attention."""
+        b, n, c = tokens.shape
         q, k, v = F.linear(tokens, self.in_proj_weight, self.in_proj_bias).chunk(3, dim=-1)
 
         def heads(t):  # (B, N, C) -> (B, H, N, D)
-            return t.reshape(b, n, hn, c // hn).transpose(1, 2)
+            return t.reshape(b, n, self.num_heads, self.head_dim).transpose(1, 2)
 
         out = multi_head_attention(heads(q), heads(k), heads(v), qk_int8=self.qk_int8)
-        out = self.out_proj(out.transpose(1, 2).reshape(b, n, c))
-        return out.transpose(1, 2).reshape(b, c, h, w)
+        return self.out_proj(out.transpose(1, 2).reshape(b, n, c))
+
+
+def attention_kernels(model: nn.Module, shapes: list[tuple[int, int]]) -> list[tuple[int, int, str]]:
+    """(N, D, what runs it: "K1", "K2" or "softmax") of each attention layer
+    of `model`, whose (N, D) in forward order are `shapes`: its
+    SelfAttention2D modules, in registration order, are that order."""
+    layers = [m for m in model.modules() if isinstance(m, SelfAttention2D)]
+    return [(n, d, layer_kernel(n, d, m.qk_int8)) for (n, d), m in zip(shapes, layers, strict=True)]
 
 
 class ResnetTimeBlock(nn.Module):

@@ -4,8 +4,9 @@ conv_in -> DownBlocks -> MidBlocks -> UpBlocks (skip stack) -> GN+SiLU ->
 conv_out, attention where `config.im_size // 2**i` is in `attn_resolutions`.
 Parameter names are those of compat/torch_export.export_unet, e.g.
 `downs.{i}.resnet_conv_first.{j}.0` and `mids.{i}.attentions.{j}.in_proj_weight`.
-`qk_int8` routes every flash-length attention through the int8-QK^T kernel
-(forward only).
+`qk_int8` routes the flash-length attention layers whose head dim K2 has
+through the int8-QK^T kernel (forward only) and the others through K1
+(`attention_kernels` lists the choice per layer).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from torch import nn
 
 from weatherconverter_tpu_torch.core.config import UnetModelConfig
-from weatherconverter_tpu_torch.models.layers import GroupNormSiLU, ResnetTimeBlock
+from weatherconverter_tpu_torch.models.layers import GroupNormSiLU, ResnetTimeBlock, attention_kernels
 from weatherconverter_tpu_torch.ops.attention import check_flash_precision
 from weatherconverter_tpu_torch.ops.time_embed import timestep_embedding
 
@@ -129,6 +130,11 @@ class Unet(nn.Module):
 
     def attention_shapes(self, height: int, width: int | None = None) -> list[tuple[int, int]]:
         return unet_attention_shapes(self.config, height, width)
+
+    def attention_kernels(self, height: int, width: int | None = None) -> list[tuple[int, int, str]]:
+        """(N, D, what runs it: "K1", "K2" or "softmax") of every attention
+        layer, in forward order, for an input of (height, width) pixels."""
+        return attention_kernels(self, self.attention_shapes(height, width))
 
     def forward(self, x: torch.Tensor, t) -> torch.Tensor:
         """x (B, C, H, W), t (B,) or scalar int timesteps -> eps (B, C, H, W) f32.

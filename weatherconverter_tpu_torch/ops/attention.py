@@ -1,16 +1,19 @@
 """Multi-head self-attention over flattened image tokens, (B, H, N, D).
 
 Port of weatherconverter_tpu/ops/attention.py. The Pallas kernels become
-three hand-written CUDA kernels for Hopper (csrc/, built by ops/cuda_build.py):
+hand-written CUDA kernels for Hopper (csrc/, built by ops/cuda_build.py):
 
   K1 `flash_attention`       <- `_flash_kernel` and `_flash_kernel_stream_fwd`
+                                (D = 24 on zero-filled D = 32 tiles)
+  K1-f32 `flash_attention_f32` <- `_flash_kernel` in f32, forward only, at
+                                the legacy UNet's head dims (csrc/flash_fwd_f32.cu)
   K2 `flash_attention_qk_i8` <- `_flash_kernel_qk_i8` (pv_int8=False)
   K3 `flash_attention_bwd`   <- `_flash_bwd_kernel`, `_flash_bwd_kernel_v2`,
                                 `_flash_bwd_dq_kernel_stream` and
                                 `_flash_bwd_dkv_kernel_stream`
 
 and the per-tensor quantization of Q and K in front of K2, which XLA fused on
-the TPU, a fourth: `quantize_qk_i8` (csrc/quantize_i8.cu).
+the TPU, another: `quantize_qk_i8` (csrc/quantize_i8.cu).
 
 They compute the JAX kernels' clamped softmax, exp(clip(s, -60, 60)) with no
 row max, and its gradient, masked where the clamp fires, which a stock flash
@@ -24,6 +27,15 @@ tensor launches the kernel or raises. Each wrapper counts its launches in
 K3, as `jax.custom_vjp` wires `_fa_fwd`/`_fa_bwd`. K2 is forward-only, as
 in JAX, which has no VJP for the int8 path: it raises for inputs that
 require grad, on every device.
+
+The kernels take fixed head dims: K1 `KERNEL_HEAD_DIMS`, K1-f32
+`F32_HEAD_DIMS`, K3 `BWD_HEAD_DIMS` (no 24: the one model at D = 24, the
+legacy UNet, only samples), K2 `QK_I8_HEAD_DIMS` (no 24, no 192). Each
+refuses another by name. A model
+with `qk_int8` set takes K2 only in the layers whose head dim K2 has and K1
+in the others (`qk_int8_takes`, read by the attention layers), a departure
+from JAX on the TPU, whose int8 kernel takes any head dim: the port runs
+K1 at D = 24 and D = 192 until K2 gains those instantiations.
 """
 
 from __future__ import annotations
@@ -41,8 +53,10 @@ _CLAMP = 60.0
 # (the JAX dispatch, attention.py:784-809).
 FLASH_MIN_SEQ = 1024
 
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 192)  # K1 and K3
+KERNEL_HEAD_DIMS = (16, 24, 32, 64, 128, 192)  # K1
+BWD_HEAD_DIMS = (16, 32, 64, 128, 192)  # K3
 QK_I8_HEAD_DIMS = (16, 32, 64, 128)  # K2
+F32_HEAD_DIMS = (16, 24)  # K1-f32: the legacy UNet's flash-length layers
 KERNEL_BLOCK = 64  # N must be a multiple of the kernels' query/key tile
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
@@ -52,18 +66,37 @@ def is_flash_length(n: int) -> bool:
     return n >= FLASH_MIN_SEQ and n % 128 == 0
 
 
-def check_flash_precision(device_type: str, dtype: torch.dtype, attn_shapes, where: str) -> None:
+def qk_int8_takes(head_dim: int, qk_int8: bool) -> bool:
+    """Whether an attention layer of `head_dim` built with `qk_int8` takes K2:
+    only where K2 has the instantiation; the other layers take K1."""
+    return qk_int8 and head_dim in QK_I8_HEAD_DIMS
+
+
+def layer_kernel(n: int, head_dim: int, qk_int8: bool) -> str:
+    """What `multi_head_attention` runs for a layer of N tokens and `head_dim`
+    whose int8 choice is `qk_int8` (after `qk_int8_takes`): "K2", "K1" or
+    "softmax" (the plain short-sequence path)."""
+    if not is_flash_length(n):
+        return "softmax"
+    return "K2" if qk_int8 else "K1"
+
+
+def check_flash_precision(device_type: str, dtype: torch.dtype, attn_shapes, where: str,
+                          forward_only: bool = False) -> None:
     """Refuse, where the user chose the dtype, a CUDA model that would reach a
     flash-length attention layer in a dtype the kernels do not take.
     `attn_shapes` is the model's (N, D) list, `dtype` what its attention
     layers compute in (the autocast dtype, else the parameters'). The JAX
-    kernels take f32 and K1/K3 have no f32 instantiation yet, so nothing is
-    cast silently: the caller picks bf16. The CPU runs any dtype (plain
-    versions), and so does a CUDA model with no flash-length layer (plain
-    softmax attention)."""
+    kernels take f32; the port's take bf16/f16, and f32 only forward (K1-f32)
+    at F32_HEAD_DIMS, which a `forward_only` model (the legacy UNet) may use.
+    Nothing is cast silently: the caller picks the dtype. The CPU runs any
+    dtype (plain versions), and so does a CUDA model with no flash-length
+    layer (plain softmax attention)."""
     if device_type != "cuda" or dtype in KERNEL_DTYPES:
         return
     flash = sorted({(n, d) for n, d in attn_shapes if is_flash_length(n)})
+    if forward_only and dtype == torch.float32 and all(d in F32_HEAD_DIMS for _, d in flash):
+        return
     if flash:
         raise ValueError(
             f"{where}: this model attends at flash length, (N, D) = {flash}, and on CUDA the flash-attention "
@@ -125,7 +158,8 @@ def flash_attention_qk_i8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return (torch.matmul(p.to(v.dtype).float(), v.float()) / l).to(v.dtype)
 
 
-def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        head_dims: tuple[int, ...] = KERNEL_HEAD_DIMS) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel runs on CUDA tensors, got {q.device}")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
@@ -133,15 +167,17 @@ def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Te
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q, k, v must be on one device")
-    check_kernel_shape(name, *q.shape)
+    check_kernel_shape(name, *q.shape, head_dims=head_dims)
     if v.dtype not in KERNEL_DTYPES:
         raise ValueError(f"{name}: dtype {v.dtype} not in {KERNEL_DTYPES}")
 
 
-def check_kernel_shape(name: str, b: int, h: int, n: int, d: int) -> None:
-    """The (B, H, N, D) the flash kernels K1 and K3 take; raises on another."""
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {KERNEL_HEAD_DIMS}")
+def check_kernel_shape(name: str, b: int, h: int, n: int, d: int,
+                       head_dims: tuple[int, ...] = KERNEL_HEAD_DIMS) -> None:
+    """The (B, H, N, D) a flash kernel takes (K1's head dims unless
+    `head_dims` names another's); raises on another."""
+    if d not in head_dims:
+        raise ValueError(f"{name}: head dim {d} not in {head_dims}")
     if n % KERNEL_BLOCK != 0:
         raise ValueError(f"{name}: N={n} is not a multiple of {KERNEL_BLOCK}")
     if b * h > 65535:
@@ -157,8 +193,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return
     `return_l`). A CPU tensor takes `flash_attention_plain`; a CUDA tensor
     launches the kernel (bf16/f16, D in KERNEL_HEAD_DIMS, N % 64 == 0) or
     raises. Inputs that require grad (under grad mode) go through
-    `FlashAttentionFunction`, so the backward is K3."""
+    `FlashAttentionFunction`, so the backward is K3; on CUDA a head dim K3
+    lacks (24) is refused before the forward runs."""
     if _wants_grad(q, k, v):
+        if q.device.type != "cpu":
+            _check_bwd_head_dim(q.shape[-1])  # before the forward, not in the backward
+            if q.dtype == torch.float32:
+                raise NotImplementedError("flash_attention: the f32 forward (K1-f32) has no backward; train in "
+                                          "bf16 (K1 and K3)")
         o, l = FlashAttentionFunction.apply(q, k, v)
         return (o, l) if return_l else o
     return _flash_forward(q, k, v, return_l=return_l)
@@ -167,6 +209,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_l: bool):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, return_l=return_l)
+    if q.dtype == torch.float32:
+        return flash_attention_f32(q, k, v, return_l=return_l)
     check_kernel_inputs("flash_attention", q, k, v)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k, v must share one dtype")
@@ -187,6 +231,45 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_l: bool = False):
+    """K1-f32, forward only: (B, H, N, D) f32 -> O f32 (and l with
+    `return_l`), every product and sum in f32. A CPU tensor takes
+    `flash_attention_plain`; a CUDA tensor (f32, D in F32_HEAD_DIMS, N % 64
+    == 0) launches the kernel or raises. `flash_attention` sends f32 CUDA
+    inputs here."""
+    if _wants_grad(q, k, v):
+        raise NotImplementedError("flash_attention_f32 is forward-only (no f32 backward): train in bf16")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, return_l=return_l)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention_f32: q, k, v must lie on one CUDA device, got {q.device}, {k.device}, "
+                         f"{v.device}")
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"flash_attention_f32: q, k, v must share one (B, H, N, D) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype == torch.float32:
+        raise ValueError(f"flash_attention_f32: dtype must be float32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, h, n, d = q.shape
+    if d not in F32_HEAD_DIMS:
+        raise ValueError(f"flash_attention_f32: head dim {d} not in {F32_HEAD_DIMS}: in dtype float32 the forward "
+                         f"takes those only; dtypes {KERNEL_DTYPES} take {KERNEL_HEAD_DIMS}")
+    check_kernel_shape("flash_attention_f32", b, h, n, d, head_dims=F32_HEAD_DIMS)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    l = torch.empty((b, h, n, 1), device=q.device, dtype=torch.float32) if return_l else None
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        err = lib.wc_flash_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                   None if l is None else l.data_ptr(), b * h, n, d, 1.0 / d**0.5,
+                                   cuda_build.stream(q.device))
+    cuda_build.check_launch("flash_attention_f32", err)
+    flash_attention_f32.launches += 1
+    return (o, l) if return_l else o
+
+
+flash_attention_f32.launches = 0
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, l):
@@ -218,10 +301,11 @@ def flash_attention_bwd(q, k, v, o, do, l):
     f32 from the forward -> (dq, dk, dv) in the input dtype. A CPU tensor
     takes `flash_attention_bwd_plain`; a CUDA tensor launches the kernel's
     two passes (dQ, then dK/dV) or raises. It takes what K1 takes, with all
-    five tensors in one dtype."""
+    five tensors in one dtype, at the head dims of BWD_HEAD_DIMS."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, l)
-    check_kernel_inputs("flash_attention_bwd", q, k, v)
+    _check_bwd_head_dim(q.shape[-1])
+    check_kernel_inputs("flash_attention_bwd", q, k, v, BWD_HEAD_DIMS)
     b, h, n, d = q.shape
     for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -246,6 +330,12 @@ def flash_attention_bwd(q, k, v, o, do, l):
 
 
 flash_attention_bwd.launches = 0
+
+
+def _check_bwd_head_dim(d: int) -> None:
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {d} not in {BWD_HEAD_DIMS}: the flash backward has no such "
+                         f"instantiation (K1 takes it forward only; the legacy UNet, at D = 24, only samples)")
 
 
 class FlashAttentionFunction(torch.autograd.Function):

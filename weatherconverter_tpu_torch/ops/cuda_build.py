@@ -23,7 +23,7 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("flash_fwd.cu", "flash_fwd_qk_i8.cu", "quantize_i8.cu", "flash_bwd.cu",
+SOURCES = ("flash_fwd.cu", "flash_fwd_f32.cu", "flash_fwd_qk_i8.cu", "quantize_i8.cu", "flash_bwd.cu",
            "probe_exp2_attn.cu", "probe_qk_dot.cu", "probe_dw3x3.cu", "probe_dw9x9.cu")
 HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_fwd_loop.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -106,6 +106,8 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(target)
             lib.wc_flash_fwd.argtypes = [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, ctypes.c_float, _ptr]
             lib.wc_flash_fwd.restype = _int
+            lib.wc_flash_fwd_f32.argtypes = [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, ctypes.c_float, _ptr]
+            lib.wc_flash_fwd_f32.restype = _int
             lib.wc_flash_fwd_qk_i8.argtypes = [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr]
             lib.wc_flash_fwd_qk_i8.restype = _int
             strides = ctypes.POINTER(ctypes.c_longlong)

@@ -1,5 +1,6 @@
 """What the micro-probes share: the card line, CUDA-event timing, the card's
-published peaks, the probes' backend settings and the forward-only check."""
+published peaks, the probes' backend settings, the forward-only check and
+the quality checks' Pearson correlation."""
 
 from __future__ import annotations
 
@@ -22,6 +23,13 @@ PEAKS = {
 
 def log(*args):
     print(*args, flush=True)
+
+
+def pearson(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Pearson correlation of two tensors' values, in float64."""
+    a, b = a.double().flatten(), b.double().flatten()
+    a, b = a - a.mean(), b - b.mean()
+    return float((a @ b) / (a.norm() * b.norm()))
 
 
 def card_line() -> str:
@@ -86,10 +94,12 @@ def roofline(peak: dict | None, nbytes: float, **ops: float) -> dict:
     return _bound({"hbm": nbytes / peak["hbm"], **{k: v / peak[k] for k, v in ops.items()}})
 
 
-def attention_roofline(peak: dict | None, shape, backward: bool = False, qk_int8: bool = False) -> dict:
+def attention_roofline(peak: dict | None, shape, backward: bool = False, qk_int8: bool = False,
+                       f32: bool = False) -> dict:
     """`roofline` of one clamped-softmax attention call on 16-bit (B, H, N, D)
     inputs. Forward: Q K^T and P V (2 N^2 D FLOPs a head each; with `qk_int8`
-    Q K^T runs at the int8 rate and the two tensor times add), N^2
+    Q K^T runs at the int8 rate and the two tensor times add; with `f32`, on
+    f32 inputs, both at the f32 rate outside the tensor cores), N^2
     exponentials, Q, K, V read and O written. Backward: what the function
     needs, the five products of a one-pass backward (10 N^2 D) and one
     exponential a score (N^2), with Q, K, V, O, dO and l read and dQ, dK, dV
@@ -103,6 +113,8 @@ def attention_roofline(peak: dict | None, shape, backward: bool = False, qk_int8
     ex2 = bh * n * n / peak["ex2"]
     if backward:
         return _bound({"hbm": bh * n * (8 * d * 2 + 4) / peak["hbm"], "bf16": 5 * product / peak["bf16"], "ex2": ex2})
+    if f32:
+        return _bound({"hbm": bh * n * 4 * d * 4 / peak["hbm"], "f32": 2 * product / peak["f32"], "ex2": ex2})
     if qk_int8:
         tensor = {"int8+bf16": product / peak["int8"] + product / peak["bf16"]}
     else:

@@ -102,12 +102,6 @@ def check_launches(outs: dict, steps: int) -> None:
             raise AssertionError(f"int8_quality {name}: launches (K1, K2, quantizer) {launches}, expected {expected}")
 
 
-def _pearson(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.double().flatten(), b.double().flatten()
-    a, b = a - a.mean(), b - b.mean()
-    return float((a @ b) / (a.norm() * b.norm()))
-
-
 def statistics(outs: dict, n_floor: int) -> dict:
     """Each run against 'bf16': Pearson correlation, seg agreement and the output's max and mean |difference|;
     the chaos floor's mean and std (ddof 1) of the first two and of the mean |difference| over the perturbed runs;
@@ -116,7 +110,7 @@ def statistics(outs: dict, n_floor: int) -> dict:
 
     def against(name):
         b, pb, _ = outs[name]
-        return dict(pearson=_pearson(a, b), seg_agree=float((pa == pb).double().mean()),
+        return dict(pearson=common.pearson(a, b), seg_agree=float((pa == pb).double().mean()),
                     max_abs_diff=float((a - b).abs().max()), mean_abs_diff=float((a - b).abs().mean()))
 
     i8, repeat = against("int8"), against("bf16-repeat")
