@@ -15,8 +15,9 @@ Phases, each of which fails the run (exit code != 0, no result line):
      scale), K2's time is split into quantizer and forward, and two K2 calls
      must agree bit for bit; K1 and K3 also at the 256 px UNet's (N, D) =
      (1024, 192), K1 at the legacy UNet's (1024, 24) (D = 32 tiles with
-     zero-filled tails), K1-f32 at the legacy UNet's (1024, 16) and (1024,
-     24) in f32 (beside sdpa's f32 forward); one forward and backward of the
+     zero-filled tails), K1-f32 (3xTF32 on the tensor cores) at the legacy
+     UNet's (1024, 16) and (1024, 24) in f32, within 1e-5 of max |ref| (beside
+     its f32 FMA bound and sdpa's f32 forward); one forward and backward of the
      256 px UNet under bf16, and one forward of it with qk_int8 (K2 at its
      eight layers of D <= 128, K1 at its four of D = 192);
   3. run guided translation at full width -- the production 128px UNet,
@@ -142,14 +143,25 @@ Phases, each of which fails the run (exit code != 0, no result line):
      attn_up2): each timed, profiled, its launches a forward asserted, its
      peak memory read; the precision check of probes/legacy_precision.py at
      batch 2 (the bf16 and the f32 card chains against the f32 CPU chain and
-     its 5-run chaos floor; printed, not gated); `sample --sampler legacy`
+     its 5-run chaos floor; the f32 chain must pass, the bf16 chain's verdict
+     is printed, not gated: it fails by design); `sample --sampler legacy`
      through the CLI (exit 0, the PNG's shape, K1-f32 twice a forward);
  19. `quality --synthetic 8 --batch 8 --steps 20` through the CLI at
      configs/translation.yaml, with the seg backbone's FID and with
      InceptionV3 pool3 from a seeded torchvision-layout .pth written by
      compat/from_jax.export_inception_v3 (exit 0, the report's keys, finite
      numbers, K2 and its quantizer 8 times a UNet forward), then
-     Inception's time for a 299 px batch of 8 and FID's eigh at D = 2048.
+     Inception's time for a 299 px batch of 8 and FID's eigh at D = 2048;
+ 20. `visualize` through the CLI at configs/diffusion.yaml (seeded weights,
+     K1) on a synthetic 128 px image, a frame every 100 steps of the full
+     1000-step chain at batch 1, and `translate --debug-dir` at
+     configs/translation.yaml (K2 per layer) at 20 steps, a dump every 5,
+     beside a plain translate with the same seed: exit 0, the files and
+     their shapes, K1/K2/quantizer launches as the UNets' attention_kernels
+     predict, the debug run's output PNG byte-equal to the plain one's; each
+     run's wall time (core/profiling.StepTimer) and peak memory
+     (device_memory_stats); a traced short run of each (core/profiling.trace,
+     the trace written and not empty) for device time and idle share.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors, times, bounds
 and library times.
@@ -263,6 +275,12 @@ SRGAN_IMAGES, SRGAN_SIZE, SRGAN_BATCHES = 16, (384, 216), (4, 16)
 LEGACY_STEPS, LEGACY_CHECK_BATCH = 20, 2
 # phase 19: the quality command on configs/translation.yaml: --synthetic QUALITY_N --batch BATCH --steps
 QUALITY_N, QUALITY_STEPS = 8, 20
+# phase 20: visualize, a frame every VIS_EVERY steps of configs/diffusion.yaml's full chain; translate --debug-dir at
+# DEBUG_STEPS steps, a dump every DEBUG_EVERY. Each is traced on a short run beside it: visualize on a copy of the
+# config with a VIS_TRACE_T-step schedule, translate --debug-dir at DEBUG_TRACE_STEPS steps (a trace holds every host
+# op and kernel: 68 MiB for 20 visualize steps, 304 MiB for 20 guided steps on an H100, so traces of the full runs
+# would take minutes to write)
+VIS_EVERY, VIS_TRACE_T, DEBUG_STEPS, DEBUG_EVERY, DEBUG_TRACE_STEPS = 100, 20, 20, 5, 4
 SRGAN_LIMITS = dict(loss=1e-5, update=0.1, moments_g_pretrain=1e-3, moments_g_gan=0.1, moments_d=5e-2, stats=1e-4)
 HEADLINE = dict(guidance_every=2, guidance_space="latent", lam=120.0)
 REFERENCE_EXACT = dict(guidance_every=1, guidance_space="sr", lam=60.0)
@@ -359,9 +377,11 @@ def phase_kernels(torch, A, device, card):
 
 def _f32_kernel(torch, A, device, card, gen):
     """K1-f32 against its plain version in f32 at the legacy UNet's two
-    flash-length shapes, with its bound (f32 FLOPs at 67 TFLOP/s) and
+    flash-length shapes, with its bound (the larger of the exponentials and
+    the 3xTF32 products at 494.7 TFLOP/s), the f32 FMA bound beside it, and
     scaled_dot_product_attention's f32 time; sums over the two shapes."""
-    from weatherconverter_tpu_torch.probes.common import add_rooflines, attention_roofline, peaks, time_ms
+    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, f32_fma_ms, peaks,
+                                                          time_ms)
 
     total, bounds = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0), []
     for shape in F32_SHAPES:
@@ -378,9 +398,11 @@ def _f32_kernel(torch, A, device, card, gen):
         lib_ms = _sdpa_ms(torch, q, k, v)
         bound = attention_roofline(peaks(card), shape, f32=True)
         b, h, n, d = shape
+        fma = f32_fma_ms(peaks(card), shape)
         log(f"  flash_attention_f32 B*H={b * h} N={n} D={d}: max_abs_err {err:.3e}, max|err|/max|ref| {rel:.3e} "
             f"(tol {F32_REL_TOL}); kernel {k_ms:.4f} ms ({4 * b * h * n * n * d / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s "
-            f"f32), plain {p_ms:.3f} ms, {_bound_text(bound)}, sdpa forward in f32 {lib_ms:.4f} ms (yardstick)")
+            f"of f32 products in 3xTF32), plain {p_ms:.3f} ms, {_bound_text(bound)}, f32 FMA bound "
+            f"{'not known' if fma is None else f'{fma:.4f} ms'}, sdpa forward in f32 {lib_ms:.4f} ms (yardstick)")
         bounds.append(bound)
         total = dict(err=max(total["err"], err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms,
                      library_ms=total["library_ms"] + lib_ms)
@@ -938,14 +960,19 @@ def _device_profile(torch, fn, steps: int, top: int = 0):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == cuda and getattr(e, "device_time_total", 0) > 0]
+    events = _kernel_events(torch, prof)
     total = (wall_ms, sum(e.device_time_total for e in events) / 1e3, sum(e.count for e in events))
     if not top:
         return total
     ranked = sorted(events, key=lambda e: -e.device_time_total)[:top]
     return total + ([(e.key, e.device_time_total / 1e3, e.count) for e in ranked],)
+
+
+def _kernel_events(torch, prof):
+    """The profiler's averages of the kernels that ran on the device."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda and getattr(e, "device_time_total", 0) > 0]
 
 
 def phase_samplers(torch, A, device, models, card):
@@ -1918,8 +1945,9 @@ def phase_legacy(torch, A, device, card, tmp):
     attn_down3 and attn_up2, no TF32: the CLI's precision) and under bf16
     autocast with qk_int8 (K2 at attn_down3, K1 at attn_up2): each timed
     (REPEATS runs), profiled, its launches a forward asserted, its peak
-    memory read; then the precision check at LEGACY_CHECK_BATCH (printed,
-    not gated) and `sample --sampler legacy` through the CLI. Returns the
+    memory read; then the precision check at LEGACY_CHECK_BATCH (the f32
+    chain's verdict gated, the bf16 chain's printed: it fails by design) and
+    `sample --sampler legacy` through the CLI. Returns the
     f32 run's launches (K1-f32's count for the kernels line)."""
     import numpy as np
     from PIL import Image
@@ -1984,6 +2012,10 @@ def phase_legacy(torch, A, device, card, tmp):
         legacy_precision.check_launches(artifact)
     legacy_precision.report(artifact, card, log)
     log(f"  the check in {time.perf_counter() - t0:.1f} s; wrote {legacy_precision.save(artifact)}")
+    # the f32 chain (K1-f32) is what the CLI samples with: it must pass; the bf16 chain fails by design
+    if not artifact["runs"]["f32"]["passes"]:
+        raise AssertionError(f"legacy precision: the f32 card chain fails the check: pearson "
+                             f"{artifact['runs']['f32']['pearson']:.9f} < threshold {artifact['threshold']:.9f}")
     # the CLI: the legacy UNet at configs/diffusion.yaml's im_size (128), f32, seeded weights
     path = os.path.join(tmp, "legacy.png")
     for fn in counters:
@@ -2098,6 +2130,135 @@ def phase_quality(torch, A, device, card, tmp, tcfg=None):
     log(f"  InceptionV3 pool3 at batch {BATCH} (512 px resized to 299, bf16 autocast): {inc_ms:.2f} ms a batch; "
         f"FID at D = 2048: torch.linalg.eigh {eigh_ms:.1f} ms, one PSD square root {psd_ms:.1f} ms (a distance "
         f"takes two) [{card}]")
+
+
+def phase_visualize_debug(torch, A, device, card, tmp, tcfg=None, dcfg=None, vis_every=VIS_EVERY):
+    """`visualize` and `translate --debug-dir` through the CLI in-process at
+    configs/diffusion.yaml and configs/translation.yaml (full width, seeded
+    weights). visualize on a synthetic 128 px image, a frame every
+    `vis_every` steps of the config's full chain, then once more traced on a
+    copy of the config with a VIS_TRACE_T-step schedule; translate
+    --debug-dir at DEBUG_STEPS steps, a dump every DEBUG_EVERY, a plain
+    translate with the same seed, and a traced --debug-dir run at
+    DEBUG_TRACE_STEPS steps. Gates: exit 0, the files and their shapes, the
+    launches (K1, K2, quantizer) that the UNets' attention_kernels predict,
+    the --debug-dir output PNG byte-equal to the plain one, each trace
+    written and not empty. Each run's wall time from
+    core/profiling.StepTimer, its peak memory from device_memory_stats, the
+    traced runs' device time and idle share."""
+    import contextlib
+
+    import numpy as np
+    import yaml
+    from PIL import Image
+
+    from weatherconverter_tpu_torch.cli.main import main as cli_main
+    from weatherconverter_tpu_torch.core import profiling
+    from weatherconverter_tpu_torch.core.config import load_diffusion_config, load_translation_config
+    from weatherconverter_tpu_torch.models.unet import Unet
+
+    tcfg = tcfg or os.path.join(REPO, "configs", "translation.yaml")
+    dcfg = dcfg or os.path.join(REPO, "configs", "diffusion.yaml")
+    on_card = device.type == "cuda"  # a CPU rehearsal passes --device cpu and counts nothing
+    flag = [] if on_card else ["--device", "cpu"]
+    counters = (A.flash_attention, A.flash_attention_qk_i8, A.quantize_qk_i8)
+
+    def per_forward(model_cfg, qk_int8):
+        with torch.device("meta"):
+            kinds = [k for _, _, k in Unet(model_cfg, qk_int8=qk_int8).attention_kernels(model_cfg.im_size)]
+        return (kinds.count("K1"), kinds.count("K2"), kinds.count("K2"))
+
+    def run(argv, forwards, per, trace_dir=None):
+        """One CLI run: (seconds, peak GiB, launches; with `trace_dir` also
+        device ms and kernel launches from its trace)."""
+        for fn in counters:
+            fn.launches = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        timer = profiling.StepTimer(warmup=0, device=device)
+        with (profiling.trace(trace_dir) if trace_dir else contextlib.nullcontext()) as prof, timer:
+            code = cli_main(argv + flag)
+        counts = tuple(fn.launches for fn in counters)
+        expected = tuple(forwards * c for c in per) if on_card else (0, 0, 0)
+        if code != 0 or counts != expected:
+            raise AssertionError(f"cli {argv[0]}: exit {code}, launches (K1, K2, quantizer) {counts}, expected "
+                                 f"{expected}")
+        peak = profiling.device_memory_stats(device).get("peak_bytes_in_use", 0) / 2**30
+        result = dict(s=timer.summary()["mean_s"], peak=peak, counts=counts)
+        if trace_dir:
+            path = os.path.join(trace_dir, profiling.TRACE_FILE)
+            if not (os.path.isfile(path) and os.path.getsize(path) > 0):
+                raise AssertionError(f"cli {argv[0]}: no trace at {path}")
+            events = _kernel_events(torch, prof)
+            result.update(device_ms=sum(e.device_time_total for e in events) / 1e3,
+                          kernels=sum(e.count for e in events), trace_mib=os.path.getsize(path) / 2**20)
+        return result
+
+    def line(what, r, steps):
+        text = (f"  cli {what}: exit 0, {r['s']:.1f} s wall (StepTimer, device synchronized); launches K1/K2/quantizer "
+                f"{'/'.join(map(str, r['counts']))}; peak {r['peak']:.2f} GiB (device_memory_stats)")
+        if "device_ms" in r:
+            text += (f"; traced: device {r['device_ms'] / steps:.2f} ms/step, idle share ~"
+                     f"{max(0.0, 1 - r['device_ms'] / (r['s'] * 1e3)):.2f}, {r['kernels'] / steps:.0f} kernels a "
+                     f"step, trace {r['trace_mib']:.1f} MiB")
+        log(text + f" [{card}]")
+
+    # visualize: a synthetic 128 px image; the UNet on K1 (visualize never takes K2)
+    d = load_diffusion_config(dcfg)
+    size, T = d.model.im_size, d.diffusion.num_timesteps
+    image = os.path.join(tmp, "vis.png")
+    Image.fromarray(np.random.default_rng(52).integers(0, 256, (size, size, 3), dtype=np.uint8)).save(image)
+    short = os.path.join(tmp, "diffusion_short.yaml")
+    with open(dcfg) as fh:
+        doc = yaml.safe_load(fh)
+    doc["diffusion"]["num_timesteps"] = VIS_TRACE_T
+    with open(short, "w") as fh:
+        yaml.safe_dump(doc, fh)
+    k1 = per_forward(d.model, False)
+    frames = {"forward": -(-T // vis_every), "backward": -(-T // vis_every), "aug_photometric": 5, "aug_geometric": 5}
+    for cfg_path, steps, every, traced in ((dcfg, T, vis_every, False), (short, VIS_TRACE_T, 10, True)):
+        out = os.path.join(tmp, "strips_traced" if traced else "strips")
+        r = run(["visualize", "--config", cfg_path, "--image", image, "--out", out, "--every", str(every)], steps, k1,
+                os.path.join(tmp, "trace_vis") if traced else None)
+        want = frames if not traced else {k: (-(-steps // every) if k in ("forward", "backward") else v)
+                                          for k, v in frames.items()}
+        shapes = {k: np.asarray(Image.open(os.path.join(out, f"{k}.png"))).shape for k in want}
+        if shapes != {k: (size, n * size, 3) for k, n in want.items()}:
+            raise AssertionError(f"cli visualize: strips {shapes}, expected {want} frames of {size} px")
+        line(f"visualize ({steps}-step chain at batch 1, a frame every {every}; strips {shapes})", r, steps)
+
+    # translate --debug-dir, the plain translate with the same seed, a short traced --debug-dir
+    tc = load_translation_config(tcfg)
+    lat = tc.diffusion.model.im_size
+    hr = lat * tc.srgan.upscale_factor
+    img, lbl = os.path.join(tmp, "dbg_img.png"), os.path.join(tmp, "dbg_lbl.png")
+    _synthetic_pair(img, lbl, seed=53)
+    k2 = per_forward(tc.diffusion.model, on_card)  # the CLI's qk_int8 on the card
+    common = ["translate", "--config", tcfg, "--image", img, "--label", lbl, "--seed", "5"]
+    dbg = os.path.join(tmp, "debug")
+    r = run(common + ["--steps", str(DEBUG_STEPS), "--out", os.path.join(tmp, "debug.png"), "--debug-dir", dbg,
+                      "--debug-every", str(DEBUG_EVERY)], DEBUG_STEPS, k2)
+    line(f"translate --debug-dir (DDPM, {DEBUG_STEPS} steps, a dump every {DEBUG_EVERY})", r, DEBUG_STEPS)
+    r = run(common + ["--steps", str(DEBUG_STEPS), "--out", os.path.join(tmp, "plain.png")], DEBUG_STEPS, k2)
+    line("translate, plain (the same seed)", r, DEBUG_STEPS)
+    r = run(common + ["--steps", str(DEBUG_TRACE_STEPS), "--out", os.path.join(tmp, "short.png"), "--debug-dir",
+                      os.path.join(tmp, "debug_short"), "--debug-every", "2"], DEBUG_TRACE_STEPS, k2,
+            os.path.join(tmp, "trace_dbg"))
+    line(f"translate --debug-dir, traced ({DEBUG_TRACE_STEPS} steps, a dump every 2)", r, DEBUG_TRACE_STEPS)
+    lats = [f"xt_{lo}.png" for lo in range((DEBUG_STEPS - 1) // DEBUG_EVERY * DEBUG_EVERY, -1, -DEBUG_EVERY)]
+    # debug_tensor's grids: one image in a 2 px border
+    want = {"input.png": (lat + 4, lat + 4, 3), "gt.png": (hr + 4, hr + 4, 3),
+            f"xt_{DEBUG_STEPS}_noised.png": (lat + 4, lat + 4, 3), "sr_x0.png": (hr + 4, hr + 4, 3),
+            "sr_x0_pred.png": (hr + 4, hr + 4, 3), **{n: (lat + 4, lat + 4, 3) for n in lats}}
+    got = {n: np.asarray(Image.open(os.path.join(dbg, n))).shape for n in sorted(os.listdir(dbg))}
+    if got != want:
+        raise AssertionError(f"cli translate --debug-dir: files {got}, expected {want}")
+    with open(os.path.join(tmp, "debug.png"), "rb") as a, open(os.path.join(tmp, "plain.png"), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("cli translate --debug-dir: its output PNG differs from the plain translate's with "
+                                 "the same seed")
+    log(f"  translate --debug-dir wrote {len(got)} files ({', '.join(got)}), its output byte-equal to the plain "
+        f"translate's")
 
 
 def _round(x):
@@ -2243,6 +2404,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase 19: the quality command on the card [{card}]")
         phase_quality(torch, A, device, card, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 20: visualize and translate --debug-dir on the card [{card}]")
+        phase_visualize_debug(torch, A, device, card, tmp)
 
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []
@@ -2288,7 +2452,7 @@ def main() -> int:
         "torch.mm(out_dtype=torch.float32), null if this torch lacks the latter; dw3x3: library cuDNN's channels-last "
         "depthwise conv; null where no single PyTorch call computes the function). bound_ms is the larger of "
         "bytes over 3.35 TB/s and operations over the peak of their type (989 TFLOP/s bf16, 1979 TOP/s int8, "
-        "67 TFLOP/s f32, 3.86e12 exponentials/s)")
+        "494.7 TFLOP/s TF32, three TF32 products a K1-f32 product, 67 TFLOP/s f32, 3.86e12 exponentials/s)")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

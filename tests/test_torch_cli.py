@@ -155,12 +155,13 @@ def test_parser_has_jax_subcommands_dests_defaults_and_choices():
 @pytest.mark.parametrize("command, item", [("train-srgan", "item 15"), ("quality", "item 15"),
                                            ("export-hlo", "item 10"), ("visualize", "item 19")])
 def test_unported_subcommands_exit_nonzero_naming_their_item(command, item, capsys):
-    """train-srgan and quality (item 15) are ported: like every ported
-    command they run on the card by default and, without one, exit non-zero
-    saying so (their CPU runs: tests/test_torch_srgan_training.py and
-    test_cli_quality_on_the_cpu below)."""
+    """train-srgan and quality (item 15) and visualize (item 19) are ported:
+    like every ported command they run on the card by default and, without
+    one, exit non-zero saying so (their CPU runs:
+    tests/test_torch_srgan_training.py, test_cli_quality_on_the_cpu below and
+    tests/test_torch_cli_debug.py). export-hlo stays refused."""
     argv = [command] + (["--image", "x.png"] if command == "visualize" else [])
-    if command in ("train-srgan", "quality"):
+    if command in ("train-srgan", "quality", "visualize"):
         assert command not in PM.NOT_PORTED
         if not torch.cuda.is_available():
             with pytest.raises(SystemExit, match="no CUDA device"):
@@ -210,7 +211,7 @@ def test_commands_need_a_card_unless_device_cpu(tiny, monkeypatch):
                  ["translate", "--config", str(tiny / "t.yaml"), "--image", "i", "--label", "l"],
                  ["super-resolve", "--image", "i"], ["train-ddpm"], ["serve"], ["train-seg"],
                  ["infer-seg", "--image", "i"], ["sample", "--sampler", "legacy", "--config", str(tiny / "d.yaml")],
-                 ["quality", "--config", str(tiny / "t.yaml")]):
+                 ["quality", "--config", str(tiny / "t.yaml")], ["visualize", "--image", "i"]):
         with pytest.raises(SystemExit, match="--device cpu"):
             PM.main(argv)
 
@@ -309,12 +310,15 @@ def test_cli_translate_on_the_cpu(tiny, tmp_path, sampler):
 
 
 def test_cli_translate_refuses_debug_dir_and_legacy_by_name(tiny, tmp_path):
-    """--debug-dir is not ported (item 19). The legacy sampler is (item 15):
-    it refuses, by name, a checkpoint that is not a reference torch file,
-    where JAX would go on with random weights."""
-    with pytest.raises(SystemExit, match="item 19"):
-        PM.main(["translate", "--config", str(tiny / "t.yaml"), "--image", "i", "--label", "l", "--debug-dir",
-                 str(tmp_path), "--device", "cpu"])
+    """--debug-dir traces the DDPM chain (item 19; its run:
+    tests/test_torch_cli_debug.py): with the few-step samplers it is
+    refused, as JAX refuses it. The legacy sampler (item 15) refuses, by
+    name, a checkpoint that is not a reference torch file, where JAX would
+    go on with random weights."""
+    for sampler in ("ddim", "dpm"):
+        with pytest.raises(SystemExit, match="use --sampler ddpm"):
+            PM.main(["translate", "--config", str(tiny / "t.yaml"), "--image", "i", "--label", "l", "--debug-dir",
+                     str(tmp_path), "--sampler", sampler, "--device", "cpu"])
     with pytest.raises(SystemExit, match="legacy UNet loads a reference torch file"):
         PM.main(["sample", "--sampler", "legacy", "--config", str(tiny / "d.yaml"), "--checkpoint",
                  str(tmp_path / "w.npz"), "--device", "cpu"])

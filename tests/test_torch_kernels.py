@@ -779,11 +779,14 @@ def test_probe_main_exits_2_without_cuda(probe, monkeypatch, capsys):
     ((8, 4, 4096, 64), dict(backward=True), 0.347419, "bf16"),
     ((8, 4, 1024, 32), dict(backward=True), 0.0108568, "bf16"),
     ((8, 4, 4096, 16), dict(backward=True), 0.138907, "ex2"),
+    ((8, 4, 1024, 16), dict(f32=True), 0.0130229, "tf32x3"),
+    ((8, 4, 1024, 24), dict(f32=True), 0.0195344, "tf32x3"),
 ])
 def test_attention_roofline_counts_what_the_function_needs(shape, kw, ms, binds):
     """By hand, B*H = 32: the forward's two products at 989 TFLOP/s (Q K^T at
-    1,979 TOP/s in int8), the backward's five, and one exponential a score
-    at 16 * 132 * 1.83e9 a second in both directions."""
+    1,979 TOP/s in int8; in f32 three TF32 products each at 494.7 TFLOP/s,
+    K1-f32's 3xTF32), the backward's five, and one exponential a score at
+    16 * 132 * 1.83e9 a second in both directions."""
     bound = probe_common.attention_roofline(probe_common.peaks("NVIDIA H100 80GB HBM3, 700.00 W"), shape, **kw)
     assert bound["binds"] == binds and bound["bound_by"] == "operations"
     assert bound["bound_ms"] == pytest.approx(ms, rel=1e-5)

@@ -339,20 +339,19 @@ def test_sample_with_sgg_present_k_bit_identical_end_to_end(models):
 
 
 def test_sample_with_sgg_takes_every_keyword_of_the_jax_signature():
-    """But `key` (a torch.Generator, or replayed noise, stands for it) and
-    `xt_init` / `t_offset` (chain segmentation for a backend that bounds one
-    call's wall time; not carried over). The defaults agree too."""
+    """But `key` (a torch.Generator, or replayed noise, stands for it).
+    `xt_init` / `t_offset`, the chain's segments, are ported too
+    (tests/test_torch_segments.py). The defaults agree too."""
     jax_params = inspect.signature(JT.sample_with_sgg).parameters
     port_params = inspect.signature(PT.sample_with_sgg).parameters
     for name, p in jax_params.items():
-        if name in ("key", "xt_init", "t_offset"):
+        if name == "key":
             assert name not in port_params
             continue
         assert name in port_params, name
         assert port_params[name].default == p.default, name
     assert port_params["guidance_style"].default == "alternate"
-    kw = {name: p.default for name, p in jax_params.items()
-          if p.default is not inspect.Parameter.empty and name not in ("xt_init", "t_offset")}
+    kw = {name: p.default for name, p in jax_params.items() if p.default is not inspect.Parameter.empty}
     kw.update(num_steps=2, start_t=1, lcg_present_k=2, num_classes=3)
     seg = lambda img: torch.cat([img, img.sum(1, keepdim=True)], dim=1)[:, :3]  # noqa: E731
     sr = lambda lat: torch.nn.functional.interpolate(lat, scale_factor=2).mul(0.5).add(0.5).clamp(0, 1)  # noqa: E731

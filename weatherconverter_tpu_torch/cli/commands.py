@@ -1,7 +1,8 @@
 """The CLI's subcommands and the checkpoint loaders (port of
 weatherconverter_tpu/cli/commands.py): sample (the legacy UNet's loop too),
-translate, super-resolve, infer-seg, quality, train-ddpm, train-seg and
-train-srgan, on the CUDA card unless `--device cpu` asks for the CPU.
+translate (with --debug-dir's chain dumps), super-resolve, infer-seg,
+quality, visualize, train-ddpm, train-seg and train-srgan, on the CUDA card
+unless `--device cpu` asks for the CPU.
 
 Checkpoints: a reference torch file (.pt, .pth, .ckpt, .tar; its
 `model_state_dict` / `state_dict` / `model` entry when wrapped) loads with
@@ -279,14 +280,16 @@ def run_translate(args) -> int:
     from weatherconverter_tpu_torch.guidance.translate import make_translate_fn
     from weatherconverter_tpu_torch.utils.images import save_images
 
-    if getattr(args, "debug_dir", None):
-        raise SystemExit("--debug-dir is not ported yet (it needs utils/debug.py, ROADMAP Queue 1 item 19)")
     device = resolve_device(args.device)
     cfg = load_translation_config(args.config)
     sampler = args.sampler
     if args.steps is None:
         # the fast samplers exist for few-step translation: 500 would defeat them
         args.steps = {"ddim": 50, "dpm": 20}.get(sampler, 500)
+    if args.debug_dir and sampler != "ddpm":
+        raise SystemExit("--debug-dir traces the DDPM reverse chain through its bit-identical segments "
+                         "(guidance/translate.py xt_init/t_offset); the few-step ddim/dpm trajectories have no "
+                         "segment continuation: use --sampler ddpm.")
     if sampler in ("ddim", "dpm") and args.mode == "reference":
         raise SystemExit(f"--sampler {sampler} with --mode reference would disable guidance entirely (the "
                          "reference's x_t overwrite has no fast-solver analog). Use --mode fixed for guided fast "
@@ -312,9 +315,79 @@ def run_translate(args) -> int:
                                       **common)
     x = torch.from_numpy(img)[None].to(device)
     g = torch.from_numpy(gt.astype(np.int64))[None].to(device)
-    out = translate(x, g, torch.Generator(device=device).manual_seed(args.seed))
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    if args.debug_dir:
+        return _run_translate_debug(args, translate, sched, seg, sr, device, x, g, generator)
+    out = translate(x, g, generator)
     save_images(out, args.out, nrow=1, from_range="unit")
     print(f"saved {args.out}")
+    return 0
+
+
+def _run_translate_debug(args, translate, sched, seg, sr, device, x, g, generator) -> int:
+    """`translate --debug-dir`: the chain's intermediates (the original
+    code's debug dumps, translation.py:17-39, 58-92): input.png, gt.png,
+    xt_{steps}_noised.png, xt_{lo}.png after every --debug-every steps,
+    sr_x0.png and its seg prediction sr_x0_pred.png, then the output. The
+    chain runs in segments (sample_with_sgg's xt_init / t_offset,
+    final_sr=False) from `translate_entry`'s draws, so the trajectory and
+    the output are the plain translate's for the same seed, bit for bit."""
+    from weatherconverter_tpu_torch.diffusion.sampling import nchw, nhwc
+    from weatherconverter_tpu_torch.guidance.translate import translate_entry
+    from weatherconverter_tpu_torch.utils.debug import debug_tensor
+    from weatherconverter_tpu_torch.utils.images import save_images
+
+    d, steps, every = args.debug_dir, args.steps, max(1, args.debug_every)
+    debug_tensor(x, os.path.join(d, "input.png"), "input_tensor")
+    debug_tensor(g, os.path.join(d, "gt.png"), "gt")
+    xt = translate_entry(sched, x, steps, generator)
+    debug_tensor(xt, os.path.join(d, f"xt_{steps}_noised.png"), "xt_noised")
+    prev = steps
+    for lo in range((steps - 1) // every * every, -1, -every):
+        xt = translate(x, g, generator, xt_init=xt, t_offset=lo, num_steps=prev - lo, final_sr=False)
+        # xt_{lo}.png: the latent after step lo, the original code's naming
+        debug_tensor(xt, os.path.join(d, f"xt_{lo}.png"), f"xt after step {lo}")
+        prev = lo
+    with torch.no_grad(), autocast(device):
+        sr_out = nhwc(sr(nchw(xt)))
+        pred = seg(nchw(sr_out)).argmax(dim=1).to(torch.uint8)
+    debug_tensor(sr_out.float(), os.path.join(d, "sr_x0.png"), "sr_x0", from_range="unit")
+    debug_tensor(pred, os.path.join(d, "sr_x0_pred.png"), "seg pred of output")
+    save_images(sr_out, args.out, nrow=1, from_range="unit")
+    print(f"saved {args.out} (debug dumps in {d})")
+    return 0
+
+
+def run_visualize(args) -> int:
+    """The forward and backward process strips and the augmentation
+    galleries of one image (reference: visualizer.py:39-109, 160-191) into
+    `--out`: forward.png (q(x_t | x_0) every --every steps), backward.png (a
+    batch-1 ddpm_sample over the config's full T, a frame every --every
+    steps), aug_photometric.png and aug_geometric.png. The UNet takes K1 on
+    the card (no int8: as in JAX, this command never turns it on)."""
+    from weatherconverter_tpu_torch.core.config import load_diffusion_config
+    from weatherconverter_tpu_torch.diffusion.sampling import ddpm_sample
+    from weatherconverter_tpu_torch.utils.images import (augmentation_galleries, backward_process_strip,
+                                                         forward_process_strip, save_strip)
+
+    device = resolve_device(args.device)
+    cfg = load_diffusion_config(args.config)
+    sched = make_schedule_from(cfg.diffusion, device)
+    size = cfg.model.im_size
+    x0 = torch.from_numpy(_load_image(args.image, size) * 2.0 - 1.0).to(device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    save_strip(forward_process_strip(sched, x0, generator, every=args.every), os.path.join(args.out, "forward.png"))
+
+    unet = load_unet(cfg.model, args.checkpoint, 0).to(device).eval()
+    with autocast(device):
+        _, traj = ddpm_sample(unet, sched, (1, size, size, cfg.model.im_channels), generator,
+                              return_trajectory_every=args.every)
+    save_strip(backward_process_strip(traj), os.path.join(args.out, "backward.png"))
+
+    galleries = augmentation_galleries((x0 + 1.0) / 2.0, torch.Generator(device=device).manual_seed(1))
+    for name, strip in galleries.items():
+        save_strip(strip, os.path.join(args.out, f"aug_{name}.png"), from_range="unit")
+    print(f"saved strips under {args.out}")
     return 0
 
 

@@ -6,9 +6,9 @@ and choices, and one addition: `--device {cuda,cpu}`.
 Every command runs on the CUDA card unless `--device cpu` is given; without
 a card it stops with a message and a non-zero exit, and never goes on
 quietly on the CPU. Ported: train-ddpm, train-seg, train-srgan, sample (with
---sampler legacy), translate, super-resolve, infer-seg, quality and serve.
-The others parse as in the JAX CLI and stop with a message naming the
-ROADMAP item that ports their modules.
+--sampler legacy), translate (with --debug-dir), super-resolve, infer-seg,
+quality, visualize and serve. export-hlo parses as in the JAX CLI and stops
+with a message naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ import sys
 NOT_PORTED = {
     "export-hlo": "the torch.export counterpart of export-hlo is ROADMAP Queue 1 item 10 (its kernels must first be "
                   "registered as custom ops)",
-    "visualize": "the process strips are ROADMAP Queue 1 item 19",
 }
 
 INT8_HELP = ("keep K1, the exact bf16 flash attention. On the card inference defaults to K2 (int8 Q K^T and its "
@@ -94,7 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="pack LCG's class sweep into K per-image slots holding the classes present in the label: "
                          "'auto' (default) counts them (bit-exact against the full sweep), an integer truncates to "
                          "the K largest, 'off' is the full sweep")
-    tr.add_argument("--debug-dir", default=None, help="chain dumps (not ported: ROADMAP item 19)")
+    tr.add_argument("--debug-dir", default=None,
+                    help="dump the chain's intermediates here (input, gt, the noised and every --debug-every-th "
+                         "latent, the SR output and its seg prediction); --sampler ddpm only")
     tr.add_argument("--debug-every", type=int, default=100)
     _device_flag(tr)
 
@@ -155,7 +156,7 @@ def build_parser() -> argparse.ArgumentParser:
     eh.add_argument("--attn", default="bf16", choices=["bf16", "int8"])
     _device_flag(eh)
 
-    vz = sub.add_parser("visualize", help="forward/backward process strips (not ported)")
+    vz = sub.add_parser("visualize", help="forward/backward process strips and augmentation galleries")
     vz.add_argument("--config", default=None)
     vz.add_argument("--image", required=True)
     vz.add_argument("--checkpoint", default=None)
@@ -219,7 +220,7 @@ def main(argv=None) -> int:
             "train-srgan": commands.run_train_srgan, "sample": commands.run_sample,
             "translate": commands.run_translate, "super-resolve": commands.run_super_resolve,
             "infer-seg": commands.run_infer_seg, "quality": commands.run_quality,
-            "serve": run_serve}[args.command](args)
+            "visualize": commands.run_visualize, "serve": run_serve}[args.command](args)
 
 
 if __name__ == "__main__":

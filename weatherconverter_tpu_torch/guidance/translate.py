@@ -85,6 +85,21 @@ def _guidance(seg_fn: SegFn, gt: torch.Tensor, lam: float, *, guidance_style: st
     return guide
 
 
+def translate_entry(sched: NoiseSchedule, input_128: torch.Tensor, num_steps: int, generator: Generators = None,
+                    start_t: Optional[int] = None, noise0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The guided chain's entry: t0 ~ U[0, num_steps) a row (or `start_t`),
+    then input_128 (B, h, w, 3) q-sampled to t0 with a draw from the
+    generator (or `noise0` replayed). Returns the noised latent, NHWC: what
+    `sample_with_sgg` starts from, and a first segment's `xt_init`."""
+    x_in = nchw(input_128).float()
+    b, device = x_in.shape[0], x_in.device
+    if start_t is None:
+        t0 = randint(num_steps, b, generator, device)
+    else:
+        t0 = torch.full((b,), start_t, dtype=torch.long, device=device)
+    return nhwc(q_sample(sched, x_in, draw_or_replay(generator, x_in, noise0), t0))
+
+
 def sample_with_sgg(
     diff_fn: ApplyFn,
     sched: NoiseSchedule,
@@ -105,12 +120,22 @@ def sample_with_sgg(
     guidance_style: str = "alternate",
     guidance_space: str = "sr",
     spatial_mesh=None,
+    xt_init: Optional[torch.Tensor] = None,
+    t_offset: Optional[int] = None,
     final_sr: bool = True,
-    noise: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    noise: Optional[tuple[Optional[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """input_128 (B, h, w, 3) in [-1, 1], gt (B, HR, HR) train-ids (255 ignored)
     -> the translated image upscaled, (B, HR, HR, 3) in [0, 1], or with
     `final_sr=False` the final latent (B, h, w, 3).
+
+    `xt_init`, `t_offset` and `final_sr` cut the chain into segments that
+    together are the single call bit for bit: a segment given `xt_init` (the
+    latent, (B, h, w, 3), that the previous segment returned with
+    `final_sr=False`, or `translate_entry`'s) skips the forward q-sample and
+    runs timesteps t_offset + num_steps - 1 .. t_offset. The generator's
+    state carries from one segment to the next; under `noise=` replay a
+    segment takes its own slice of z_steps (noise0 is not read).
 
     `guidance_style` 'alternate' guides a fired step with LCG when i is even
     and with GSG when i is odd; 'gsg' and 'lcg' use that operator on every
@@ -144,14 +169,14 @@ def sample_with_sgg(
                       lcg_class_chunk=lcg_class_chunk, lcg_present_k=lcg_present_k,
                       normalize_seg_input=normalize_seg_input)
 
-    if start_t is None:
-        t0 = randint(num_steps, b, generator, device)
+    if xt_init is not None:
+        xt = nchw(xt_init)
     else:
-        t0 = torch.full((b,), start_t, dtype=torch.long, device=device)
-    xt = q_sample(sched, x_in, draw_or_replay(generator, x_in, None if noise is None else noise[0]), t0)
+        xt = nchw(translate_entry(sched, input_128, num_steps, generator, start_t, None if noise is None else noise[0]))
+    offset = 0 if t_offset is None else int(t_offset)
 
     with torch.no_grad():
-        for s, i in enumerate(range(num_steps - 1, -1, -1)):
+        for s, i in enumerate(range(offset + num_steps - 1, offset - 1, -1)):
             eps = diff_fn(xt, torch.full((b,), i, dtype=torch.long, device=device))
             mu = posterior_mean(sched, xt, eps, i)
             sigma = posterior_sigma(sched, i)
@@ -292,7 +317,9 @@ def make_translate_fn(
     **kwargs,
 ):
     """Bind the three models into translate(input_128, gt, generator=None,
-    noise=None) -> sample_with_sgg(..., **kwargs).
+    noise=None, **segment) -> sample_with_sgg(..., **kwargs, **segment);
+    `segment` overrides kwargs for one call (a chain cut into segments
+    passes xt_init, t_offset, num_steps and final_sr).
 
     The models go to eval mode and the seg model's parameters are frozen
     (requires_grad False), so the guidance gradient is taken with respect to
@@ -309,12 +336,13 @@ def make_translate_fn(
         check_flash_precision(param.device.type, param.dtype if dtype is None else dtype,
                               diff_model.attention_shapes(diff_model.config.im_size), "make_translate_fn")
 
-    def translate(input_128, gt, generator=None, noise=None):
+    def translate(input_128, gt, generator=None, noise=None, **segment):
         ctx = (torch.autocast(input_128.device.type, dtype=dtype) if dtype is not None
                else contextlib.nullcontext())
         with ctx:
             return sample_with_sgg(
-                diff_model, sched, seg_model, sr_model, input_128, gt, generator, noise=noise, **kwargs
+                diff_model, sched, seg_model, sr_model, input_128, gt, generator, noise=noise,
+                **{**kwargs, **segment}
             )
 
     return translate

@@ -235,7 +235,9 @@ flash_attention.launches = 0
 
 def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_l: bool = False):
     """K1-f32, forward only: (B, H, N, D) f32 -> O f32 (and l with
-    `return_l`), every product and sum in f32. A CPU tensor takes
+    `return_l`), every sum in f32 and every product in 3xTF32 on the tensor
+    cores (each operand split into TF32 high and low parts, the lo*lo term
+    dropped: about 21 bits of the product). A CPU tensor takes
     `flash_attention_plain`; a CUDA tensor (f32, D in F32_HEAD_DIMS, N % 64
     == 0) launches the kernel or raises. `flash_attention` sends f32 CUDA
     inputs here."""

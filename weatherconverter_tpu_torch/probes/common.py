@@ -12,12 +12,13 @@ import sys
 import torch
 
 # Published dense peaks (NVIDIA's data sheet) at the full power limit, by a
-# substring of the card's name: HBM bytes/s, bf16 FLOP/s, int8 OP/s, f32
-# FLOP/s outside the tensor cores. The H100 SXM part's name carries "HBM3".
+# substring of the card's name: HBM bytes/s, bf16 FLOP/s, int8 OP/s, TF32
+# FLOP/s (half the bf16 rate), f32 FLOP/s outside the tensor cores. The H100
+# SXM part's name carries "HBM3".
 # `ex2` is the special-function rate (exp2, reciprocal): 16 a clock on each of
 # 132 SMs at 1.83 GHz.
 PEAKS = {
-    "H100 80GB HBM3": dict(hbm=3.35e12, bf16=989e12, int8=1979e12, f32=67e12, ex2=16 * 132 * 1.83e9),
+    "H100 80GB HBM3": dict(hbm=3.35e12, bf16=989e12, int8=1979e12, tf32=494.7e12, f32=67e12, ex2=16 * 132 * 1.83e9),
 }
 
 
@@ -99,8 +100,8 @@ def attention_roofline(peak: dict | None, shape, backward: bool = False, qk_int8
     """`roofline` of one clamped-softmax attention call on 16-bit (B, H, N, D)
     inputs. Forward: Q K^T and P V (2 N^2 D FLOPs a head each; with `qk_int8`
     Q K^T runs at the int8 rate and the two tensor times add; with `f32`, on
-    f32 inputs, both at the f32 rate outside the tensor cores), N^2
-    exponentials, Q, K, V read and O written. Backward: what the function
+    f32 inputs, both in 3xTF32, three TF32 products each, K1-f32's design),
+    N^2 exponentials, Q, K, V read and O written. Backward: what the function
     needs, the five products of a one-pass backward (10 N^2 D) and one
     exponential a score (N^2), with Q, K, V, O, dO and l read and dQ, dK, dV
     written; a two-pass backward spends seven products and 2 N^2
@@ -114,12 +115,22 @@ def attention_roofline(peak: dict | None, shape, backward: bool = False, qk_int8
     if backward:
         return _bound({"hbm": bh * n * (8 * d * 2 + 4) / peak["hbm"], "bf16": 5 * product / peak["bf16"], "ex2": ex2})
     if f32:
-        return _bound({"hbm": bh * n * 4 * d * 4 / peak["hbm"], "f32": 2 * product / peak["f32"], "ex2": ex2})
+        return _bound({"hbm": bh * n * 4 * d * 4 / peak["hbm"], "tf32x3": 3 * 2 * product / peak["tf32"], "ex2": ex2})
     if qk_int8:
         tensor = {"int8+bf16": product / peak["int8"] + product / peak["bf16"]}
     else:
         tensor = {"bf16": 2 * product / peak["bf16"]}
     return _bound({"hbm": bh * n * 4 * d * 2 / peak["hbm"], **tensor, "ex2": ex2})
+
+
+def f32_fma_ms(peak: dict | None, shape) -> float | None:
+    """The time the f32 forward's two products (4 N^2 D FLOPs a head) take
+    as f32 FMAs outside the tensor cores: K1-f32's first design's bound,
+    kept beside the 3xTF32 one; None for an unknown card."""
+    if peak is None:
+        return None
+    b, h, n, d = shape
+    return 4 * b * h * n * n * d / peak["f32"] * 1e3
 
 
 def quantizer_roofline(peak: dict | None, shape) -> dict:
