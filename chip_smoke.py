@@ -13,7 +13,11 @@ Phases, each of which fails the run (exit code != 0, no result line):
      backward alone, on the same inputs: a yardstick the port never calls;
      K2's quantizer must equal its plain version exactly (int8 tensors and
      scale), K2's time is split into quantizer and forward, and two K2 calls
-     must agree bit for bit; K1 and K3 also at the 256 px UNet's (N, D) =
+     must agree bit for bit; the quantizer and K2 again with one int8 scale a
+     batch row (the server's): the quantizer equal to its plain version, K2
+     within the forward gate, row 0 of a batch whose row 1 is scaled 100x
+     equal to row 0 alone, each timed beside its bound, the eager and sdpa
+     times; K1 and K3 also at the 256 px UNet's (N, D) =
      (1024, 192), K1 at the legacy UNet's (1024, 24) (D = 32 tiles with
      zero-filled tails), K1-f32 (3xTF32 on the tensor cores) at the legacy
      UNet's (1024, 16) and (1024, 24) in f32, within 1e-5 of max |ref| (beside
@@ -81,13 +85,15 @@ Phases, each of which fails the run (exit code != 0, no result line):
      the uint8 cast, and launch the kernels 8 times a UNet forward; then one
      translate in a fresh process; its wall time beside the library path's;
  14. the server (serving/server.py) on the card at the same configuration,
-     sampler dpm, batch 4: 16 concurrent /v1/translate requests with labels
-     of 3-19 classes and 4 /v1/sample requests at 20 steps, under
-     lcg_present_k='auto' and under the full sweep (latency p50/p95,
-     translations a minute, occupancy, batches, buckets, peak memory); every
-     response 200 with a PNG of its shape, /stats counts that add up; one seed
-     solo and co-batched, within two solo runs' difference plus one uint8
-     level;
+     sampler dpm at 10 steps, batch 4: 16 concurrent /v1/translate requests
+     with labels of 3-19 classes and 4 /v1/sample requests, on K2 with one
+     int8 scale a request (the default) under lcg_present_k='auto' and under
+     the full sweep, and on K1 (--no-int8-attn) under the full sweep (latency
+     p50/p95, translations a minute, occupancy, batches, buckets, peak
+     memory, the kernels' launches); every response 200 with a PNG of its
+     shape, /stats counts that add up; after each full sweep one seed solo
+     and co-batched, within two solo runs' difference plus one uint8 level,
+     under K2 as under K1;
  15. segmentation at configs/segmentation.yaml (DeepLabV3+/ResNet-101 at
      OS16, 19 classes, batch 8, 270 x 480 images cropped to 256 x 256, SGD
      under PolyLR, bf16 autocast over f32 parameters, seeded random weights)
@@ -155,13 +161,22 @@ Phases, each of which fails the run (exit code != 0, no result line):
  20. `visualize` through the CLI at configs/diffusion.yaml (seeded weights,
      K1) on a synthetic 128 px image, a frame every 100 steps of the full
      1000-step chain at batch 1, and `translate --debug-dir` at
-     configs/translation.yaml (K2 per layer) at 20 steps, a dump every 5,
+     configs/translation.yaml (K2 per layer) at 10 steps, a dump every 5,
      beside a plain translate with the same seed: exit 0, the files and
      their shapes, K1/K2/quantizer launches as the UNets' attention_kernels
      predict, the debug run's output PNG byte-equal to the plain one's; each
      run's wall time (core/profiling.StepTimer) and peak memory
      (device_memory_stats); a traced short run of each (core/profiling.trace,
-     the trace written and not empty) for device time and idle share.
+     the trace written and not empty) for device time and idle share;
+ 21. `export-hlo --program translate --attn int8` through the CLI at
+     configs/translation.yaml, batch 2, 2 steps (K2 and its quantizer as
+     custom ops in the traced program), then the live program twice on the
+     card with seeded weights, input, labels and draws, and the archive run
+     by serving/hlo_runtime.load_exported in a fresh process that imports no
+     model code: K2 and its quantizer launched 8 times a UNet forward there
+     as live, no K1, bf16 casts in the loaded graph, the output bit-equal to
+     the live one; the trace, export, save, load and run seconds and the
+     archive's MiB.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors, times, bounds
 and library times.
@@ -246,8 +261,10 @@ SEG_LIMITS = {"f32": dict(loss=1e-4, update=5e-2, stats=2e-2, stats_worst=1e-2, 
               "bf16": dict(loss=1e-3, update_without_pooled=0.25, stats=2e-2, stats_worst=0.1, agree=0.95)}
 SEG_CONTROLS = (("bf16", "head_lr_x2"), ("bf16", "unbiased_running_var"), ("bf16", "zero_logits"),
                 ("f32", "dropout_on"))
-# phase 12 runs its DDIM half only if the run reaches it this early, so that phases 13-14 fit the time limit
-INT8_DDIM_BEFORE_S = 420
+# phase 12 runs its DDIM half only if the run reaches it this early, so that phases 13-21 fit the time limit (it was
+# 420 s before phase 21 came: the runs reach phase 12 at 290-400 s on an H100, so the DDIM half runs only on a faster
+# host)
+INT8_DDIM_BEFORE_S = 240
 # phase 16: the rest of the DeepLab family at configs/segmentation.yaml with the geometric legs on, each
 # model (name, separable head) a few steps, FAMILY_WINDOWS timed windows of FAMILY_WINDOW_STEPS, a profiled
 # window of FAMILY_PROFILED steps; its eval forward at batch 2, card f32 against CPU f32, held on the
@@ -280,7 +297,15 @@ QUALITY_N, QUALITY_STEPS = 8, 20
 # config with a VIS_TRACE_T-step schedule, translate --debug-dir at DEBUG_TRACE_STEPS steps (a trace holds every host
 # op and kernel: 68 MiB for 20 visualize steps, 304 MiB for 20 guided steps on an H100, so traces of the full runs
 # would take minutes to write)
-VIS_EVERY, VIS_TRACE_T, DEBUG_STEPS, DEBUG_EVERY, DEBUG_TRACE_STEPS = 100, 20, 20, 5, 4
+VIS_EVERY, VIS_TRACE_T, DEBUG_STEPS, DEBUG_EVERY, DEBUG_TRACE_STEPS = 100, 20, 10, 5, 4
+# phase 14: the server's DPM chains (translate and /v1/sample) take SERVER_STEPS steps, 10 where the server's default
+# is 20, and phase 20's --debug-dir chains DEBUG_STEPS, 10 (was 20), so that phase 21 fits: with both at 20 the whole
+# script took ~1190 s of its 1200 on a slow host (PERF.md section 6)
+SERVER_STEPS = 10
+# phase 21: export-hlo --attn int8 of the translate program at configs/translation.yaml: steps (the JAX default
+# schedule: GSG at i = 1, none at i = 0) and batch. At 3 steps (LCG at i = 2: five seg calls) the graph held 24,004
+# nodes and the phase took 143 s on an H100 (save 28 s, load 41 s); tests/test_torch_export.py runs 3 steps tiny
+EXPORT_STEPS, EXPORT_BATCH = 2, 2
 SRGAN_LIMITS = dict(loss=1e-5, update=0.1, moments_g_pretrain=1e-3, moments_g_gan=0.1, moments_d=5e-2, stats=1e-4)
 HEADLINE = dict(guidance_every=2, guidance_space="latent", lam=120.0)
 REFERENCE_EXACT = dict(guidance_every=1, guidance_space="sr", lam=60.0)
@@ -463,29 +488,45 @@ def phase_quantizer(torch, A, device, card):
     projection, read in place) and on contiguous tensors: q8, k8 and the scale
     must be equal; K2 whole on the views within KERNEL_TOL of its plain
     version; its time in both layouts beside its bytes bound and the eager
-    version's; K2's forward alone; two K2 calls bit-equal. Returns dict(err,
-    ms, plain_ms, library_ms, bound), sums over the shapes in the UNet's
-    layout (err: the largest difference of an int8 value or of the scale,
-    which must be 0)."""
-    from weatherconverter_tpu_torch.probes.common import add_rooflines, peaks, quantizer_roofline, time_ms
+    version's; K2's forward alone; two K2 calls bit-equal. Then both with one
+    scale a batch row (`per_item`, the server's): the quantizer equal to its
+    plain version on the views, K2 within KERNEL_TOL of its plain version and
+    two calls bit-equal, and on a batch whose row 1 is scaled 100x, row 0's
+    int8 values, scale and K2 output equal to those of row 0 alone; their
+    times beside the bound and the eager and sdpa times. Returns {name:
+    dict(err, ms, plain_ms, library_ms, bound)} for "quantize_qk_i8" (one
+    scale), "quantize_qk_i8_per_item" and "flash_attention_qk_i8_per_item",
+    sums over the shapes in the UNet's layout (err: the largest difference of
+    an int8 value or of a scale, which must be 0, and K2's max abs error)."""
+    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, peaks,
+                                                          quantizer_roofline, time_ms)
 
     gen = torch.Generator(device=device).manual_seed(20)
-    total, bounds = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=None), []
+    zero = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
+    total, rows, k2_rows = dict(zero), dict(zero), dict(zero, library_ms=0.0)
+    bounds, row_bounds, k2_bounds = [], [], []
+
+    def views(qkv):
+        b, n, _ = qkv.shape
+        return [t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1)]  # as models/layers.py
+
+    def same(got, ref, where):
+        err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+        if not all(g.is_contiguous() and torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"quantize_qk_i8 {where}: differs from its plain version (largest difference {err})")
+        return err
+
     for shape in PATH_SHAPES:
         b, h, n, d = shape
         qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=device).to(torch.bfloat16)
-        q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))  # as models/layers.py
+        q, k, v = views(qkv)
         if q.is_contiguous() or A._row_strides(q) is None:
             raise AssertionError(f"quantize_qk_i8 {shape}: the head-split views are not read in place")
         ms = {}
         for layout, (ql, kl) in (("views", (q, k)), ("contiguous", (q.contiguous(), k.contiguous()))):
             got = A.quantize_qk_i8(ql, kl)
             torch.cuda.synchronize()
-            ref = A.quantize_qk_i8_plain(ql, kl)
-            err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
-            if not all(g.is_contiguous() and torch.equal(g, r) for g, r in zip(got, ref)):
-                raise AssertionError(f"quantize_qk_i8 {shape} ({layout}): differs from its plain version (largest "
-                                     f"difference {err})")
+            err = same(got, A.quantize_qk_i8_plain(ql, kl), f"{shape} ({layout})")
             ms[layout] = (time_ms(lambda: A.quantize_qk_i8(ql, kl), reps=20),
                           time_ms(lambda: A.quantize_qk_i8_plain(ql, kl), reps=20))
         out = A.flash_attention_qk_i8(q, k, v)
@@ -504,8 +545,50 @@ def phase_quantizer(torch, A, device, card):
             f"{kc_ms:.4f} ms contiguous (two launches and a two-float fill), its eager version {p_ms:.4f} / "
             f"{pc_ms:.4f} ms, {_bound_text(bound)}; K2's forward alone {f_ms:.4f} ms")
         total = dict(total, err=max(total["err"], err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms)
-        del qkv, q, k, v, vc, got, ref, out
-    return dict(total, bound=add_rooflines(*bounds))
+
+        # one scale a batch row
+        got = A.quantize_qk_i8(q, k, per_item=True)
+        torch.cuda.synchronize()
+        err = same(got, A.quantize_qk_i8_plain(q, k, per_item=True), f"{shape} (views, per row)")
+        if got[2].shape != (b,):
+            raise AssertionError(f"quantize_qk_i8 {shape} per row: scales of shape {tuple(got[2].shape)}")
+        big = qkv.clone()
+        big[1] *= 100  # row 1's maximum 100x the others': row 0 must not see it
+        qb, kb, vb = views(big)
+        mixed, alone = A.quantize_qk_i8(qb, kb, per_item=True), A.quantize_qk_i8(qb[:1], kb[:1], per_item=True)
+        out_mixed, out_alone = (A.flash_attention_qk_i8(qb, kb, vb, per_item=True),
+                                A.flash_attention_qk_i8(qb[:1], kb[:1], vb[:1], per_item=True))
+        if not (torch.equal(mixed[0][:1], alone[0]) and torch.equal(mixed[1][:1], alone[1])
+                and torch.equal(mixed[2][:1], alone[2]) and torch.equal(out_mixed[:1], out_alone)):
+            raise AssertionError(f"per-row int8 {shape}: row 0 moved with row 1 (scaled 100x)")
+        out = A.flash_attention_qk_i8(q, k, v, per_item=True)
+        if not torch.equal(out, A.flash_attention_qk_i8(q, k, v, per_item=True)):
+            raise AssertionError(f"flash_attention_qk_i8 per row {shape}: two calls on the same inputs differ")
+        k2r_err, _ = _forward_gate(torch, "flash_attention_qk_i8 per row on head-split views", shape, out,
+                                   A.flash_attention_qk_i8_plain(q, k, v, per_item=True))
+        r_ms = time_ms(lambda: A.quantize_qk_i8(q, k, per_item=True), reps=20)
+        rp_ms = time_ms(lambda: A.quantize_qk_i8_plain(q, k, per_item=True), reps=20)
+        k2r_ms = time_ms(lambda: A.flash_attention_qk_i8(q, k, v, per_item=True), reps=20)
+        k2rp_ms = time_ms(lambda: A.flash_attention_qk_i8_plain(q, k, v, per_item=True), reps=5)
+        fr_ms = time_ms(lambda: A.flash_qk_i8_forward(*got, vc), reps=20)
+        lib_ms = _sdpa_ms(torch, q, k, v)
+        r_bound, k2_bound = quantizer_roofline(peaks(card), shape, scales=b), attention_roofline(peaks(card), shape,
+                                                                                                  qk_int8=True)
+        row_bounds.append(r_bound)
+        k2_bounds.append(k2_bound)
+        log(f"  per row (one int8 scale a batch row) B*H={b * h} N={n} D={d}: the quantizer equals its plain version "
+            f"on the views, row 0 of a batch whose row 1 is x100 equals row 0 alone (int8, scale, K2's output); K2 "
+            f"max_abs_err {k2r_err:.3e} (tol {KERNEL_TOL}), two calls bit-equal; quantizer {r_ms:.4f} ms (one scale "
+            f"{k_ms:.4f}), eager {rp_ms:.4f} ms, {_bound_text(r_bound)}; K2 whole {k2r_ms:.4f} ms, its forward alone "
+            f"{fr_ms:.4f} ms (one scale {f_ms:.4f}), plain {k2rp_ms:.3f} ms, {_bound_text(k2_bound)}, sdpa forward "
+            f"{lib_ms:.4f} ms (yardstick)")
+        rows = dict(rows, err=max(rows["err"], err), ms=rows["ms"] + r_ms, plain_ms=rows["plain_ms"] + rp_ms)
+        k2_rows = dict(err=max(k2_rows["err"], k2r_err), ms=k2_rows["ms"] + k2r_ms,
+                       plain_ms=k2_rows["plain_ms"] + k2rp_ms, library_ms=k2_rows["library_ms"] + lib_ms)
+        del qkv, q, k, v, vc, got, out, big, qb, kb, vb, mixed, alone, out_mixed, out_alone
+    return {"quantize_qk_i8": dict(total, bound=add_rooflines(*bounds)),
+            "quantize_qk_i8_per_item": dict(rows, bound=add_rooflines(*row_bounds)),
+            "flash_attention_qk_i8_per_item": dict(k2_rows, bound=add_rooflines(*k2_bounds))}
 
 
 def phase_unet_256(torch, A, device):
@@ -1276,13 +1359,18 @@ def _percentile(xs, q):
 
 
 def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
-    """The server on the card at configs/translation.yaml, sampler dpm,
-    batch 4: 16 concurrent /v1/translate requests (labels of 3-19 classes
-    drawn from a seed) and 4 /v1/sample requests at 20 steps, once under
-    lcg_present_k='auto' and once under the full sweep; then one seed solo
-    twice and co-batched with three others. Gates: every response 200 with
-    a PNG of the right shape, /stats counts that add up, the co-batched image
-    within (two solo runs' difference + 1) uint8 levels of the solo one."""
+    """The server on the card at configs/translation.yaml, sampler dpm at
+    `steps` (its default, 20, when None), batch 4: 16 concurrent
+    /v1/translate requests (labels of 3-19 classes drawn from a seed) and 4
+    /v1/sample requests, on K2 with one
+    int8 scale a request (the server's default) under lcg_present_k='auto'
+    and under the full sweep, and on K1 (--no-int8-attn) under the full
+    sweep; after each full sweep, one seed solo twice and co-batched with
+    three others. Gates: every response 200 with a PNG of the right shape,
+    /stats counts that add up, K2 and no K1 launched (K1 and no K2 with
+    --no-int8-attn), the co-batched image within (two solo runs' difference
+    + 1) uint8 levels of the solo one, under K2 as under K1. Returns K2's
+    launches in its full-sweep run."""
     import base64
     import threading
     import urllib.request
@@ -1330,18 +1418,20 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
             t.join()
         return results, time.perf_counter() - t0
 
-    summary = {}
-    for name, present_k in (("auto", "auto"), ("full sweep", None)):
+    summary, k2_launches = {}, 0
+    for name, present_k, int8 in (("auto, K2", "auto", True), ("full sweep, K2", None, True),
+                                  ("full sweep, K1 (--no-int8-attn)", None, False)):
         t0 = time.perf_counter()
         service = TranslationService(cfg, batch=4, sampler="dpm", max_wait_ms=100.0, lcg_present_k=present_k,
-                                     device=device, steps=steps)
+                                     device=device, steps=steps, qk_int8=int8 and on_card)
         warm_s = time.perf_counter() - t0
         httpd = serve(service, port=0, block=False, host="127.0.0.1")
         base = f"http://127.0.0.1:{httpd.server_address[1]}"
         try:
             torch.cuda.reset_peak_memory_stats()
-            A.flash_attention_qk_i8.launches = A.flash_attention.launches = 0
+            A.flash_attention_qk_i8.launches = A.flash_attention.launches = A.quantize_qk_i8.launches = 0
             results, wall = traffic(base)
+            k1, k2 = A.flash_attention.launches, A.flash_attention_qk_i8.launches
             with urllib.request.urlopen(base + "/stats", timeout=60) as r:
                 stats = json.load(r)
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1349,11 +1439,15 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
                    if c != 200 or png.shape != ((hr, hr, 3) if k[0] == "t" else (size, size, 3))]
             tr = stats["translate"]
             buckets = stats.get("lcg_k_buckets", {})
+            kernels_ok = (not on_card and k1 == k2 == 0) or (
+                on_card and ((int8 and k2 > 0 and k1 == 0 and A.quantize_qk_i8.launches == k2) or
+                             (not int8 and k1 > 0 and k2 == 0)))
             if bad or len(results) != 20 or tr["requests"] != 16 or stats["sample"]["requests"] != 4 or (
-                    present_k == "auto" and sum(buckets.values()) != 16) or (on_card and not A.flash_attention.launches) or \
-                    A.flash_attention_qk_i8.launches:
-                raise AssertionError(f"server ({name}): responses {bad}, stats {stats}, K1 / K2 launches "
-                                     f"{A.flash_attention.launches} / {A.flash_attention_qk_i8.launches}")
+                    present_k == "auto" and sum(buckets.values()) != 16) or not kernels_ok:
+                raise AssertionError(f"server ({name}): responses {bad}, stats {stats}, K1 / K2 / quantizer launches "
+                                     f"{k1} / {k2} / {A.quantize_qk_i8.launches}")
+            if int8 and present_k is None:
+                k2_launches = k2
             lat = [results[("t", i)][2] for i in range(16)]
             summary[name] = dict(p50=_percentile(lat, 50), p95=_percentile(lat, 95), per_min=16 * 60.0 / wall)
             log(f"  server, lcg {name}: 16 translations and 4 samples in {wall:.2f} s; translation latency p50 "
@@ -1361,8 +1455,7 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
                 f"translations/min; translate batches {tr['batches']}, mean occupancy {tr['mean_occupancy']:.2f}; "
                 f"sample batches {stats['sample']['batches']}; buckets {buckets or 'none (one width, 19 classes)'}; "
                 f"labels' classes {classes}; peak device memory {peak:.2f} GiB; start-up with warm-up of "
-                f"{len(service.shapes())} translate shapes {warm_s:.1f} s; K1 launches {A.flash_attention.launches} "
-                f"[{card}]")
+                f"{len(service.shapes())} translate shapes {warm_s:.1f} s; K1 / K2 launches {k1} / {k2} [{card}]")
             if present_k is None:
                 # one seed solo twice, then co-batched with three other seeds: one width (the full sweep pads
                 # every batch to 4), so only the batch-mates change
@@ -1379,7 +1472,7 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
                     t.join()
                 self_diff = int(np.abs(solo[0] - solo[1]).max())
                 co_diff = int(np.abs(co[7] - solo[0]).max())
-                log(f"  per-seed determinism (full sweep, width 4, K1): two "
+                log(f"  per-seed determinism ({name}, width 4): two "
                     f"solo runs of seed 7 differ by at most {self_diff} uint8 levels (mean "
                     f"{np.abs(solo[0] - solo[1]).mean():.4f}), the solo and co-batched (with seeds 8-10) images by "
                     f"{co_diff} (mean {np.abs(co[7] - solo[0]).mean():.4f}; gate: <= {self_diff + 1}); seeds 7 and 8 "
@@ -1392,9 +1485,11 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
             service.close()
             del service
             torch.cuda.empty_cache()
-    log(f"  mixed K against the full sweep: p50 {summary['auto']['p50']:.2f} / {summary['full sweep']['p50']:.2f} s, "
-        f"p95 {summary['auto']['p95']:.2f} / {summary['full sweep']['p95']:.2f} s, "
-        f"{summary['auto']['per_min']:.1f} / {summary['full sweep']['per_min']:.1f} translations/min [{card}]")
+    for a, b in (("auto, K2", "full sweep, K2"), ("full sweep, K2", "full sweep, K1 (--no-int8-attn)")):
+        log(f"  {a} against {b}: p50 {summary[a]['p50']:.2f} / {summary[b]['p50']:.2f} s, p95 {summary[a]['p95']:.2f} "
+            f"/ {summary[b]['p95']:.2f} s, {summary[a]['per_min']:.1f} / {summary[b]['per_min']:.1f} "
+            f"translations/min [{card}]")
+    return k2_launches
 
 
 def _synthetic_acdc(root, seed, pairs=SEG_PAIRS, size=SEG_SIZE, classes=19):
@@ -2236,11 +2331,16 @@ def phase_visualize_debug(torch, A, device, card, tmp, tcfg=None, dcfg=None, vis
     k2 = per_forward(tc.diffusion.model, on_card)  # the CLI's qk_int8 on the card
     common = ["translate", "--config", tcfg, "--image", img, "--label", lbl, "--seed", "5"]
     dbg = os.path.join(tmp, "debug")
-    r = run(common + ["--steps", str(DEBUG_STEPS), "--out", os.path.join(tmp, "debug.png"), "--debug-dir", dbg,
-                      "--debug-every", str(DEBUG_EVERY)], DEBUG_STEPS, k2)
-    line(f"translate --debug-dir (DDPM, {DEBUG_STEPS} steps, a dump every {DEBUG_EVERY})", r, DEBUG_STEPS)
-    r = run(common + ["--steps", str(DEBUG_STEPS), "--out", os.path.join(tmp, "plain.png")], DEBUG_STEPS, k2)
-    line("translate, plain (the same seed)", r, DEBUG_STEPS)
+    # the two outputs are compared byte for byte: with autotuning the guided chain is not reproducible on the card
+    # (the same translate four times in one process gave two PNGs, before the custom ops as after; PERF.md
+    # section 6): the fastest backward convolutions add in a varying order
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        r = run(common + ["--steps", str(DEBUG_STEPS), "--out", os.path.join(tmp, "debug.png"), "--debug-dir", dbg,
+                          "--debug-every", str(DEBUG_EVERY)], DEBUG_STEPS, k2)
+        line(f"translate --debug-dir (DDPM, {DEBUG_STEPS} steps, a dump every {DEBUG_EVERY}; cuDNN deterministic)",
+             r, DEBUG_STEPS)
+        r = run(common + ["--steps", str(DEBUG_STEPS), "--out", os.path.join(tmp, "plain.png")], DEBUG_STEPS, k2)
+        line("translate, plain (the same seed; cuDNN deterministic)", r, DEBUG_STEPS)
     r = run(common + ["--steps", str(DEBUG_TRACE_STEPS), "--out", os.path.join(tmp, "short.png"), "--debug-dir",
                       os.path.join(tmp, "debug_short"), "--debug-every", "2"], DEBUG_TRACE_STEPS, k2,
             os.path.join(tmp, "trace_dbg"))
@@ -2259,6 +2359,126 @@ def phase_visualize_debug(torch, A, device, card, tmp, tcfg=None, dcfg=None, vis
                                  "the same seed")
     log(f"  translate --debug-dir wrote {len(got)} files ({', '.join(got)}), its output byte-equal to the plain "
         f"translate's")
+
+
+_EXPORT_CONSUMER = """
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[4])
+import torch
+torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+from weatherconverter_tpu_torch.serving import load_exported
+t1 = time.perf_counter()
+call = load_exported(sys.argv[1])
+t2 = time.perf_counter()
+args = torch.load(sys.argv[2], map_location=sys.argv[5])
+from weatherconverter_tpu_torch.ops import attention as A
+A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
+t3 = time.perf_counter()
+out = call(*args)
+if sys.argv[5] == "cuda":
+    torch.cuda.synchronize()
+t4 = time.perf_counter()
+casts = sum(1 for n in call.module.graph.nodes
+            if n.target is torch.ops.aten._to_copy.default and n.kwargs.get("dtype") == torch.bfloat16)
+models = [m for m in sys.modules if m.startswith(("weatherconverter_tpu_torch.models", "weatherconverter_tpu.", "jax"))]
+torch.save(out.cpu(), sys.argv[3])
+json.dump(dict(import_s=t1 - t0, load_s=t2 - t1, run_s=t4 - t3, k1=A.flash_attention.launches,
+               k2=A.flash_attention_qk_i8.launches, quantizer=A.quantize_qk_i8.launches, bf16_casts=casts,
+               model_modules=models, dtype=str(out.dtype)), open(sys.argv[3] + ".json", "w"))
+"""
+
+
+def phase_export(torch, A, device, card, tmp, tcfg=None, steps=None, batch=None):
+    """`export-hlo --program translate --attn int8` through the CLI in-process
+    at configs/translation.yaml (the 128 px UNet with K2 and one int8 scale
+    per tensor, DeepLabV3+/ResNet-101, the 4x SRGAN), batch EXPORT_BATCH,
+    EXPORT_STEPS steps; the live program on the card (the same seeded weights,
+    input, labels and draws, cudnn deterministic, no autotuning) twice; the
+    archive loaded by serving/hlo_runtime.load_exported in a fresh process
+    that imports no model code, counts its K1, K2 and quantizer launches and
+    runs it on those arguments. Gates: exit 0, the launches (K2 and its
+    quantizer 8 a UNet forward, no K1, live and loaded), bf16 casts in the
+    loaded graph, output dtypes equal, the loaded output equal to the live
+    one bit for bit, finite, in [0, 1], of (B, 512, 512, 3). Prints the
+    trace, export, save, load and run seconds and the archive's MiB."""
+    import subprocess
+
+    from weatherconverter_tpu_torch.cli import commands
+    from weatherconverter_tpu_torch.cli.main import main as cli_main
+    from weatherconverter_tpu_torch.core.config import load_translation_config
+
+    tcfg = tcfg or os.path.join(REPO, "configs", "translation.yaml")
+    steps, batch = steps or EXPORT_STEPS, batch or EXPORT_BATCH
+    on_card = device.type == "cuda"
+    out = os.path.join(tmp, "translate_int8.pt2")
+    argv = ["export-hlo", "--config", tcfg, "--program", "translate", "--steps", str(steps), "--batch", str(batch),
+            "--attn", "int8" if on_card else "bf16", "--out", out] + ([] if on_card else ["--device", "cpu"])
+    t0 = time.perf_counter()
+    code = cli_main(argv)
+    export_wall = time.perf_counter() - t0
+    with open(out + ".json") as fh:
+        info = json.load(fh)
+    if code != 0:
+        raise AssertionError(f"export-hlo: exit {code}")
+    cfg = load_translation_config(tcfg)
+    size, nc = cfg.diffusion.model.im_size, cfg.seg.model.num_classes
+    hr = size * cfg.srgan.upscale_factor
+    models = commands.inference_models(cfg, "translate", info["attn"], device=device, seed=0)
+    gen = torch.Generator(device=device).manual_seed(70)
+    data = [torch.randn((batch, size, size, 3), generator=gen, device=device) * 0.2,
+            torch.randint(0, nc, (batch, hr, hr), generator=gen, device=device),
+            torch.randn((batch, size, size, 3), generator=gen, device=device),
+            torch.randn((steps, batch, size, size, 3), generator=gen, device=device)]
+    args = commands.weight_arguments(models) + data
+    spec = [(tuple(s), d) for _, s, d in info["args"]]
+    if [(tuple(a.shape), str(a.dtype).replace("torch.", "")) for a in args] != spec:
+        raise AssertionError("export-hlo: the archive's argument list differs from the live program's")
+    fn = commands.inference_program(cfg, "translate", steps, models, device)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):  # as fresh
+        lives = []
+        for _ in range(2):
+            A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
+            t0 = time.perf_counter()
+            lives.append(fn(*args).cpu())
+            live_s = time.perf_counter() - t0
+        live_counts = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
+    live = lives[0]
+    torch.save(args, os.path.join(tmp, "export_args.pt"))
+    del args, models, data
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _EXPORT_CONSUMER, out, os.path.join(tmp, "export_args.pt"),
+                           os.path.join(tmp, "export_out.pt"), REPO, device.type], capture_output=True, text=True,
+                          timeout=600)
+    fresh_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"hlo_runtime in a fresh process: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(tmp, "export_out.pt.json")) as fh:
+        fresh = json.load(fh)
+    served = torch.load(os.path.join(tmp, "export_out.pt"))
+    expect = (0, FLASH_CALLS_PER_UNET * steps, FLASH_CALLS_PER_UNET * steps) if on_card else (0, 0, 0)
+    loaded_counts = (fresh["k1"], fresh["k2"], fresh["quantizer"])
+    log(f"  export-hlo --attn {info['attn']} translate, {steps} steps, batch {batch}: exit 0 in {export_wall:.1f} s "
+        f"(trace {info['export']['trace_s']:.1f} s, torch.export {info['export']['export_s']:.1f} s, save "
+        f"{info['export']['save_s']:.1f} s), {info['export']['nodes']} nodes, {info['export']['mib']:.1f} MiB, "
+        f"{len(info['args'])} arguments; the live program {live_s:.2f} s, launches K1/K2/quantizer "
+        f"{'/'.join(map(str, live_counts))}; two live runs {'bit-equal' if torch.equal(*lives) else 'DIFFER'}; the "
+        f"fresh process {fresh_s:.1f} s (imports {fresh['import_s']:.1f} s, load {fresh['load_s']:.1f} s, run "
+        f"{fresh['run_s']:.2f} s), launches K1/K2/quantizer {'/'.join(map(str, loaded_counts))}, {fresh['bf16_casts']} "
+        f"bf16 casts in the loaded graph, model modules imported {fresh['model_modules'] or 'none'}; loaded against "
+        f"live: max |diff| {(served - live).abs().max().item():.3e} [{card}]")
+    if not (torch.equal(*lives) and torch.equal(served, live)):
+        raise AssertionError(f"export: the loaded program differs from the live one (or two live runs differ: "
+                             f"{(lives[0] - lives[1]).abs().max().item()})")
+    if live_counts != expect or loaded_counts != expect or fresh["model_modules"] or fresh["dtype"] != str(live.dtype) \
+            or (on_card and not fresh["bf16_casts"]):
+        raise AssertionError(f"export: launches live {live_counts} / loaded {loaded_counts}, expected {expect}; model "
+                             f"modules {fresh['model_modules']}; dtypes {fresh['dtype']} / {live.dtype}; bf16 casts "
+                             f"{fresh['bf16_casts']}")
+    if live.shape != (batch, hr, hr, 3) or not (torch.isfinite(live).all() and live.min() >= 0 and live.max() <= 1):
+        raise AssertionError(f"export: output {tuple(live.shape)}, finite and in [0, 1]: not so")
 
 
 def _round(x):
@@ -2336,7 +2556,7 @@ def main() -> int:
 
     log(f"phase 2: kernels against their plain versions, bf16 [{card}]")
     kernel_results = phase_kernels(torch, A, device, card)
-    kernel_results["quantize_qk_i8"] = phase_quantizer(torch, A, device, card)
+    kernel_results.update(phase_quantizer(torch, A, device, card))
     kernel_results["flash_attention_bwd"] = phase_backward_kernel(torch, A, device, card)
     phase_unet_256(torch, A, device)
     torch.cuda.empty_cache()
@@ -2388,7 +2608,7 @@ def main() -> int:
         phase_cli(torch, A, device, card, tmp)
         torch.cuda.empty_cache()
         log(f"phase 14: the server on the card [{card}]")
-        phase_server(torch, A, device, card, tmp)
+        server_k2_launches = phase_server(torch, A, device, card, tmp, steps=SERVER_STEPS)
         torch.cuda.empty_cache()
         log(f"phase 15: segmentation on the card [{card}]")
         phase_seg(torch, device, card, tmp)
@@ -2407,6 +2627,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase 20: visualize and translate --debug-dir on the card [{card}]")
         phase_visualize_debug(torch, A, device, card, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 21: export-hlo --attn int8 and serving/hlo_runtime on the card [{card}]")
+        phase_export(torch, A, device, card, tmp)
 
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []
@@ -2422,6 +2645,12 @@ def main() -> int:
          train_launches[2]),
         ("flash_attention_f32", csrc + "flash_fwd_f32.cu", "weatherconverter_tpu/ops/attention.py:78",
          legacy_launches[3]),
+        ("flash_attention_qk_i8_per_item", csrc + "flash_fwd_qk_i8.cu",
+         "weatherconverter_tpu/ops/attention.py:125 under jax.vmap (weatherconverter_tpu/serving/server.py:191-226)",
+         server_k2_launches),
+        ("quantize_qk_i8_per_item", csrc + "quantize_i8.cu",
+         "weatherconverter_tpu/ops/attention.py:173-189 under jax.vmap (weatherconverter_tpu/serving/server.py:191-226)",
+         server_k2_launches),
     ):
         r = kernel_results[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2446,7 +2675,9 @@ def main() -> int:
         "the sums); K2's ms includes its quantizer's; K1-f32's are sums over the legacy UNet's (1024, 16) and "
         "(1024, 24) in f32, its library sdpa's f32 forward; launches are from "
         "the headline run (K1), the int8 run (K2, quantizer), the loop_diffusion.train run (K3) and phase 18's f32 "
-        "legacy run (K1-f32); for the probes K4-K7 "
+        "legacy run (K1-f32); the *_per_item lines are K2 and its quantizer with one int8 scale a batch row (the "
+        "server's), timed in phase 2 at the path shapes (K2's ms whole, quantizer included), launched in phase 14's "
+        "K2 full-sweep run; for the probes K4-K7 "
         "they are from phase 9's probe runs (K4: sums over D=64 and D=16, library the same sdpa forward; "
         "qk_dot: int8 plus bf16, k_bf16 at scripts/probe_int8_dot.py:34, library torch._int_mm plus "
         "torch.mm(out_dtype=torch.float32), null if this torch lacks the latter; dw3x3: library cuDNN's channels-last "

@@ -142,34 +142,38 @@ def _flags(sub):
             for a in sub._actions if not isinstance(a, argparse._HelpAction)}
 
 
+# the defaults that must differ, by name: export-hlo writes a torch.export archive, not StableHLO text
+DIFFERING_DEFAULTS = {("export-hlo", "out"): ("outputs/translate.stablehlo.mlir", "outputs/translate.pt2")}
+
+
 def test_parser_has_jax_subcommands_dests_defaults_and_choices():
     ours, theirs = _subparsers(PM.build_parser()), _subparsers(JM.build_parser())
     assert list(ours) == list(theirs)
     for name in theirs:
-        mine = _flags(ours[name])
+        mine, jax_flags = _flags(ours[name]), _flags(theirs[name])
         assert mine.pop("device") == ("cuda", ("cuda", "cpu"), False, ("--device",)), name
-        assert mine == _flags(theirs[name]), name
+        for (command, dest), (jax_default, port_default) in DIFFERING_DEFAULTS.items():
+            if command == name:
+                assert (jax_flags[dest][0], mine[dest][0]) == (jax_default, port_default)
+                mine[dest] = jax_flags[dest]
+        assert mine == jax_flags, name
     assert PM.parse_overrides(["a.b=1", "a.c=[1, 2]", "d=x"]) == JM.parse_overrides(["a.b=1", "a.c=[1, 2]", "d=x"])
 
 
 @pytest.mark.parametrize("command, item", [("train-srgan", "item 15"), ("quality", "item 15"),
                                            ("export-hlo", "item 10"), ("visualize", "item 19")])
 def test_unported_subcommands_exit_nonzero_naming_their_item(command, item, capsys):
-    """train-srgan and quality (item 15) and visualize (item 19) are ported:
-    like every ported command they run on the card by default and, without
-    one, exit non-zero saying so (their CPU runs:
-    tests/test_torch_srgan_training.py, test_cli_quality_on_the_cpu below and
-    tests/test_torch_cli_debug.py). export-hlo stays refused."""
+    """train-srgan and quality (item 15), visualize (item 19) and export-hlo
+    (item 10) are ported: like every ported command they run on the card by
+    default and, without one, exit non-zero saying so (their CPU runs:
+    tests/test_torch_srgan_training.py, test_cli_quality_on_the_cpu below,
+    tests/test_torch_cli_debug.py and tests/test_torch_export.py). No
+    subcommand is refused any more: the CLI's table of refusals is gone."""
     argv = [command] + (["--image", "x.png"] if command == "visualize" else [])
-    if command in ("train-srgan", "quality", "visualize"):
-        assert command not in PM.NOT_PORTED
-        if not torch.cuda.is_available():
-            with pytest.raises(SystemExit, match="no CUDA device"):
-                PM.main(argv)
-        return
-    assert PM.main(argv) != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and item in err
+    assert not hasattr(PM, "NOT_PORTED")
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            PM.main(argv)
 
 
 # a tiny seg config: ResNet-18 at 16 px crops of 24 x 40 images, the 19 train classes the labels hold
@@ -211,7 +215,8 @@ def test_commands_need_a_card_unless_device_cpu(tiny, monkeypatch):
                  ["translate", "--config", str(tiny / "t.yaml"), "--image", "i", "--label", "l"],
                  ["super-resolve", "--image", "i"], ["train-ddpm"], ["serve"], ["train-seg"],
                  ["infer-seg", "--image", "i"], ["sample", "--sampler", "legacy", "--config", str(tiny / "d.yaml")],
-                 ["quality", "--config", str(tiny / "t.yaml")], ["visualize", "--image", "i"]):
+                 ["quality", "--config", str(tiny / "t.yaml")], ["visualize", "--image", "i"],
+                 ["export-hlo", "--config", str(tiny / "t.yaml")]):
         with pytest.raises(SystemExit, match="--device cpu"):
             PM.main(argv)
 

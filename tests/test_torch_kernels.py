@@ -272,6 +272,63 @@ def test_quantize_qk_i8_kernel_surfaces_non_finite_input(cuda, bad, which, dtype
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "zero", "ties", "outlier", "misaligned", "views", "row_x100"])
+@pytest.mark.parametrize("shape", [(2, 3, 128, 32), (3, 2, 192, 64), (8, 4, 1024, 128), (8, 4, 4096, 16)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_quantize_qk_i8_kernel_per_item_equals_plain_bit_for_bit(cuda, case, shape, dtype):
+    """One scale a batch row (`per_item`, the server's): the int8 tensors and
+    the B scales equal the plain version's (tolerance: none), and each row's
+    equal those of the row quantized alone, also where one row's maximum is
+    100x the others' or the rows are head-split views of one projection."""
+    b, h, n, d = shape
+    if case == "views":
+        qkv = _qkv((b, n, 3 * h * d), dtype, cuda, seed=34)[0]
+        q, k = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1)[:2])
+    else:
+        q, k = _quantizer_inputs("random" if case == "row_x100" else case, shape, dtype, cuda)
+        if case == "row_x100":
+            q[1], k[1] = q[1] * 100, k[1] * 100
+    got = A.quantize_qk_i8(q, k, per_item=True)
+    assert got[2].shape == (b,) and got[0].is_contiguous() and got[1].is_contiguous()
+    for name, g, w in zip(("q8", "k8", "qk_scale"), got, A.quantize_qk_i8_plain(q, k, per_item=True)):
+        assert torch.equal(g, w), name
+    for row in (0, b - 1):
+        alone = A.quantize_qk_i8(q[row:row + 1], k[row:row + 1], per_item=True)
+        for g, a in zip(got, alone):
+            assert torch.equal(g[row:row + 1], a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", PATH_SHAPES + [(2, 3, 128, 32), (3, 1, 192, 64)])
+def test_flash_qk_i8_kernel_per_item_matches_plain_and_keeps_rows_apart(cuda, shape):
+    """K2 with one scale a batch row reads scale b for the heads of row b:
+    within the forward gate of its plain version, bit-equal over two calls,
+    and row 0's output is that of row 0 alone when row 1 is scaled 100x
+    (bf16: row 1's scores pass the clamp, and f16 cannot hold p = e^60, in
+    the kernel or the plain version)."""
+    q, k, v = _qkv(shape, torch.bfloat16, cuda, seed=35)
+    q[1], k[1] = q[1] * 100, k[1] * 100
+    before = (A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
+    o = A.flash_attention_qk_i8(q, k, v, per_item=True)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches) == (before[0] + 1, before[1] + 1)
+    assert _within_forward_gate(o, A.flash_attention_qk_i8_plain(q, k, v, per_item=True))
+    assert torch.equal(o, A.flash_attention_qk_i8(q, k, v, per_item=True))
+    assert torch.equal(o[:1], A.flash_attention_qk_i8(q[:1], k[:1], v[:1], per_item=True))
+    assert not torch.equal(o[:1], A.flash_attention_qk_i8(q, k, v)[:1])  # one scale for the batch: row 1's
+
+
+@pytest.mark.gpu
+def test_flash_qk_i8_forward_takes_one_scale_or_one_a_row(cuda):
+    q, k, v = _qkv((3, 2, 128, 64), torch.bfloat16, cuda, seed=36)
+    q8, k8, scales = A.quantize_qk_i8(q, k, per_item=True)
+    with pytest.raises(ValueError, match="scales"):
+        A.flash_qk_i8_forward(q8, k8, scales[:2].contiguous(), v)
+    torch.testing.assert_close(A.flash_qk_i8_forward(q8, k8, scales, v),
+                               A.flash_attention_qk_i8_plain(q, k, v, per_item=True), rtol=0, atol=BF16_ATOL)
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q, k, v = _qkv((1, 1, 128, 64), torch.float32, cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -626,7 +683,7 @@ from weatherconverter_tpu_torch.probes import micro_attn as K4  # noqa: E402
 from weatherconverter_tpu_torch.probes import probe_dw3x3 as K6  # noqa: E402
 from weatherconverter_tpu_torch.probes import probe_dw9x9_floor as K5  # noqa: E402
 from weatherconverter_tpu_torch.probes import probe_int8_dot as K7  # noqa: E402
-from weatherconverter_tpu_torch.probes import common as probe_common, time_flash  # noqa: E402
+from weatherconverter_tpu_torch.probes import common as probe_common, dispatch_cost, time_flash  # noqa: E402
 
 PROBE_MODULES = [K4, K7, K6, K5]
 
@@ -763,7 +820,8 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
         K5.dw_fma81(_qkv((16,), torch.bfloat16, cuda)[0], K5.taps()[:80])
 
 
-@pytest.mark.parametrize("probe", PROBE_MODULES + [time_flash], ids=lambda m: m.__name__.rsplit(".", 1)[1])
+@pytest.mark.parametrize("probe", PROBE_MODULES + [time_flash, dispatch_cost],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_probe_main_exits_2_without_cuda(probe, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert probe.main() == 2

@@ -36,6 +36,8 @@ from weatherconverter_tpu.guidance import translate as JT
 from weatherconverter_tpu.models.srgan import Generator as JGenerator
 from weatherconverter_tpu.models.unet import Unet as JUnet
 from weatherconverter_tpu.serving import server as JS
+from weatherconverter_tpu_torch.cli import commands as PC
+from weatherconverter_tpu_torch.cli import main as PM
 from weatherconverter_tpu_torch.compat import from_jax
 from weatherconverter_tpu_torch.core.config import UnetModelConfig, load_translation_config
 from weatherconverter_tpu_torch.diffusion import sampling as PSa
@@ -411,3 +413,59 @@ def test_bucketed_auto_k_bit_exact_and_routes_buckets(cfg_path):
     for bad in (0, "always"):
         with pytest.raises(ValueError, match="lcg_present_k"):
             _service(cfg_path, batch=2, lcg_present_k=bad)
+
+
+# tests/test_torch_translate.py's tiny UNet (its 32x32 layers attend at N = 1024, D = 16: K2 takes them) in the
+# translation config
+FLASH_YAML = TINY_YAML.replace("im_size: 16", "im_size: 32").replace(
+    "down_channels: [8, 16, 24]", "down_channels: [32, 32, 48]").replace(
+    "mid_channels: [24, 24, 16]", "mid_channels: [48, 48, 32]").replace("attn_resolutions: [8]", "attn_resolutions: [32]")
+
+
+def test_int8_service_keeps_a_request_independent_of_its_batch_mate(tmp_path):
+    """With int8 on (the plain K2, one scale a request, as the JAX service's
+    vmap takes it), a request's image is bit-equal whether its batch-mate is
+    a faint image or a saturated one. With one scale for the micro-batch
+    (the planted fault, the CLI's per-tensor mode), the same check fails."""
+    from weatherconverter_tpu_torch.models.layers import SelfAttention2D
+
+    (tmp_path / "t.yaml").write_text(FLASH_YAML)
+    service = _service(str(tmp_path / "t.yaml"), batch=2, steps=2, qk_int8=True)
+    try:
+        assert service.qk_int8 and {k for _, _, k in service.unet.attention_kernels(32)} == {"K2", "softmax"}
+        rng = np.random.default_rng(0)
+        img = rng.uniform(-1, 1, (32, 32, 3))
+        mates = (rng.uniform(-0.05, 0.05, (32, 32, 3)), np.sign(rng.standard_normal((32, 32, 3))))
+        gts = rng.integers(0, 19, (2, 64, 64))
+
+        def row0():
+            return [service.translate_rows(np.stack([img, mate]), gts, seeds=[7, 8])[0] for mate in mates]
+
+        a, b = row0()
+        assert torch.equal(a, b)
+        for m in service.unet.modules():
+            if isinstance(m, SelfAttention2D):
+                m.per_item = False
+        a, b = row0()
+        assert not torch.equal(a, b)
+    finally:
+        service.close()
+
+
+def test_service_attention_choice(tmp_path):
+    """K2 on the card by default, K1 with qk_int8=False (serve
+    --no-int8-attn); the CPU runs K1's plain version unless asked for K2; the
+    UNet takes one int8 scale a request either way (K2 where it has the
+    layer's head dim)."""
+    from weatherconverter_tpu_torch.models.layers import SelfAttention2D
+
+    (tmp_path / "t.yaml").write_text(FLASH_YAML)
+    for kw, want in (({}, False), ({"qk_int8": True}, True), ({"qk_int8": False}, False)):
+        service = _service(str(tmp_path / "t.yaml"), batch=2, **kw)
+        layers = [m for m in service.unet.modules() if isinstance(m, SelfAttention2D)]
+        assert service.qk_int8 == want and all(m.per_item for m in layers)
+        assert [m.qk_int8 for m in layers] == [want and m.head_dim == 16 for m in layers]
+        service.close()
+    args = PM.build_parser().parse_args(["serve", "--no-int8-attn", "--device", "cpu"])
+    assert args.no_int8_attn and not PC.use_qk_int8(args, torch.device("cpu"))
+    assert PC.use_qk_int8(PM.build_parser().parse_args(["serve"]), torch.device("cuda"))

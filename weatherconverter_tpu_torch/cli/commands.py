@@ -1,7 +1,8 @@
 """The CLI's subcommands and the checkpoint loaders (port of
 weatherconverter_tpu/cli/commands.py): sample (the legacy UNet's loop too),
 translate (with --debug-dir's chain dumps), super-resolve, infer-seg,
-quality, visualize, train-ddpm, train-seg and train-srgan, on the CUDA card
+quality, visualize, export-hlo, train-ddpm, train-seg and train-srgan, on
+the CUDA card
 unless `--device cpu` asks for the CPU.
 
 Checkpoints: a reference torch file (.pt, .pth, .ckpt, .tar; its
@@ -128,13 +129,14 @@ def load_state(model: torch.nn.Module, checkpoint: str | None, from_npz, what: s
     return model
 
 
-def load_unet(model_cfg, checkpoint: str | None, seed: int, qk_int8: bool = False):
+def load_unet(model_cfg, checkpoint: str | None, seed: int, qk_int8: bool = False, qk_int8_per_item: bool = False,
+              fused: bool = True):
     """The DDPM UNet (counterpart of `_load_unet_params`)."""
     from weatherconverter_tpu_torch.compat.from_jax import unet_state_dict
     from weatherconverter_tpu_torch.models.unet import Unet
 
     with seeded(seed):
-        model = Unet(model_cfg, qk_int8=qk_int8)
+        model = Unet(model_cfg, qk_int8=qk_int8, fused=fused, qk_int8_per_item=qk_int8_per_item)
     return load_state(model, checkpoint, lambda t: unet_state_dict(t.get("params", t), model_cfg), "the UNet")
 
 
@@ -248,10 +250,11 @@ def run_sample(args) -> int:
     return 0
 
 
-def build_translation(cfg, device, unet_ckpt, seg_ckpt, srgan_ckpt, qk_int8: bool, seed: int):
+def build_translation(cfg, device, unet_ckpt, seg_ckpt, srgan_ckpt, qk_int8: bool, seed: int,
+                      qk_int8_per_item: bool = False):
     """The three models of a translation on `device` (the seg model frozen)
-    and the schedule."""
-    unet = load_unet(cfg.diffusion.model, unet_ckpt, seed, qk_int8).to(device).eval()
+    and the schedule; `qk_int8_per_item` as `models.unet.Unet` takes it."""
+    unet = load_unet(cfg.diffusion.model, unet_ckpt, seed, qk_int8, qk_int8_per_item).to(device).eval()
     seg = load_seg_model(cfg.seg, seg_ckpt, seed + 1).to(device).requires_grad_(False)
     sr = load_srgan(cfg.srgan, srgan_ckpt, seed + 2).to(device)
     return unet, seg, sr, make_schedule_from(cfg.diffusion.diffusion, device)
@@ -355,6 +358,161 @@ def _run_translate_debug(args, translate, sched, seg, sr, device, x, g, generato
     debug_tensor(pred, os.path.join(d, "sr_x0_pred.png"), "seg pred of output")
     save_images(sr_out, args.out, nrow=1, from_range="unit")
     print(f"saved {args.out} (debug dumps in {d})")
+    return 0
+
+
+EXPORT_ATTN = ("bf16", "int8")
+
+
+def inference_models(cfg, program: str, attn: str, device=None, seed: int = 0) -> dict:
+    """The models of `export-hlo`'s program, {"unet"} for `sample` and
+    {"unet", "seg", "srgan"} for `translate`, in eval mode: with seeded
+    random weights on `device` (the frozen seg model as `build_translation`
+    makes it), or with `device=None` on the meta device, shapes only (the
+    exported program takes the weights as arguments). `attn` "bf16" is JAX's
+    fused=False UNet (plain softmax attention, no kernel); "int8" its fused
+    UNet with K2 and one int8 scale per tensor, as JAX traces its kernel
+    over the batch."""
+    if attn not in EXPORT_ATTN:
+        raise ValueError(f"attn must be one of {EXPORT_ATTN}, got {attn!r}")
+    int8 = attn == "int8"
+    with torch.device("meta") if device is None else contextlib.nullcontext():
+        models = {"unet": load_unet(cfg.diffusion.model, None, seed, qk_int8=int8, fused=int8)}
+        if program == "translate":
+            models["seg"] = load_seg_model(cfg.seg, None, seed + 1).requires_grad_(False)
+            models["srgan"] = load_srgan(cfg.srgan, None, seed + 2)
+    return {k: (m if device is None else m.to(device)).eval() for k, m in models.items()}
+
+
+def _weights(model: torch.nn.Module):
+    return [*model.named_parameters(), *model.named_buffers()]
+
+
+def program_arguments(cfg, program: str, steps: int, batch: int, models: dict):
+    """The exported program's flat arguments in order, as (name, shape,
+    dtype): each model's parameters then buffers ("unet.<name>", then for
+    `translate` "seg.<name>" and "srgan.<name>"; weights are never baked
+    in), then the data. `sample`: x_init (B, s, s, 3) and z_steps (steps, B,
+    s, s, 3), the chain's N(0, I) draws (JAX draws them from its key);
+    `translate`: input (B, s, s, 3) in [-1, 1], labels (B, hr, hr) int64
+    train ids (255 ignored), noise0 (B, s, s, 3), the q-sample's draw, and
+    z_steps (steps, B, s, s, 3), each step's. s is the UNet's im_size, hr
+    s times the SRGAN's factor."""
+    weights = [(f"{k}.{n}", tuple(t.shape), t.dtype) for k, m in models.items() for n, t in _weights(m)]
+    s, f32 = cfg.diffusion.model.im_size, torch.float32
+    latent, draws = (batch, s, s, 3), (steps, batch, s, s, 3)
+    if program == "sample":
+        return weights + [("x_init", latent, f32), ("z_steps", draws, f32)]
+    hr = s * cfg.srgan.upscale_factor
+    return weights + [("input", latent, f32), ("labels", (batch, hr, hr), torch.int64), ("noise0", latent, f32),
+                      ("z_steps", draws, f32)]
+
+
+def weight_arguments(models: dict) -> list:
+    """The weight tensors of `models` in `program_arguments`' order."""
+    return [t.detach() for m in models.values() for _, t in _weights(m)]
+
+
+def inference_program(cfg, program: str, steps: int, models: dict, device):
+    """fn(*args) over `program_arguments`: JAX's exported function
+    (cli/commands.py run_export_hlo) with the weights and the draws as
+    arguments. `sample`: ddpm_sample over `steps` strided steps, (B, s, s,
+    3) in [-1, 1]; `translate`: sample_with_sgg at the config's lambda and
+    mode, the JAX defaults otherwise (the alternate schedule on the SRGAN
+    upscale every step), start_t = steps - 1, (B, hr, hr, 3) in [0, 1]. On
+    CUDA under bf16 autocast, as every inference command runs there."""
+    from torch.func import functional_call
+
+    from weatherconverter_tpu_torch.diffusion.sampling import ddpm_sample
+    from weatherconverter_tpu_torch.guidance.translate import sample_with_sgg
+
+    names = {k: [n for n, _ in _weights(m)] for k, m in models.items()}
+    sched = make_schedule_from(cfg.diffusion.diffusion, device)
+    g = cfg.guidance
+
+    def fn(*args):
+        it = iter(args)
+        state = {k: {n: next(it) for n in ns} for k, ns in names.items()}
+        call = {k: (lambda *x, k=k: functional_call(models[k], state[k], x)) for k in models}
+        data = list(it)
+        with autocast(device):
+            if program == "sample":
+                x_init, z_steps = data
+                return ddpm_sample(call["unet"], sched, tuple(x_init.shape), None, num_steps=steps,
+                                   noise=(x_init, z_steps))
+            inp, gt, noise0, z_steps = data
+            return sample_with_sgg(call["unet"], sched, call["seg"], call["srgan"], inp, gt, None, lam=g.lambda_,
+                                   num_steps=steps, num_classes=cfg.seg.model.num_classes, mode=g.mode,
+                                   start_t=steps - 1, noise=(noise0, z_steps))
+
+    return fn
+
+
+def export_program(fn, args: list, out: str, info: dict) -> dict:
+    """Trace fn(*args) and write it to `out` with torch.export, and its
+    description (`info` and the arguments' names, shapes and dtypes) to
+    `out`.json (with the returned numbers under "export"). The trace is make_fx's (fake tensors): the guidance's
+    torch.autograd.grad is recorded as the aten ops of its backward, which
+    torch.export cannot trace itself, and autocast as explicit casts. Returns
+    the seconds of each stage, the graph's nodes and the artifact's MiB."""
+    import json
+    import time
+
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    t0 = time.perf_counter()
+    graph = make_fx(fn, tracing_mode="fake", _allow_non_fake_inputs=True)(*args)
+    # make_fx records a view where the strides of its trace allowed one; under autocast on CUDA the strides that
+    # torch.export derives again can differ (a cast there keeps a transposed layout), so every view becomes a
+    # reshape: the same values, a view where the strides allow it and a copy where they do not
+    views = (torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default)
+    for node in graph.graph.nodes:
+        if node.op == "call_function" and node.target in views:
+            node.target = torch.ops.aten.reshape.default
+    graph.recompile()
+    t1 = time.perf_counter()
+    exported = torch.export.export(graph, tuple(args))
+    exported.example_inputs = None  # not saved with the program: the weights are arguments, not part of it
+    t2 = time.perf_counter()
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    torch.export.save(exported, out)
+    t3 = time.perf_counter()
+    stats = dict(trace_s=t1 - t0, export_s=t2 - t1, save_s=t3 - t2, nodes=len(graph.graph.nodes),
+                 mib=os.path.getsize(out) / 2**20)
+    with open(out + ".json", "w") as fh:
+        json.dump(dict(info, export=stats), fh, indent=1)
+    return stats
+
+
+def run_export_hlo(args) -> int:
+    """Export the inference program (counterpart of JAX's StableHLO export,
+    cli/commands.py run_export_hlo) as a torch.export archive: `translate`
+    (the guided chain with its three models at the config's shapes) or
+    `sample` (the unconditional chain), `--steps` steps at `--batch`, on
+    `--device`. Weights and the chain's draws are arguments
+    (`program_arguments`); `serving/hlo_runtime.load_exported` runs the
+    file with no model code. `--attn bf16` is JAX's portable form, plain
+    softmax attention with no kernel: any PyTorch runtime loads it. `--attn
+    int8` holds K2 and its quantizer as custom ops (`ops/attention.OPS`), so
+    it is traced on CUDA only (JAX refuses its int8 export off its
+    accelerator), and its runtime imports `ops/attention`."""
+    from weatherconverter_tpu_torch.core.config import load_translation_config
+
+    device = resolve_device(args.device)
+    if args.attn == "int8" and device.type != "cuda":
+        raise SystemExit("--attn int8 exports K2 and its quantizer as CUDA custom ops and must be traced on CUDA "
+                         f"(--device cuda; this run asked for {device.type}); use --attn bf16 for a portable export")
+    cfg = load_translation_config(args.config)
+    steps = args.steps or cfg.guidance.num_steps
+    models = inference_models(cfg, args.program, args.attn)
+    spec = program_arguments(cfg, args.program, steps, args.batch, models)
+    example = [torch.empty(shape, dtype=dtype, device=device) for _, shape, dtype in spec]
+    info = dict(program=args.program, steps=steps, batch=args.batch, attn=args.attn, device=device.type,
+                args=[[name, list(shape), str(dtype).replace("torch.", "")] for name, shape, dtype in spec])
+    t = export_program(inference_program(cfg, args.program, steps, models, device), example, args.out, info)
+    print(f"exported {args.program} ({steps} steps, batch {args.batch}, attention {args.attn}, {device.type}) with "
+          f"torch.export: {args.out} ({t['mib']:.1f} MiB, {t['nodes']} nodes, {len(spec)} arguments); trace "
+          f"{t['trace_s']:.1f} s, export {t['export_s']:.1f} s, save {t['save_s']:.1f} s")
     return 0
 
 

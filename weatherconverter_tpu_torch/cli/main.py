@@ -5,10 +5,11 @@ and choices, and one addition: `--device {cuda,cpu}`.
 
 Every command runs on the CUDA card unless `--device cpu` is given; without
 a card it stops with a message and a non-zero exit, and never goes on
-quietly on the CPU. Ported: train-ddpm, train-seg, train-srgan, sample (with
---sampler legacy), translate (with --debug-dir), super-resolve, infer-seg,
-quality, visualize and serve. export-hlo parses as in the JAX CLI and stops
-with a message naming the ROADMAP item that ports it.
+quietly on the CPU. Every subcommand is ported: train-ddpm, train-seg,
+train-srgan, sample (with --sampler legacy), translate (with --debug-dir),
+super-resolve, infer-seg, quality, visualize, serve and export-hlo (a
+torch.export archive in place of StableHLO text: `--out`'s default ends in
+.pt2, the one default that differs from the JAX CLI's).
 """
 
 from __future__ import annotations
@@ -17,16 +18,11 @@ import argparse
 import json
 import sys
 
-# subcommand -> why it stops: the ROADMAP item that ports its modules
-NOT_PORTED = {
-    "export-hlo": "the torch.export counterpart of export-hlo is ROADMAP Queue 1 item 10 (its kernels must first be "
-                  "registered as custom ops)",
-}
-
 INT8_HELP = ("keep K1, the exact bf16 flash attention. On the card inference defaults to K2 (int8 Q K^T and its "
-             "quantizer) in the attention layers whose head dim K2 has (16-128; K1 at 24 and 192), which passed the "
-             "int8 quality check at 20, 50 and 1000 steps; the gain is small, 0.1-0.3 ms of a 14-25 ms device step, "
-             "and no wall-time change while the host binds (PERF.md)")
+             "quantizer, one int8 scale for the batch, as JAX's CLI runs its kernel over the batch; the server "
+             "takes one a request) in the attention layers whose head dim K2 has (16-128; K1 at 24 and 192), which "
+             "passed the int8 quality check at 20, 50 and 1000 steps; the gain is small, 0.1-0.3 ms of a 14-25 ms "
+             "device step, and no wall-time change while the host binds (PERF.md)")
 
 
 def _device_flag(p: argparse.ArgumentParser) -> None:
@@ -142,18 +138,23 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--seg-checkpoint", default=None)
     sv.add_argument("--srgan-checkpoint", default=None)
     sv.add_argument("--no-int8-attn", action="store_true",
-                    help="accepted as in the JAX CLI; the server always runs K1, the exact flash attention: K2's "
-                         "int8 scale is one per tensor, over the micro-batch, so a request's image would move with "
-                         "its batch-mates (the JAX service's scale is per request)")
+                    help="keep K1, the exact bf16 flash attention. On the card the server defaults to K2 (int8 Q K^T) "
+                         "with one int8 scale per request, as the JAX service's vmap takes it, so a request's image "
+                         "does not depend on its batch-mates (PERF.md)")
     _device_flag(sv)
 
-    eh = sub.add_parser("export-hlo", help="export the inference program (not ported)")
+    eh = sub.add_parser("export-hlo", help="export the inference program with torch.export (deployment artifact)")
     eh.add_argument("--config", default=None, help="translation config YAML")
     eh.add_argument("--program", default="translate", choices=["translate", "sample"])
-    eh.add_argument("--steps", type=int, default=None)
+    eh.add_argument("--steps", type=int, default=None,
+                    help="reverse steps traced into the program (default: cfg.guidance.num_steps)")
     eh.add_argument("--batch", type=int, default=8)
-    eh.add_argument("--out", default="outputs/translate.stablehlo.mlir")
-    eh.add_argument("--attn", default="bf16", choices=["bf16", "int8"])
+    eh.add_argument("--out", default="outputs/translate.pt2",
+                    help="the archive (torch.export.save); its argument list goes beside it, <out>.json")
+    eh.add_argument("--attn", default="bf16", choices=["bf16", "int8"],
+                    help="attention traced into the program: 'bf16' is plain softmax attention (JAX's fused=False), "
+                         "loadable by any PyTorch runtime; 'int8' holds K2 and its quantizer as custom ops, traced "
+                         "on CUDA only, loaded where weatherconverter_tpu_torch.ops.attention imports")
     _device_flag(eh)
 
     vz = sub.add_parser("visualize", help="forward/backward process strips and augmentation galleries")
@@ -183,7 +184,7 @@ def parse_overrides(pairs):
 
 
 def run_serve(args) -> int:
-    from weatherconverter_tpu_torch.cli.commands import resolve_device
+    from weatherconverter_tpu_torch.cli.commands import resolve_device, use_qk_int8
     from weatherconverter_tpu_torch.core.config import load_translation_config
     from weatherconverter_tpu_torch.serving.server import TranslationService, serve
 
@@ -201,26 +202,24 @@ def run_serve(args) -> int:
     service = TranslationService(
         load_translation_config(args.config), args.ddpm_checkpoint, args.seg_checkpoint, args.srgan_checkpoint,
         batch=args.batch, steps=args.steps, max_wait_ms=args.max_wait_ms, sampler=args.sampler, lcg_present_k=k,
-        lcg_k_buckets=buckets, device=device,
+        lcg_k_buckets=buckets, device=device, qk_int8=use_qk_int8(args, device),
     )
     print(f"serving on :{args.port} (batch={args.batch}, steps={service.steps}, sampler={args.sampler}, "
-          f"device={device})", flush=True)
+          f"device={device}, attention={'K2, one int8 scale a request' if service.qk_int8 else 'K1'})", flush=True)
     serve(service, args.port)
     return 0
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.command in NOT_PORTED:
-        print(f"{args.command}: not ported to the PyTorch package yet; {NOT_PORTED[args.command]}", file=sys.stderr)
-        return 2
     from weatherconverter_tpu_torch.cli import commands
 
     return {"train-ddpm": commands.run_train_ddpm, "train-seg": commands.run_train_seg,
             "train-srgan": commands.run_train_srgan, "sample": commands.run_sample,
             "translate": commands.run_translate, "super-resolve": commands.run_super_resolve,
             "infer-seg": commands.run_infer_seg, "quality": commands.run_quality,
-            "visualize": commands.run_visualize, "serve": run_serve}[args.command](args)
+            "visualize": commands.run_visualize, "export-hlo": commands.run_export_hlo,
+            "serve": run_serve}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -4,8 +4,11 @@
 // Replaces weatherconverter_tpu/ops/attention.py `_flash_kernel_qk_i8` (:125,
 // via `_flash_attention_fwd_i8_impl`), its pv_int8=False branch:
 //   s = int32(Q8 K8^T) * (qs * ks * D^-1/2);  O = (exp(clip(s, -60, 60)) V) / l,
-// Q and K quantized per tensor before the kernel (quantize_i8.cu), V and the
-// PV product in bf16/f16, l and O accumulated in f32.
+// Q and K quantized before the kernel (quantize_i8.cu), per tensor or per
+// batch row (JAX's function under jax.vmap over requests), V and the PV
+// product in bf16/f16, l and O accumulated in f32. Head bh reads
+// qk_scale[bh / heads_per_scale]: heads_per_scale is B*H for one scale, H for
+// one a row.
 //
 // What bounds it on the H100: per head 2*N^2*D int8 operations (1,979 TOP/s)
 // and 2*N^2*D bf16 FLOPs (989 TFLOP/s), N^2 exponentials (16 a clock an SM),
@@ -96,34 +99,34 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kWgThreads)
     flash_fwd_qk_i8_wgmma_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
                                  const T* __restrict__ v, const float* __restrict__ qk_scale,
-                                 T* __restrict__ o, int n) {
+                                 T* __restrict__ o, int n, int heads_per_scale) {
   const size_t head = (size_t)blockIdx.y * n * D;
   const size_t row0 = (size_t)blockIdx.x * kTileRows * D;
-  const float scale_log2 = *qk_scale * kLog2e;
+  const float scale_log2 = qk_scale[blockIdx.y / heads_per_scale] * kLog2e;
   QkI8Policy<T, D> policy{q8 + head + row0, k8 + head, scale_log2, -12582912.f * scale_log2};
   flash_forward_loop<T, D>(policy, v + head, o + head + row0, nullptr, n);
 }
 
 template <typename T, int D>
 cudaError_t launch_i8(const int8_t* q8, const int8_t* k8, const void* v, const float* qk_scale, void* o,
-                      int bh, int n, cudaStream_t stream) {
+                      int bh, int n, int heads_per_scale, cudaStream_t stream) {
   constexpr int smem = fwd_loop_smem_bytes<T, D, QkI8Policy<T, D>>();
   auto kernel = flash_fwd_qk_i8_wgmma_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(n / kTileRows, bh), kWgThreads, smem, stream>>>(q8, k8, static_cast<const T*>(v), qk_scale,
-                                                               static_cast<T*>(o), n);
+                                                               static_cast<T*>(o), n, heads_per_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_i8(const int8_t* q8, const int8_t* k8, const void* v, const float* qk_scale, void* o,
-                        int bh, int n, int d, cudaStream_t stream) {
+                        int bh, int n, int d, int hps, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_i8<T, 16>(q8, k8, v, qk_scale, o, bh, n, stream);
-    case 32: return launch_i8<T, 32>(q8, k8, v, qk_scale, o, bh, n, stream);
-    case 64: return launch_i8<T, 64>(q8, k8, v, qk_scale, o, bh, n, stream);
-    case 128: return launch_i8<T, 128>(q8, k8, v, qk_scale, o, bh, n, stream);
+    case 16: return launch_i8<T, 16>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
+    case 32: return launch_i8<T, 32>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
+    case 64: return launch_i8<T, 64>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
+    case 128: return launch_i8<T, 128>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -131,14 +134,17 @@ cudaError_t dispatch_i8(const int8_t* q8, const int8_t* k8, const void* v, const
 }  // namespace wcflash
 
 // q8, k8: contiguous int8 (bh, n, d); v, o: contiguous (bh, n, d) in bf16
-// (is_f16 = 0) or f16 (is_f16 = 1); qk_scale: one f32 on the device,
-// qs * ks * d^-1/2. Returns the cudaError_t of the launch.
+// (is_f16 = 0) or f16 (is_f16 = 1); qk_scale: bh / heads_per_scale f32 on the
+// device, qs * ks * d^-1/2 each (heads_per_scale = bh: one scale; = h: one a
+// batch row). Returns the cudaError_t of the launch.
 extern "C" int wc_flash_fwd_qk_i8(const void* q8, const void* k8, const void* v, const float* qk_scale,
-                                  void* o, int bh, int n, int d, int is_f16, void* stream) {
-  if (bh <= 0 || bh > 65535 || n <= 0 || n % wcflash::kTileRows != 0) return cudaErrorInvalidValue;
+                                  void* o, int bh, int n, int d, int is_f16, int heads_per_scale, void* stream) {
+  if (bh <= 0 || bh > 65535 || n <= 0 || n % wcflash::kTileRows != 0 || heads_per_scale <= 0 ||
+      bh % heads_per_scale != 0)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* q = static_cast<const int8_t*>(q8);
   const int8_t* k = static_cast<const int8_t*>(k8);
-  return is_f16 ? wcflash::dispatch_i8<__half>(q, k, v, qk_scale, o, bh, n, d, s)
-                : wcflash::dispatch_i8<__nv_bfloat16>(q, k, v, qk_scale, o, bh, n, d, s);
+  return is_f16 ? wcflash::dispatch_i8<__half>(q, k, v, qk_scale, o, bh, n, d, heads_per_scale, s)
+                : wcflash::dispatch_i8<__nv_bfloat16>(q, k, v, qk_scale, o, bh, n, d, heads_per_scale, s);
 }

@@ -1,5 +1,5 @@
-// The per-tensor int8 quantizer of Q and K in front of K2 (flash_fwd_qk_i8.cu),
-// for sm_90a.
+// The int8 quantizer of Q and K in front of K2 (flash_fwd_qk_i8.cu), with one
+// scale per tensor or one per batch row, for sm_90a.
 //
 // Replaces the quantization in weatherconverter_tpu/ops/attention.py
 // `_flash_attention_fwd_i8_impl` (:173-189), which is plain jnp there: XLA, not
@@ -8,25 +8,33 @@
 // traffic a tensor at (32, 4096, 64). For x in {q, k}, 16-bit (B, H, N, D):
 //   scale_x = max(max|x|, 1e-6) / 127;   x8 = int8(round_half_even(x / scale_x));
 //   qk_scale = scale_q * scale_k / sqrt(D)                            (all f32)
+// over the whole tensor (one scale, as the JAX function computes it called
+// once on the batch), or over each batch row's (H, N, D) (B scales, as it
+// computes it under jax.vmap over requests, which the JAX server does).
 //
 // What bounds it: bytes. Each tensor is read twice (once for the maximum,
 // once to quantize) and written once in int8: 5 bytes an element where the
 // least is 3 (the maximum must be known before the first byte is written, so
 // only a cache can save the second read; both tensors of a UNet layer, 34 MB,
 // fit the 50 MB L2). What the design does about it: two launches for both
-// tensors together (blockIdx.y picks q or k), 16 elements a thread at a time
-// (two 16-byte loads, one 16-byte store), grid-stride.
+// tensors together (blockIdx.y picks q or k, blockIdx.z the scale's segment:
+// the tensor, or one batch row), 16 elements a thread at a time (two 16-byte
+// loads, one 16-byte store), grid-stride within the segment.
 //   * Pass 1: |x| is the 16-bit pattern without its sign, and for finite
 //     values patterns order like the numbers, so the maximum is taken on packed
 //     pairs of patterns (__vmaxu2) with no conversion; a warp reduction, a
 //     block reduction through shared memory, then one atomicMax a block on the
-//     bits of the non-negative f32, which again order like the floats. A
+//     bits of the non-negative f32, which again order like the floats, into
+//     the slot of its segment (and of q or k): a block never reads a group of
+//     another segment, since groups are numbered in (b, h, n, d) order and a
+//     row's are consecutive, whatever the strides of the view. A
 //     maximum is the same in any order, so two calls give the same bits.
 //     An infinity's pattern lies above every finite one and a NaN's above
 //     that, so a non-finite element becomes the maximum and reaches qk_scale
 //     (inf or NaN) as it does in the plain version, instead of being
 //     quantized silently.
-//   * Pass 2: every thread rebuilds the scale from the maximum and divides.
+//   * Pass 2: every thread rebuilds its segment's scale from the maximum and
+//     divides.
 // It equals the plain PyTorch version bit for bit: correctly rounded division
 // (__fdiv_rn, never a multiply by the reciprocal), __float2int_rn (half to
 // even), the scale arithmetic in the plain version's order; the build has no
@@ -59,7 +67,7 @@ struct Strides {
 
 struct Shape {
   int h, n, d;
-  long long groups;  // B * H * N * D / kGroup
+  long long groups;  // groups a segment: B * H * N * D / kGroup over the segments
 };
 
 // Group i of 16 consecutive elements of one row, in (b, h, n, d) order.
@@ -79,7 +87,8 @@ __device__ __forceinline__ float pattern_to_float(uint32_t bits16, __half) {
   return __half2float(__ushort_as_half((unsigned short)bits16));
 }
 
-// amax_bits[0], amax_bits[1] (zero before the launch) = the bits of max|q|, max|k| as f32.
+// amax_bits[z], amax_bits[S + z] (zero before the launch; S = gridDim.z segments) = the bits of segment z's
+// max|q|, max|k| as f32.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     absmax_qk_kernel(const T* __restrict__ q, const T* __restrict__ k, Strides q_st, Strides k_st, Shape sh,
@@ -87,8 +96,9 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ uint32_t warp_max[kThreads / 32];
   const T* x = blockIdx.y ? k : q;
   const Strides st = blockIdx.y ? k_st : q_st;
+  const long long first = (long long)blockIdx.z * sh.groups, end = first + sh.groups;
   uint32_t m = 0;  // two running maxima of 15-bit magnitudes, packed
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < sh.groups;
+  for (long long i = first + (long long)blockIdx.x * kThreads + threadIdx.x; i < end;
        i += (long long)gridDim.x * kThreads) {
     const uint4* p = reinterpret_cast<const uint4*>(group_ptr(x, st, sh, i));
     const uint4 a = p[0], b = p[1];
@@ -102,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int w = 1; w < kThreads / 32; ++w) best = max(best, warp_max[w]);
-    atomicMax(amax_bits + blockIdx.y, __float_as_uint(pattern_to_float(best, T())));
+    atomicMax(amax_bits + blockIdx.y * gridDim.z + blockIdx.z, __float_as_uint(pattern_to_float(best, T())));
   }
 }
 
@@ -141,10 +151,11 @@ __global__ void __launch_bounds__(kThreads)
   const T* x = blockIdx.y ? k : q;
   const Strides st = blockIdx.y ? k_st : q_st;
   int8_t* out = blockIdx.y ? k8 : q8;
-  const float scale = tensor_scale(amax[blockIdx.y]);
+  const float scale = tensor_scale(amax[blockIdx.y * gridDim.z + blockIdx.z]);
   if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
-    *qk_scale = __fdiv_rn(__fmul_rn(scale, tensor_scale(amax[1])), sqrt_d);
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < sh.groups;
+    qk_scale[blockIdx.z] = __fdiv_rn(__fmul_rn(scale, tensor_scale(amax[gridDim.z + blockIdx.z])), sqrt_d);
+  const long long first = (long long)blockIdx.z * sh.groups, end = first + sh.groups;
+  for (long long i = first + (long long)blockIdx.x * kThreads + threadIdx.x; i < end;
        i += (long long)gridDim.x * kThreads) {
     const uint4* p = reinterpret_cast<const uint4*>(group_ptr(x, st, sh, i));
     const uint2 lo = quantize8<T>(p[0], scale), hi = quantize8<T>(p[1], scale);
@@ -153,11 +164,11 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, Strides q_st, Strides k_st, int b, Shape sh, float* amax,
-                   int8_t* q8, int8_t* k8, float* qk_scale, float sqrt_d, cudaStream_t stream) {
-  sh.groups = (long long)b * sh.h * sh.n * sh.d / kGroup;
-  const long long want = (sh.groups + kThreads - 1) / kThreads;
-  const dim3 grid((unsigned)(want < kMaxBlocks ? want : kMaxBlocks), 2);
+cudaError_t launch(const void* q, const void* k, Strides q_st, Strides k_st, int b, int scales, Shape sh,
+                   float* amax, int8_t* q8, int8_t* k8, float* qk_scale, float sqrt_d, cudaStream_t stream) {
+  sh.groups = (long long)b * sh.h * sh.n * sh.d / kGroup / scales;
+  const long long want = (sh.groups + kThreads - 1) / kThreads, most = (kMaxBlocks + scales - 1) / scales;
+  const dim3 grid((unsigned)(want < most ? want : most), 2, scales);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   absmax_qk_kernel<T><<<grid, kThreads, 0, stream>>>(qt, kt, q_st, k_st, sh, reinterpret_cast<unsigned int*>(amax));
@@ -172,20 +183,22 @@ cudaError_t launch(const void* q, const void* k, Strides q_st, Strides k_st, int
 
 // q, k: (b, h, n, d) in bf16 (is_f16 = 0) or f16 (is_f16 = 1), d a multiple of
 // 16 and contiguous, rows 16-byte aligned; q_strides, k_strides: the element
-// strides of their b, h and n dimensions. amax: two f32 on the device, zero
-// (the maxima are left there); q8, k8: contiguous int8 (b, h, n, d); qk_scale:
-// one f32 on the device; sqrt_d: d^1/2 rounded to f32. Two launches. Returns
-// the cudaError_t of the last.
+// strides of their b, h and n dimensions. scales: 1 (one scale per tensor) or
+// b (one per batch row). amax: 2 * scales f32 on the device, zero (the maxima
+// of q's segments, then k's, are left there); q8, k8: contiguous int8 (b, h,
+// n, d); qk_scale: `scales` f32 on the device; sqrt_d: d^1/2 rounded to f32.
+// Two launches. Returns the cudaError_t of the last.
 extern "C" int wc_quantize_qk_i8(const void* q, const void* k, const long long* q_strides,
-                                 const long long* k_strides, int b, int h, int n, int d, int is_f16, float* amax,
-                                 void* q8, void* k8, float* qk_scale, float sqrt_d, void* stream) {
+                                 const long long* k_strides, int b, int h, int n, int d, int is_f16, int scales,
+                                 float* amax, void* q8, void* k8, float* qk_scale, float sqrt_d, void* stream) {
   using namespace wcquant;
-  if (b <= 0 || h <= 0 || n <= 0 || d <= 0 || d % kGroup != 0) return cudaErrorInvalidValue;
+  if (b <= 0 || h <= 0 || n <= 0 || d <= 0 || d % kGroup != 0 || (scales != 1 && scales != b) || b > 65535)
+    return cudaErrorInvalidValue;
   const Strides q_st{q_strides[0], q_strides[1], q_strides[2]}, k_st{k_strides[0], k_strides[1], k_strides[2]};
   const Shape sh{h, n, d, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int8_t* q8p = static_cast<int8_t*>(q8);
   int8_t* k8p = static_cast<int8_t*>(k8);
-  return is_f16 ? launch<__half>(q, k, q_st, k_st, b, sh, amax, q8p, k8p, qk_scale, sqrt_d, s)
-                : launch<__nv_bfloat16>(q, k, q_st, k_st, b, sh, amax, q8p, k8p, qk_scale, sqrt_d, s);
+  return is_f16 ? launch<__half>(q, k, q_st, k_st, b, scales, sh, amax, q8p, k8p, qk_scale, sqrt_d, s)
+                : launch<__nv_bfloat16>(q, k, q_st, k_st, b, scales, sh, amax, q8p, k8p, qk_scale, sqrt_d, s);
 }

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from weatherconverter_tpu_torch.diffusion.schedule import NoiseSchedule, VarianceMode, ddpm_step, predict_x0, q_sample
@@ -47,12 +48,15 @@ def strided_taus(T: int, S: int) -> tuple[list[int], list[int]]:
     rounded half to even: XLA turns (T - 1) * (i / (S - 1)) into
     i * ((T - 1) * (1 / (S - 1))), each product and the reciprocal rounded to
     f32, which can put a grid point that is exactly k + 1/2 one ulp off it
-    (T = 333, S = 25 gives 125 where the exact grid rounds to 124)."""
+    (T = 333, S = 25 gives 125 where the exact grid rounds to 124). Host
+    arithmetic in numpy's f32 (each operation correctly rounded, as XLA's
+    and torch's are), so a traced program (`cli export-hlo`) holds the grid
+    as constants."""
     if S >= 2:
-        f32 = torch.float32
-        scale = torch.tensor(float(T - 1), dtype=f32) * (torch.tensor(1.0, dtype=f32) / torch.tensor(float(S - 1), dtype=f32))
-        grid = torch.cat([torch.arange(S - 1, dtype=f32) * scale, torch.tensor([float(T - 1)], dtype=f32)])
-        taus = torch.round(grid).long().tolist()[::-1]
+        f32 = np.float32
+        scale = f32(T - 1) * (f32(1.0) / f32(S - 1))
+        grid = np.concatenate([np.arange(S - 1, dtype=f32) * scale, np.array([T - 1], dtype=f32)])
+        taus = [int(t) for t in np.round(grid)][::-1]
     else:
         taus = [T - 1]
     return taus, taus[1:] + [-1]
@@ -92,7 +96,7 @@ def draw_or_replay(generator: Generators, like: torch.Tensor, given: Optional[to
     """A N(0, I) draw shaped like the NCHW `like`, on its device: `given`
     (NHWC, replayed) or, if None, drawn from the generator(s)."""
     if given is not None:
-        return nchw(given).to(like.device, torch.float32)
+        return nchw(given).to(like.device, like.dtype)
     return randn(like.shape, generator, like.device, like.dtype)
 
 

@@ -43,6 +43,7 @@ from weatherconverter_tpu_torch.diffusion.schedule import (
     q_sample,
 )
 from weatherconverter_tpu_torch.guidance.sgg import apply_gsg, apply_lcg, present_class_ids
+from weatherconverter_tpu_torch.ops import at_least_f32
 from weatherconverter_tpu_torch.ops.attention import check_flash_precision
 from weatherconverter_tpu_torch.ops.image import normalize
 
@@ -91,7 +92,7 @@ def translate_entry(sched: NoiseSchedule, input_128: torch.Tensor, num_steps: in
     then input_128 (B, h, w, 3) q-sampled to t0 with a draw from the
     generator (or `noise0` replayed). Returns the noised latent, NHWC: what
     `sample_with_sgg` starts from, and a first segment's `xt_init`."""
-    x_in = nchw(input_128).float()
+    x_in = at_least_f32(nchw(input_128))
     b, device = x_in.shape[0], x_in.device
     if start_t is None:
         t0 = randint(num_steps, b, generator, device)
@@ -158,7 +159,7 @@ def sample_with_sgg(
     if guidance_space not in ("sr", "latent"):
         raise ValueError(f"unknown guidance_space {guidance_space!r}")
 
-    x_in = nchw(input_128).float()
+    x_in = at_least_f32(nchw(input_128))
     b, device = x_in.shape[0], x_in.device
     guide_latent = guidance_space == "latent"
     if guide_latent:
@@ -199,7 +200,7 @@ def _fast_start(sched: NoiseSchedule, input_128: torch.Tensor, span_t: Optional[
     unless given), its strided taus, and the input q-sampled to span - 1."""
     span = min(DEFAULT_TRANSLATE_SPAN, sched.T) if span_t is None else span_t
     taus, tau_prev = strided_taus(span, num_steps)
-    x_in = nchw(input_128).float()
+    x_in = at_least_f32(nchw(input_128))
     return taus, tau_prev, q_sample(sched, x_in, draw_or_replay(generator, x_in, noise0), int(span) - 1)
 
 

@@ -51,12 +51,17 @@ class SelfAttention2D(nn.Module):
     path. The pre-norm and the residual add belong to the block.
     `qk_int8` takes K2 only where K2 has this layer's head dim (the
     layer's `qk_int8` says which); K1 elsewhere (`ops/attention.py`).
+    `per_item` gives K2 one int8 scale a batch row (the server's requests),
+    not one for the batch. Not `fused` (JAX's fused=False), it attends by
+    plain softmax at every length, with no kernel.
     """
 
-    def __init__(self, channels: int, num_heads: int, qk_int8: bool = False):
+    def __init__(self, channels: int, num_heads: int, qk_int8: bool = False, per_item: bool = False,
+                 fused: bool = True):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, channels // num_heads
         self.qk_int8 = qk_int8_takes(self.head_dim, qk_int8)
+        self.per_item, self.fused = per_item, fused
         self.in_proj_weight = nn.Parameter(torch.empty(3 * channels, channels))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * channels))
         self.out_proj = nn.Linear(channels, channels)
@@ -76,7 +81,8 @@ class SelfAttention2D(nn.Module):
         def heads(t):  # (B, N, C) -> (B, H, N, D)
             return t.reshape(b, n, self.num_heads, self.head_dim).transpose(1, 2)
 
-        out = multi_head_attention(heads(q), heads(k), heads(v), qk_int8=self.qk_int8)
+        out = multi_head_attention(heads(q), heads(k), heads(v), qk_int8=self.qk_int8, per_item=self.per_item,
+                                   fused=self.fused)
         return self.out_proj(out.transpose(1, 2).reshape(b, n, c))
 
 
@@ -85,15 +91,17 @@ def attention_kernels(model: nn.Module, shapes: list[tuple[int, int]]) -> list[t
     of `model`, whose (N, D) in forward order are `shapes`: its
     SelfAttention2D modules, in registration order, are that order."""
     layers = [m for m in model.modules() if isinstance(m, SelfAttention2D)]
-    return [(n, d, layer_kernel(n, d, m.qk_int8)) for (n, d), m in zip(shapes, layers, strict=True)]
+    return [(n, d, layer_kernel(n, d, m.qk_int8, m.fused)) for (n, d), m in zip(shapes, layers, strict=True)]
 
 
 class ResnetTimeBlock(nn.Module):
     """The layers of one UNet block: residual layers j (`channels[j]` is their
     (in, out)), each GN+SiLU -> Conv3x3 -> (+ time proj) -> GN+SiLU -> Conv3x3
     -> + 1x1(x), and, where the block attends, pre-normed residual
-    self-attention layers on `attn_channels`. Down/Mid/UpBlock subclass it
-    and differ only in the order of the layers and in resampling."""
+    self-attention layers on `attn_channels` (`attn` holds their
+    SelfAttention2D options: qk_int8, per_item, fused). Down/Mid/UpBlock
+    subclass it and differ only in the order of the layers and in
+    resampling."""
 
     def __init__(
         self,
@@ -102,7 +110,7 @@ class ResnetTimeBlock(nn.Module):
         num_attn: int = 0,
         attn_channels: int = 0,
         num_heads: int = 1,
-        qk_int8: bool = False,
+        attn: dict | None = None,
     ):
         super().__init__()
         self.resnet_conv_first = nn.ModuleList(_norm_conv(ci, co) for ci, co in channels)
@@ -116,7 +124,7 @@ class ResnetTimeBlock(nn.Module):
                 GroupNormSiLU(attn_channels, silu=False) for _ in range(num_attn)
             )
             self.attentions = nn.ModuleList(
-                SelfAttention2D(attn_channels, num_heads, qk_int8) for _ in range(num_attn)
+                SelfAttention2D(attn_channels, num_heads, **(attn or {})) for _ in range(num_attn)
             )
 
     def resnet(self, j: int, x: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:

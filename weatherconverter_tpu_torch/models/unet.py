@@ -6,7 +6,9 @@ Parameter names are those of compat/torch_export.export_unet, e.g.
 `downs.{i}.resnet_conv_first.{j}.0` and `mids.{i}.attentions.{j}.in_proj_weight`.
 `qk_int8` routes the flash-length attention layers whose head dim K2 has
 through the int8-QK^T kernel (forward only) and the others through K1
-(`attention_kernels` lists the choice per layer).
+(`attention_kernels` lists the choice per layer); `qk_int8_per_item` gives
+K2 one scale a batch row. `fused=False` is JAX's portable form: plain
+softmax attention at every length, no kernel.
 """
 
 from __future__ import annotations
@@ -47,9 +49,9 @@ def unet_attention_shapes(config: UnetModelConfig, height: int, width: int | Non
 class DownBlock(ResnetTimeBlock):
     """num_layers x [resnet(+t), attn?] then a 4x4/s2 downsample conv."""
 
-    def __init__(self, cin, cout, t_dim, num_layers, num_heads, use_attn, down_sample, qk_int8=False):
+    def __init__(self, cin, cout, t_dim, num_layers, num_heads, use_attn, down_sample, attn=None):
         super().__init__([(cin if j == 0 else cout, cout) for j in range(num_layers)], t_dim,
-                         num_layers if use_attn else 0, cout, num_heads, qk_int8)
+                         num_layers if use_attn else 0, cout, num_heads, attn)
         self.num_layers, self.use_attn = num_layers, use_attn
         self.down_sample_conv = nn.Conv2d(cout, cout, 4, 2, 1) if down_sample else None
 
@@ -64,9 +66,9 @@ class DownBlock(ResnetTimeBlock):
 class MidBlock(ResnetTimeBlock):
     """resnet, then num_layers x [attn, resnet]."""
 
-    def __init__(self, cin, cout, t_dim, num_layers, num_heads, qk_int8=False):
+    def __init__(self, cin, cout, t_dim, num_layers, num_heads, attn=None):
         super().__init__([(cin, cout)] + [(cout, cout)] * num_layers, t_dim,
-                         num_layers, cout, num_heads, qk_int8)
+                         num_layers, cout, num_heads, attn)
         self.num_layers = num_layers
 
     def forward(self, x, t_emb):
@@ -79,9 +81,9 @@ class MidBlock(ResnetTimeBlock):
 class UpBlock(ResnetTimeBlock):
     """ConvTranspose(4, 2, 1) upsample -> concat skip -> num_layers x [resnet(+t), attn?]."""
 
-    def __init__(self, x_ch, cin, cout, t_dim, num_layers, num_heads, use_attn, up_sample, qk_int8=False):
+    def __init__(self, x_ch, cin, cout, t_dim, num_layers, num_heads, use_attn, up_sample, attn=None):
         super().__init__([(cin if j == 0 else cout, cout) for j in range(num_layers)], t_dim,
-                         num_layers if use_attn else 0, cout, num_heads, qk_int8)
+                         num_layers if use_attn else 0, cout, num_heads, attn)
         self.num_layers, self.use_attn = num_layers, use_attn
         self.up_sample_conv = nn.ConvTranspose2d(x_ch, x_ch, 4, 2, 1) if up_sample else None
 
@@ -97,9 +99,12 @@ class UpBlock(ResnetTimeBlock):
 
 
 class Unet(nn.Module):
-    def __init__(self, config: UnetModelConfig, qk_int8: bool = False):
+    def __init__(self, config: UnetModelConfig, qk_int8: bool = False, fused: bool = True,
+                 qk_int8_per_item: bool = False):
         super().__init__()
         cfg = self.config = config
+        self.fused = fused
+        attn = dict(qk_int8=qk_int8, per_item=qk_int8_per_item, fused=fused)
         dc, mc, ds = list(cfg.down_channels), list(cfg.mid_channels), list(cfg.down_sample)
         if mc[0] != dc[-1] or mc[-1] != dc[-2] or len(ds) != len(dc) - 1:
             raise ValueError("inconsistent UNet channel ladder")
@@ -112,17 +117,17 @@ class Unet(nn.Module):
         self.t_proj = nn.Sequential(nn.Linear(t_dim, t_dim), nn.SiLU(), nn.Linear(t_dim, t_dim))
         self.conv_in = nn.Conv2d(cfg.im_channels, dc[0], 3, padding=1)
         self.downs = nn.ModuleList(
-            DownBlock(dc[i], dc[i + 1], t_dim, cfg.num_down_layers, heads, attends(i), ds[i], qk_int8)
+            DownBlock(dc[i], dc[i + 1], t_dim, cfg.num_down_layers, heads, attends(i), ds[i], attn)
             for i in range(n_down)
         )
         self.mids = nn.ModuleList(
-            MidBlock(mc[i], mc[i + 1], t_dim, cfg.num_mid_layers, heads, qk_int8)
+            MidBlock(mc[i], mc[i + 1], t_dim, cfg.num_mid_layers, heads, attn)
             for i in range(len(mc) - 1)
         )
         # up block for level i: x arrives with dc[i] channels, the skip adds dc[i]
         self.ups = nn.ModuleList(
             UpBlock(dc[i], 2 * dc[i], dc[i - 1] if i != 0 else dc[0], t_dim, cfg.num_up_layers, heads,
-                    attends(i), ds[i], qk_int8)
+                    attends(i), ds[i], attn)
             for i in reversed(range(n_down))
         )
         self.norm_out = GroupNormSiLU(dc[0])
@@ -138,13 +143,16 @@ class Unet(nn.Module):
 
     def forward(self, x: torch.Tensor, t) -> torch.Tensor:
         """x (B, C, H, W), t (B,) or scalar int timesteps -> eps (B, C, H, W) f32.
-        On CUDA a model with a flash-length attention layer must compute in
-        bf16/f16 (autocast, or 16-bit parameters): f32 is refused here by name."""
+        On CUDA a fused model with a flash-length attention layer must compute
+        in bf16/f16 (autocast, or 16-bit parameters): f32 is refused here by
+        name."""
         dev = x.device.type
         dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else self.conv_in.weight.dtype
-        check_flash_precision(dev, dtype, self.attention_shapes(*x.shape[2:]), "Unet.forward")
+        if self.fused:
+            check_flash_precision(dev, dtype, self.attention_shapes(*x.shape[2:]), "Unet.forward")
         t = torch.as_tensor(t, device=x.device).reshape(-1).expand(x.shape[0])
-        t_emb = self.t_proj(timestep_embedding(t, self.config.time_emb_dim))
+        # f32, or f64 in a model run in f64 (as the JAX Dense casts it to the module's dtype)
+        t_emb = self.t_proj(timestep_embedding(t, self.config.time_emb_dim).to(self.conv_in.weight.dtype))
         out = self.conv_in(x)
         skips = []
         for down in self.downs:

@@ -12,8 +12,16 @@ hand-written CUDA kernels for Hopper (csrc/, built by ops/cuda_build.py):
                                 `_flash_bwd_dq_kernel_stream` and
                                 `_flash_bwd_dkv_kernel_stream`
 
-and the per-tensor quantization of Q and K in front of K2, which XLA fused on
-the TPU, another: `quantize_qk_i8` (csrc/quantize_i8.cu).
+and the quantization of Q and K in front of K2, which XLA fused on the TPU,
+another: `quantize_qk_i8` (csrc/quantize_i8.cu). K2 and its quantizer take
+one scale per tensor (JAX's function called once on a batch, the CLI's
+one-request commands) or, with `per_item`, one a batch row (JAX's function
+under jax.vmap over requests, as the JAX server runs it).
+
+Each kernel is a custom op of the namespace `OPS` ("wc"): a fake
+implementation for tracing, the plain version on the CPU, the ctypes launch
+on CUDA. An exported program (`cli export-hlo --attn int8`) holds them as
+ops and runs them wherever this module is imported.
 
 They compute the JAX kernels' clamped softmax, exp(clip(s, -60, 60)) with no
 row max, and its gradient, masked where the clamp fires, which a stock flash
@@ -72,11 +80,12 @@ def qk_int8_takes(head_dim: int, qk_int8: bool) -> bool:
     return qk_int8 and head_dim in QK_I8_HEAD_DIMS
 
 
-def layer_kernel(n: int, head_dim: int, qk_int8: bool) -> str:
+def layer_kernel(n: int, head_dim: int, qk_int8: bool, fused: bool = True) -> str:
     """What `multi_head_attention` runs for a layer of N tokens and `head_dim`
     whose int8 choice is `qk_int8` (after `qk_int8_takes`): "K2", "K1" or
-    "softmax" (the plain short-sequence path)."""
-    if not is_flash_length(n):
+    "softmax" (the plain short-sequence path, and every layer when not
+    `fused`)."""
+    if not fused or not is_flash_length(n):
         return "softmax"
     return "K2" if qk_int8 else "K1"
 
@@ -128,34 +137,45 @@ def flash_attention_plain(
     return (o, l) if return_l else o
 
 
-def quantize_per_tensor(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-tensor int8: scale = max(max|x|, 1e-6) / 127, round half
-    to even (attention.py:173-179). Returns (int8 tensor, f32 scale). Every
+def quantize_per_tensor(x: torch.Tensor, per_item: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8: scale = max(max|x|, 1e-6) / 127, round half to even
+    (attention.py:173-179), over the whole tensor, or with `per_item` over
+    each batch row (dim 0), as JAX computes it under jax.vmap over requests.
+    Returns (int8 tensor, contiguous; f32 scale, 0-dim or (B, 1, ...)). Every
     divisor is a tensor on x's device: PyTorch's CUDA division by a Python
     number multiplies by its reciprocal, which is not always the correctly
     rounded quotient that the CPU, JAX and the quantizer kernel compute."""
     xf = x.float()
-    scale = xf.abs().amax().clamp_min(1e-6) / xf.new_full((), 127.0)
-    return torch.round(xf / scale).to(torch.int8), scale
+    amax = xf.abs().amax(dim=tuple(range(1, x.dim())), keepdim=True) if per_item else xf.abs().amax()
+    scale = amax.clamp_min(1e-6) / xf.new_full((), 127.0)
+    return torch.round(xf / scale).to(torch.int8).contiguous(), scale
 
 
-def quantize_qk_i8_plain(q: torch.Tensor, k: torch.Tensor):
+def quantize_qk_i8_plain(q: torch.Tensor, k: torch.Tensor, per_item: bool = False):
     """The quantizer's plain version (attention.py:173-189): q and k quantized
-    per tensor, and the f32 score scale qs * ks / sqrt(D), shape (1,)."""
-    q8, qs = quantize_per_tensor(q)
-    k8, ks = quantize_per_tensor(k)
-    return q8, k8, (qs * ks / qs.new_full((), q.shape[-1] ** 0.5)).reshape(1)
+    per tensor, or with `per_item` per batch row, and the f32 score scale
+    qs * ks / sqrt(D), shape (1,) or (B,)."""
+    q8, qs = quantize_per_tensor(q, per_item)
+    k8, ks = quantize_per_tensor(k, per_item)
+    return q8, k8, (qs * ks / qs.new_full((), q.shape[-1] ** 0.5)).reshape(-1)
 
 
-def flash_attention_qk_i8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K2's plain version: the same quantization, then int32-exact scores
-    (an f32 product of int8 values: every partial sum is an integer below
-    127*127*128 < 2^24) times qs*ks*D^-1/2, then K1's softmax and bf16 PV."""
-    q8, k8, qk_scale = quantize_qk_i8_plain(q, k)
-    s = torch.matmul(q8.float(), k8.float().transpose(-1, -2)) * qk_scale
+def qk_i8_attention_plain(q8: torch.Tensor, k8: torch.Tensor, qk_scale: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K2's forward on quantized inputs, plain: int32-exact scores (an f32
+    product of int8 values: every partial sum is an integer below
+    127*127*128 < 2^24) times the score scale of each batch row (one for all
+    when qk_scale has one entry), then K1's softmax and bf16 PV."""
+    s = torch.matmul(q8.float(), k8.float().transpose(-1, -2)) * qk_scale.reshape(-1, 1, 1, 1)
     p = torch.exp(s.clamp(-_CLAMP, _CLAMP))
     l = p.sum(dim=-1, keepdim=True)
     return (torch.matmul(p.to(v.dtype).float(), v.float()) / l).to(v.dtype)
+
+
+def flash_attention_qk_i8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                per_item: bool = False) -> torch.Tensor:
+    """K2's plain version: the quantization (per tensor, or per batch row
+    with `per_item`), then `qk_i8_attention_plain`."""
+    return qk_i8_attention_plain(*quantize_qk_i8_plain(q, k, per_item), v)
 
 
 def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -188,6 +208,247 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+# The kernels as custom ops (torch.library): each has a fake implementation
+# (shapes and dtypes only, for tracing), a CPU implementation, its plain
+# version, and a CUDA implementation, the ctypes launch, which checks what the
+# kernel takes and raises, never falls back. So a traced program
+# (torch.export, `cli export-hlo --attn int8`) holds them as ops of the
+# namespace `OPS`, and runs them wherever this module has been imported. The
+# public functions below call them; their refusals, launch counts and numbers
+# are those of the kernels. The probe kernels K4-K7 stay plain ctypes calls:
+# no program that can be exported reaches them.
+
+
+def _op_namespace() -> str:
+    """"wc", or "wc<i>" for a later copy of this module in one process (an op
+    name is registered once a process; probes/time_flash.load_checkout loads
+    another checkout's copy beside this one, with its own kernel library)."""
+    i = 0
+    while True:
+        ns = "wc" if i == 0 else f"wc{i}"
+        try:
+            getattr(getattr(torch.ops, ns), "flash_fwd")
+        except AttributeError:
+            return ns
+        i += 1
+
+
+OPS = _op_namespace()
+
+
+def _no_l(q: torch.Tensor) -> torch.Tensor:
+    """The (0,) f32 tensor a forward op returns in l's place without `return_l`."""
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def _l_like(q: torch.Tensor, return_l: bool) -> torch.Tensor:
+    b, h, n, _ = q.shape
+    return q.new_empty((b, h, n, 1), dtype=torch.float32) if return_l else _no_l(q)
+
+
+def _forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   return_l: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's and K1-f32's CPU implementation: the plain version, (o, l or an empty l)."""
+    o, l = flash_attention_plain(q, k, v, return_l=True)
+    return o, l if return_l else _no_l(q)
+
+
+_k1_op = torch.library.custom_op(f"{OPS}::flash_fwd", _forward_plain, mutates_args=(), device_types="cpu")
+_k1_f32_op = torch.library.custom_op(f"{OPS}::flash_fwd_f32", _forward_plain, mutates_args=(), device_types="cpu")
+for _op in (_k1_op, _k1_f32_op):
+    _op.register_fake(lambda q, k, v, return_l: (q.new_empty(q.shape), _l_like(q, return_l)))
+
+
+@_k1_op.register_kernel("cuda")
+def _(q, k, v, return_l):
+    check_kernel_inputs("flash_attention", q, k, v)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention: q, k, v must share one dtype")
+    b, h, n, d = q.shape
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    l = _l_like(q, return_l)
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        err = lib.wc_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), l.data_ptr() if return_l else None,
+            b * h, n, d, int(q.dtype == torch.float16), 1.0 / d**0.5, cuda_build.stream(q.device),
+        )
+    cuda_build.check_launch("flash_attention", err)
+    flash_attention.launches += 1
+    return o, l
+
+
+@_k1_f32_op.register_kernel("cuda")
+def _(q, k, v, return_l):
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention_f32: q, k, v must lie on one CUDA device, got {q.device}, {k.device}, "
+                         f"{v.device}")
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"flash_attention_f32: q, k, v must share one (B, H, N, D) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype == torch.float32:
+        raise ValueError(f"flash_attention_f32: dtype must be float32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, h, n, d = q.shape
+    if d not in F32_HEAD_DIMS:
+        raise ValueError(f"flash_attention_f32: head dim {d} not in {F32_HEAD_DIMS}: in dtype float32 the forward "
+                         f"takes those only; dtypes {KERNEL_DTYPES} take {KERNEL_HEAD_DIMS}")
+    check_kernel_shape("flash_attention_f32", b, h, n, d, head_dims=F32_HEAD_DIMS)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    l = _l_like(q, return_l)
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        err = lib.wc_flash_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                   l.data_ptr() if return_l else None, b * h, n, d, 1.0 / d**0.5,
+                                   cuda_build.stream(q.device))
+    cuda_build.check_launch("flash_attention_f32", err)
+    flash_attention_f32.launches += 1
+    return o, l
+
+
+@torch.library.custom_op(f"{OPS}::flash_bwd", mutates_args=(), device_types="cpu")
+def _k3_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+           l: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_attention_bwd_plain(q, k, v, o, do, l)
+
+
+@_k3_op.register_fake
+def _(q, k, v, o, do, l):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@_k3_op.register_kernel("cuda")
+def _(q, k, v, o, do, l):
+    _check_bwd_head_dim(q.shape[-1])
+    check_kernel_inputs("flash_attention_bwd", q, k, v, BWD_HEAD_DIMS)
+    b, h, n, d = q.shape
+    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must match q's shape, dtype and device, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+    if l.shape != (b, h, n, 1) or l.dtype != torch.float32 or l.device != q.device:
+        raise ValueError(f"flash_attention_bwd: l must be (B, H, N, 1) f32 on q's device, got "
+                         f"{tuple(l.shape)} {l.dtype} {l.device}")
+    q, k, v, o, do, l = (t.contiguous() for t in (q, k, v, o, do, l))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dvec = torch.empty((2, b * h, n), device=q.device, dtype=torch.float32)  # Dv and 1/l, pass 1 -> pass 2
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        err = lib.wc_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), l.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(),
+            b * h, n, d, int(q.dtype == torch.float16), 1.0 / d**0.5, cuda_build.stream(q.device),
+        )
+    cuda_build.check_launch("flash_attention_bwd", err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+_QUANTIZE_GROUP = 16  # elements the quantizer's threads take at a time (csrc/quantize_i8.cu kGroup)
+
+
+def _row_strides(t: torch.Tensor):
+    """The (B, H, N) element strides of `t` if the quantizer can read it in
+    place (rows of D contiguous, every row 16-byte aligned), else None."""
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+        return None
+    return (ctypes.c_longlong * 3)(*t.stride()[:3])
+
+
+def _readable_rows(t: torch.Tensor):
+    """`t` as the quantizer can read it, with its strides: `t` itself, or a
+    fresh contiguous copy (a new allocation is aligned)."""
+    strides = _row_strides(t)
+    if strides is None:
+        t = t.clone(memory_format=torch.contiguous_format)
+        strides = _row_strides(t)
+    return t, strides
+
+
+@torch.library.custom_op(f"{OPS}::quantize_qk_i8", mutates_args=(), device_types="cpu")
+def _quantize_op(q: torch.Tensor, k: torch.Tensor,
+                 per_item: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return quantize_qk_i8_plain(q, k, per_item)
+
+
+@_quantize_op.register_fake
+def _(q, k, per_item):
+    scales = q.shape[0] if per_item else 1
+    return (q.new_empty(q.shape, dtype=torch.int8), k.new_empty(q.shape, dtype=torch.int8),
+            q.new_empty((scales,), dtype=torch.float32))
+
+
+@_quantize_op.register_kernel("cuda")
+def _(q, k, per_item):
+    if q.device.type != "cuda" or k.device != q.device:
+        raise ValueError(f"quantize_qk_i8: q and k must lie on one CUDA device, got {q.device} and {k.device}")
+    if q.dim() != 4 or q.shape != k.shape:
+        raise ValueError(f"quantize_qk_i8: q and k must share one (B, H, N, D) shape, got {tuple(q.shape)} "
+                         f"and {tuple(k.shape)}")
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype:
+        raise ValueError(f"quantize_qk_i8: q and k must share one dtype of {KERNEL_DTYPES}, got {q.dtype} "
+                         f"and {k.dtype}")
+    b, h, n, d = q.shape
+    if d % _QUANTIZE_GROUP != 0:
+        raise ValueError(f"quantize_qk_i8: head dim {d} is not a multiple of {_QUANTIZE_GROUP}")
+    scales = b if per_item else 1
+    (q, q_strides), (k, k_strides) = _readable_rows(q), _readable_rows(k)
+    amax = torch.zeros(2 * scales, device=q.device, dtype=torch.float32)  # the maxima: pass 1 -> pass 2
+    q8 = torch.empty(q.shape, device=q.device, dtype=torch.int8)
+    k8 = torch.empty(q.shape, device=q.device, dtype=torch.int8)
+    qk_scale = torch.empty(scales, device=q.device, dtype=torch.float32)
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        err = lib.wc_quantize_qk_i8(
+            q.data_ptr(), k.data_ptr(), q_strides, k_strides, b, h, n, d, int(q.dtype == torch.float16), scales,
+            amax.data_ptr(), q8.data_ptr(), k8.data_ptr(), qk_scale.data_ptr(), d**0.5,
+            cuda_build.stream(q.device),
+        )
+    cuda_build.check_launch("quantize_qk_i8", err)
+    quantize_qk_i8.launches += 1
+    return q8, k8, qk_scale
+
+
+@torch.library.custom_op(f"{OPS}::flash_fwd_qk_i8", mutates_args=(), device_types="cpu")
+def _k2_op(q8: torch.Tensor, k8: torch.Tensor, qk_scale: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return qk_i8_attention_plain(q8, k8, qk_scale, v)
+
+
+@_k2_op.register_fake
+def _(q8, k8, qk_scale, v):
+    return v.new_empty(v.shape)
+
+
+@_k2_op.register_kernel("cuda")
+def _(q8, k8, qk_scale, v):
+    check_kernel_inputs("flash_qk_i8_forward", v, v, v)
+    b, h, n, d = v.shape
+    _check_qk_i8_head_dim(d)
+    if not (q8.is_contiguous() and k8.is_contiguous() and q8.dtype == k8.dtype == torch.int8
+            and q8.shape == k8.shape == v.shape and qk_scale.dtype == torch.float32
+            and q8.device == k8.device == qk_scale.device == v.device):
+        raise ValueError("flash_qk_i8_forward: q8 and k8 must be contiguous int8 of v's shape and qk_scale f32, "
+                         "all on v's device")
+    if qk_scale.numel() not in (1, b):
+        raise ValueError(f"flash_qk_i8_forward: qk_scale holds {qk_scale.numel()} scales; one (per tensor) or B = "
+                         f"{b} (per batch row)")
+    v = v.contiguous()  # q8, k8, qk_scale and v stay referenced here until the launch has been queued
+    o = torch.empty_like(v)
+    lib = cuda_build.library()
+    with torch.cuda.device(v.device):
+        err = lib.wc_flash_fwd_qk_i8(
+            q8.data_ptr(), k8.data_ptr(), v.data_ptr(), qk_scale.data_ptr(), o.data_ptr(), b * h, n, d,
+            int(v.dtype == torch.float16), b * h // qk_scale.numel(), cuda_build.stream(v.device),
+        )
+    cuda_build.check_launch("flash_attention_qk_i8", err)
+    flash_attention_qk_i8.launches += 1
+    return o
+
+
+# --- the public functions ---
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_l: bool = False):
     """K1, (B, H, N, D) -> O in q's dtype (and l, (B, H, N, 1) f32, with
     `return_l`). A CPU tensor takes `flash_attention_plain`; a CUDA tensor
@@ -207,26 +468,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_l: bool):
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, return_l=return_l)
-    if q.dtype == torch.float32:
+    if q.device.type != "cpu" and q.dtype == torch.float32:
         return flash_attention_f32(q, k, v, return_l=return_l)
-    check_kernel_inputs("flash_attention", q, k, v)
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("flash_attention: q, k, v must share one dtype")
-    b, h, n, d = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = torch.empty_like(q)
-    l = torch.empty((b, h, n, 1), device=q.device, dtype=torch.float32) if return_l else None
-    lib = cuda_build.library()
-    with torch.cuda.device(q.device):
-        err = lib.wc_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if l is None else l.data_ptr(),
-            b * h, n, d, int(q.dtype == torch.float16), 1.0 / d**0.5, cuda_build.stream(q.device),
-        )
-    cuda_build.check_launch("flash_attention", err)
-    flash_attention.launches += 1
+    o, l = _k1_op(q, k, v, return_l)
     return (o, l) if return_l else o
 
 
@@ -243,31 +487,7 @@ def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, re
     inputs here."""
     if _wants_grad(q, k, v):
         raise NotImplementedError("flash_attention_f32 is forward-only (no f32 backward): train in bf16")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, return_l=return_l)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention_f32: q, k, v must lie on one CUDA device, got {q.device}, {k.device}, "
-                         f"{v.device}")
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"flash_attention_f32: q, k, v must share one (B, H, N, D) shape, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if not q.dtype == k.dtype == v.dtype == torch.float32:
-        raise ValueError(f"flash_attention_f32: dtype must be float32, got {q.dtype}, {k.dtype}, {v.dtype}")
-    b, h, n, d = q.shape
-    if d not in F32_HEAD_DIMS:
-        raise ValueError(f"flash_attention_f32: head dim {d} not in {F32_HEAD_DIMS}: in dtype float32 the forward "
-                         f"takes those only; dtypes {KERNEL_DTYPES} take {KERNEL_HEAD_DIMS}")
-    check_kernel_shape("flash_attention_f32", b, h, n, d, head_dims=F32_HEAD_DIMS)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = torch.empty_like(q)
-    l = torch.empty((b, h, n, 1), device=q.device, dtype=torch.float32) if return_l else None
-    lib = cuda_build.library()
-    with torch.cuda.device(q.device):
-        err = lib.wc_flash_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                   None if l is None else l.data_ptr(), b * h, n, d, 1.0 / d**0.5,
-                                   cuda_build.stream(q.device))
-    cuda_build.check_launch("flash_attention_f32", err)
-    flash_attention_f32.launches += 1
+    o, l = _k1_f32_op(q, k, v, return_l)
     return (o, l) if return_l else o
 
 
@@ -304,31 +524,7 @@ def flash_attention_bwd(q, k, v, o, do, l):
     takes `flash_attention_bwd_plain`; a CUDA tensor launches the kernel's
     two passes (dQ, then dK/dV) or raises. It takes what K1 takes, with all
     five tensors in one dtype, at the head dims of BWD_HEAD_DIMS."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, do, l)
-    _check_bwd_head_dim(q.shape[-1])
-    check_kernel_inputs("flash_attention_bwd", q, k, v, BWD_HEAD_DIMS)
-    b, h, n, d = q.shape
-    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"flash_attention_bwd: {name} must match q's shape, dtype and device, got "
-                             f"{tuple(t.shape)} {t.dtype} {t.device}")
-    if l.shape != (b, h, n, 1) or l.dtype != torch.float32 or l.device != q.device:
-        raise ValueError(f"flash_attention_bwd: l must be (B, H, N, 1) f32 on q's device, got "
-                         f"{tuple(l.shape)} {l.dtype} {l.device}")
-    q, k, v, o, do, l = (t.contiguous() for t in (q, k, v, o, do, l))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dvec = torch.empty((2, b * h, n), device=q.device, dtype=torch.float32)  # Dv and 1/l, pass 1 -> pass 2
-    lib = cuda_build.library()
-    with torch.cuda.device(q.device):
-        err = lib.wc_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), l.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(),
-            b * h, n, d, int(q.dtype == torch.float16), 1.0 / d**0.5, cuda_build.stream(q.device),
-        )
-    cuda_build.check_launch("flash_attention_bwd", err)
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return _k3_op(q, k, v, o, do, l)
 
 
 flash_attention_bwd.launches = 0
@@ -364,90 +560,45 @@ class FlashAttentionFunction(torch.autograd.Function):
         return flash_attention_bwd(q, k, v, o, do.to(q.dtype).contiguous(), l)
 
 
-_QUANTIZE_GROUP = 16  # elements the quantizer's threads take at a time (csrc/quantize_i8.cu kGroup)
-
-
-def _row_strides(t: torch.Tensor):
-    """The (B, H, N) element strides of `t` if the quantizer can read it in
-    place (rows of D contiguous, every row 16-byte aligned), else None."""
-    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-        return None
-    return (ctypes.c_longlong * 3)(*t.stride()[:3])
-
-
-def _readable_rows(t: torch.Tensor):
-    """`t` as the quantizer can read it, with its strides: `t` itself, or a
-    fresh contiguous copy (a new allocation is aligned)."""
-    strides = _row_strides(t)
-    if strides is None:
-        t = t.clone(memory_format=torch.contiguous_format)
-        strides = _row_strides(t)
-    return t, strides
-
-
-def quantize_qk_i8(q: torch.Tensor, k: torch.Tensor):
+def quantize_qk_i8(q: torch.Tensor, k: torch.Tensor, *, per_item: bool = False):
     """The quantizer in front of K2, forward only: (B, H, N, D) q and k ->
     (q8, k8, qk_scale), contiguous int8 tensors and the f32 score scale
-    qs * ks / sqrt(D), shape (1,). A CPU tensor takes `quantize_qk_i8_plain`;
-    a CUDA tensor (bf16/f16, D a multiple of 16) launches the kernel's two
+    qs * ks / sqrt(D), one for the tensors, shape (1,), or with `per_item`
+    one a batch row, shape (B,), as JAX's function computes them under
+    jax.vmap over requests. A CPU tensor takes `quantize_qk_i8_plain`; a
+    CUDA tensor (bf16/f16, D a multiple of 16) launches the kernel's two
     passes (the maxima, then the division) or raises, and the result equals
     the plain version's bit for bit. Head-split views of one projection are
     read in place. One count in `.launches` for the two passes. Nothing here
     synchronises with the host."""
     if _wants_grad(q, k):
         raise NotImplementedError("quantize_qk_i8 is forward-only: rounding has no useful gradient")
-    if q.device.type == "cpu":
-        return quantize_qk_i8_plain(q, k)
-    if q.device.type != "cuda" or k.device != q.device:
-        raise ValueError(f"quantize_qk_i8: q and k must lie on one CUDA device, got {q.device} and {k.device}")
-    if q.dim() != 4 or q.shape != k.shape:
-        raise ValueError(f"quantize_qk_i8: q and k must share one (B, H, N, D) shape, got {tuple(q.shape)} "
-                         f"and {tuple(k.shape)}")
-    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype:
-        raise ValueError(f"quantize_qk_i8: q and k must share one dtype of {KERNEL_DTYPES}, got {q.dtype} "
-                         f"and {k.dtype}")
-    b, h, n, d = q.shape
-    if d % _QUANTIZE_GROUP != 0:
-        raise ValueError(f"quantize_qk_i8: head dim {d} is not a multiple of {_QUANTIZE_GROUP}")
-    (q, q_strides), (k, k_strides) = _readable_rows(q), _readable_rows(k)
-    amax = torch.zeros(2, device=q.device, dtype=torch.float32)  # max|q|, max|k|: pass 1 -> pass 2
-    q8 = torch.empty(q.shape, device=q.device, dtype=torch.int8)
-    k8 = torch.empty(q.shape, device=q.device, dtype=torch.int8)
-    qk_scale = torch.empty(1, device=q.device, dtype=torch.float32)
-    lib = cuda_build.library()
-    with torch.cuda.device(q.device):
-        err = lib.wc_quantize_qk_i8(
-            q.data_ptr(), k.data_ptr(), q_strides, k_strides, b, h, n, d, int(q.dtype == torch.float16),
-            amax.data_ptr(), q8.data_ptr(), k8.data_ptr(), qk_scale.data_ptr(), d**0.5,
-            cuda_build.stream(q.device),
-        )
-    cuda_build.check_launch("quantize_qk_i8", err)
-    quantize_qk_i8.launches += 1
-    return q8, k8, qk_scale
+    return _quantize_op(q, k, per_item)
 
 
 quantize_qk_i8.launches = 0
 
 
-def flash_attention_qk_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention_qk_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          per_item: bool = False) -> torch.Tensor:
     """K2, forward only, (B, H, N, D) -> O in v's dtype. Q and K go through
-    `quantize_qk_i8`; the kernel takes the int8 tensors, V and the f32 score
-    scale on the device. A CPU tensor takes `flash_attention_qk_i8_plain`; a
-    CUDA tensor launches the kernels or raises. A call queues a two-float
-    fill, the quantizer's two passes and the forward (and a copy of V if it
-    is a view), and never synchronises with the host. Inputs that require
-    grad (under grad mode) raise on every device: JAX has no VJP for this
-    path, and autograd through the plain version's rounding would give a
-    meaningless gradient."""
+    `quantize_qk_i8` (one scale per tensor, or with `per_item` one a batch
+    row, so that a row's output does not depend on the others'); the kernel
+    takes the int8 tensors, V and the f32 score scales on the device. A CPU
+    tensor takes `flash_attention_qk_i8_plain`; a CUDA tensor launches the
+    kernels or raises. A call queues a fill of the maxima, the quantizer's
+    two passes and the forward (and a copy of V if it is a view), and never
+    synchronises with the host. Inputs that require grad (under grad mode)
+    raise on every device: JAX has no VJP for this path, and autograd through
+    the plain version's rounding would give a meaningless gradient."""
     if _wants_grad(q, k, v):
         raise NotImplementedError(
             "flash_attention_qk_i8 is forward-only, as in JAX (no VJP through the int8 quantization); "
             "train with qk_int8=False")
-    if q.device.type == "cpu":
-        return flash_attention_qk_i8_plain(q, k, v)
-    check_kernel_inputs("flash_attention_qk_i8", q, k, v)
-    _check_qk_i8_head_dim(q.shape[-1])
-    return flash_qk_i8_forward(*quantize_qk_i8(q, k), v)
+    if q.device.type != "cpu":
+        check_kernel_inputs("flash_attention_qk_i8", q, k, v)
+        _check_qk_i8_head_dim(q.shape[-1])
+    return flash_qk_i8_forward(*quantize_qk_i8(q, k, per_item=per_item), v)
 
 
 def _check_qk_i8_head_dim(d: int) -> None:
@@ -458,42 +609,27 @@ def _check_qk_i8_head_dim(d: int) -> None:
 
 def flash_qk_i8_forward(q8: torch.Tensor, k8: torch.Tensor, qk_scale: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K2's kernel alone, on what `quantize_qk_i8` returns: contiguous int8
-    (B, H, N, D) q8 and k8, the f32 score scale on the device, and V (CUDA
-    only). It counts as one launch of `flash_attention_qk_i8`."""
-    check_kernel_inputs("flash_qk_i8_forward", v, v, v)
-    b, h, n, d = v.shape
-    _check_qk_i8_head_dim(d)
-    if not (q8.is_contiguous() and k8.is_contiguous() and q8.dtype == k8.dtype == torch.int8
-            and q8.shape == k8.shape == v.shape and qk_scale.dtype == torch.float32
-            and q8.device == k8.device == qk_scale.device == v.device):
-        raise ValueError("flash_qk_i8_forward: q8 and k8 must be contiguous int8 of v's shape and qk_scale f32, "
-                         "all on v's device")
-    v = v.contiguous()  # q8, k8, qk_scale and v stay referenced here until the launch has been queued
-    o = torch.empty_like(v)
-    lib = cuda_build.library()
-    with torch.cuda.device(v.device):
-        err = lib.wc_flash_fwd_qk_i8(
-            q8.data_ptr(), k8.data_ptr(), v.data_ptr(),
-            qk_scale.data_ptr(), o.data_ptr(), b * h, n, d, int(v.dtype == torch.float16),
-            cuda_build.stream(v.device),
-        )
-    cuda_build.check_launch("flash_attention_qk_i8", err)
-    flash_attention_qk_i8.launches += 1
-    return o
+    (B, H, N, D) q8 and k8, the f32 score scales on the device (1 or B), and
+    V; on the CPU its plain version. It counts as one launch of
+    `flash_attention_qk_i8`."""
+    return _k2_op(q8, k8, qk_scale, v)
 
 
 flash_attention_qk_i8.launches = 0
 
 
 def multi_head_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, qk_int8: bool = False
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, qk_int8: bool = False, per_item: bool = False,
+    fused: bool = True,
 ) -> torch.Tensor:
     """(B, H, N, D) attention dispatch, as attention.py:784-809: plain softmax
-    for N < FLASH_MIN_SEQ or N % 128 != 0, else the clamped-softmax flash
-    forward, with the int8-QK^T variant when `qk_int8` (forward only: it
-    raises for inputs that require grad)."""
-    if not is_flash_length(q.shape[2]):
+    for N < FLASH_MIN_SEQ or N % 128 != 0, or at every length when not
+    `fused` (JAX's use_pallas=False: the model's portable form), else the
+    clamped-softmax flash forward, with the int8-QK^T variant when `qk_int8`
+    (forward only: it raises for inputs that require grad; `per_item` gives
+    it one scale a batch row)."""
+    if not fused or not is_flash_length(q.shape[2]):
         return attention_reference(q, k, v)
     if qk_int8:
-        return flash_attention_qk_i8(q, k, v)
+        return flash_attention_qk_i8(q, k, v, per_item=per_item)
     return flash_attention(q, k, v)

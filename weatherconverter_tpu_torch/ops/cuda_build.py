@@ -108,10 +108,10 @@ def library() -> ctypes.CDLL:
             lib.wc_flash_fwd.restype = _int
             lib.wc_flash_fwd_f32.argtypes = [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, ctypes.c_float, _ptr]
             lib.wc_flash_fwd_f32.restype = _int
-            lib.wc_flash_fwd_qk_i8.argtypes = [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr]
+            lib.wc_flash_fwd_qk_i8.argtypes = [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _ptr]
             lib.wc_flash_fwd_qk_i8.restype = _int
             strides = ctypes.POINTER(ctypes.c_longlong)
-            lib.wc_quantize_qk_i8.argtypes = ([_ptr, _ptr, strides, strides] + [_int] * 5 + [_ptr] * 4
+            lib.wc_quantize_qk_i8.argtypes = ([_ptr, _ptr, strides, strides] + [_int] * 6 + [_ptr] * 4
                                               + [ctypes.c_float, _ptr])
             lib.wc_quantize_qk_i8.restype = _int
             lib.wc_flash_bwd.argtypes = [_ptr] * 10 + [_int, _int, _int, _int, ctypes.c_float, _ptr]

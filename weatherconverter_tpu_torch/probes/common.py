@@ -133,11 +133,12 @@ def f32_fma_ms(peak: dict | None, shape) -> float | None:
     return 4 * b * h * n * n * d / peak["f32"] * 1e3
 
 
-def quantizer_roofline(peak: dict | None, shape) -> dict:
-    """`roofline` of quantizing 16-bit (B, H, N, D) q and k per tensor to int8:
-    each read once and written once as int8, and one f32 scale. Bytes bind."""
+def quantizer_roofline(peak: dict | None, shape, scales: int = 1) -> dict:
+    """`roofline` of quantizing 16-bit (B, H, N, D) q and k to int8 with
+    `scales` f32 score scales (1 per tensor, B per batch row): each read once
+    and written once as int8, and the scales. Bytes bind."""
     b, h, n, d = shape
-    return roofline(peak, 2 * b * h * n * d * (2 + 1) + 4)
+    return roofline(peak, 2 * b * h * n * d * (2 + 1) + 4 * scales)
 
 
 def add_rooflines(*parts: dict) -> dict:

@@ -22,14 +22,19 @@ makes, and every other step of the chain is per image (GroupNorm, the frozen
 seg model's BatchNorm, the per-image CE whose input gradient guides), so a
 request's image does not depend on what shares its batch: bit for bit at
 one batch width, on the CPU and (phase 14 of chip_smoke.py) on the card.
-That is why the server runs K1, the exact flash attention, and not K2 as
-the CLI's one-request commands do on the card: K2 quantizes Q and K with
-one scale per tensor, here the whole micro-batch's, where the JAX service's
-vmap takes one scale per request, so under K2 a request's image moved with
-its batch-mates (by one uint8 level on the H100, where two solo runs were
-bit-equal; PERF.md section 6), and K2 buys no wall time while the host
-binds (PERF.md section 5). Per-request int8 scales in the quantizer would
-lift this (ROADMAP Queue 1 item 10).
+
+Attention: on the card the service runs K2, the int8 Q K^T kernel, as the
+JAX service runs its int8 kernel on its accelerator, with one int8 scale
+per request: the JAX service vmaps each request through the kernel, so its
+quantizer takes one scale per request, and so does the port's here
+(`Unet(qk_int8_per_item=True)`, `ops/attention.quantize_qk_i8(per_item=
+True)`). A request's image therefore does not move with its batch-mates
+under K2 either. (With one scale for the micro-batch, as the CLI's
+one-request commands take it, it moved by one uint8 level on the H100;
+PERF.md section 6.) K2 takes the layers whose head dim it has, K1 the
+others (none in the production UNet). `qk_int8=False` (`serve
+--no-int8-attn`) keeps K1, the exact flash attention, everywhere; the CPU
+runs the plain versions, K2's when `qk_int8=True` is asked for.
 
 What the JAX service's "compile once per variant" becomes: there is no jit,
 and the cost of a new shape is cuDNN's autotuner (`cudnn.benchmark`, when the
@@ -116,6 +121,7 @@ class TranslationService:
         lcg_present_k=None,
         lcg_k_buckets: tuple = (4, 8, 12),
         device=None,
+        qk_int8: Optional[bool] = None,
     ):
         """lcg_present_k: None runs LCG's full class sweep; an int packs it
         into K slots an image for every request (bit-exact for labels with at
@@ -124,7 +130,9 @@ class TranslationService:
         `lcg_k_buckets` (num_classes tops the ladder) that covers them, so a
         batch mixing 6- and 14-class scenes does not pay the largest K for
         every image, and every image is bit-exact against the full sweep.
-        `device`: the CUDA card by default (raises without one), or "cpu"."""
+        `device`: the CUDA card by default (raises without one), or "cpu".
+        `qk_int8`: K2 with one int8 scale per request (None: on the card
+        only); False keeps K1."""
         from weatherconverter_tpu_torch.cli.commands import build_translation
         from weatherconverter_tpu_torch.data.labels import encode_target
 
@@ -147,8 +155,10 @@ class TranslationService:
         self.size = cfg.diffusion.model.im_size
         self.hr = self.size * cfg.srgan.upscale_factor
         self.num_classes = num_classes
+        self.qk_int8 = self.device.type == "cuda" if qk_int8 is None else bool(qk_int8)
         self.unet, self.seg, self.sr, self.sched = build_translation(
-            cfg, self.device, ddpm_checkpoint, seg_checkpoint, srgan_checkpoint, False, 0)
+            cfg, self.device, ddpm_checkpoint, seg_checkpoint, srgan_checkpoint, self.qk_int8, 0,
+            qk_int8_per_item=True)
         # translate and sample defaults are separate: the fast samplers' short default must not shorten /v1/sample
         self.sample_steps = steps or cfg.guidance.num_steps
         self.steps = steps or {"ddim": 50, "dpm": 20}.get(sampler, cfg.guidance.num_steps)
