@@ -145,8 +145,8 @@ Phases, each of which fails the run (exit code != 0, no result line):
  18. the legacy UNet (models/unet_legacy.py) at 128 px, seeded weights
      scaled to unit-variance eps, batch 8, 20 strided steps of
      ddpm_sample_legacy, in f32 (K1-f32 at attn_down3 and attn_up2, no TF32:
-     what the CLI runs) and under bf16 with qk_int8 (K2 at attn_down3, K1 at
-     attn_up2): each timed, profiled, its launches a forward asserted, its
+     what the CLI runs) and under bf16 with qk_int8 (K2 at attn_down3 and at
+     attn_up2, D = 24, its launches there counted): each timed, profiled, its launches a forward asserted, its
      peak memory read; the precision check of probes/legacy_precision.py at
      batch 2 (the bf16 and the f32 card chains against the f32 CPU chain and
      its 5-run chaos floor; the f32 chain must pass, the bf16 chain's verdict
@@ -176,7 +176,28 @@ Phases, each of which fails the run (exit code != 0, no result line):
      model code: K2 and its quantizer launched 8 times a UNet forward there
      as live, no K1, bf16 casts in the loaded graph, the output bit-equal to
      the live one; the trace, export, save, load and run seconds and the
-     archive's MiB.
+     archive's MiB;
+ 22. data parallel on the card (training/ under `mesh=`, parallel/): two
+     ranks, child processes that load phase 1's library and share the one
+     H100 over gloo (NCCL refuses two ranks on one device; gloo all-reduces,
+     broadcasts, all-gathers and reduce-scatters CUDA tensors), each with its
+     rows of the global batch: (a) one DDPM step of the default UNet at
+     global batch 8 under bf16 autocast, K1 and K3 launched in each rank,
+     held against the single-process batch-8 step on the card from the same
+     weights and draws (loss, Adam's first moments), plain and FSDP-sharded,
+     with the gradient all-reduce skipped as the planted fault; (b) one
+     DeepLabV3+/ResNet-101 step of configs/segmentation.yaml at global batch
+     8 over two microbatches with the synced BatchNorm, damped residual
+     scales as phase 15, held against the single-process step (loss, update,
+     BatchNorm statistics), a per-rank BatchNorm as the planted fault; (c)
+     `torchrun --standalone --nproc-per-node 1 -m
+     weatherconverter_tpu_torch.cli.main train-ddpm` with training.fsdp=true
+     over NCCL at world size 1: exit 0, one run directory, the sharded
+     fraction printed, a checkpoint that loads into a plain single-process
+     state. Each rank's DDPM step wall and device ms, plain, FSDP and
+     without the gradient all-reduce (that all-reduce's share of the step),
+     and its launches are printed beside the card; two ranks sharing one
+     card are no scaling figure.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors, times, bounds
 and library times.
@@ -370,7 +391,7 @@ def phase_kernels(torch, A, device, card):
         ("flash_attention_qk_i8", A.flash_attention_qk_i8, A.flash_attention_qk_i8_plain),
     ):
         total, bounds = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0), []
-        for shape in PATH_SHAPES + ([D192_SHAPE, D24_SHAPE] if kernel is A.flash_attention else []):
+        for shape in PATH_SHAPES + [D192_SHAPE, D24_SHAPE]:
             q, k, v = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
             out = kernel(q, k, v)
             torch.cuda.synchronize()
@@ -390,6 +411,9 @@ def phase_kernels(torch, A, device, card):
                 + (" [the legacy UNet's attn_up2, D = 24 on zero-filled 32-wide tiles: not in the sums]"
                    if shape == D24_SHAPE else ""))
             if shape in (D192_SHAPE, D24_SHAPE):
+                if kernel is A.flash_attention_qk_i8:  # K2's own lines in the kernels line
+                    results[f"{name}_d{shape[-1]}"] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                                                          bound=bound)
                 continue
             bounds.append(bound)
             total = dict(err=max(total["err"], err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms,
@@ -626,21 +650,25 @@ def phase_unet_256(torch, A, device):
     log(f"  the default UNet at im_size 256, batch 1, bf16 autocast: forward and backward in "
         f"{(time.perf_counter() - t0) * 1e3:.0f} ms (first call), K1 and K3 launched {counts[0]} times each at "
         f"(N, D) = {sorted(set(shapes))}; in f32 Unet.forward refuses it by name")
-    # what the CLI builds on the card: qk_int8, which takes K2 where K2 has the head dim and K1 at D = 192
+    # what the CLI builds on the card: qk_int8, which takes K2 in every flash-length layer, D = 192 included
     int8 = Unet(UnetModelConfig(im_size=256), qk_int8=True).to(device).eval()
     int8.load_state_dict(model.state_dict())
     kinds = [kind for _, _, kind in int8.attention_kernels(256)]
     A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
+    A.flash_attention_qk_i8.launches_by_head_dim = {}
     with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
         out = int8(x, 5)
     torch.cuda.synchronize()
     counts = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
     expected = (kinds.count("K1"), kinds.count("K2"), kinds.count("K2"))
-    if counts != expected or expected != (4, 8, 8) or not torch.isfinite(out).all().item():
+    by_d = dict(A.flash_attention_qk_i8.launches_by_head_dim)
+    if counts != expected or expected != (0, 12, 12) or by_d.get(192) != 4 or not torch.isfinite(out).all().item():
         raise AssertionError(f"256 px UNet with qk_int8: launches (K1, K2, quantizer) {counts}, expected {expected} "
-                             "= (4, 8, 8); or not finite")
-    log(f"  the same UNet with qk_int8 (the CLI's default on the card): a forward takes K2 and its quantizer at its "
-        f"{counts[1]} layers of D <= 128 and K1 at its {counts[0]} of D = 192, which K2 lacks; output finite")
+                             f"= (0, 12, 12), K2 by head dim {by_d} (4 at D = 192); or not finite")
+    log(f"  the same UNet with qk_int8 (the CLI's default on the card): a forward takes K2 and its quantizer at all "
+        f"its {counts[1]} flash-length layers, by head dim {by_d} (4 at D = 192, K2's new instantiation); "
+        "output finite")
+    return by_d[192]
 
 
 def build_models(torch):
@@ -2038,12 +2066,13 @@ def phase_legacy(torch, A, device, card, tmp):
     (probes/legacy_precision.build: eps at unit scale), batch 8,
     LEGACY_STEPS strided steps of ddpm_sample_legacy, in f32 (K1-f32 at
     attn_down3 and attn_up2, no TF32: the CLI's precision) and under bf16
-    autocast with qk_int8 (K2 at attn_down3, K1 at attn_up2): each timed
+    autocast with qk_int8 (K2 at attn_down3 and at attn_up2, D = 24): each timed
     (REPEATS runs), profiled, its launches a forward asserted, its peak
     memory read; then the precision check at LEGACY_CHECK_BATCH (the f32
     chain's verdict gated, the bf16 chain's printed: it fails by design) and
     `sample --sampler legacy` through the CLI. Returns the
-    f32 run's launches (K1-f32's count for the kernels line)."""
+    f32 run's launches (K1-f32's count for the kernels line) and the bf16
+    run's K2 launches at D = 24."""
     import numpy as np
     from PIL import Image
 
@@ -2079,6 +2108,7 @@ def phase_legacy(torch, A, device, card, tmp):
         for rep in range(REPEATS):
             for fn in counters:
                 fn.launches = 0
+            A.flash_attention_qk_i8.launches_by_head_dim = {}
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2092,13 +2122,20 @@ def phase_legacy(torch, A, device, card, tmp):
                 raise AssertionError(f"legacy {name}: launches (K1, K2, quantizer, K1-f32) {counts}, expected "
                                      f"{[e * LEGACY_STEPS for e in expected]} ({expected} a forward); output "
                                      f"{tuple(out.shape)} or not finite")
+            d24 = A.flash_attention_qk_i8.launches_by_head_dim.get(24, 0)
+            if on_card and qk_int8 and d24 != LEGACY_STEPS:
+                raise AssertionError(f"legacy {name}: K2 launched {d24} times at D = 24 (attn_up2), expected "
+                                     f"{LEGACY_STEPS}")
         launches[name] = counts
+        if qk_int8:
+            launches["k2_d24"] = d24
         wall, kernel, count = _device_profile(torch, lambda: run(70, PROFILE_STEPS), PROFILE_STEPS)
         log(f"  legacy {name} (layers {kinds}): {statistics.median(times):.2f} ms/step wall (median of {REPEATS} "
             f"runs of {LEGACY_STEPS} steps at batch {BATCH}: {', '.join(f'{t:.2f}' for t in times)}); profiled "
             f"{PROFILE_STEPS}-step run: device {kernel / PROFILE_STEPS:.2f} ms/step, idle share ~"
             f"{max(0.0, 1 - kernel / wall):.2f}, {count / PROFILE_STEPS:.0f} launches a step; K1/K2/quantizer/K1-f32 "
-            f"a forward {'/'.join(map(str, expected))}; peak {peak:.2f} GiB [{card}]")
+            f"a forward {'/'.join(map(str, expected))}"
+            + (f" (K2 at D = 24, attn_up2: {d24} launches)" if qk_int8 else "") + f"; peak {peak:.2f} GiB [{card}]")
         del model
     t0 = time.perf_counter()
     artifact = legacy_precision.run(base, (LEGACY_CHECK_BATCH, 128, 128, 3), LEGACY_STEPS, INT8_FLOOR_SEEDS, device)
@@ -2129,7 +2166,7 @@ def phase_legacy(torch, A, device, card, tmp):
                              f"{counts}, expected {expected}; PNG {png}")
     log(f"  cli sample --sampler legacy --steps {LEGACY_STEPS} --batch {BATCH}: exit 0 in "
         f"{time.perf_counter() - t0:.1f} s (model from the seed, f32), K1-f32 launched {counts[3]} times; PNG {png}")
-    return launches["f32"]
+    return launches["f32"], launches["k2_d24"]
 
 
 def _seeded_inception_pth(torch, path, seed=80):
@@ -2481,6 +2518,340 @@ def phase_export(torch, A, device, card, tmp, tcfg=None, steps=None, batch=None)
         raise AssertionError(f"export: output {tuple(live.shape)}, finite and in [0, 1]: not so")
 
 
+# phase 22: two ranks on the one card; the DDPM step at global batch DP_BATCH (DP_BATCH / 2 a rank), the seg step
+# at configs/segmentation.yaml's batch over DP_SEG_ACCUM microbatches; DP_TIMED_STEPS warm steps timed a rank.
+# Limits (bf16, two ranks against one process on the card): the relative error of the loss and the relative L2
+# error of Adam's first moments (DDPM), of the update without the pooled leaves and of the BatchNorm statistics'
+# batch term (seg). H100 readings (PERF.md section 6): DDPM 4.6e-6 to 6.3e-6 (the single-process loss moves in
+# its sixth digit from run to run) and 2.8e-3, plain and FSDP alike, the skipped all-reduce 0.52 on the moments;
+# seg 3.4e-4, 0.131 and 5.8e-4, a per-rank BatchNorm 1.2e-3, 0.70 and 2.1e-2
+DP_WORLD, DP_BATCH, DP_SEG_ACCUM, DP_TIMED_STEPS, DP_TIMEOUT_S = 2, 8, 2, 3, 300
+DP_LIMITS = dict(ddpm_loss=1e-3, ddpm_moments=2e-2, seg_loss=5e-3, seg_update=0.25, seg_stats=5e-3)
+
+
+def _dp_rank(rank: int, port: int, workdir: str, on_card: bool = True) -> None:
+    """One rank of phase 22, in a child process: gloo on card 0 (or the CPU in
+    a rehearsal), the cases of `_dp_rank_cases`, its results written to
+    <workdir>/rank<r>.pt."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()  # a crash in a rank prints its Python stack
+    sys.path.insert(0, REPO)
+    if on_card:
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=DP_WORLD)
+    try:
+        torch.save(_dp_rank_cases(torch, rank, workdir, on_card), os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_rank_cases(torch, rank: int, workdir: str, on_card: bool) -> dict:
+    import contextlib
+    import copy
+
+    from torch.distributed.tensor import DTensor
+
+    from weatherconverter_tpu_torch.core.config import UnetModelConfig, load_seg_config
+    from weatherconverter_tpu_torch.diffusion.schedule import linear_schedule
+    from weatherconverter_tpu_torch.models.unet import Unet
+    from weatherconverter_tpu_torch.ops import attention as A
+    from weatherconverter_tpu_torch.ops import cuda_build
+    from weatherconverter_tpu_torch.parallel import make_mesh, shard_batch
+    from weatherconverter_tpu_torch.parallel.fsdp import full_state, shard_state_fsdp, sharded_fraction
+    from weatherconverter_tpu_torch.probes import seg_step_parity as SP
+    from weatherconverter_tpu_torch.training import diffusion as PD
+    from weatherconverter_tpu_torch.training import loop_segmentation
+    from weatherconverter_tpu_torch.training import segmentation as PS
+    from weatherconverter_tpu_torch.training.losses import make_seg_loss
+    from weatherconverter_tpu_torch.training.segmentation import create_seg_state
+
+    t0 = time.perf_counter()
+    if on_card:
+        cuda_build.library()  # phase 1's build, loaded from _build/ (the same sources: no nvcc run)
+    device = torch.device("cuda" if on_card else "cpu")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dtype = torch.bfloat16 if on_card else None
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    mesh = make_mesh(device_type=device.type)
+    out = dict(rank=rank, load_s=time.perf_counter() - t0)
+    sched = linear_schedule(1000, device=device)
+    x = shard_batch(mesh, inp["x"]).to(device)
+    t, noise = inp["t"].to(device), inp["noise"].to(device)
+
+    def timed(state, step):
+        """Medians of DP_TIMED_STEPS warm steps (cuDNN's choices are made): wall and between CUDA events."""
+        walls, devs = [], []
+        for _ in range(DP_TIMED_STEPS if on_card else 0):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            e0.record()
+            step(state, x, t=t, noise=noise)
+            e1.record()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - w0) * 1e3)
+            devs.append(e0.elapsed_time(e1))
+        return dict(wall=statistics.median(walls or [0.0]), device=statistics.median(devs or [0.0]))
+
+    def ddpm(fsdp=False, fault=None):
+        unet = Unet(UnetModelConfig(**inp["unet_cfg"]))
+        unet.load_state_dict(inp["unet"])
+        state = PD.create_ddpm_state(unet.to(device), lr=1e-4)
+        if fsdp:
+            shard_state_fsdp(mesh, state)
+        step = PD.make_train_step(sched, mesh=mesh, fsdp=fsdp, dtype=dtype)
+        ctx = contextlib.nullcontext()
+        if fault == "no_grad_all_reduce":
+            real = PD.sync_grads
+            PD.sync_grads = lambda params, mesh: None
+            ctx = contextlib.ExitStack()
+            ctx.callback(setattr, PD, "sync_grads", real)
+        A.flash_attention.launches = A.flash_attention_bwd.launches = 0
+        with ctx:
+            state, loss = step(state, x, t=t, noise=noise)
+            sync()
+            res = dict(loss=loss.item(), launches=(A.flash_attention.launches, A.flash_attention_bwd.launches))
+            names = {id(p): n for n, p in state.model.named_parameters()}
+            res["moments"] = {names[id(p)]: full_state(s["exp_avg"]).float().cpu()
+                              for p, s in state.optimizer.state.items()}
+            if fsdp:
+                res["fraction"] = sharded_fraction(state)
+                res["foreach"] = all(len({isinstance(p, DTensor) for p in g["params"]}) == 1
+                                     and g["foreach"] is not False for g in state.optimizer.param_groups)
+            res["ms"] = timed(state, step)
+        return res
+
+    def progress(what):
+        print(f"  [rank {rank}] {what} at {time.perf_counter() - t0:.1f} s", flush=True)
+
+    out["ddpm"] = ddpm()
+    progress("DDPM step")
+    out["ddpm_fsdp"] = ddpm(fsdp=True)
+    progress("DDPM step under FSDP")
+    out["ddpm_no_grad_all_reduce"] = ddpm(fault="no_grad_all_reduce")
+    if on_card:
+        torch.cuda.empty_cache()
+
+    cfg = load_seg_config(inp["scfg"], training={"accum_steps": DP_SEG_ACCUM, "device": device.type})
+    imgs, lbls, draws = inp["seg"]
+    loss_fn = make_seg_loss(cfg.training.loss_function.type, cfg.training.loss_function.params)
+    local = shard_batch(mesh, (imgs, lbls), DP_SEG_ACCUM)
+
+    def seg(fault=None):
+        model = copy.deepcopy(inp["seg_model"]).to(device)
+        before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        st = create_seg_state(model, cfg.optimizer, 100, cfg.training.scheduler.type, cfg.training.scheduler.params)
+        step = loop_segmentation.make_augmented_seg_train_step(cfg, loss_fn, mesh=mesh, dtype=dtype)
+        ctx = contextlib.ExitStack()
+        if fault == "per_rank_batchnorm":
+            real = PS.synced_batchnorm
+            PS.synced_batchnorm = lambda module, group: contextlib.nullcontext()
+            ctx.callback(setattr, PS, "synced_batchnorm", real)
+        sync()
+        w0 = time.perf_counter()
+        with ctx, SP._pinned_cudnn():
+            _, loss, ig = step(st, local[0].to(device), local[1].to(device), draws=SP._draws_to(draws, device))
+        sync()
+        after = model.state_dict()
+        return dict(loss=loss.item(), input_grad=ig.item(), wall_ms=(time.perf_counter() - w0) * 1e3,
+                    update={k: (after[k] - before[k]).double().cpu() for k, _ in model.named_parameters()},
+                    stats={f"{n}.{b}": (after[f"{n}.{b}"] - (1.0 - bn.momentum) * before[f"{n}.{b}"]).double().cpu()
+                           for n, bn in model.named_modules() if isinstance(bn, torch.nn.BatchNorm2d)
+                           for b in ("running_mean", "running_var")})
+
+    out["seg"] = seg()
+    out["seg_per_rank_batchnorm"] = seg("per_rank_batchnorm")
+    progress("seg steps")
+    if rank != 0:  # rank 0 carries the tensors; every rank its counts and times
+        for key in ("ddpm", "ddpm_fsdp", "ddpm_no_grad_all_reduce"):
+            out[key].pop("moments")
+        for key in ("seg", "seg_per_rank_batchnorm"):
+            out[key].pop("update"), out[key].pop("stats")
+    return out
+
+
+def _rel_l2_dict(a: dict, b: dict) -> float:
+    num = sum(((a[k].double() - b[k].double()) ** 2).sum().item() for k in b)
+    return (num / sum((b[k].double() ** 2).sum().item() for k in b)) ** 0.5
+
+
+def phase_data_parallel(torch, A, device, card, tmp, scfg=None, dcfg=None, unet_cfg=None):
+    """Phase 22 (module docstring): the single-process references on the card,
+    then the two ranks, then `torchrun ... train-ddpm` with FSDP at world 1.
+    `scfg`, `dcfg` (seg and diffusion YAMLs) and `unet_cfg` (UnetModelConfig
+    fields) make a tiny CPU rehearsal possible: gloo, f32, no launch counts,
+    `--device cpu` for the CLI."""
+    import socket
+    import subprocess
+
+    from PIL import Image
+
+    from weatherconverter_tpu_torch.core.config import UnetModelConfig, load_seg_config
+    from weatherconverter_tpu_torch.diffusion.schedule import linear_schedule
+    from weatherconverter_tpu_torch.models.unet import Unet
+    from weatherconverter_tpu_torch.probes import seg_step_parity as SP
+    from weatherconverter_tpu_torch.training import diffusion as PD
+    from weatherconverter_tpu_torch.training.loop_diffusion import ckpt_restore_into
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    dtype = torch.bfloat16 if on_card else None
+    scfg = scfg or os.path.join(REPO, "configs", "segmentation.yaml")
+    unet_cfg = unet_cfg or {}
+    workdir = os.path.join(tmp, "dp")
+    os.makedirs(workdir)
+    torch.manual_seed(0)
+    unet = Unet(UnetModelConfig(**unet_cfg))
+    px = unet.config.im_size
+    g = torch.Generator().manual_seed(22)
+    x = torch.rand((DP_BATCH, px, px, 3), generator=g) * 2 - 1
+    t, noise = torch.randint(0, 1000, (DP_BATCH,), generator=g), torch.randn((DP_BATCH, px, px, 3), generator=g)
+    cfg = load_seg_config(scfg, training={"accum_steps": DP_SEG_ACCUM, "device": device.type})
+    seg_model = SP.reference_model(cfg, SEG_RESIDUAL_SCALE)
+    data = SP.batch(cfg, DP_BATCH)
+    torch.save(dict(unet=unet.state_dict(), unet_cfg=unet_cfg, x=x, t=t, noise=noise, seg_model=seg_model, seg=data,
+                    scfg=scfg), os.path.join(workdir, "inputs.pt"))
+
+    # the single-process references on the card, from the same weights and draws
+    state = PD.create_ddpm_state(unet.to(device), lr=1e-4)
+    _, loss = PD.make_train_step(linear_schedule(1000, device=device), dtype=dtype)(
+        state, x.to(device), t=t.to(device), noise=noise.to(device))
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    ref = dict(loss=loss.item(), moments={names[id(p)]: s["exp_avg"].float().cpu()
+                                          for p, s in state.optimizer.state.items()})
+    del state, unet
+    seg_ref = SP.run_step(cfg, seg_model, data, device, dtype)
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"  single-process references on the card in {time.perf_counter() - t_phase:.1f} s: DDPM loss "
+        f"{ref['loss']:.6f}, seg loss {seg_ref['loss']:.6f}")
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    # plain child processes, not multiprocessing's spawn: that would leave its resource tracker running
+    procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke._dp_rank({r}, {port}, "
+                               f"{workdir!r}, {on_card})"], cwd=REPO) for r in range(DP_WORLD)]
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if [p.returncode for p in procs] != [0] * DP_WORLD:
+        raise AssertionError(f"phase 22: the ranks exited {[p.returncode for p in procs]}")
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+    log(f"  two ranks over gloo on the one card: spawned, ran and joined in {time.perf_counter() - t0:.1f} s "
+        f"(each loaded phase 1's library in {', '.join(f'{r['load_s']:.1f}' for r in ranks)} s)")
+
+    # (a) DDPM: plain, FSDP, and the planted fault
+    r0 = ranks[0]
+    readings = {}
+    for key in ("ddpm", "ddpm_fsdp", "ddpm_no_grad_all_reduce"):
+        got = r0[key]
+        readings[key] = (abs(got["loss"] - ref["loss"]) / abs(ref["loss"]), _rel_l2_dict(got["moments"], ref["moments"]))
+    for r in ranks:
+        for key in ("ddpm", "ddpm_fsdp"):
+            if on_card and r[key]["launches"] != (FLASH_CALLS_PER_UNET,) * 2:
+                raise AssertionError(f"phase 22 rank {r['rank']} {key}: launches (K1, K3) {r[key]['launches']}, "
+                                     f"expected {FLASH_CALLS_PER_UNET} each")
+    for key in ("ddpm", "ddpm_fsdp"):
+        loss_err, mom_err = readings[key]
+        if not (loss_err <= DP_LIMITS["ddpm_loss"] and mom_err <= DP_LIMITS["ddpm_moments"]):
+            raise AssertionError(f"phase 22 {key}: loss rel err {loss_err:.3e} (limit {DP_LIMITS['ddpm_loss']}), "
+                                 f"moments rel L2 {mom_err:.3e} (limit {DP_LIMITS['ddpm_moments']})")
+    loss_err, mom_err = readings["ddpm_no_grad_all_reduce"]
+    if loss_err <= DP_LIMITS["ddpm_loss"] and mom_err <= DP_LIMITS["ddpm_moments"]:
+        raise AssertionError(f"phase 22: the planted fault (gradient all-reduce skipped) passed: {readings}")
+    if not all(r["ddpm_fsdp"]["foreach"] for r in ranks):
+        raise AssertionError("phase 22: the FSDP optimizer mixes DTensors and plain tensors in a group or has its "
+                             "foreach kernels off")
+    for key, what in (("ddpm", "plain"), ("ddpm_fsdp", f"FSDP, {r0['ddpm_fsdp']['fraction']:.1%} of state bytes "
+                                                        "sharded over the 2 ranks (gloo took FSDP2's "
+                                                        "all_gather_into_tensor and reduce_scatter_tensor on CUDA "
+                                                        "tensors), Adam's foreach kept")):
+        log(f"  (a) DDPM step, default UNet, global batch {DP_BATCH} (4 a rank), bf16, {what}: loss rel err "
+            f"{readings[key][0]:.3e} (limit {DP_LIMITS['ddpm_loss']}), Adam first moments rel L2 "
+            f"{readings[key][1]:.3e} (limit {DP_LIMITS['ddpm_moments']}) against the single-process step; "
+            f"K1/K3 launches a rank {[r[key]['launches'] for r in ranks]}")
+    log(f"  (a) planted fault, the gradient all-reduce skipped: loss rel err {readings['ddpm_no_grad_all_reduce'][0]:.3e}"
+        f", moments rel L2 {readings['ddpm_no_grad_all_reduce'][1]:.3e}: breaks the limits")
+    for r in ranks:
+        ms = {key: r[key]["ms"] for key in ("ddpm", "ddpm_fsdp", "ddpm_no_grad_all_reduce")}
+        share = 1.0 - ms["ddpm_no_grad_all_reduce"]["wall"] / max(ms["ddpm"]["wall"], 1e-9)
+        log(f"  (a) rank {r['rank']}: DDPM step (median of {DP_TIMED_STEPS} warm steps, wall / between its CUDA "
+            f"events) plain {ms['ddpm']['wall']:.2f} / {ms['ddpm']['device']:.2f} ms, FSDP "
+            f"{ms['ddpm_fsdp']['wall']:.2f} / {ms['ddpm_fsdp']['device']:.2f} ms, without the gradient all-reduce "
+            f"{ms['ddpm_no_grad_all_reduce']['wall']:.2f} / {ms['ddpm_no_grad_all_reduce']['device']:.2f} ms (the "
+            f"all-reduce's share of the plain step {share:.3f}), K1/K3 launches {r['ddpm']['launches']} a step "
+            f"[{card}; two ranks sharing one card over gloo: no scaling figure]")
+
+    # (b) seg
+    pooled = SP.pooled_leaves(seg_model)
+    seg_read = {}
+    for key in ("seg", "seg_per_rank_batchnorm"):
+        c = SP.compare(dict(r0[key], pred=seg_ref["pred"]), seg_ref, pooled)  # the ranks run no eval step
+        seg_read[key] = (c["loss"], c["update_without_pooled"], c["stats"])
+    loss_err, upd_err, stats_err = seg_read["seg"]
+    if not (loss_err <= DP_LIMITS["seg_loss"] and upd_err <= DP_LIMITS["seg_update"]
+            and stats_err <= DP_LIMITS["seg_stats"]):
+        raise AssertionError(f"phase 22 seg: loss {loss_err:.3e}, update without pooled {upd_err:.3e}, stats "
+                             f"{stats_err:.3e} against the limits {DP_LIMITS}")
+    f_loss, f_upd, f_stats = seg_read["seg_per_rank_batchnorm"]
+    if f_loss <= DP_LIMITS["seg_loss"] and f_upd <= DP_LIMITS["seg_update"] and f_stats <= DP_LIMITS["seg_stats"]:
+        raise AssertionError(f"phase 22: the planted fault (per-rank BatchNorm) passed: {seg_read}")
+    log(f"  (b) seg step, {cfg.model.name}, global batch {DP_BATCH} over {DP_SEG_ACCUM} microbatches (2 a rank each), "
+        f"synced BatchNorm, bf16, residual scales x {SEG_RESIDUAL_SCALE}: loss rel err {loss_err:.3e} (limit "
+        f"{DP_LIMITS['seg_loss']}), update rel L2 without the pooled leaves {upd_err:.3e} (limit "
+        f"{DP_LIMITS['seg_update']}), BatchNorm statistics {stats_err:.3e} (limit {DP_LIMITS['seg_stats']}) against "
+        f"the single-process step; planted fault, a per-rank BatchNorm: {f_loss:.3e}, {f_upd:.3e}, {f_stats:.3e}")
+    for r in ranks:
+        log(f"  (b) rank {r['rank']}: seg step {r['seg']['wall_ms']:.1f} ms wall (first step, cuDNN pinned to its "
+            f"heuristics) [{card}; two ranks sharing one card: no scaling figure]")
+
+    # (c) FSDP over NCCL at world size 1, through torchrun and the CLI
+    root = os.path.join(tmp, "dp_data")
+    folder = os.path.join(root, "rgb_anon", "fog", "train")
+    os.makedirs(folder)
+    for i in range(2 * DP_BATCH):
+        Image.fromarray(SyntheticImages(1, seed=30 + i)[0][:, :px * 228 // 128][:px]).save(
+            os.path.join(folder, f"{i}.png"))
+    runs = os.path.join(tmp, "dp_runs")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1", "-m",
+         "weatherconverter_tpu_torch.cli.main", "train-ddpm", "--config",
+         dcfg or os.path.join(REPO, "configs", "diffusion.yaml"), "--set", "training.fsdp=true", "training.epochs=1",
+         "training.save_interval=1", f"training.batch_size={DP_BATCH}", "training.num_workers=0",
+         f"data.root_dir={root}", "data.acdc_images=rgb_anon", 'data.weather=["fog"]', f"folders.output={runs}"]
+        + ([] if on_card else ["--device", "cpu"]),
+        cwd=REPO, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    fsdp_line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("FSDP:")), None)
+    listing = sorted(os.listdir(runs)) if os.path.isdir(runs) else []
+    if proc.returncode != 0 or listing != ["0"] or fsdp_line is None:
+        raise AssertionError(f"torchrun train-ddpm fsdp: exit {proc.returncode}, runs {listing}, FSDP line "
+                             f"{fsdp_line!r}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    plain = PD.create_ddpm_state(Unet(UnetModelConfig(**unet_cfg)).to(device), lr=1e-4)
+    ckpt_restore_into(os.path.join(runs, "0", "checkpoints"), plain)
+    if plain.step != 2 or not all(torch.isfinite(p).all().item() for p in plain.model.parameters()):
+        raise AssertionError(f"torchrun train-ddpm fsdp: the checkpoint's step {plain.step}, expected 2")
+    log(f"  (c) torchrun --nproc-per-node 1 ... cli.main train-ddpm, training.fsdp=true, NCCL at world size 1: exit 0 in "
+        f"{secs:.1f} s (process start-up included), one run directory, {fsdp_line!r}, its checkpoint (step "
+        f"{plain.step}) loaded into a plain single-process state")
+    log(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _round(x):
     return None if x is None else round(x, 4)
 
@@ -2558,7 +2929,7 @@ def main() -> int:
     kernel_results = phase_kernels(torch, A, device, card)
     kernel_results.update(phase_quantizer(torch, A, device, card))
     kernel_results["flash_attention_bwd"] = phase_backward_kernel(torch, A, device, card)
-    phase_unet_256(torch, A, device)
+    k2_d192_launches = phase_unet_256(torch, A, device)
     torch.cuda.empty_cache()
 
     log(f"phase 3: guided translation at full width [{card}]")
@@ -2614,13 +2985,15 @@ def main() -> int:
         phase_seg(torch, device, card, tmp)
         torch.cuda.empty_cache()
         log(f"phase 16: the rest of the DeepLab family on the card [{card}]")
-        phase_seg_family(torch, device, card)
+        # cuDNN by its heuristics here: its first-shape trials took ~96 s of this phase's 120 (PERF.md section 6)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
+            phase_seg_family(torch, device, card)
         torch.cuda.empty_cache()
         log(f"phase 17: SRGAN training on the card [{card}]")
         phase_srgan(torch, device, card, tmp)
         torch.cuda.empty_cache()
         log(f"phase 18: the legacy UNet on the card [{card}]")
-        legacy_launches = phase_legacy(torch, A, device, card, tmp)
+        legacy_launches, k2_d24_launches = phase_legacy(torch, A, device, card, tmp)
         torch.cuda.empty_cache()
         log(f"phase 19: the quality command on the card [{card}]")
         phase_quality(torch, A, device, card, tmp)
@@ -2630,6 +3003,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase 21: export-hlo --attn int8 and serving/hlo_runtime on the card [{card}]")
         phase_export(torch, A, device, card, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 22: data parallel on the card [{card}]")
+        phase_data_parallel(torch, A, device, card, tmp)
 
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []
@@ -2651,6 +3027,10 @@ def main() -> int:
         ("quantize_qk_i8_per_item", csrc + "quantize_i8.cu",
          "weatherconverter_tpu/ops/attention.py:173-189 under jax.vmap (weatherconverter_tpu/serving/server.py:191-226)",
          server_k2_launches),
+        ("flash_attention_qk_i8_d24", csrc + "flash_fwd_qk_i8.cu", "weatherconverter_tpu/ops/attention.py:125",
+         k2_d24_launches),
+        ("flash_attention_qk_i8_d192", csrc + "flash_fwd_qk_i8.cu", "weatherconverter_tpu/ops/attention.py:125",
+         k2_d192_launches),
     ):
         r = kernel_results[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2677,7 +3057,9 @@ def main() -> int:
         "the headline run (K1), the int8 run (K2, quantizer), the loop_diffusion.train run (K3) and phase 18's f32 "
         "legacy run (K1-f32); the *_per_item lines are K2 and its quantizer with one int8 scale a batch row (the "
         "server's), timed in phase 2 at the path shapes (K2's ms whole, quantizer included), launched in phase 14's "
-        "K2 full-sweep run; for the probes K4-K7 "
+        "K2 full-sweep run; the *_d24 and *_d192 lines are K2 (quantizer included) at (1024, 24) and (1024, 192), "
+        "B*H = 32, timed in phase 2, launched at those head dims in phase 18's bf16 qk_int8 legacy run (attn_up2) "
+        "and the 256 px UNet's qk_int8 forward; for the probes K4-K7 "
         "they are from phase 9's probe runs (K4: sums over D=64 and D=16, library the same sdpa forward; "
         "qk_dot: int8 plus bf16, k_bf16 at scripts/probe_int8_dot.py:34, library torch._int_mm plus "
         "torch.mm(out_dtype=torch.float32), null if this torch lacks the latter; dw3x3: library cuDNN's channels-last "
@@ -2691,5 +3073,74 @@ def main() -> int:
     return 0
 
 
+def _become_subreaper() -> None:
+    """Have orphaned descendants (a torchrun worker whose agent died, say)
+    re-parented to this process, so that `_stop_descendants` finds them."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None).prctl(36, 1, 0, 0, 0)  # PR_SET_CHILD_SUBREAPER
+    except (OSError, AttributeError):
+        pass
+
+
+def _descendants() -> dict[int, str]:
+    """{pid: command line} of every live process below this one, from /proc."""
+    parent, state = {}, {}
+    for name in os.listdir("/proc"):
+        if name.isdigit():
+            try:
+                with open(f"/proc/{name}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+                parent[int(name)], state[int(name)] = int(fields[1]), fields[0]
+            except (OSError, IndexError, ValueError):
+                pass
+    found, frontier = {}, [os.getpid()]
+    while frontier:
+        pid = frontier.pop()
+        kids = [c for c, pp in parent.items() if pp == pid]
+        frontier += kids
+        for pid in kids:
+            if state[pid] != "Z":
+                try:
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        found[pid] = f.read().replace(b"\0", b" ").decode(errors="replace")[:200]
+                except OSError:
+                    pass
+    return found
+
+
+def _stop_descendants(grace_s: float = 5.0) -> None:
+    """Stop every process this run started that is still running at its end,
+    then reap what is left of this process's children; what it had to stop
+    goes to standard error."""
+    import signal
+
+    left = _descendants()
+    if left:
+        print(f"chip_smoke: stopping the processes still running at the end: {left}", file=sys.stderr, flush=True)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + grace_s
+        while left and time.monotonic() < deadline:
+            time.sleep(0.05)
+            left = _descendants()
+    while True:
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                break
+        except ChildProcessError:
+            break
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    _become_subreaper()
+    try:
+        code = main()
+    finally:
+        _stop_descendants()
+    sys.exit(code)

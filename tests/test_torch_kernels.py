@@ -163,7 +163,7 @@ def test_flash_kernel_takes_strided_inputs(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", ALL_SHAPES)
+@pytest.mark.parametrize("shape", ALL_SHAPES + D24_SHAPES + D192_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_flash_qk_i8_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = _qkv(shape, dtype, cuda, seed=1)
@@ -273,7 +273,8 @@ def test_quantize_qk_i8_kernel_surfaces_non_finite_input(cuda, bad, which, dtype
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["random", "zero", "ties", "outlier", "misaligned", "views", "row_x100"])
-@pytest.mark.parametrize("shape", [(2, 3, 128, 32), (3, 2, 192, 64), (8, 4, 1024, 128), (8, 4, 4096, 16)])
+@pytest.mark.parametrize("shape", [(2, 3, 128, 32), (3, 2, 192, 64), (8, 4, 1024, 128), (8, 4, 4096, 16),
+                                   (2, 3, 192, 24), (2, 4, 1024, 192)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_quantize_qk_i8_kernel_per_item_equals_plain_bit_for_bit(cuda, case, shape, dtype):
     """One scale a batch row (`per_item`, the server's): the int8 tensors and
@@ -339,10 +340,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q, k, v = _qkv((1, 1, 128, 48), torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head dim"):
         A.flash_attention(q, k, v)
-    # K2 has no D = 192 instantiation: it names K1 and never falls back
-    q, k, v = _qkv((1, 1, 128, 192), torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="use flash_attention"):
+    # K2 takes K1's head dims, 192 included, and refuses another by name, never falling back; K4 stops at 128
+    with pytest.raises(ValueError, match="head dim 48"):
         A.flash_attention_qk_i8(q, k, v)
+    q, k, v = _qkv((1, 1, 128, 192), torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head dim 192"):
         K4.exp2_attention(q, k, v)
     q, k, v = _qkv((1, 1, 128, 64), torch.bfloat16, cuda)
@@ -360,8 +361,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         A.quantize_qk_i8(q.to(torch.bfloat16), k.to(torch.float16))
     with pytest.raises(ValueError, match="shape"):
         A.quantize_qk_i8(q.to(torch.bfloat16), k.to(torch.bfloat16)[:, :, :64])
-    with pytest.raises(ValueError, match="multiple of 16"):
-        A.quantize_qk_i8(q.to(torch.bfloat16)[..., :8], k.to(torch.bfloat16)[..., :8])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        A.quantize_qk_i8(q.to(torch.bfloat16)[..., :12], k.to(torch.bfloat16)[..., :12])
     with pytest.raises(ValueError, match="one CUDA device"):
         A.quantize_qk_i8(q.to(torch.bfloat16), k.to(torch.bfloat16).cpu())
     q.requires_grad_(True)
@@ -414,8 +415,8 @@ def test_flash_bwd_refuses_head_dim_24_by_name(cuda):
 @pytest.mark.gpu
 def test_256px_unet_with_qk_int8_takes_k2_where_it_has_the_head_dim(cuda):
     """The default ladder at im_size 256 with qk_int8 (what the CLI builds on
-    the card) attends at D = 192 in four layers, which K2 lacks: those take
-    K1, the other eight flash-length layers K2 and its quantizer."""
+    the card): all twelve flash-length layers take K2 and its quantizer, the
+    four at D = 192 included."""
     from weatherconverter_tpu_torch.core.config import UnetModelConfig
     from weatherconverter_tpu_torch.models.unet import Unet
 
@@ -429,7 +430,8 @@ def test_256px_unet_with_qk_int8_takes_k2_where_it_has_the_head_dim(cuda):
     torch.cuda.synchronize()
     after = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
     assert [a - b for a, b in zip(after, before)] == [kernels.count("K1"), kernels.count("K2"), kernels.count("K2")]
-    assert (kernels.count("K1"), kernels.count("K2")) == (4, 8)
+    assert (kernels.count("K1"), kernels.count("K2")) == (0, 12)
+    assert A.flash_attention_qk_i8.launches_by_head_dim.get(192, 0) >= 4
     assert out.shape == x.shape and torch.isfinite(out).all()
 
 
@@ -483,8 +485,8 @@ def test_flash_f32_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.gpu
 def test_legacy_unet_on_the_card_in_bf16_and_f32(cuda):
     """The legacy UNet at 128 px, batch 2: under bf16 autocast with qk_int8
-    a forward launches K2 and its quantizer once (attn_down3, D = 16) and K1
-    once (attn_up2, D = 24); in f32 (full_f32) K1-f32 twice, and its output
+    a forward launches K2 and its quantizer twice (attn_down3, D = 16, and
+    attn_up2, D = 24); in f32 (full_f32) K1-f32 twice, and its output
     is the CPU's f32 forward's to 1e-4 of max |ref|."""
     from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet, full_f32
 
@@ -492,7 +494,7 @@ def test_legacy_unet_on_the_card_in_bf16_and_f32(cuda):
     cpu = LegacyUNet(128)
     x, t = torch.randn(2, 3, 128, 128), torch.tensor([0.3, 0.9])
     counters = (A.flash_attention, A.flash_attention_qk_i8, A.quantize_qk_i8, A.flash_attention_f32)
-    for qk_int8, dtype, expected in ((True, torch.bfloat16, [1, 1, 1, 0]), (False, None, [0, 0, 0, 2])):
+    for qk_int8, dtype, expected in ((True, torch.bfloat16, [0, 2, 2, 0]), (False, None, [0, 0, 0, 2])):
         model = LegacyUNet(128, qk_int8=qk_int8)
         model.load_state_dict(cpu.state_dict())
         model = model.to(cuda)

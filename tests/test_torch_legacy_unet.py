@@ -212,17 +212,17 @@ def test_reference_checkpoint_loader_drops_exactly_the_dead_keys(legacy_pair):
 
 def test_legacy_unet_takes_k2_only_at_head_dim_16_and_refuses_f32_on_cuda_by_name():
     """At 128 px, attn_down3 (1024, 16) and attn_up2 (1024, 24) reach the
-    flash kernels: with qk_int8 the first takes K2, the second K1, which K3
-    could not back (it lacks D = 24); the others run plain softmax. An f32
+    flash kernels: with qk_int8 both take K2 (K3 lacks D = 24, which only the
+    sampling legacy UNet has); the others run plain softmax. An f32
     model is refused on CUDA at the entry, by name (checked without a card)."""
     with torch.device("meta"):
         model = LegacyUNet(128, qk_int8=True)
     assert model.attention_kernels(128) == [(1024, 16, "K2"), (256, 24, "softmax"), (64, 64, "softmax"),
-                                            (256, 32, "softmax"), (1024, 24, "K1")]
+                                            (256, 32, "softmax"), (1024, 24, "K2")]
     assert [k for _, _, k in LegacyUNet(16).attention_kernels(128)] == ["K1", "softmax", "softmax", "softmax", "K1"]
     with pytest.raises(ValueError, match=r"LegacyUNet.forward: .*\(1024, 16\), \(1024, 24\)"):
         PA.check_flash_precision("cuda", torch.float32, model.attention_shapes(128), "LegacyUNet.forward")
-    assert 24 in PA.KERNEL_HEAD_DIMS and 24 not in PA.BWD_HEAD_DIMS and 24 not in PA.QK_I8_HEAD_DIMS
+    assert 24 in PA.KERNEL_HEAD_DIMS and 24 not in PA.BWD_HEAD_DIMS and 24 in PA.QK_I8_HEAD_DIMS
     with pytest.raises(ValueError, match="flash_attention_bwd: head dim 24"):
         PA._check_bwd_head_dim(24)
     assert not model.training

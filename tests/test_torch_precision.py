@@ -166,13 +166,13 @@ def test_default_ladder_attention_shapes_are_admitted_by_the_kernels(im_size):
 
 def test_qk_int8_unet_takes_k2_only_where_k2_has_the_head_dim():
     """What the CLI builds on the card: a 256 px UNet with qk_int8, one layer
-    deep at the default ladder's widths. Each flash-length layer takes K2 at
-    D <= 128 and K1 at D = 192, which K2 lacks (the op keeps refusing it);
-    without qk_int8 every one takes K1."""
+    deep at the default ladder's widths. Each flash-length layer takes K2,
+    D = 192 included, as JAX's int8 kernel does; without qk_int8 every one
+    takes K1."""
     cfg = UnetModelConfig(im_size=256, num_down_layers=1, num_mid_layers=1, num_up_layers=1)
     with torch.device("meta"):
         int8, plain = Unet(cfg, qk_int8=True), Unet(cfg)
-    assert int8.attention_kernels(256) == [(4096, 128, "K2"), (1024, 192, "K1"), (1024, 192, "K1"),
+    assert int8.attention_kernels(256) == [(4096, 128, "K2"), (1024, 192, "K2"), (1024, 192, "K2"),
                                            (1024, 128, "K2"), (1024, 64, "K2"), (4096, 32, "K2")]
     assert [k for _, _, k in plain.attention_kernels(256)] == ["K1"] * 6
     assert [(n, d) for n, d, _ in int8.attention_kernels(256)] == int8.attention_shapes(256)
@@ -180,10 +180,11 @@ def test_qk_int8_unet_takes_k2_only_where_k2_has_the_head_dim():
 
 
 def test_qk_i8_refuses_head_dim_192_by_naming_k1():
-    """K2 has no D = 192 instantiation; it raises instead of falling back (the
-    rule is checked before any kernel is built, so it shows without a card)."""
-    with pytest.raises(ValueError, match=r"head dim 192 .*use flash_attention \(qk_int8=False\)"):
-        A._check_qk_i8_head_dim(192)
-    for d in (16, 32, 64, 128):
+    """K2 takes D = 192 and every head dim K1 takes; another (48) raises
+    instead of falling back, naming K1 (the rule is checked before any
+    kernel is built, so it shows without a card)."""
+    with pytest.raises(ValueError, match=r"head dim 48 .*use flash_attention \(qk_int8=False\)"):
+        A._check_qk_i8_head_dim(48)
+    for d in A.KERNEL_HEAD_DIMS:
         A._check_qk_i8_head_dim(d)
-    assert 192 in A.KERNEL_HEAD_DIMS and 192 not in A.QK_I8_HEAD_DIMS
+    assert 192 in A.KERNEL_HEAD_DIMS and A.QK_I8_HEAD_DIMS == A.KERNEL_HEAD_DIMS

@@ -225,10 +225,12 @@ def test_train_step_matches_jax(accum_steps, steps):
 
 
 def test_train_step_refuses_mesh_and_a_ragged_accumulation():
+    """A mesh that is not the port's ("data",) DeviceMesh is refused by name
+    (data parallelism itself: tests/test_torch_parallel.py)."""
     loss = PL.make_seg_loss("CrossEntropyLoss")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         PS.make_seg_train_step(loss, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         PS.make_seg_eval_step(PF.make_seg_model(NAME, CLASSES), CLASSES, mesh=object())
     state = PS.create_seg_state(PF.make_seg_model(NAME, CLASSES, train=True), OptCfg, 4)
     with pytest.raises(ValueError, match="accum_steps"):
@@ -312,7 +314,9 @@ def test_loop_max_steps_validates_and_saves_the_epoch_it_stops_in(tmp_path):
 
 
 def test_loop_refuses_fsdp_and_an_absent_pretrained_backbone(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 17"):
+    """FSDP needs a process group (torchrun): without one the loop refuses it
+    by name instead of training unsharded."""
+    with pytest.raises(ValueError, match="training.fsdp=true needs a process group"):
         loop_segmentation.train(_loop_cfg(tmp_path, fsdp=True), datasets=(Pairs(2, 0), Pairs(2, 1)))
     monkeypatch.setattr(torch.hub, "get_dir", lambda: str(tmp_path / "hub"))
     with pytest.raises(FileNotFoundError, match="fetches nothing"):

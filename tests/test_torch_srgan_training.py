@@ -306,7 +306,9 @@ def test_gan_step_with_the_adversarial_term_detached_breaks_the_moments(monkeypa
 
 
 def test_steps_refuse_a_mesh_and_an_unknown_pixel_loss():
-    with pytest.raises(NotImplementedError, match="item 17"):
+    """A mesh that is not the port's ("data",) DeviceMesh is refused by name
+    (data parallelism itself: tests/test_torch_parallel.py)."""
+    with pytest.raises(ValueError, match="DeviceMesh"):
         PT.make_gan_step(mesh=object())
     with pytest.raises(ValueError, match="pixel_loss"):
         PT.make_pretrain_step("l3")

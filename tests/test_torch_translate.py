@@ -219,8 +219,8 @@ def test_parts_not_ported_raise(kw):
 def test_port_imports_no_jax():
     """Every module of weatherconverter_tpu_torch (the CLI's cli.main, the
     server's serving.server, the seg trainer's modules, the MobileNetV2,
-    Xception and HRNetV2 backbones and the SRGAN trainer's modules among
-    them), and chip_smoke (imported, not run),
+    Xception and HRNetV2 backbones, the SRGAN trainer's modules and
+    `parallel/` among them), and chip_smoke (imported, not run),
     imports in a fresh process without loading jax, jaxlib, flax or anything
     of the JAX package."""
     code = (
@@ -237,6 +237,8 @@ def test_port_imports_no_jax():
         "        'weatherconverter_tpu_torch.models.backbones.xception',\n"
         "        'weatherconverter_tpu_torch.models.backbones.hrnetv2', 'weatherconverter_tpu_torch.training.srgan',\n"
         "        'weatherconverter_tpu_torch.training.loop_srgan'} <= set(names)\n"
+        "assert {'weatherconverter_tpu_torch.parallel', 'weatherconverter_tpu_torch.parallel.distributed',\n"
+        "        'weatherconverter_tpu_torch.parallel.sharding', 'weatherconverter_tpu_torch.parallel.fsdp'} <= set(names)\n"
         "from weatherconverter_tpu_torch.cli import main as cli\n"
         "cli.build_parser().parse_args(['serve', '--device', 'cpu'])\n"
         "cli.build_parser().parse_args(['train-srgan', '--device', 'cpu'])\n"

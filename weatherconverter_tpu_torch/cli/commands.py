@@ -17,9 +17,9 @@ refused by name: the port has no Orbax.
 int8 attention: on the card the inference commands build the UNet with
 `qk_int8=True`, as the JAX CLI defaults to its int8 kernel on the TPU;
 `--no-int8-attn` keeps K1. Such a model takes K2 (the int8 Q K^T flash
-forward, and its quantizer) in the layers whose head dim K2 has, and K1 in
-the others (D = 24 in the legacy UNet, D = 192 in a 256 px UNet): JAX's
-int8 kernel takes any head dim, the port's does not yet. The quality check
+forward, and its quantizer) in every flash-length layer, D = 24 of the
+legacy UNet and D = 192 of a 256 px UNet included, as JAX's int8 kernel
+takes any head dim. The quality check
 (`probes/int8_quality.py`) passed K2 at 20, 50 and 1000 steps on the H100
 (PERF.md section 6). The CPU has no int8 path, and training never takes K2
 (it has no backward).

@@ -5,7 +5,11 @@ and choices, and one addition: `--device {cuda,cpu}`.
 
 Every command runs on the CUDA card unless `--device cpu` is given; without
 a card it stops with a message and a non-zero exit, and never goes on
-quietly on the CPU. Every subcommand is ported: train-ddpm, train-seg,
+quietly on the CPU. Under torchrun (`torchrun --nproc-per-node N -m
+weatherconverter_tpu_torch.cli.main train-ddpm|train-seg|train-srgan ...`)
+main joins the process group first, as the JAX CLI initializes its
+multi-process runtime, and the trainers run data parallel over the
+processes (NCCL on the cards, gloo with --device cpu). Every subcommand is ported: train-ddpm, train-seg,
 train-srgan, sample (with --sampler legacy), translate (with --debug-dir),
 super-resolve, infer-seg, quality, visualize, serve and export-hlo (a
 torch.export archive in place of StableHLO text: `--out`'s default ends in
@@ -20,7 +24,7 @@ import sys
 
 INT8_HELP = ("keep K1, the exact bf16 flash attention. On the card inference defaults to K2 (int8 Q K^T and its "
              "quantizer, one int8 scale for the batch, as JAX's CLI runs its kernel over the batch; the server "
-             "takes one a request) in the attention layers whose head dim K2 has (16-128; K1 at 24 and 192), which "
+             "takes one a request) in every flash-length attention layer (head dims 16-192), which "
              "passed the int8 quality check at 20, 50 and 1000 steps; the gain is small, 0.1-0.3 ms of a 14-25 ms "
              "device step, and no wall-time change while the host binds (PERF.md)")
 
@@ -212,14 +216,23 @@ def run_serve(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    from weatherconverter_tpu_torch.cli import commands
+    import torch.distributed as dist
 
-    return {"train-ddpm": commands.run_train_ddpm, "train-seg": commands.run_train_seg,
-            "train-srgan": commands.run_train_srgan, "sample": commands.run_sample,
-            "translate": commands.run_translate, "super-resolve": commands.run_super_resolve,
-            "infer-seg": commands.run_infer_seg, "quality": commands.run_quality,
-            "visualize": commands.run_visualize, "export-hlo": commands.run_export_hlo,
-            "serve": run_serve}[args.command](args)
+    from weatherconverter_tpu_torch.cli import commands
+    from weatherconverter_tpu_torch.parallel.distributed import maybe_initialize_distributed
+
+    # under torchrun, one process per card (gloo for --device cpu); without its variables, nothing
+    ours = not dist.is_initialized() and maybe_initialize_distributed(getattr(args, "device", "cuda"))
+    try:
+        return {"train-ddpm": commands.run_train_ddpm, "train-seg": commands.run_train_seg,
+                "train-srgan": commands.run_train_srgan, "sample": commands.run_sample,
+                "translate": commands.run_translate, "super-resolve": commands.run_super_resolve,
+                "infer-seg": commands.run_infer_seg, "quality": commands.run_quality,
+                "visualize": commands.run_visualize, "export-hlo": commands.run_export_hlo,
+                "serve": run_serve}[args.command](args)
+    finally:
+        if ours:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -8,6 +8,13 @@ never sees half a file; saves are synchronous, so `wait` has nothing to
 wait for (the JAX package's Orbax saves are asynchronous). Orbax itself is
 not carried over.
 
+Multi-process runs: every rank calls `save` (under FSDP it gathers the
+full state, a collective), the primary alone writes, and every rank waits
+at a barrier, so a checkpoint written by N ranks is one whole state that
+loads into one process, and the reverse. `create_run` allocates the run
+directory on the primary and hands its path to the others. Every rank
+restores.
+
 Best-metric bookkeeping as in the JAX manager: a manager made with
 `best_metric_name` records in `<dir>/best.json` the step whose metric was
 best so far ("max" or "min" mode), and `restore_auto(prefer_best=True)`
@@ -25,6 +32,9 @@ from typing import Any, Optional
 
 import torch
 
+from weatherconverter_tpu_torch.parallel.distributed import barrier, broadcast_object, is_primary
+from weatherconverter_tpu_torch.parallel.fsdp import full_state
+
 STATE_FILE = "state.pt"
 BEST_FILE = "best.json"
 
@@ -38,7 +48,9 @@ class CheckpointManager:
         if best_mode not in ("max", "min"):
             raise ValueError(f"best_mode must be 'max' or 'min', not {best_mode!r}")
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        if is_primary():
+            os.makedirs(self.directory, exist_ok=True)
+        barrier()
         self.max_to_keep = max_to_keep
         self.best_metric_name = best_metric_name
         self.best_mode = best_mode
@@ -57,10 +69,16 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, metrics: Optional[dict] = None) -> None:
         """`state` is anything with `state_dict()`, or a tree torch.save takes.
-        `metrics[best_metric_name]`, when given, may make this the best step."""
+        `metrics[best_metric_name]`, when given, may make this the best step.
+        Every rank of a run calls it; the primary writes (module docstring)."""
+        tree = full_state(state.state_dict() if hasattr(state, "state_dict") else state)
+        if is_primary():
+            self._write(step, tree, metrics)
+        barrier()
+
+    def _write(self, step: int, tree: Any, metrics: Optional[dict]) -> None:
         path = self._file(step)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        tree = state.state_dict() if hasattr(state, "state_dict") else state
         torch.save(tree, path + ".tmp")
         os.replace(path + ".tmp", path)
         if metrics and self.best_metric_name and self.best_metric_name in metrics:
@@ -117,11 +135,13 @@ def find_max_run_id(base: str) -> int:
 
 def create_run(base: str) -> str:
     """Allocate the next numbered run directory, with checkpoints/ and
-    samples/ inside it."""
-    run_dir = os.path.join(base, str(find_max_run_id(base) + 1))
-    os.makedirs(os.path.join(run_dir, "checkpoints"), exist_ok=True)
-    os.makedirs(os.path.join(run_dir, "samples"), exist_ok=True)
-    return run_dir
+    samples/ inside it: on the primary, whose path every rank returns."""
+    run_dir = None
+    if is_primary():
+        run_dir = os.path.join(base, str(find_max_run_id(base) + 1))
+        os.makedirs(os.path.join(run_dir, "checkpoints"), exist_ok=True)
+        os.makedirs(os.path.join(run_dir, "samples"), exist_ok=True)
+    return broadcast_object(run_dir)
 
 
 def restore_auto(path: str, target: Any, *, prefer_best: bool) -> Any:

@@ -273,3 +273,11 @@ def _deep_update(base: dict, upd: dict) -> dict:
         else:
             out[k] = v
     return out
+
+
+def resolve_device_count() -> int:
+    """Number of local CUDA cards visible to this process (JAX's local device
+    count); 0 without one."""
+    import torch
+
+    return torch.cuda.device_count()

@@ -9,6 +9,13 @@ saves the current train state through the normal checkpoint path, waits
 for the write and returns. The handler only sets the flag, so a signal
 landing in the middle of a step never corrupts it: the loop finishes the
 step, then checkpoints the post-step state.
+
+In a multi-process run a signal may reach one rank only; a rank that left
+the loop alone would leave the others waiting in the next collective. The
+loops read `triggered_anywhere(group)`, the flag agreed across the ranks
+(an all-reduce of max over a gloo group, parallel.sharding.host_group) at
+every step boundary, and all save and return together. The flag is a CPU
+tensor: agreeing it waits for the other ranks' hosts, never for the card.
 """
 
 from __future__ import annotations
@@ -16,6 +23,9 @@ from __future__ import annotations
 import signal
 import threading
 from typing import Optional
+
+import torch
+import torch.distributed as dist
 
 
 class PreemptionGuard:
@@ -44,6 +54,15 @@ class PreemptionGuard:
     @property
     def triggered(self) -> bool:
         return self._event.is_set()
+
+    def triggered_anywhere(self, group=None) -> bool:
+        """`triggered` on any rank of `group`, a gloo process group (None:
+        this process alone). Every rank of the group must call it."""
+        if group is None:
+            return self.triggered
+        flag = torch.tensor([int(self.triggered)])
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        return bool(flag.item())
 
     def _handler(self, signum, frame):
         if self._event.is_set():

@@ -42,6 +42,15 @@
 //     other three shapes; a subtraction and a multiply in place of the FMA
 //     (the same bits as cvt) was 4-6 % slower than either. The FMA form is
 //     the one kept; the cvt form is no longer built.
+// D = 24 (the legacy UNet's attn_up2) and D = 192 (the 256 px UNet's
+// 768-channel layers) follow K1's designs at those head dims. At D = 24 the
+// int8 rows of 24 bytes are staged on D = 32 tiles in 8-byte cp.async pieces,
+// the fourth of each row zero-filled by src-size 0 (a select, no branch), so
+// the one k32 step of S adds exactly 0 past d = 24; V and O run K1's D = 24
+// path (zero-filled 16-byte tails, columns 24-31 never stored). At D = 192
+// the int8 tiles are three 64-byte panels (six k32 steps), V and O K1's three
+// 64-column panels: 121 KB of shared memory, one block an SM, 96 O
+// accumulators a thread, as in K1. Both take one scale a tensor or a row.
 // Departures: as K1's (cp.async by the MMA warps, not TMA; one warpgroup a
 // block; S_{j+1} not in flight across iterations). The ring keeps K1's depth
 // of three although K8 tiles are half the bytes: at three the block already
@@ -55,7 +64,8 @@
 
 namespace wcflash {
 
-template <typename T, int D>
+// D: the tile's width; G: the tensors' head dim (row stride), D unless G = 24.
+template <typename T, int D, int G = D>
 struct QkI8Policy {
   using Score = int;
   using L8 = Tile<D, 1>;
@@ -70,10 +80,10 @@ struct QkI8Policy {
   __device__ __forceinline__ void prologue(uint32_t q_s, uint32_t k_ring, int tid) const {
     zero_row_padding<L8>(q_s, 1, tid);
     zero_row_padding<L8>(k_ring, kFwdStages, tid);
-    load_tile_async<int8_t, D>(q_s, q_rows, tid);
+    load_tile_async<int8_t, D, G>(q_s, q_rows, tid);
   }
   __device__ __forceinline__ void load_k(uint32_t dst, int tile, int tid) const {
-    load_tile_async<int8_t, D>(dst, k_head + (size_t)tile * kTileRows * D, tid);
+    load_tile_async<int8_t, D, G>(dst, k_head + (size_t)tile * kTileRows * G, tid);
   }
   __device__ __forceinline__ void start(int (&s)[kTileRows / 2], uint32_t q_s, uint32_t k_tile) const {
     mma_rows_rows_t_s8<D>(s, q_s, k_tile);
@@ -95,23 +105,24 @@ struct QkI8Policy {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(kWgThreads)
     flash_fwd_qk_i8_wgmma_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
                                  const T* __restrict__ v, const float* __restrict__ qk_scale,
                                  T* __restrict__ o, int n, int heads_per_scale) {
-  const size_t head = (size_t)blockIdx.y * n * D;
-  const size_t row0 = (size_t)blockIdx.x * kTileRows * D;
+  const size_t head = (size_t)blockIdx.y * n * G;
+  const size_t row0 = (size_t)blockIdx.x * kTileRows * G;
   const float scale_log2 = qk_scale[blockIdx.y / heads_per_scale] * kLog2e;
-  QkI8Policy<T, D> policy{q8 + head + row0, k8 + head, scale_log2, -12582912.f * scale_log2};
-  flash_forward_loop<T, D>(policy, v + head, o + head + row0, nullptr, n);
+  QkI8Policy<T, D, G> policy{q8 + head + row0, k8 + head, scale_log2, -12582912.f * scale_log2};
+  flash_forward_loop<T, D, QkI8Policy<T, D, G>, G>(policy, v + head, o + head + row0, nullptr, n);
 }
 
-template <typename T, int D>
+template <typename T, int D, int G = D>
 cudaError_t launch_i8(const int8_t* q8, const int8_t* k8, const void* v, const float* qk_scale, void* o,
                       int bh, int n, int heads_per_scale, cudaStream_t stream) {
-  constexpr int smem = fwd_loop_smem_bytes<T, D, QkI8Policy<T, D>>();
-  auto kernel = flash_fwd_qk_i8_wgmma_kernel<T, D>;
+  constexpr int smem = fwd_loop_smem_bytes<T, D, QkI8Policy<T, D, G>>();
+  static_assert(smem <= 232448, "a block's shared memory");
+  auto kernel = flash_fwd_qk_i8_wgmma_kernel<T, D, G>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(n / kTileRows, bh), kWgThreads, smem, stream>>>(q8, k8, static_cast<const T*>(v), qk_scale,
@@ -124,9 +135,11 @@ cudaError_t dispatch_i8(const int8_t* q8, const int8_t* k8, const void* v, const
                         int bh, int n, int d, int hps, cudaStream_t stream) {
   switch (d) {
     case 16: return launch_i8<T, 16>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
+    case 24: return launch_i8<T, 32, 24>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
     case 32: return launch_i8<T, 32>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
     case 64: return launch_i8<T, 64>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
     case 128: return launch_i8<T, 128>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
+    case 192: return launch_i8<T, 192>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -24,6 +24,11 @@
 //   D = 128/64/32: 128/64/32-byte rows and swizzle, D/32 k-steps of 32 bytes
 //   D = 16: 32-byte rows whose data is one 16-byte chunk; the other chunk
 //     must be zero (a k32 step reads 32 bytes a row) and no copy writes it
+//   D = 24 (K2 at the legacy UNet's attn_up2): a D = 32 tile whose 24-byte
+//     rows come in three 8-byte copies and a fourth that zero-fills, as K1's
+//     D = 24 rows do, so the one k32 step adds exactly 0 past d = 24
+//   D = 192 (the 256 px UNet): three panels of 64 columns (64-byte rows and
+//     swizzle, six k-steps), as K1's D = 192 tile is three panels
 // The swizzle is the tensor cores' own (Swizzle<B,4,3>): bits [7, 7+B) of
 // the byte address are XORed into bits [4, 4+B). Tiles start on 1024-byte
 // boundaries, so offsets within a tile swizzle like addresses.
@@ -47,7 +52,10 @@ constexpr int kTileRows = 64;                  // rows of a streamed tile, and o
 template <int D, int kElemBytes = 2>
 struct Tile {
   static constexpr int kElemsPerChunk = 16 / kElemBytes;  // a chunk is 16 bytes
-  static constexpr int kPanelCols = D * kElemBytes < 128 ? D : 128 / kElemBytes;
+  // panels of 128 bytes a row; int8 at D = 192 (192-byte rows) takes three of 64 bytes instead
+  static constexpr int kPanelCols = D * kElemBytes < 128         ? D
+                                    : (D * kElemBytes) % 128 == 0 ? 128 / kElemBytes
+                                                                  : 64 / kElemBytes;
   static constexpr int kPanels = D / kPanelCols;
   static constexpr int kDataRowBytes = kPanelCols * kElemBytes;
   static constexpr int kRowBytes = kDataRowBytes < 32 ? 32 : kDataRowBytes;  // padded at int8, D = 16
@@ -86,6 +94,12 @@ __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, 
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(data ? 16 : 0)
                : "memory");
 }
+// 8 bytes, or 8 zero bytes when !`data` (cp.async.cg copies 16 bytes only, so
+// this is the .ca form). One instruction either way, the choice a select.
+__device__ __forceinline__ void cp_async8_zfill(uint32_t dst, const void* src, bool data) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src), "r"(data ? 8 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
@@ -100,25 +114,50 @@ __device__ __forceinline__ void fence_async_proxy() {
 // shared address `dst`, by the block's 128 threads, 16 bytes a copy,
 // coalesced. T is a 16-bit type or int8_t; only the data chunks of a padded
 // int8 row are written. G < D (D = 32, G = 24) fills each row's chunks past
-// G with zeros in the same copies, by select, never a branch.
+// G with zeros in the same copies, by select, never a branch. A row that is
+// not whole 16-byte chunks (int8 at G = 24: 24 bytes) is copied in 8-byte
+// pieces instead (load_tile_async8).
+template <typename T, int D, int G>
+__device__ __forceinline__ void load_tile_async8(uint32_t dst, const T* __restrict__ src, int tid) {
+  using L = Tile<D, sizeof(T)>;
+  static_assert(L::kPanels == 1 && G < D && (G * sizeof(T)) % 8 == 0, "one panel of whole 8-byte pieces");
+  constexpr int kPieceElems = 8 / sizeof(T);
+  constexpr int kPiecesPerRow = L::kDataRowBytes / 8;
+  constexpr int kDataPieces = G / kPieceElems;  // pieces a row holds in global memory
+  constexpr int kPieces = kTileRows * kPiecesPerRow;
+#pragma unroll
+  for (int i0 = 0; i0 < kPieces; i0 += kWgThreads) {
+    const int i = i0 + tid;
+    if (kPieces % kWgThreads != 0 && i >= kPieces) break;
+    const int row = i / kPiecesPerRow, piece = i % kPiecesPerRow;
+    const bool data = piece < kDataPieces;
+    cp_async8_zfill(dst + L::swizzled(row, piece / 2) + (piece % 2) * 8,
+                    src + (size_t)row * G + (data ? piece : 0) * kPieceElems, data);
+  }
+}
+
 template <typename T, int D, int G = D>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const T* __restrict__ src, int tid) {
   using L = Tile<D, sizeof(T)>;
-  static_assert(G <= D && (G * sizeof(T)) % 16 == 0, "a row is whole 16-byte chunks");
-  constexpr int kChunks = kTileRows * L::kChunksPerRow;  // 64 at int8, D = 16, else a multiple of 128
-  constexpr int kDataChunks = G / L::kElemsPerChunk;     // chunks a row holds in global memory
+  if constexpr ((G * sizeof(T)) % 16 != 0) {
+    load_tile_async8<T, D, G>(dst, src, tid);
+  } else {
+    static_assert(G <= D, "a row fits its tile");
+    constexpr int kChunks = kTileRows * L::kChunksPerRow;  // 64 at int8, D = 16, else a multiple of 128
+    constexpr int kDataChunks = G / L::kElemsPerChunk;     // chunks a row holds in global memory
 #pragma unroll
-  for (int i0 = 0; i0 < kChunks; i0 += kWgThreads) {
-    const int i = i0 + tid;
-    if (kChunks % kWgThreads != 0 && i >= kChunks) break;
-    const int row = i / L::kChunksPerRow, c = i % L::kChunksPerRow;
-    const int panel = c / L::kChunksPerPanelRow, pc = c % L::kChunksPerPanelRow;
-    const uint32_t at = dst + panel * L::kPanelBytes + L::swizzled(row, pc);
-    if constexpr (G == D) {
-      cp_async16(at, src + (size_t)row * D + c * L::kElemsPerChunk);
-    } else {
-      const bool data = c < kDataChunks;
-      cp_async16_zfill(at, src + (size_t)row * G + (data ? c : 0) * L::kElemsPerChunk, data);
+    for (int i0 = 0; i0 < kChunks; i0 += kWgThreads) {
+      const int i = i0 + tid;
+      if (kChunks % kWgThreads != 0 && i >= kChunks) break;
+      const int row = i / L::kChunksPerRow, c = i % L::kChunksPerRow;
+      const int panel = c / L::kChunksPerPanelRow, pc = c % L::kChunksPerPanelRow;
+      const uint32_t at = dst + panel * L::kPanelBytes + L::swizzled(row, pc);
+      if constexpr (G == D) {
+        cp_async16(at, src + (size_t)row * D + c * L::kElemsPerChunk);
+      } else {
+        const bool data = c < kDataChunks;
+        cp_async16_zfill(at, src + (size_t)row * G + (data ? c : 0) * L::kElemsPerChunk, data);
+      }
     }
   }
 }

@@ -19,7 +19,8 @@
 // fit the 50 MB L2). What the design does about it: two launches for both
 // tensors together (blockIdx.y picks q or k, blockIdx.z the scale's segment:
 // the tensor, or one batch row), 16 elements a thread at a time (two 16-byte
-// loads, one 16-byte store), grid-stride within the segment.
+// loads, one 16-byte store; 8 at D = 24, the legacy UNet's attn_up2, whose
+// rows are 48 bytes), grid-stride within the segment.
 //   * Pass 1: |x| is the 16-bit pattern without its sign, and for finite
 //     values patterns order like the numbers, so the maximum is taken on packed
 //     pairs of patterns (__vmaxu2) with no conversion; a warp reduction, a
@@ -57,7 +58,8 @@
 namespace wcquant {
 
 constexpr int kThreads = 256;
-constexpr int kGroup = 16;       // elements a thread takes at a time
+// G, the elements a thread takes at a time: 16 (two 16-byte loads, one 16-byte store), or 8 where D is not a
+// multiple of 16 (D = 24: one 16-byte load, one 8-byte store)
 constexpr int kMaxBlocks = 1056;  // a tensor: 8 blocks an SM on 132 SMs, then grid-stride (half as many measured no faster)
 
 // Element strides of the batch, head and row dimensions; d is contiguous.
@@ -67,17 +69,17 @@ struct Strides {
 
 struct Shape {
   int h, n, d;
-  long long groups;  // groups a segment: B * H * N * D / kGroup over the segments
+  long long groups;  // groups a segment: B * H * N * D / G over the segments
 };
 
-// Group i of 16 consecutive elements of one row, in (b, h, n, d) order.
-template <typename T>
+// Group i of G consecutive elements of one row, in (b, h, n, d) order.
+template <int G, typename T>
 __device__ __forceinline__ const T* group_ptr(const T* x, const Strides& st, const Shape& sh, long long i) {
-  const int per_row = sh.d / kGroup;
+  const int per_row = sh.d / G;
   const long long row = i / per_row;
   const int c = (int)(i % per_row);
   const long long bh = row / sh.n;
-  return x + (bh / sh.h) * st.b + (bh % sh.h) * st.h + (row % sh.n) * st.n + c * kGroup;
+  return x + (bh / sh.h) * st.b + (bh % sh.h) * st.h + (row % sh.n) * st.n + c * G;
 }
 
 __device__ __forceinline__ float pattern_to_float(uint32_t bits16, __nv_bfloat16) {
@@ -89,7 +91,7 @@ __device__ __forceinline__ float pattern_to_float(uint32_t bits16, __half) {
 
 // amax_bits[z], amax_bits[S + z] (zero before the launch; S = gridDim.z segments) = the bits of segment z's
 // max|q|, max|k| as f32.
-template <typename T>
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
     absmax_qk_kernel(const T* __restrict__ q, const T* __restrict__ k, Strides q_st, Strides k_st, Shape sh,
                      unsigned int* __restrict__ amax_bits) {
@@ -100,11 +102,14 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t m = 0;  // two running maxima of 15-bit magnitudes, packed
   for (long long i = first + (long long)blockIdx.x * kThreads + threadIdx.x; i < end;
        i += (long long)gridDim.x * kThreads) {
-    const uint4* p = reinterpret_cast<const uint4*>(group_ptr(x, st, sh, i));
-    const uint4 a = p[0], b = p[1];
-    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    const uint4* p = reinterpret_cast<const uint4*>(group_ptr<G>(x, st, sh, i));
 #pragma unroll
-    for (int j = 0; j < 8; ++j) m = __vmaxu2(m, w[j] & 0x7fff7fffu);
+    for (int c = 0; c < G / 8; ++c) {
+      const uint4 a = p[c];
+      const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) m = __vmaxu2(m, w[j] & 0x7fff7fffu);
+    }
   }
   uint32_t best = __reduce_max_sync(0xffffffffu, max(m & 0xffffu, m >> 16));
   if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = best;
@@ -143,7 +148,7 @@ __device__ __forceinline__ uint2 quantize8(const uint4& v, float scale) {
   return make_uint2(out[0], out[1]);
 }
 
-template <typename T>
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
     quantize_qk_kernel(const T* __restrict__ q, const T* __restrict__ k, Strides q_st, Strides k_st, Shape sh,
                        const float* __restrict__ amax, int8_t* __restrict__ q8, int8_t* __restrict__ k8,
@@ -157,32 +162,44 @@ __global__ void __launch_bounds__(kThreads)
   const long long first = (long long)blockIdx.z * sh.groups, end = first + sh.groups;
   for (long long i = first + (long long)blockIdx.x * kThreads + threadIdx.x; i < end;
        i += (long long)gridDim.x * kThreads) {
-    const uint4* p = reinterpret_cast<const uint4*>(group_ptr(x, st, sh, i));
-    const uint2 lo = quantize8<T>(p[0], scale), hi = quantize8<T>(p[1], scale);
-    *reinterpret_cast<uint4*>(out + i * kGroup) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    const uint4* p = reinterpret_cast<const uint4*>(group_ptr<G>(x, st, sh, i));
+    const uint2 lo = quantize8<T>(p[0], scale);
+    if constexpr (G == 16) {
+      const uint2 hi = quantize8<T>(p[1], scale);
+      *reinterpret_cast<uint4*>(out + i * G) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+    } else {
+      *reinterpret_cast<uint2*>(out + i * G) = lo;
+    }
   }
 }
 
-template <typename T>
+template <typename T, int G>
 cudaError_t launch(const void* q, const void* k, Strides q_st, Strides k_st, int b, int scales, Shape sh,
                    float* amax, int8_t* q8, int8_t* k8, float* qk_scale, float sqrt_d, cudaStream_t stream) {
-  sh.groups = (long long)b * sh.h * sh.n * sh.d / kGroup / scales;
+  sh.groups = (long long)b * sh.h * sh.n * sh.d / G / scales;
   const long long want = (sh.groups + kThreads - 1) / kThreads, most = (kMaxBlocks + scales - 1) / scales;
   const dim3 grid((unsigned)(want < most ? want : most), 2, scales);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
-  absmax_qk_kernel<T><<<grid, kThreads, 0, stream>>>(qt, kt, q_st, k_st, sh, reinterpret_cast<unsigned int*>(amax));
+  absmax_qk_kernel<T, G><<<grid, kThreads, 0, stream>>>(qt, kt, q_st, k_st, sh, reinterpret_cast<unsigned int*>(amax));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  quantize_qk_kernel<T><<<grid, kThreads, 0, stream>>>(qt, kt, q_st, k_st, sh, amax, q8, k8, qk_scale,
+  quantize_qk_kernel<T, G><<<grid, kThreads, 0, stream>>>(qt, kt, q_st, k_st, sh, amax, q8, k8, qk_scale,
                                                        sqrt_d);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, Strides q_st, Strides k_st, int b, int scales, Shape sh,
+                     float* amax, int8_t* q8, int8_t* k8, float* qk_scale, float sqrt_d, cudaStream_t stream) {
+  return sh.d % 16 == 0 ? launch<T, 16>(q, k, q_st, k_st, b, scales, sh, amax, q8, k8, qk_scale, sqrt_d, stream)
+                        : launch<T, 8>(q, k, q_st, k_st, b, scales, sh, amax, q8, k8, qk_scale, sqrt_d, stream);
 }
 
 }  // namespace wcquant
 
 // q, k: (b, h, n, d) in bf16 (is_f16 = 0) or f16 (is_f16 = 1), d a multiple of
-// 16 and contiguous, rows 16-byte aligned; q_strides, k_strides: the element
+// 8 and contiguous, rows 16-byte aligned; q_strides, k_strides: the element
 // strides of their b, h and n dimensions. scales: 1 (one scale per tensor) or
 // b (one per batch row). amax: 2 * scales f32 on the device, zero (the maxima
 // of q's segments, then k's, are left there); q8, k8: contiguous int8 (b, h,
@@ -192,13 +209,13 @@ extern "C" int wc_quantize_qk_i8(const void* q, const void* k, const long long* 
                                  const long long* k_strides, int b, int h, int n, int d, int is_f16, int scales,
                                  float* amax, void* q8, void* k8, float* qk_scale, float sqrt_d, void* stream) {
   using namespace wcquant;
-  if (b <= 0 || h <= 0 || n <= 0 || d <= 0 || d % kGroup != 0 || (scales != 1 && scales != b) || b > 65535)
+  if (b <= 0 || h <= 0 || n <= 0 || d <= 0 || d % 8 != 0 || (scales != 1 && scales != b) || b > 65535)
     return cudaErrorInvalidValue;
   const Strides q_st{q_strides[0], q_strides[1], q_strides[2]}, k_st{k_strides[0], k_strides[1], k_strides[2]};
   const Shape sh{h, n, d, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int8_t* q8p = static_cast<int8_t*>(q8);
   int8_t* k8p = static_cast<int8_t*>(k8);
-  return is_f16 ? launch<__half>(q, k, q_st, k_st, b, scales, sh, amax, q8p, k8p, qk_scale, sqrt_d, s)
-                : launch<__nv_bfloat16>(q, k, q_st, k_st, b, scales, sh, amax, q8p, k8p, qk_scale, sqrt_d, s);
+  return is_f16 ? launch_d<__half>(q, k, q_st, k_st, b, scales, sh, amax, q8p, k8p, qk_scale, sqrt_d, s)
+                : launch_d<__nv_bfloat16>(q, k, q_st, k_st, b, scales, sh, amax, q8p, k8p, qk_scale, sqrt_d, s);
 }

@@ -6,7 +6,9 @@ train-ids, on the device the train step runs on. Every random function
 draws from a `torch.Generator` on that device, or takes its draws
 explicitly (`offsets=`, `flip=`, `factors=`, `std=`/`noise=`,
 `apply=`/`gumbel=`, `scale=`/`crop=`, `angle=`, `hue=`, `SegDraws`), so a
-test can replay the JAX draws. Paired
+test can replay the JAX draws. Under data parallelism the generator is a
+parallel.sharding.GlobalDraws, which draws for the global batch and hands
+back this rank's rows (`_draw`). Paired
 transforms move image and label together; labels are never interpolated,
 and what a transform blanks out gets label 255 (ignore), never 0 (road).
 
@@ -43,12 +45,22 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from weatherconverter_tpu_torch.parallel.sharding import GlobalDraws
+
 # The train-ids ClassWiseMasking may keep (road, building, traffic light,
 # traffic sign, vegetation, terrain, sky, person, car, truck, bus, motorcycle,
 # bicycle), and its fallback pool: every train-id and the 255 bucket
 # (weatherconverter_tpu/data/transforms.py:34-45)
 CLASSWISE_ALLOWED = (0, 2, 6, 7, 8, 9, 10, 11, 13, 14, 15, 17, 18)
 CLASSWISE_CANDIDATES = tuple(range(19)) + (255,)
+
+
+def _draw(fn, shape, generator, device, **kw) -> torch.Tensor:
+    """fn(shape, generator=, device=, **kw), the draw of these rows: through
+    a GlobalDraws, this rank's rows of the global batch's draw."""
+    if isinstance(generator, GlobalDraws):
+        return generator.draw(fn, shape, device, **kw)
+    return fn(shape, generator=generator, device=device, **kw)
 
 
 def to_float(x: torch.Tensor) -> torch.Tensor:
@@ -81,8 +93,8 @@ def random_crop(
         )
     dev = images.device
     if offsets is None:
-        ys = torch.randint(0, h - th + 1, (b,), generator=generator, device=dev)
-        xs = torch.randint(0, w - tw + 1, (b,), generator=generator, device=dev)
+        ys = _draw(functools.partial(torch.randint, 0, h - th + 1), (b,), generator, dev)
+        xs = _draw(functools.partial(torch.randint, 0, w - tw + 1), (b,), generator, dev)
     else:
         ys, xs = (torch.as_tensor(o, device=dev).long() for o in offsets)
     rows = (ys[:, None] + torch.arange(th, device=dev))[:, :, None]  # (B, th, 1)
@@ -95,7 +107,7 @@ def _random_flip(images, dim, p, generator, flip, labels):
     """Flip example i along image dim `dim` (1 rows, 2 columns) where flip[i];
     flip ~ U[0, 1) < p unless given; labels (B, H, W) with it."""
     if flip is None:
-        flip = torch.rand((images.shape[0],), generator=generator, device=images.device) < p
+        flip = _draw(torch.rand, (images.shape[0],), generator, images.device) < p
     flip = torch.as_tensor(flip, device=images.device).bool()
     out = torch.where(flip[:, None, None, None], images.flip(dim), images)
     return out if labels is None else (out, torch.where(flip[:, None, None], labels.flip(dim), labels))
@@ -124,7 +136,7 @@ def random_vflip(
 
 
 def _uniform(shape, lo, hi, generator, device):
-    return torch.rand(shape, generator=generator, device=device) * (hi - lo) + lo
+    return _draw(torch.rand, shape, generator, device) * (hi - lo) + lo
 
 
 def _gray(x: torch.Tensor) -> torch.Tensor:
@@ -176,7 +188,7 @@ def add_gaussian_noise(
     if std is None:
         std = _uniform((b,), std_range[0], std_range[1], generator, dev)
     if noise is None:
-        noise = torch.randn(images.shape, generator=generator, device=dev)
+        noise = _draw(torch.randn, images.shape, generator, dev)
     std = torch.as_tensor(std, device=dev).reshape(b, 1, 1, 1)
     return (images + (torch.as_tensor(noise, device=dev) * std + mean)).clamp(0.0, 1.0)
 
@@ -208,7 +220,7 @@ def class_wise_masking(
     fallback = allowed_present.sum(1) < num_classes_to_keep
     pool = torch.where(fallback[:, None], present, allowed_present)
     if apply is None:
-        apply = torch.rand((b,), generator=generator, device=dev) < p
+        apply = _draw(torch.rand, (b,), generator, dev) < p
     if gumbel is None:
         gumbel = -torch.log(-torch.log(_uniform((b, cand.numel()), 1e-6, 1.0, generator, dev)))
     scores = torch.where(pool, torch.as_tensor(gumbel, device=dev), float("-inf"))
@@ -295,7 +307,7 @@ def random_scale_crop(
     if scale is None:
         scale = _uniform((b,), scale_range[0], scale_range[1], generator, dev)
     if crop is None:
-        crop = (torch.rand((b,), generator=generator, device=dev), torch.rand((b,), generator=generator, device=dev))
+        crop = (_draw(torch.rand, (b,), generator, dev), _draw(torch.rand, (b,), generator, dev))
     s = torch.as_tensor(scale, dtype=torch.float32, device=dev)
     u_y, u_x = (torch.as_tensor(u, dtype=torch.float32, device=dev) for u in crop)
     sh, sw = torch.floor(h * s), torch.floor(w * s)

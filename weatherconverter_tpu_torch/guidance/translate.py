@@ -155,7 +155,8 @@ def sample_with_sgg(
     step s (i = num_steps - 1 - s).
     """
     if spatial_mesh is not None:
-        raise NotImplementedError("spatial_mesh: spatial sharding is ROADMAP Queue 1 item 17")
+        raise NotImplementedError("spatial_mesh: spatial sharding (parallel/spatial.py) is not ported; ROADMAP "
+                                  "Queue 1 holds it first. Data-parallel translation: translate_across_ranks")
     if guidance_space not in ("sr", "latent"):
         raise ValueError(f"unknown guidance_space {guidance_space!r}")
 
@@ -347,3 +348,24 @@ def make_translate_fn(
             )
 
     return translate
+
+
+def translate_across_ranks(translate, mesh, input_128: torch.Tensor, gt: torch.Tensor,
+                           noise: tuple[Optional[torch.Tensor], torch.Tensor], start_t: int, **segment) -> torch.Tensor:
+    """The guided translation of a global batch over the data ranks of `mesh`
+    (the counterpart of JAX's sample_with_sgg over a ('data',) mesh): each rank
+    runs `translate` (make_translate_fn's) on its rows [r * b, (r + 1) * b)
+    of `input_128` and `gt`, with its rows of the replayed GLOBAL draws
+    `noise` = (noise0, z_steps) and the entry step `start_t` (a draw of t0
+    would be each rank's own), and the gathered images, the single-process
+    translation of the batch, are returned on every rank. Rows do not mix:
+    the guidance is a per-image mean, the models run in eval mode."""
+    from weatherconverter_tpu_torch.parallel.distributed import global_batch_from_local
+    from weatherconverter_tpu_torch.parallel.sharding import local_batch_slice, mesh_rank
+
+    b = local_batch_slice(input_128.shape[0], mesh)
+    rows = slice(mesh_rank(mesh) * b, (mesh_rank(mesh) + 1) * b)
+    noise0, z_steps = noise
+    out = translate(input_128[rows], gt[rows], noise=(None if noise0 is None else noise0[rows], z_steps[:, rows]),
+                    start_t=start_t, **segment)
+    return global_batch_from_local(mesh, out)

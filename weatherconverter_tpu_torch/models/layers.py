@@ -49,8 +49,8 @@ class SelfAttention2D(nn.Module):
     takes a contiguous channel slice. Its forward calls the port's
     `multi_head_attention` (the flash kernels at N >= 1024), not MHA's fused
     path. The pre-norm and the residual add belong to the block.
-    `qk_int8` takes K2 only where K2 has this layer's head dim (the
-    layer's `qk_int8` says which); K1 elsewhere (`ops/attention.py`).
+    `qk_int8` takes K2 where K2 has this layer's head dim, which is every
+    head dim of the repo's models (`ops/attention.qk_int8_takes`).
     `per_item` gives K2 one int8 scale a batch row (the server's requests),
     not one for the batch. Not `fused` (JAX's fused=False), it attends by
     plain softmax at every length, with no kernel.

@@ -12,6 +12,16 @@ no further pass over the input. Where a channel sees one value (n = 1, the
 ASPP pooling branch at batch 1), torch raises; flax normalizes to the bias
 and updates with variance 0, and so does this module.
 
+Data parallelism: inside `synced_batchnorm(model, group)` (the train steps
+enter it under a mesh) a train-mode forward takes its statistics (mean,
+biased variance, count) over the whole group, as JAX's step over a mesh
+computes them over the global batch: sums all-reduced through
+`torch.distributed.nn.functional.all_reduce`, which is differentiable, so the
+backward (and the seg step's input gradient) sees the global statistics as
+GSPMD's does. The running statistics then move by the global batch's, the
+running variance by the biased one (flax's). Without a group of more than
+one rank the path is the one above, bit for bit.
+
 Momentum is torch's convention (new = (1 - m) * old + m * batch), so
 `model.bn_momentum` of the YAML files applies as it is; flax's is 1 - m.
 The JAX package scopes the configured momentum to the backbone and leaves
@@ -21,18 +31,27 @@ here on a module tree.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train-mode running variance takes the biased
-    batch variance (flax's update); eval mode is nn.BatchNorm2d's."""
+    batch variance (flax's update); eval mode is nn.BatchNorm2d's.
+    `sync_group` (set by `synced_batchnorm`) takes train-mode statistics
+    over that process group."""
+
+    sync_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.sync_group is not None and dist.get_world_size(self.sync_group) > 1:
+            return self._synced_forward(x, self.sync_group)
         n = x.numel() // x.shape[1]
         m = self.momentum
         if n == 1:
@@ -54,6 +73,43 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_var.mul_((1.0 - m) / n).add_(torched, alpha=1.0 - 1.0 / n)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _synced_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        """Train mode over the group's whole batch: the channel sums and the
+        count, then the centred sums of squares, each all-reduced, in f32 (f64
+        for f64 inputs)."""
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xf.new_full((1,), x.numel() // c)
+        stats = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), count]), group=group)
+        n = stats[c]
+        mean = stats[:c] / n
+        centred = xf - mean[:, None, None]
+        var = all_reduce((centred * centred).sum(dim=(0, 2, 3)), group=group) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        out = centred * scale[:, None, None] + self.bias[:, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), m)
+            self.running_var.lerp_(var.to(self.running_var.dtype), m)  # the biased batch variance, flax's
+            self.num_batches_tracked.add_(1)
+        return out.to(x.dtype)
+
+
+@contextmanager
+def synced_batchnorm(module: nn.Module, group):
+    """Every BatchNorm2d of this module under `module` takes its train-mode
+    statistics over `group` inside the block (no-op for None)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)] if group is not None else []
+    for m in bns:
+        m.sync_group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.sync_group = None
 
 
 def set_bn_momentum(module: nn.Module, momentum: float) -> None:

@@ -4,9 +4,8 @@ conv_in -> DownBlocks -> MidBlocks -> UpBlocks (skip stack) -> GN+SiLU ->
 conv_out, attention where `config.im_size // 2**i` is in `attn_resolutions`.
 Parameter names are those of compat/torch_export.export_unet, e.g.
 `downs.{i}.resnet_conv_first.{j}.0` and `mids.{i}.attentions.{j}.in_proj_weight`.
-`qk_int8` routes the flash-length attention layers whose head dim K2 has
-through the int8-QK^T kernel (forward only) and the others through K1
-(`attention_kernels` lists the choice per layer); `qk_int8_per_item` gives
+`qk_int8` routes the flash-length attention layers through the int8-QK^T
+kernel K2 (forward only; `attention_kernels` lists the choice per layer); `qk_int8_per_item` gives
 K2 one scale a batch row. `fused=False` is JAX's portable form: plain
 softmax attention at every length, no kernel.
 """

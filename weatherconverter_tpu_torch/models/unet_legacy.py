@@ -24,8 +24,8 @@ kernels), never nn.MultiheadAttention.forward.
 BatchNorm runs in eval mode (running statistics), the model's one use being
 sampling. LayerNorm's eps is 1e-6, flax's default, which the JAX model
 inherits; the reference's torch LayerNorm had 1e-5 (ROADMAP Queue 2). GELU
-is the exact erf form. `qk_int8` takes K2 in the layers whose head dim K2
-has (`attn_down3`, D = 16) and K1 in the others (`attn_up2`, D = 24).
+is the exact erf form. `qk_int8` takes K2 in both flash-length layers
+(`attn_down3`, D = 16, and `attn_up2`, D = 24).
 
 On the card the model runs in bf16 (under autocast: K1 and K2) or in f32
 (K1-f32 at both flash-length layers, forward only), the latter inside

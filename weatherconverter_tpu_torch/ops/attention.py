@@ -7,7 +7,8 @@ hand-written CUDA kernels for Hopper (csrc/, built by ops/cuda_build.py):
                                 (D = 24 on zero-filled D = 32 tiles)
   K1-f32 `flash_attention_f32` <- `_flash_kernel` in f32, forward only, at
                                 the legacy UNet's head dims (csrc/flash_fwd_f32.cu)
-  K2 `flash_attention_qk_i8` <- `_flash_kernel_qk_i8` (pv_int8=False)
+  K2 `flash_attention_qk_i8` <- `_flash_kernel_qk_i8` (pv_int8=False; D = 24
+                                on zero-filled D = 32 tiles as K1)
   K3 `flash_attention_bwd`   <- `_flash_bwd_kernel`, `_flash_bwd_kernel_v2`,
                                 `_flash_bwd_dq_kernel_stream` and
                                 `_flash_bwd_dkv_kernel_stream`
@@ -38,12 +39,10 @@ require grad, on every device.
 
 The kernels take fixed head dims: K1 `KERNEL_HEAD_DIMS`, K1-f32
 `F32_HEAD_DIMS`, K3 `BWD_HEAD_DIMS` (no 24: the one model at D = 24, the
-legacy UNet, only samples), K2 `QK_I8_HEAD_DIMS` (no 24, no 192). Each
-refuses another by name. A model
-with `qk_int8` set takes K2 only in the layers whose head dim K2 has and K1
-in the others (`qk_int8_takes`, read by the attention layers), a departure
-from JAX on the TPU, whose int8 kernel takes any head dim: the port runs
-K1 at D = 24 and D = 192 until K2 gains those instantiations.
+legacy UNet, only samples), K2 `QK_I8_HEAD_DIMS`, every head dim a model of
+the repo has, as JAX's int8 kernel takes any. Each refuses another by name.
+A model with `qk_int8` set takes K2 in every flash-length layer
+(`qk_int8_takes`, read by the attention layers).
 """
 
 from __future__ import annotations
@@ -63,7 +62,7 @@ FLASH_MIN_SEQ = 1024
 
 KERNEL_HEAD_DIMS = (16, 24, 32, 64, 128, 192)  # K1
 BWD_HEAD_DIMS = (16, 32, 64, 128, 192)  # K3
-QK_I8_HEAD_DIMS = (16, 32, 64, 128)  # K2
+QK_I8_HEAD_DIMS = (16, 24, 32, 64, 128, 192)  # K2
 F32_HEAD_DIMS = (16, 24)  # K1-f32: the legacy UNet's flash-length layers
 KERNEL_BLOCK = 64  # N must be a multiple of the kernels' query/key tile
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
@@ -76,7 +75,7 @@ def is_flash_length(n: int) -> bool:
 
 def qk_int8_takes(head_dim: int, qk_int8: bool) -> bool:
     """Whether an attention layer of `head_dim` built with `qk_int8` takes K2:
-    only where K2 has the instantiation; the other layers take K1."""
+    where K2 has the instantiation (every head dim of the repo's models)."""
     return qk_int8 and head_dim in QK_I8_HEAD_DIMS
 
 
@@ -345,7 +344,7 @@ def _(q, k, v, o, do, l):
     return dq, dk, dv
 
 
-_QUANTIZE_GROUP = 16  # elements the quantizer's threads take at a time (csrc/quantize_i8.cu kGroup)
+_QUANTIZE_GROUP = 8  # D must be a multiple: the smaller of the quantizer's groups (csrc/quantize_i8.cu G)
 
 
 def _row_strides(t: torch.Tensor):
@@ -443,6 +442,7 @@ def _(q8, k8, qk_scale, v):
         )
     cuda_build.check_launch("flash_attention_qk_i8", err)
     flash_attention_qk_i8.launches += 1
+    flash_attention_qk_i8.launches_by_head_dim[d] = flash_attention_qk_i8.launches_by_head_dim.get(d, 0) + 1
     return o
 
 
@@ -566,7 +566,7 @@ def quantize_qk_i8(q: torch.Tensor, k: torch.Tensor, *, per_item: bool = False):
     qs * ks / sqrt(D), one for the tensors, shape (1,), or with `per_item`
     one a batch row, shape (B,), as JAX's function computes them under
     jax.vmap over requests. A CPU tensor takes `quantize_qk_i8_plain`; a
-    CUDA tensor (bf16/f16, D a multiple of 16) launches the kernel's two
+    CUDA tensor (bf16/f16, D a multiple of 8) launches the kernel's two
     passes (the maxima, then the division) or raises, and the result equals
     the plain version's bit for bit. Head-split views of one projection are
     read in place. One count in `.launches` for the two passes. Nothing here
@@ -616,6 +616,7 @@ def flash_qk_i8_forward(q8: torch.Tensor, k8: torch.Tensor, qk_scale: torch.Tens
 
 
 flash_attention_qk_i8.launches = 0
+flash_attention_qk_i8.launches_by_head_dim = {}  # the same launches by head dim
 
 
 def multi_head_attention(

@@ -16,8 +16,17 @@ What differs from JAX:
     parameters, Adam's state and the EMA stay f32, and the loss is f32.
     The attention layers at N >= 1024 go through the flash kernels, K1
     forward and K3 backward (ops/attention.FlashAttentionFunction).
-  - Data parallelism and FSDP (`mesh=`, `fsdp=True`) are not ported yet
-    (ROADMAP Queue 1 item 17) and raise.
+  - Data parallelism (`mesh=`, parallel/): one process per card, each with
+    its rows of the global batch (parallel.sharding.shard_batch). The step
+    is JAX's global-batch program: t and the noise are drawn (or replayed
+    through `t=`/`noise=`) for the global batch and each rank takes its
+    rows, the augmentation's draws likewise (parallel.sharding.
+    global_draws); each rank's loss is its share of the global mean,
+    the gradients are summed across ranks before the one Adam update, and
+    the loss returned is the global mean on every rank. `fsdp=True` takes a
+    state that parallel.fsdp.shard_state_fsdp sharded (parameters, Adam's
+    moments, the EMA); FSDP reduce-scatters the sharded gradients, the rest
+    are all-reduced.
 """
 
 from __future__ import annotations
@@ -30,10 +39,19 @@ import torch
 from torch import nn
 
 from weatherconverter_tpu_torch.diffusion.schedule import NoiseSchedule, q_sample
+from weatherconverter_tpu_torch.parallel.sharding import (
+    all_reduce_sum,
+    check_mesh,
+    mesh_rank,
+    mesh_width,
+    global_draws,
+    sync_grads,
+)
 from weatherconverter_tpu_torch.training import optim as optim_lib
 from weatherconverter_tpu_torch.training.losses import mse_loss
 
-# (uint8 or float NHWC images, generator) -> [-1, 1] f32 NHWC images
+# (uint8 or float NHWC images, generator) -> [-1, 1] f32 NHWC images; under a mesh the generator is a
+# parallel.sharding.GlobalDraws, which data/transforms' draws take
 AugmentFn = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
 
 
@@ -52,10 +70,16 @@ class EMA:
 
     @torch.no_grad()
     def update(self, model: nn.Module) -> None:
-        shadow = list(self.params.values())
-        live = [p.detach().float() for _, p in model.named_parameters()]
-        torch._foreach_mul_(shadow, self.decay)
-        torch._foreach_add_(shadow, live, alpha=1.0 - self.decay)
+        from torch.distributed.tensor import DTensor
+
+        pairs = list(zip(self.params.values(), (p.detach().float() for _, p in model.named_parameters())))
+        # FSDP leaves sharded (DTensor) and replicated shadows side by side: one foreach call each
+        for kind in (True, False):
+            shadow = [e for e, _ in pairs if isinstance(e, DTensor) == kind]
+            live = [p for e, p in pairs if isinstance(e, DTensor) == kind]
+            if shadow:
+                torch._foreach_mul_(shadow, self.decay)
+                torch._foreach_add_(shadow, live, alpha=1.0 - self.decay)
 
     def state_dict(self) -> dict[str, Any]:
         return {"decay": self.decay, "params": dict(self.params)}
@@ -121,16 +145,24 @@ def ddpm_loss_fn(
     *,
     t: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
+    rows: Optional[slice] = None,
+    batch_of: Optional[int] = None,
 ) -> torch.Tensor:
     """images (B, H, W, C) in [-1, 1] -> eps-MSE, f32. t ~ U[0, T) and
-    noise ~ N(0, I) are drawn from `generator` unless given."""
-    b, dev = images.shape[0], images.device
+    noise ~ N(0, I) are drawn from `generator` unless given. With `rows`,
+    `images` are those rows of a batch of `batch_of`: t and noise are drawn
+    (or given) for that batch and these rows taken."""
+    dev = images.device
+    b = images.shape[0] if rows is None else batch_of
+    shape = (b,) + tuple(images.shape[1:])
     if t is None:
         t = torch.randint(0, sched.T, (b,), generator=generator, device=dev)
     if noise is None:
-        noise = torch.randn(images.shape, generator=generator, device=dev, dtype=images.dtype)
+        noise = torch.randn(shape, generator=generator, device=dev, dtype=images.dtype)
     t = torch.as_tensor(t, device=dev).long()
     noise = torch.as_tensor(noise).to(dev, images.dtype)
+    if rows is not None:
+        t, noise = t[rows], noise[rows]
     xt = q_sample(sched, images, noise, t)
     return mse_loss(model(_nchw(xt), t), _nchw(noise))
 
@@ -152,6 +184,7 @@ def train_step(
     t: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     dtype: Optional[torch.dtype] = None,
+    mesh=None,
 ) -> tuple[DDPMTrainState, torch.Tensor]:
     """One DDPM step, in place; returns (state, loss as a 0-d f32 tensor).
 
@@ -161,9 +194,12 @@ def train_step(
     the batch into that many microbatches, each with its own draws, and
     takes the MEAN of their gradients before the one optimizer and EMA
     update; `t`/`noise` then hold the whole batch's draws. `dtype` is the
-    autocast type on CUDA (None: the parameters' own)."""
+    autocast type on CUDA (None: the parameters' own). With `mesh`,
+    `images` are this rank's rows of the global batch and `t`/`noise` the
+    global batch's draws (module docstring)."""
+    width, rank = mesh_width(mesh), mesh_rank(mesh)
     if augment_fn is not None:
-        images = augment_fn(images, generator)
+        images = augment_fn(images, global_draws(mesh, accum_steps, generator))
     b = images.shape[0]
     if b % accum_steps != 0:
         raise ValueError(f"batch {b} is not divisible by accum_steps {accum_steps}")
@@ -174,16 +210,22 @@ def train_step(
     total = torch.zeros((), device=images.device)
     for i in range(accum_steps):
         part = slice(i * micro, (i + 1) * micro)
+        glob = slice(i * micro * width, (i + 1) * micro * width)  # this microbatch's rows of the global draws
         with _compute_context(images.device, dtype):
             loss = ddpm_loss_fn(model, sched, images[part], generator,
-                                t=None if t is None else t[part], noise=None if noise is None else noise[part])
+                                t=None if t is None else t[glob], noise=None if noise is None else noise[glob],
+                                **({} if mesh is None else dict(rows=slice(rank * micro, (rank + 1) * micro),
+                                                                batch_of=micro * width)))
+        if mesh is not None:
+            loss = loss / width  # this rank's share of the global mean
         (loss / accum_steps).backward()
         total += loss.detach()
+    sync_grads(model.parameters(), mesh)
     opt.step()
     if state.ema is not None:
         state.ema.update(model)
     state.step += 1
-    return state, total / accum_steps
+    return state, all_reduce_sum(total, mesh) / accum_steps
 
 
 def make_train_step(
@@ -196,12 +238,16 @@ def make_train_step(
 ):
     """step(state, images, generator=None, *, t=None, noise=None) ->
     (state, loss): `train_step` with its options bound. The update is in
-    place (see the module docstring), as the donated JAX step's was."""
-    if mesh is not None or fsdp:
-        raise NotImplementedError("data-parallel and FSDP training are ROADMAP Queue 1 item 17, not ported yet")
+    place (see the module docstring), as the donated JAX step's was. With
+    `mesh`, images are this rank's rows (parallel.sharding.shard_batch);
+    `fsdp` needs a mesh and a state that parallel.fsdp sharded."""
+    check_mesh(mesh, "make_train_step")
+    if fsdp and mesh is None:
+        raise ValueError("make_train_step: fsdp=True needs a mesh (parallel.make_mesh under torchrun)")
 
     def step(state, images, generator=None, *, t=None, noise=None):
-        return train_step(state, images, sched, generator, augment_fn, accum_steps, t=t, noise=noise, dtype=dtype)
+        return train_step(state, images, sched, generator, augment_fn, accum_steps, t=t, noise=noise, dtype=dtype,
+                          mesh=mesh)
 
     return step
 
@@ -209,12 +255,17 @@ def make_train_step(
 def make_eval_loss(sched: NoiseSchedule, model: nn.Module, mesh=None, dtype: Optional[torch.dtype] = None):
     """eval_loss(images, generator=None, *, t=None, noise=None) -> the eps-MSE
     without gradients; fix the generator's seed (or t and noise) for a
-    deterministic validation loss."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel evaluation is ROADMAP Queue 1 item 17, not ported yet")
+    deterministic validation loss. With `mesh`, images are this rank's rows
+    and t/noise the global batch's; the loss is the global batch's mean on
+    every rank."""
+    check_mesh(mesh, "make_eval_loss")
+    width, rank = mesh_width(mesh), mesh_rank(mesh)
 
     def eval_loss(images, generator=None, *, t=None, noise=None):
+        b = images.shape[0]
+        rows = {} if mesh is None else dict(rows=slice(rank * b, (rank + 1) * b), batch_of=b * width)
         with torch.no_grad(), _compute_context(images.device, dtype):
-            return ddpm_loss_fn(model, sched, images, generator, t=t, noise=noise)
+            loss = ddpm_loss_fn(model, sched, images, generator, t=t, noise=noise, **rows)
+        return loss if mesh is None else all_reduce_sum(loss / width, mesh)
 
     return eval_loss

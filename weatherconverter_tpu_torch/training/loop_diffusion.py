@@ -4,9 +4,20 @@ Epochs over the merged ACDC (+ BDD, DAWN) image set, eps-MSE steps, interval
 logging, epoch-cadence checkpoints, resume with the step count carried over,
 and a checkpoint flush on SIGTERM. The loader ships uint8 (B, H, W, C)
 batches; the random crop, flip and [-1, 1] scaling run on the device inside
-the train step. One device: the CUDA card (`training.device="auto"`, the
-default, which raises when there is none) or the device the config names;
-the CPU only on request (`training.device="cpu"`). On CUDA the step runs
+the train step. Each process runs on one device: the CUDA card
+(`training.device="auto"`, the default, which raises when there is none)
+or the device the config names; the CPU only on request
+(`training.device="cpu"`).
+
+Data parallelism as the JAX loop plans it (parallel.sharding.
+plan_data_parallel): under torchrun every process is a data rank, the
+global batch is `batch_size` a rank (`scale_batch_to_mesh`, the default;
+batch_size as the global batch where the dataset is smaller than that),
+`scale_lr_with_batch` scales lr with it, and each rank decodes only its
+rows of each global batch, from one index order (parallel.sharding.loader).
+`training.fsdp` shards the state after any restore (parallel.fsdp); it
+needs a process group. The primary alone writes the run directory, the
+log and the checkpoints; every rank restores. On CUDA the step runs
 under bf16 autocast when `training.dtype` is "bfloat16"; another dtype is
 refused there if the UNet has a flash-length attention layer (the kernels
 take bf16/f16). On the CPU it runs in f32, as the JAX loop does off the TPU.
@@ -30,6 +41,9 @@ from weatherconverter_tpu_torch.data.transforms import diffusion_train_augment
 from weatherconverter_tpu_torch.diffusion.schedule import make_schedule
 from weatherconverter_tpu_torch.models.unet import Unet, unet_attention_shapes
 from weatherconverter_tpu_torch.ops.attention import check_flash_precision
+from weatherconverter_tpu_torch.parallel import distributed as pdist
+from weatherconverter_tpu_torch.parallel import sharding
+from weatherconverter_tpu_torch.parallel.fsdp import maybe_shard_state, sharded_fraction
 from weatherconverter_tpu_torch.training.diffusion import DDPMTrainState, create_ddpm_state, make_train_step
 
 
@@ -71,13 +85,35 @@ def _device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def plan_mesh(tr, n_items: int, device: torch.device):
+    """(mesh, global_batch) for a loop: JAX's plan (`plan_data_parallel`,
+    and batch_size as the global batch where the dataset holds fewer items
+    than the scaled batch) over the processes of the run. At one process
+    the mesh is None, as in JAX, and the step runs no collective, except
+    under `fsdp`, which shards through the process group even at one rank
+    (where JAX's FSDP at one device is a no-op). A plan whose width is not
+    the process count, or `fsdp` without a process group, raises: no rank
+    is left out."""
+    dp, global_batch = sharding.plan_data_parallel(tr.batch_size, scale_to_mesh=tr.scale_batch_to_mesh)
+    if global_batch > n_items:
+        dp, global_batch = sharding.plan_data_parallel(tr.batch_size, scale_to_mesh=False)
+    world = pdist.process_count()
+    if dp != world:
+        raise ValueError(f"global batch {global_batch} does not split over {world} processes (a plan of {dp}); "
+                         "set training.batch_size to a multiple of the process count")
+    if tr.fsdp and not torch.distributed.is_initialized():
+        raise ValueError("training.fsdp=true needs a process group: run under torchrun "
+                         "(torchrun --nproc-per-node N -m weatherconverter_tpu_torch.cli.main ...)")
+    if world == 1 and not tr.fsdp:
+        return None, global_batch
+    return sharding.make_mesh(device_type=device.type), global_batch
+
+
 def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -> DDPMTrainState:
     """Full training run; returns the final state. `max_steps` stops early
     (smoke runs); `dataset` replaces the image folders: anything indexable
     that yields uint8 (H, W, C) arrays."""
     tr = cfg.training
-    if tr.fsdp:
-        raise NotImplementedError("FSDP training is ROADMAP Queue 1 item 17, not ported yet")
     device = _device(tr.device)
     dtype = torch.bfloat16 if tr.dtype == "bfloat16" else None
     # parameters are f32 (param_dtype); without autocast the attention layers compute in f32
@@ -92,12 +128,14 @@ def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -
             f"{os.path.join(cfg.data.root_dir, cfg.data.acdc_images)!r} for conditions "
             f"{list(cfg.data.weather)!r} (expected <root>/rgb_anon/<condition>/<split>/**.png)"
         )
+    mesh, global_batch = plan_mesh(tr, len(ds), device)
+    lr = tr.lr * (global_batch / tr.batch_size) if tr.scale_lr_with_batch else tr.lr
     sched = make_schedule(cfg.diffusion.schedule, cfg.diffusion.num_timesteps, cfg.diffusion.beta_start,
                           cfg.diffusion.beta_end, device=device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(keys["init"].initial_seed())
         model = Unet(cfg.model)
-    state = create_ddpm_state(model.to(device), lr=tr.lr, ema_decay=tr.ema_decay)
+    state = create_ddpm_state(model.to(device), lr=lr, ema_decay=tr.ema_decay)
 
     run_dir = create_run(cfg.folders.output)
     logger = MetricsLogger(run_dir, config=cfg.model_dump())
@@ -105,12 +143,19 @@ def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -
     if tr.resume_training and tr.resume_checkpoint:
         state = ckpt_restore_into(tr.resume_checkpoint, state)
         logger.print(f"resumed from {tr.resume_checkpoint} at epoch {state.epoch}, step {state.step}")
+    state = maybe_shard_state(mesh, state, fsdp=tr.fsdp)
+    if tr.fsdp:
+        logger.print(f"FSDP: {sharded_fraction(state):.1%} of state bytes sharded across "
+                     f"{sharding.mesh_width(mesh)} ranks")
+    if global_batch != tr.batch_size:
+        logger.print(f"DP x{sharding.mesh_width(mesh)}: global batch {global_batch} ({tr.batch_size}/rank), lr={lr}")
 
-    loader = torch.utils.data.DataLoader(
-        ds, batch_size=tr.batch_size, shuffle=True, drop_last=True, num_workers=tr.num_workers,
-        generator=torch.Generator().manual_seed(tr.random_seed), pin_memory=device.type == "cuda",
-    )
-    step_fn = make_augmented_train_step(sched, cfg.model.im_size, accum_steps=tr.accum_steps, dtype=dtype)
+    loader = sharding.loader(ds, global_batch, mesh, shuffle=True, seed=tr.random_seed, drop_last=True,
+                             accum_steps=tr.accum_steps, num_workers=tr.num_workers,
+                             pin_memory=device.type == "cuda")
+    step_fn = make_augmented_train_step(sched, cfg.model.im_size, mesh=mesh, fsdp=tr.fsdp,
+                                        accum_steps=tr.accum_steps, dtype=dtype)
+    flag_group = sharding.host_group(mesh)
 
     global_step = state.step
     with PreemptionGuard() as guard:
@@ -124,7 +169,7 @@ def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -
                 nb += 1
                 if global_step % tr.log_interval == 0:
                     logger.log({"train/loss": loss, "epoch": epoch}, step=global_step)
-                if guard.triggered:
+                if guard.triggered_anywhere(flag_group):
                     # SIGTERM mid-epoch: flush the post-step state; state.epoch
                     # is still `epoch`, so a resume restarts this epoch
                     ckpt.save(preempt_save_index(ckpt, global_step), state)
@@ -138,7 +183,7 @@ def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -
                     return state
             dt = time.time() - t0
             logger.log({"epoch": epoch, "epoch/loss": epoch_loss.item() / nb if nb else 0.0, "epoch/sec": dt,
-                        "epoch/img_per_sec": nb * tr.batch_size / max(dt, 1e-9)}, step=global_step)
+                        "epoch/img_per_sec": nb * global_batch / max(dt, 1e-9)}, step=global_step)
             state.epoch = epoch + 1
             if (epoch + 1) % tr.save_interval == 0:
                 ckpt.save(epoch + 1, state)

@@ -17,10 +17,16 @@ backbone's BatchNorm momentum at `model.bn_momentum`, as in JAX. The
 config's geometric legs (`scale_range`, `rotation_degrees`, `hue`) go to
 the augment as the JAX loop passes them.
 
+Data parallelism and FSDP as in loop_diffusion (`plan_mesh`): the global
+batch over the processes of the run, the optimizer's rates scaled with it
+under `scale_lr_with_batch` (every layerwise rate too, as in JAX), each
+rank decoding its rows of each global batch, the validation's ragged last
+batch padded with ignore-labelled rows (JAX's loop pads to the mesh width)
+and the confusion matrix summed over the ranks.
+
 What differs from JAX: `max_steps` ends the run after that many steps, as
 in JAX, but the epoch it ends in is validated and checkpointed first, so a
-short run leaves a best step to load. Data parallelism and FSDP raise
-(ROADMAP Queue 1 item 17). `model.pretrained_backbone` takes a .pth file on
+short run leaves a best step to load. `model.pretrained_backbone` takes a .pth file on
 disk; 'imagenet'/'auto' look for the file torch.hub would have cached,
 under the names the JAX resolver uses for each backbone, and are refused
 by name when it is absent: nothing is fetched.
@@ -43,7 +49,9 @@ from weatherconverter_tpu_torch.core.rng import run_key, split_named
 from weatherconverter_tpu_torch.data.transforms import seg_eval_preprocess, seg_train_augment
 from weatherconverter_tpu_torch.metrics.stream import StreamSegMetrics, init_confusion
 from weatherconverter_tpu_torch.models.factory import make_seg_model
-from weatherconverter_tpu_torch.training.loop_diffusion import _device, ckpt_restore_into
+from weatherconverter_tpu_torch.parallel import sharding
+from weatherconverter_tpu_torch.parallel.fsdp import maybe_shard_state, sharded_fraction
+from weatherconverter_tpu_torch.training.loop_diffusion import _device, ckpt_restore_into, plan_mesh
 from weatherconverter_tpu_torch.training.losses import make_seg_loss
 from weatherconverter_tpu_torch.training.segmentation import (
     SegTrainState,
@@ -80,6 +88,23 @@ def make_augment(cfg: SegConfig):
     return augment
 
 
+class PaddedPairs(torch.utils.data.Dataset):
+    """A pair dataset read by (index, is_pad) keys (parallel.sharding's
+    `pad_ragged` loader): a pad row is the pair with every label 255
+    (ignored), so it adds nothing to the confusion matrix."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self) -> int:
+        return len(self.ds)
+
+    def __getitem__(self, key):
+        index, pad = key
+        image, label = (torch.as_tensor(a) for a in self.ds[index])
+        return image, torch.full_like(label, 255) if pad else label
+
+
 def make_augmented_seg_train_step(cfg: SegConfig, loss_fn, mesh=None, input_grad: bool = True,
                                   dtype: Optional[torch.dtype] = None):
     """The train step on RAW uint8 paired batches, through make_seg_train_step's augment_fn hook."""
@@ -99,9 +124,12 @@ def make_val_fns(cfg: SegConfig, model, mesh=None, dtype: Optional[torch.dtype] 
     return make_seg_eval_step(model, cfg.model.num_classes, mesh=mesh, dtype=dtype), prep
 
 
-def validate(cfg: SegConfig, model, val_loader, device, val_fns=None, dtype: Optional[torch.dtype] = None) -> dict:
-    """The metrics of one pass over `val_loader`, the confusion matrix kept on `device`."""
-    eval_step, prep = val_fns if val_fns is not None else make_val_fns(cfg, model, dtype=dtype)
+def validate(cfg: SegConfig, model, val_loader, device, val_fns=None, dtype: Optional[torch.dtype] = None,
+             mesh=None) -> dict:
+    """The metrics of one pass over `val_loader`, the confusion matrix kept on
+    `device`. With `mesh`, the loader yields this rank's rows (ragged batches
+    padded with ignored rows) and the matrix is summed over the ranks."""
+    eval_step, prep = val_fns if val_fns is not None else make_val_fns(cfg, model, mesh=mesh, dtype=dtype)
     conf = init_confusion(cfg.model.num_classes, device)
     for images_u8, labels in val_loader:
         conf = eval_step(conf, *prep(images_u8.to(device), labels.to(device)))
@@ -181,8 +209,6 @@ def train(cfg: SegConfig, max_steps: Optional[int] = None, datasets=None) -> Seg
     (smoke runs); `datasets` = (train, val) replaces the ACDC folders:
     anything indexable that yields (uint8 (H, W, 3), uint8 (H, W)) pairs."""
     tr = cfg.training
-    if tr.fsdp:
-        raise NotImplementedError("FSDP training is ROADMAP Queue 1 item 17, not ported yet")
     device = _device(tr.device)
     dtype = torch.bfloat16 if tr.dtype == "bfloat16" and device.type == "cuda" else None
     keys = split_named(run_key(tr.random_seed), "init", "train", device=device)
@@ -191,6 +217,13 @@ def train(cfg: SegConfig, max_steps: Optional[int] = None, datasets=None) -> Seg
     if len(train_ds) == 0:
         raise FileNotFoundError(f"seg train set is empty: no *_rgb_anon/*_gt_labelIds pairs under "
                                 f"{cfg.data.root_dir!r} for {list(cfg.data.weather)!r}, split {cfg.data.train_split!r}")
+    mesh, global_batch = plan_mesh(tr, len(train_ds), device)
+    if tr.scale_lr_with_batch and global_batch != tr.batch_size:
+        factor = global_batch / tr.batch_size
+        cfg = cfg.model_copy(deep=True)
+        cfg.optimizer.params["lr"] = cfg.optimizer.params.get("lr", 1e-4) * factor
+        cfg.optimizer.layerwise_lr = {k: v * factor for k, v in cfg.optimizer.layerwise_lr.items()}
+        tr = cfg.training
     m = cfg.model
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(keys["init"].initial_seed())
@@ -200,16 +233,13 @@ def train(cfg: SegConfig, max_steps: Optional[int] = None, datasets=None) -> Seg
     model = model.to(device)
 
     pin = device.type == "cuda"
-    loader = torch.utils.data.DataLoader(
-        train_ds, batch_size=tr.batch_size, shuffle=True, drop_last=True, num_workers=tr.num_workers,
-        generator=torch.Generator().manual_seed(tr.random_seed), pin_memory=pin)
-    val_loader = torch.utils.data.DataLoader(val_ds, batch_size=tr.batch_size, shuffle=False, drop_last=False,
-                                             num_workers=tr.num_workers, pin_memory=pin)
+    loader = sharding.loader(train_ds, global_batch, mesh, shuffle=True, seed=tr.random_seed, drop_last=True,
+                             accum_steps=tr.accum_steps, num_workers=tr.num_workers, pin_memory=pin)
+    val_loader = sharding.loader(val_ds if mesh is None else PaddedPairs(val_ds), global_batch, mesh, shuffle=False,
+                                 drop_last=False, pad_ragged=mesh is not None, num_workers=tr.num_workers,
+                                 pin_memory=pin)
     max_iters = max(1, len(loader) * tr.epochs)
     state = create_seg_state(model, cfg.optimizer, max_iters, tr.scheduler.type, tr.scheduler.params)
-    step_fn = make_augmented_seg_train_step(cfg, make_seg_loss(tr.loss_function.type, tr.loss_function.params),
-                                            dtype=dtype)
-    val_fns = make_val_fns(cfg, model, dtype=dtype)
 
     run_dir = create_run(cfg.folders.output)
     logger = MetricsLogger(run_dir, config=cfg.model_dump())
@@ -219,6 +249,16 @@ def train(cfg: SegConfig, max_steps: Optional[int] = None, datasets=None) -> Seg
         state = ckpt_restore_into(tr.resume_checkpoint, state)
         start_epoch = state.step // max(1, len(loader))
         logger.print(f"resumed from {tr.resume_checkpoint} at step {state.step} (epoch {start_epoch})")
+    state = maybe_shard_state(mesh, state, fsdp=tr.fsdp)
+    if tr.fsdp:
+        logger.print(f"FSDP: {sharded_fraction(state):.1%} of state bytes sharded across "
+                     f"{sharding.mesh_width(mesh)} ranks")
+    if global_batch != tr.batch_size:
+        logger.print(f"DP x{sharding.mesh_width(mesh)}: global batch {global_batch} ({tr.batch_size}/rank)")
+    step_fn = make_augmented_seg_train_step(cfg, make_seg_loss(tr.loss_function.type, tr.loss_function.params),
+                                            mesh=mesh, dtype=dtype)
+    val_fns = make_val_fns(cfg, state.model, mesh=mesh, dtype=dtype)
+    flag_group = sharding.host_group(mesh)
 
     global_step = state.step
     with PreemptionGuard() as guard:
@@ -230,7 +270,7 @@ def train(cfg: SegConfig, max_steps: Optional[int] = None, datasets=None) -> Seg
                 global_step += 1
                 if global_step % tr.log_interval == 0:
                     logger.log({"train/loss": loss, "train/input_grad": ig, "epoch": epoch}, step=global_step)
-                if guard.triggered:
+                if guard.triggered_anywhere(flag_group):
                     # SIGTERM mid-epoch: flush the post-step state; a resume restarts this epoch
                     ckpt.save(preempt_save_index(ckpt, global_step), state)
                     ckpt.wait()
@@ -241,7 +281,7 @@ def train(cfg: SegConfig, max_steps: Optional[int] = None, datasets=None) -> Seg
                 if max_steps is not None and global_step >= max_steps:
                     stop = True
                     break
-            results = validate(cfg, model, val_loader, device, val_fns)
+            results = validate(cfg, state.model, val_loader, device, val_fns, mesh=mesh)
             logger.log({"val/mIoU": results["Mean IoU"], "val/OverallAcc": results["Overall Acc"], "epoch": epoch,
                         "epoch/sec": time.time() - t0}, step=global_step)
             state.epoch = epoch + 1

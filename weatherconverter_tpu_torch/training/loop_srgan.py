@@ -16,8 +16,13 @@ What differs from JAX: `max_steps` ends the run after that many steps, as
 in JAX, but saves the epoch it stops in first, so a short run leaves a
 generator to load. An epoch cut short is not counted as done: its
 checkpoint holds the counter at the epoch's start, so a resume runs that
-epoch again, in its own phase. Data parallelism raises (ROADMAP Queue 1
-item 17).
+epoch again, in its own phase.
+
+Data parallelism as in loop_diffusion (`plan_mesh`): each rank decodes its
+rows of each global batch, the crops and flips are drawn for the global
+batch (parallel.sharding.global_draws), G and D are replicated from
+rank 0. `training.fsdp` shards nothing here, as the JAX SRGAN loop, which
+replicates G and D whatever the flag; the loop says so once.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ from weatherconverter_tpu_torch.core.logging import MetricsLogger
 from weatherconverter_tpu_torch.core.rng import run_key, split_named
 from weatherconverter_tpu_torch.data.transforms import random_crop, random_hflip, to_float
 from weatherconverter_tpu_torch.models.srgan import Discriminator, Generator
-from weatherconverter_tpu_torch.training.loop_diffusion import _device
+from weatherconverter_tpu_torch.parallel import sharding
+from weatherconverter_tpu_torch.parallel.fsdp import maybe_shard_state
+from weatherconverter_tpu_torch.training.loop_diffusion import _device, plan_mesh
 from weatherconverter_tpu_torch.training.srgan import (
     SRGANState,
     SRGANStates,
@@ -83,8 +90,6 @@ def train(cfg: SRGANTrainConfig, max_steps: Optional[int] = None, dataset=None) 
     the image folders: anything indexable that yields uint8 (H, W, C)
     arrays of at least hr_crop on each side."""
     tr = cfg.training
-    if tr.fsdp:
-        raise NotImplementedError("FSDP training is ROADMAP Queue 1 item 17, not ported yet")
     device = _device(tr.device)
     dtype = torch.bfloat16 if tr.dtype == "bfloat16" and device.type == "cuda" else None
     keys = split_named(run_key(tr.random_seed), "init", "train", device=device)
@@ -94,6 +99,7 @@ def train(cfg: SRGANTrainConfig, max_steps: Optional[int] = None, dataset=None) 
         raise FileNotFoundError(
             f"SRGAN dataset holds {len(ds)} images, fewer than one batch of {tr.batch_size}: images under "
             f"{os.path.join(cfg.data.root_dir, cfg.data.acdc_images)!r} for conditions {list(cfg.data.weather)!r}")
+    mesh, global_batch = plan_mesh(tr.model_copy(update=dict(fsdp=False)), len(ds), device)
     s = cfg.srgan
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(keys["init"].initial_seed())
@@ -108,13 +114,21 @@ def train(cfg: SRGANTrainConfig, max_steps: Optional[int] = None, dataset=None) 
     if tr.resume_training and tr.resume_checkpoint:
         restore_auto(tr.resume_checkpoint, states, prefer_best=False)
         logger.print(f"resumed from {tr.resume_checkpoint} at epoch {gs.epoch}, step {gs.step}")
+    maybe_shard_state(mesh, states)
+    if tr.fsdp:
+        logger.print("training.fsdp: the SRGAN loop replicates G and D, as the JAX loop does")
+    if global_batch != tr.batch_size:
+        logger.print(f"DP x{sharding.mesh_width(mesh)}: global batch {global_batch} ({tr.batch_size}/rank)")
 
-    pair_fn = make_pair_fn(tr.hr_crop, s.upscale_factor)
-    pre_step = make_pretrain_step(tr.pixel_loss, dtype=dtype)
-    gan_step = make_gan_step(tr.adv_weight, pixel_loss=tr.pixel_loss, dtype=dtype)
-    loader = torch.utils.data.DataLoader(
-        ds, batch_size=tr.batch_size, shuffle=True, drop_last=True, num_workers=tr.num_workers,
-        generator=torch.Generator().manual_seed(tr.random_seed), pin_memory=device.type == "cuda")
+    pairs = make_pair_fn(tr.hr_crop, s.upscale_factor)
+
+    def pair_fn(batch, generator):
+        return pairs(batch, sharding.global_draws(mesh, 1, generator))
+
+    pre_step = make_pretrain_step(tr.pixel_loss, mesh=mesh, dtype=dtype)
+    gan_step = make_gan_step(tr.adv_weight, mesh=mesh, pixel_loss=tr.pixel_loss, dtype=dtype)
+    loader = sharding.loader(ds, global_batch, mesh, shuffle=True, seed=tr.random_seed, drop_last=True,
+                             num_workers=tr.num_workers, pin_memory=device.type == "cuda")
 
     global_step = gs.step
     for epoch in range(gs.epoch, tr.epochs):
@@ -143,7 +157,7 @@ def train(cfg: SRGANTrainConfig, max_steps: Optional[int] = None, dataset=None) 
         dt = time.time() - t0
         logger.log({"epoch": epoch, "phase": phase, "epoch/g_loss": ep_g.item() / nb if nb else 0.0,
                     "epoch/d_loss": ep_d.item() / nb if ep_d is not None and nb else 0.0,
-                    "epoch/img_per_sec": nb * tr.batch_size / max(dt, 1e-9)}, step=global_step)
+                    "epoch/img_per_sec": nb * global_batch / max(dt, 1e-9)}, step=global_step)
         if nb == len(loader):
             gs.epoch = dstate.epoch = epoch + 1
         if stop or (epoch + 1) % tr.save_interval == 0:

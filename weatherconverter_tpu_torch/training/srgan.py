@@ -22,8 +22,16 @@ What differs from JAX:
     once, as in JAX.
   - On CUDA, compute runs under autocast in `dtype` (bf16 in training);
     parameters and Adam's state stay f32, and the losses are f32.
-  - Data parallelism (`mesh=`) is not ported yet (ROADMAP Queue 1 item 17)
-    and raises.
+  - Data parallelism (`mesh=`, parallel/): each rank holds its rows of the
+    global batch; the BatchNorms of G and D take their statistics over the
+    global batch (models/norm.synced_batchnorm), each rank's losses are its
+    shares of the global means, and the gradients are summed across ranks
+    by an explicit all-reduce after each backward (parallel.sharding.
+    sync_grads): D's after the D loss's, G's after the G loss's. Stock DDP
+    would not do here: D runs forward three times a step (real, fake, and
+    in the G update), and DDP's reducer expects one forward per backward
+    and a fixed set of parameters that receive gradients. The losses
+    returned are the global batch's on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +43,14 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
+from weatherconverter_tpu_torch.models.norm import synced_batchnorm
+from weatherconverter_tpu_torch.parallel.sharding import (
+    all_reduce_sum,
+    check_mesh,
+    data_group,
+    mesh_width,
+    sync_grads,
+)
 from weatherconverter_tpu_torch.training import optim as optim_lib
 from weatherconverter_tpu_torch.training.diffusion import _compute_context
 from weatherconverter_tpu_torch.training.losses import bce_logits
@@ -106,27 +122,29 @@ def frozen_statistics(module: nn.Module):
                 b.copy_(s)
 
 
-def _check(mesh, pixel_loss: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError("data-parallel SRGAN training is ROADMAP Queue 1 item 17, not ported yet")
+def _check(mesh, pixel_loss: str, where: str) -> None:
+    check_mesh(mesh, where)
     if pixel_loss not in ("l1", "l2"):
         raise ValueError(f"pixel_loss must be 'l1' or 'l2', not {pixel_loss!r}")
 
 
 def make_pretrain_step(pixel_loss: str = "l1", mesh=None, dtype: Optional[torch.dtype] = None):
     """step(gs, lr_img, hr_img) -> (gs, loss): supervised G training on NHWC
-    (LR, HR) pairs, in place; the loss a 0-d f32 tensor."""
-    _check(mesh, pixel_loss)
+    (LR, HR) pairs, in place; the loss a 0-d f32 tensor. With `mesh`, the
+    pairs are this rank's rows of the global batch."""
+    _check(mesh, pixel_loss, "make_pretrain_step")
+    width = mesh_width(mesh)
 
     def step(gs: SRGANState, lr_img: torch.Tensor, hr_img: torch.Tensor):
         gs.model.train()
         gs.optimizer.zero_grad(set_to_none=True)
-        with _compute_context(lr_img.device, dtype):
-            loss = _pixel(gs.model(_nchw(lr_img)), hr_img, pixel_loss)
+        with synced_batchnorm(gs.model, data_group(mesh)), _compute_context(lr_img.device, dtype):
+            loss = _pixel(gs.model(_nchw(lr_img)), hr_img, pixel_loss) / width  # this rank's share
         loss.backward()
+        sync_grads(gs.model.parameters(), mesh)
         gs.optimizer.step()
         gs.step += 1
-        return gs, loss.detach()
+        return gs, all_reduce_sum(loss.detach(), mesh)
 
     return step
 
@@ -134,10 +152,16 @@ def make_pretrain_step(pixel_loss: str = "l1", mesh=None, dtype: Optional[torch.
 def make_gan_step(adv_weight: float = 1e-3, pixel_weight: float = 1.0, mesh=None, pixel_loss: str = "l1",
                   dtype: Optional[torch.dtype] = None):
     """step(gs, ds, lr_img, hr_img) -> (gs, ds, g_loss, d_loss): the D update,
-    then the G update against the updated D, in place (module docstring)."""
-    _check(mesh, pixel_loss)
+    then the G update against the updated D, in place (module docstring).
+    With `mesh`, the pairs are this rank's rows of the global batch."""
+    _check(mesh, pixel_loss, "make_gan_step")
+    width, group = mesh_width(mesh), data_group(mesh)
 
     def step(gs: SRGANState, ds: SRGANState, lr_img: torch.Tensor, hr_img: torch.Tensor):
+        with synced_batchnorm(gs.model, group), synced_batchnorm(ds.model, group):
+            return _gan_step(gs, ds, lr_img, hr_img)
+
+    def _gan_step(gs: SRGANState, ds: SRGANState, lr_img: torch.Tensor, hr_img: torch.Tensor):
         gen, disc = gs.model, ds.model
         gen.train()
         disc.train()
@@ -148,8 +172,10 @@ def make_gan_step(adv_weight: float = 1e-3, pixel_weight: float = 1.0, mesh=None
             # D update: real, then fake, each forward moving D's statistics
             d_real = disc(_nchw(hr_img))
             d_fake = disc(sr.detach())
-            d_loss = bce_logits(d_real, torch.ones_like(d_real)) + bce_logits(d_fake, torch.zeros_like(d_fake))
+            d_loss = (bce_logits(d_real, torch.ones_like(d_real))
+                      + bce_logits(d_fake, torch.zeros_like(d_fake))) / width  # this rank's share
         d_loss.backward()
+        sync_grads(disc.parameters(), mesh)
         ds.optimizer.step()
         ds.step += 1
         # G update against the updated D, whose statistics this forward leaves as they are (restored
@@ -159,13 +185,15 @@ def make_gan_step(adv_weight: float = 1e-3, pixel_weight: float = 1.0, mesh=None
             with frozen_statistics(disc):
                 with _compute_context(lr_img.device, dtype):
                     d_out = disc(sr)
-                    g_loss = pixel_weight * _pixel(sr, hr_img, pixel_loss) + adv_weight * bce_logits(
-                        d_out, torch.ones_like(d_out))
+                    g_loss = (pixel_weight * _pixel(sr, hr_img, pixel_loss) + adv_weight * bce_logits(
+                        d_out, torch.ones_like(d_out))) / width
                 g_loss.backward()
         finally:
             disc.requires_grad_(True)
+        sync_grads(gen.parameters(), mesh)
         gs.optimizer.step()
         gs.step += 1
-        return gs, ds, g_loss.detach(), d_loss.detach()
+        losses = all_reduce_sum(torch.stack([g_loss.detach(), d_loss.detach()]), mesh)
+        return gs, ds, losses[0], losses[1]
 
     return step
