@@ -85,8 +85,8 @@ Phases, each of which fails the run (exit code != 0, no result line):
      the uint8 cast, and launch the kernels 8 times a UNet forward; then one
      translate in a fresh process; its wall time beside the library path's;
  14. the server (serving/server.py) on the card at the same configuration,
-     sampler dpm at 10 steps, batch 4: 16 concurrent /v1/translate requests
-     with labels of 3-19 classes and 4 /v1/sample requests, on K2 with one
+     sampler dpm at 5 steps, batch 4: 8 concurrent /v1/translate requests
+     with labels of 3-19 classes and 2 /v1/sample requests, on K2 with one
      int8 scale a request (the default) under lcg_present_k='auto' and under
      the full sweep, and on K1 (--no-int8-attn) under the full sweep (latency
      p50/p95, translations a minute, occupancy, batches, buckets, peak
@@ -159,8 +159,9 @@ Phases, each of which fails the run (exit code != 0, no result line):
      numbers, K2 and its quantizer 8 times a UNet forward), then
      Inception's time for a 299 px batch of 8 and FID's eigh at D = 2048;
  20. `visualize` through the CLI at configs/diffusion.yaml (seeded weights,
-     K1) on a synthetic 128 px image, a frame every 100 steps of the full
-     1000-step chain at batch 1, and `translate --debug-dir` at
+     K1) on a synthetic 128 px image, a frame every 25 steps of the chain
+     on a copy of the config with a 250-step schedule, at batch 1, and
+     `translate --debug-dir` at
      configs/translation.yaml (K2 per layer) at 10 steps, a dump every 5,
      beside a plain translate with the same seed: exit 0, the files and
      their shapes, K1/K2/quantizer launches as the UNets' attention_kernels
@@ -197,7 +198,28 @@ Phases, each of which fails the run (exit code != 0, no result line):
      state. Each rank's DDPM step wall and device ms, plain, FSDP and
      without the gradient all-reduce (that all-reduce's share of the step),
      and its launches are printed beside the card; two ranks sharing one
-     card are no scaling figure.
+     card are no scaling figure;
+ 23. spatial guidance and the host feed: (a) two gloo ranks sharing the card
+     run `sample_with_sgg(spatial_mesh=make_spatial_mesh(space=2))` at
+     configs/translation.yaml's full width (128 px latents, the 4x SRGAN to
+     512 px, DeepLabV3+/ResNet-101 at OS16), batch 2, bf16, the first 4
+     steps of the config's span (t = 499 .. 496) of GSG in 'sr' space with
+     replayed draws at the config's lam: the seg forward and input gradient
+     on each rank's 256 rows (parallel/spatial.py's halo exchanges), K1
+     counted in each rank; one guided step at SP_CHECK_LAM held against
+     rank 0's single-process step (its difference over the guidance's own
+     effect, limit SP_LIMIT), a per-shard valid-pixel count as the planted
+     fault; one guidance field
+     against the unsharded one under bf16 autocast and in f32 (rel L2,
+     limits SP_FIELD_LIMITS), every halo row fetched as zeros as the planted
+     fault; each rank's ms a step and peak memory over the chain and over
+     one seg forward and backward beside the unsharded ones; (b) the native
+     decoder's headers checked (present: a failed build fails the phase;
+     absent: the reason printed, PIL goes on), synthetic 1920x1080 PNG and
+     JPEG files decoded through the port's loader by the native batch path
+     and by PIL on the loader's threads (probes/host_feed.py at a smoke
+     size: one untimed epoch, then two timed): images per second each,
+     beside the host's CPU count; native held within 1 level of PIL.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors, times, bounds
 and library times.
@@ -251,13 +273,13 @@ CHAIN_REL_TOL = 5e-2
 # one train step, bf16 on the card against f32 on the CPU: relative error of
 # the loss, and relative L2 error of the flattened UNet gradient
 TRAIN_LOSS_REL_TOL, TRAIN_GRAD_REL_TOL = 2e-2, 5e-2
-REPEATS = 3
+REPEATS = 2
 # training: steps through loop_diffusion.train (one epoch, one checkpoint),
 # then WINDOWS timed windows of WINDOW_STEPS steps on one fixed batch
 TRAIN_STEPS, WINDOWS, WINDOW_STEPS = 24, 3, 20
 # phase 10: ddpm_sample's strided run, and the fast guided translations as the JAX bench runs them
 # (bench.py:403-412: GSG, lam 60, the default span; DDIM at eta 0); profiled runs take PROFILE_STEPS steps
-SAMPLE_STEPS, DDIM_STEPS, DPM_STEPS, PROFILE_STEPS = 20, 50, 20, 10
+SAMPLE_STEPS, DDIM_STEPS, DPM_STEPS, PROFILE_STEPS = 20, 50, 20, 5
 FAST_GUIDED = dict(lam=60.0, num_classes=19, guidance_style="gsg")
 INT8_FLOOR_SEEDS = 5
 # phase 15: the synthetic ACDC tree (train and val pairs per condition, (W, H) of its PNGs). One seg train
@@ -313,16 +335,18 @@ SRGAN_IMAGES, SRGAN_SIZE, SRGAN_BATCHES = 16, (384, 216), (4, 16)
 LEGACY_STEPS, LEGACY_CHECK_BATCH = 20, 2
 # phase 19: the quality command on configs/translation.yaml: --synthetic QUALITY_N --batch BATCH --steps
 QUALITY_N, QUALITY_STEPS = 8, 20
-# phase 20: visualize, a frame every VIS_EVERY steps of configs/diffusion.yaml's full chain; translate --debug-dir at
-# DEBUG_STEPS steps, a dump every DEBUG_EVERY. Each is traced on a short run beside it: visualize on a copy of the
-# config with a VIS_TRACE_T-step schedule, translate --debug-dir at DEBUG_TRACE_STEPS steps (a trace holds every host
-# op and kernel: 68 MiB for 20 visualize steps, 304 MiB for 20 guided steps on an H100, so traces of the full runs
-# would take minutes to write)
-VIS_EVERY, VIS_TRACE_T, DEBUG_STEPS, DEBUG_EVERY, DEBUG_TRACE_STEPS = 100, 20, 10, 5, 4
-# phase 14: the server's DPM chains (translate and /v1/sample) take SERVER_STEPS steps, 10 where the server's default
-# is 20, and phase 20's --debug-dir chains DEBUG_STEPS, 10 (was 20), so that phase 21 fits: with both at 20 the whole
-# script took ~1190 s of its 1200 on a slow host (PERF.md section 6)
-SERVER_STEPS = 10
+# phase 20: visualize, a frame every VIS_EVERY steps of a copy of configs/diffusion.yaml with a VIS_T-step schedule
+# (the full 1000-step chain took 49 s of a run that reached 1,242 s); translate --debug-dir at DEBUG_STEPS steps, a
+# dump every DEBUG_EVERY. Each is traced on a short run beside it: visualize on a copy of the config with a
+# VIS_TRACE_T-step schedule, translate --debug-dir at DEBUG_TRACE_STEPS steps (a trace holds every host op and kernel:
+# 68 MiB for 20 visualize steps, 304 MiB for 20 guided steps on an H100, so traces of the full runs would take
+# minutes to write)
+VIS_T, VIS_EVERY, VIS_TRACE_T, DEBUG_STEPS, DEBUG_EVERY, DEBUG_TRACE_STEPS = 250, 25, 20, 10, 5, 4
+# phase 14: the server's DPM chains (translate and /v1/sample) take SERVER_STEPS steps where the server's default is
+# 20, for SERVER_TRANSLATIONS concurrent translations and SERVER_SAMPLES samples, and phase 20's --debug-dir chains
+# DEBUG_STEPS, so that phase 23 fits: with 10 steps and 16 + 4 requests the whole script reached 1,242 s of its
+# 1,200 (PERF.md section 6)
+SERVER_STEPS, SERVER_TRANSLATIONS, SERVER_SAMPLES = 5, 8, 2
 # phase 21: export-hlo --attn int8 of the translate program at configs/translation.yaml: steps (the JAX default
 # schedule: GSG at i = 1, none at i = 0) and batch. At 3 steps (LCG at i = 2: five seg calls) the graph held 24,004
 # nodes and the phase took 143 s on an H100 (save 28 s, load 41 s); tests/test_torch_export.py runs 3 steps tiny
@@ -1388,9 +1412,9 @@ def _percentile(xs, q):
 
 def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
     """The server on the card at configs/translation.yaml, sampler dpm at
-    `steps` (its default, 20, when None), batch 4: 16 concurrent
-    /v1/translate requests (labels of 3-19 classes drawn from a seed) and 4
-    /v1/sample requests, on K2 with one
+    `steps` (its default, 20, when None), batch 4: SERVER_TRANSLATIONS concurrent
+    /v1/translate requests (labels of 3-19 classes drawn from a seed) and
+    SERVER_SAMPLES /v1/sample requests, on K2 with one
     int8 scale a request (the server's default) under lcg_present_k='auto'
     and under the full sweep, and on K1 (--no-int8-attn) under the full
     sweep; after each full sweep, one seed solo twice and co-batched with
@@ -1410,7 +1434,7 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
     from weatherconverter_tpu_torch.serving.server import TranslationService, serve
 
     rng = np.random.default_rng(60)
-    classes = [int(c) for c in rng.integers(3, 20, 16)]
+    classes = [int(c) for c in rng.integers(3, 20, SERVER_TRANSLATIONS)]
     payloads = []
     for i, k in enumerate(classes):
         _synthetic_pair(os.path.join(tmp, f"s{i}.png"), os.path.join(tmp, f"l{i}.png"), seed=100 + i, classes=k)
@@ -1438,7 +1462,7 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
         threads = [threading.Thread(target=worker, args=(("t", i), "/v1/translate", dict(p, seed=i)))
                    for i, p in enumerate(payloads)]
         threads += [threading.Thread(target=worker, args=(("s", i), "/v1/sample", {"steps": steps or 20, "seed": i}))
-                    for i in range(4)]
+                    for i in range(SERVER_SAMPLES)]
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -1470,15 +1494,18 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
             kernels_ok = (not on_card and k1 == k2 == 0) or (
                 on_card and ((int8 and k2 > 0 and k1 == 0 and A.quantize_qk_i8.launches == k2) or
                              (not int8 and k1 > 0 and k2 == 0)))
-            if bad or len(results) != 20 or tr["requests"] != 16 or stats["sample"]["requests"] != 4 or (
-                    present_k == "auto" and sum(buckets.values()) != 16) or not kernels_ok:
+            if bad or len(results) != SERVER_TRANSLATIONS + SERVER_SAMPLES or tr["requests"] != SERVER_TRANSLATIONS \
+                    or stats["sample"]["requests"] != SERVER_SAMPLES or not kernels_ok or (
+                    present_k == "auto" and sum(buckets.values()) != SERVER_TRANSLATIONS):
                 raise AssertionError(f"server ({name}): responses {bad}, stats {stats}, K1 / K2 / quantizer launches "
                                      f"{k1} / {k2} / {A.quantize_qk_i8.launches}")
             if int8 and present_k is None:
                 k2_launches = k2
-            lat = [results[("t", i)][2] for i in range(16)]
-            summary[name] = dict(p50=_percentile(lat, 50), p95=_percentile(lat, 95), per_min=16 * 60.0 / wall)
-            log(f"  server, lcg {name}: 16 translations and 4 samples in {wall:.2f} s; translation latency p50 "
+            lat = [results[("t", i)][2] for i in range(SERVER_TRANSLATIONS)]
+            summary[name] = dict(p50=_percentile(lat, 50), p95=_percentile(lat, 95),
+                                 per_min=SERVER_TRANSLATIONS * 60.0 / wall)
+            log(f"  server, lcg {name}: {SERVER_TRANSLATIONS} translations and {SERVER_SAMPLES} samples in {wall:.2f} "
+                f"s; translation latency p50 "
                 f"{summary[name]['p50']:.2f} s, p95 {summary[name]['p95']:.2f} s; {summary[name]['per_min']:.1f} "
                 f"translations/min; translate batches {tr['batches']}, mean occupancy {tr['mean_occupancy']:.2f}; "
                 f"sample batches {stats['sample']['batches']}; buckets {buckets or 'none (one width, 19 classes)'}; "
@@ -2268,7 +2295,8 @@ def phase_visualize_debug(torch, A, device, card, tmp, tcfg=None, dcfg=None, vis
     """`visualize` and `translate --debug-dir` through the CLI in-process at
     configs/diffusion.yaml and configs/translation.yaml (full width, seeded
     weights). visualize on a synthetic 128 px image, a frame every
-    `vis_every` steps of the config's full chain, then once more traced on a
+    `vis_every` steps of a copy of the config with a VIS_T-step schedule
+    (the config's own where shorter), then once more traced on a
     copy of the config with a VIS_TRACE_T-step schedule; translate
     --debug-dir at DEBUG_STEPS steps, a dump every DEBUG_EVERY, a plain
     translate with the same seed, and a traced --debug-dir run at
@@ -2337,18 +2365,19 @@ def phase_visualize_debug(torch, A, device, card, tmp, tcfg=None, dcfg=None, vis
 
     # visualize: a synthetic 128 px image; the UNet on K1 (visualize never takes K2)
     d = load_diffusion_config(dcfg)
-    size, T = d.model.im_size, d.diffusion.num_timesteps
+    size, T = d.model.im_size, min(VIS_T, d.diffusion.num_timesteps)
     image = os.path.join(tmp, "vis.png")
     Image.fromarray(np.random.default_rng(52).integers(0, 256, (size, size, 3), dtype=np.uint8)).save(image)
-    short = os.path.join(tmp, "diffusion_short.yaml")
     with open(dcfg) as fh:
         doc = yaml.safe_load(fh)
-    doc["diffusion"]["num_timesteps"] = VIS_TRACE_T
-    with open(short, "w") as fh:
-        yaml.safe_dump(doc, fh)
+    vis, short = os.path.join(tmp, "diffusion_vis.yaml"), os.path.join(tmp, "diffusion_short.yaml")
+    for path, t in ((vis, T), (short, VIS_TRACE_T)):
+        doc["diffusion"]["num_timesteps"] = t
+        with open(path, "w") as fh:
+            yaml.safe_dump(doc, fh)
     k1 = per_forward(d.model, False)
     frames = {"forward": -(-T // vis_every), "backward": -(-T // vis_every), "aug_photometric": 5, "aug_geometric": 5}
-    for cfg_path, steps, every, traced in ((dcfg, T, vis_every, False), (short, VIS_TRACE_T, 10, True)):
+    for cfg_path, steps, every, traced in ((vis, T, vis_every, False), (short, VIS_TRACE_T, 10, True)):
         out = os.path.join(tmp, "strips_traced" if traced else "strips")
         r = run(["visualize", "--config", cfg_path, "--image", image, "--out", out, "--every", str(every)], steps, k1,
                 os.path.join(tmp, "trace_vis") if traced else None)
@@ -2525,7 +2554,7 @@ def phase_export(torch, A, device, card, tmp, tcfg=None, steps=None, batch=None)
 # batch term (seg). H100 readings (PERF.md section 6): DDPM 4.6e-6 to 6.3e-6 (the single-process loss moves in
 # its sixth digit from run to run) and 2.8e-3, plain and FSDP alike, the skipped all-reduce 0.52 on the moments;
 # seg 3.4e-4, 0.131 and 5.8e-4, a per-rank BatchNorm 1.2e-3, 0.70 and 2.1e-2
-DP_WORLD, DP_BATCH, DP_SEG_ACCUM, DP_TIMED_STEPS, DP_TIMEOUT_S = 2, 8, 2, 3, 300
+DP_WORLD, DP_BATCH, DP_SEG_ACCUM, DP_TIMED_STEPS, DP_TIMEOUT_S = 2, 8, 2, 2, 300
 DP_LIMITS = dict(ddpm_loss=1e-3, ddpm_moments=2e-2, seg_loss=5e-3, seg_update=0.25, seg_stats=5e-3)
 
 
@@ -2852,6 +2881,298 @@ def phase_data_parallel(torch, A, device, card, tmp, scfg=None, dcfg=None, unet_
     log(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 23: spatial guidance across two ranks on the one card, then the host feed
+SP_WORLD, SP_BATCH, SP_STEPS, SP_TIMEOUT_S = 2, 2, 4, 400
+# the timed chains run translation.yaml's lambda, 60, for SP_STEPS steps. The sharded chain is held against
+# the single-process one over one guided step at SP_CHECK_LAM: with the phase's random seg weights at 512 px,
+# lambda 60 moves the latent by about one f32 ulp a step, and under bf16 any difference in the second step's
+# UNet input flips its bf16 roundings, which swamps the guidance (PERF.md section 6: 4 steps at lambda
+# 60 and at 6000 both read the guidance's effect at ~3.4e-4, the sharded chain 1.0 of it at 6000).
+SP_LAM = 60.0
+SP_CHECK_LAM = 6e4
+# the one-step check's largest difference from the single-process step, over the guidance's own effect (the
+# single step's largest difference from the unguided one), and one guidance field's rel L2 from the unsharded
+# field, under the chain's bf16 autocast and in f32 with TF32 off: read on the card (PERF.md section 6:
+# the step 3.09e-2, the per-shard count 1.33; the fields 9.35e-3 and 4.27e-4, a zero halo 0.110 and 0.105)
+SP_LIMIT = 0.1
+SP_FIELD_LIMITS = (3e-2, 5e-3)
+# the host feed's smoke: 8 PNG and 8 JPEG files at ACDC's size, one untimed epoch and 2 timed; the probe
+# weatherconverter_tpu_torch/probes/host_feed.py measures it at 128 + 128 files
+FEED_FILES, FEED_SIZE, FEED_WORKERS, FEED_EPOCHS = 8, (1920, 1080), 8, 2
+
+
+def _spatial_rank(rank: int, port: int, workdir: str, on_card: bool = True) -> None:
+    """One rank of phase 23 (a), in a child process: gloo on card 0 (or the
+    CPU in a rehearsal), `_spatial_rank_cases`, written to <workdir>/rank<r>.pt."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()
+    sys.path.insert(0, REPO)
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False  # main()'s settings
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=SP_WORLD)
+    try:
+        torch.save(_spatial_rank_cases(torch, rank, workdir, on_card), os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spatial_rank_cases(torch, rank: int, workdir: str, on_card: bool) -> dict:
+    """Rank 0 first runs the single-process chains (guided, unguided) and
+    the unsharded seg gradient, alone; then both ranks run the sharded chain
+    (warm-up, then timed), the sharded seg gradient, the chain with the
+    planted per-shard valid-pixel count, and the seg gradient with the
+    planted zero halo."""
+    import contextlib
+
+    from weatherconverter_tpu_torch.cli.commands import load_seg_model, load_srgan, load_unet
+    from weatherconverter_tpu_torch.core.config import load_translation_config
+    from weatherconverter_tpu_torch.diffusion.schedule import linear_schedule
+    from weatherconverter_tpu_torch.guidance.sgg import guidance_field
+    from weatherconverter_tpu_torch.guidance.translate import make_translate_fn, translate_entry
+    from weatherconverter_tpu_torch.ops import attention as A
+    from weatherconverter_tpu_torch.ops import cuda_build
+    from weatherconverter_tpu_torch.parallel import spatial
+
+    t0 = time.perf_counter()
+    if on_card:
+        cuda_build.library()  # phase 1's build, loaded from _build/
+    device = torch.device("cuda" if on_card else "cpu")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dtype = torch.bfloat16 if on_card else None
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    cfg = load_translation_config(inp["tcfg"])
+    unet = load_unet(cfg.diffusion.model, None, 0).to(device)
+    seg = load_seg_model(cfg.seg, None, 1).requires_grad_(False).to(device)
+    gen = load_srgan(cfg.srgan, None, 2).to(device)
+    sched = linear_schedule(cfg.diffusion.diffusion.num_timesteps, cfg.diffusion.diffusion.beta_start,
+                            cfg.diffusion.diffusion.beta_end, device=device)
+    x, gt = inp["x"].to(device), inp["gt"].to(device)
+    noise0, z_steps = (n.to(device) for n in inp["noise"])
+    # the chains enter where the config's does (t = guidance.num_steps - 1: 499 in translation.yaml), by
+    # translate_entry's q-sample of x with the replayed noise0, and run the first steps of the config's span;
+    # they return the final latent (final_sr=False), in f32: under bf16 the SRGAN's output would round the
+    # guidance's effect
+    start_t = cfg.guidance.num_steps - 1
+    xt0 = translate_entry(sched, x, cfg.guidance.num_steps, None, start_t, noise0)
+    kw = dict(xt_init=xt0, mode="fixed", guidance_space="sr", num_classes=cfg.seg.model.num_classes, dtype=dtype,
+              final_sr=False)
+    out = dict(rank=rank, load_s=time.perf_counter() - t0)
+    pool = gt.shape[1] // x.shape[1]
+    amp = torch.autocast(device.type, dtype=dtype) if dtype is not None else contextlib.nullcontext()
+    peak = (lambda: torch.cuda.max_memory_allocated()) if on_card else (lambda: 0)
+    base = (lambda: torch.cuda.memory_allocated()) if on_card else (lambda: 0)
+
+    def reset():
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        return base()
+
+    def chain(style, mesh=None, steps=SP_STEPS, lam=SP_LAM):
+        """The final latent of the first `steps` steps, on the CPU."""
+        fn = make_translate_fn(unet, sched, seg, gen, guidance_style=style, spatial_mesh=mesh, lam=lam,
+                               num_steps=steps, t_offset=start_t - steps + 1, **kw)
+        return fn(x, gt, noise=(None, z_steps[:steps])).float().cpu()
+
+    def timed(mesh=None):
+        """The config's GSG chain of SP_STEPS steps after a warm-up (cuDNN's choices, the kernels' first
+        launch): (its final latent, ms a step, its peak above what was allocated before it, K1 launches)."""
+        chain("gsg", mesh)
+        before = reset()
+        A.flash_attention.launches = 0
+        w0 = time.perf_counter()
+        y = chain("gsg", mesh)
+        sync()
+        ms = (time.perf_counter() - w0) * 1e3 / SP_STEPS
+        return y, ms, (peak() - before) / 2**30, A.flash_attention.launches
+
+    def check(style, mesh=None):
+        """One step at SP_CHECK_LAM (see there), from the same latent."""
+        return chain(style, mesh, steps=1, lam=SP_CHECK_LAM)
+
+    def field(ctx, low=True):
+        """One guidance field (GSG's) at the input's upscale, and the peak of the seg forward and
+        backward above what was allocated before it; under the chain's autocast, or in f32 (`low`
+        False; TF32 is off in the ranks, as in the script)."""
+        prec = amp if low else contextlib.nullcontext()
+        with torch.no_grad(), prec:
+            sr_xt = gen(x.permute(0, 3, 1, 2))
+        before = reset()
+        with prec:
+            if ctx is None:
+                f = guidance_field(seg, sr_xt, gt, pool)
+            else:
+                with ctx:
+                    f = guidance_field(seg, ctx.own_rows(sr_xt, 2), ctx.own_rows(gt, 1), pool)
+        sync()
+        return f.float().cpu(), (peak() - before) / 2**30
+
+    if rank == 0:
+        out["single"] = timed()
+        out["check_single"], out["check_unguided"] = check("gsg"), check("none")
+        out["field_single"], out["field_single_f32"] = field(None), field(None, low=False)
+    mesh = spatial.make_spatial_mesh(data=1, space=SP_WORLD)
+    out["sharded"] = timed(mesh)
+    out["check_sharded"] = check("gsg", mesh)
+    out["field_sharded"] = field(spatial.SpatialContext(mesh))
+    out["field_sharded_f32"] = field(spatial.SpatialContext(mesh), low=False)
+    real = spatial.SpatialContext.sum_over_space
+    spatial.SpatialContext.sum_over_space = lambda self, t, differentiable: (
+        real(self, t, differentiable) if differentiable else t)  # a planted fault: a per-shard count
+    try:
+        out["check_fault"] = check("gsg", mesh)
+    finally:
+        spatial.SpatialContext.sum_over_space = real
+    gather = spatial._all_gather
+    spatial._all_gather = lambda t, group, width: [  # a planted fault: every halo row fetched as zeros
+        p if q == rank else torch.zeros_like(p) for q, p in enumerate(gather(t, group, width))]
+    try:
+        out["field_zero_halo"] = field(spatial.SpatialContext(mesh))
+        out["field_zero_halo_f32"] = field(spatial.SpatialContext(mesh), low=False)
+    finally:
+        spatial._all_gather = gather
+    print(f"  [rank {rank}] models loaded at {out['load_s']:.1f} s, spatial cases at "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_spatial_feed(torch, device, card, tmp, tcfg=None, feed_files=FEED_FILES, feed_size=FEED_SIZE):
+    """Phase 23 (module docstring): (a) spatial guidance over two ranks on the
+    card, (b) the host feed. `tcfg` (a translation YAML), `feed_files` and
+    `feed_size` make a tiny CPU rehearsal possible (gloo, f32, no launch
+    counts)."""
+    import socket
+    import subprocess
+
+    from weatherconverter_tpu_torch.data import native
+    from weatherconverter_tpu_torch.probes import host_feed
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    tcfg = tcfg or os.path.join(REPO, "configs", "translation.yaml")
+    from weatherconverter_tpu_torch.core.config import load_translation_config
+
+    cfg = load_translation_config(tcfg)
+    s, hr = cfg.diffusion.model.im_size, cfg.diffusion.model.im_size * cfg.srgan.upscale_factor
+    workdir = os.path.join(tmp, "spatial")
+    os.makedirs(workdir)
+    g = torch.Generator().manual_seed(23)
+    x = torch.randn((SP_BATCH, s, s, 3), generator=g) * 0.2
+    # blocky labels with an ignored band, so that the two shards hold different valid counts
+    gt = torch.randint(0, cfg.seg.model.num_classes, (SP_BATCH, hr // 16, hr // 16), generator=g)
+    gt = gt.repeat_interleave(16, 1).repeat_interleave(16, 2)
+    gt[:, : hr // 8] = 255
+    noise = (torch.randn((SP_BATCH, s, s, 3), generator=g), torch.randn((SP_STEPS, SP_BATCH, s, s, 3), generator=g))
+    torch.save(dict(tcfg=tcfg, x=x, gt=gt, noise=noise), os.path.join(workdir, "inputs.pt"))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke._spatial_rank({r}, {port}, "
+                               f"{workdir!r}, {on_card})"], cwd=REPO) for r in range(SP_WORLD)]
+    deadline = time.monotonic() + SP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if [p.returncode for p in procs] != [0] * SP_WORLD:
+        raise AssertionError(f"phase 23: the ranks exited {[p.returncode for p in procs]}")
+    ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False) for r in range(SP_WORLD)]
+    r0 = ranks[0]
+    single, unguided = r0["check_single"], r0["check_unguided"]
+    effect = (single - unguided).abs().max().item()
+    if not effect > 0:
+        raise AssertionError("phase 23: the guidance does not move the translation; nothing to compare")
+    errs = {}
+    for r in ranks:
+        for key in ("sharded", "check_sharded", "check_fault"):
+            y, want = (r[key][0], r0["single"][0]) if key == "sharded" else (r[key], single)
+            if y.shape != want.shape or not torch.isfinite(y).all().item():
+                raise AssertionError(f"phase 23 rank {r['rank']} {key}: output {tuple(y.shape)}, finite "
+                                     f"{torch.isfinite(y).all().item()}")
+            errs[(r["rank"], key)] = (y - want).abs().max().item() / (effect if key != "sharded" else 1.0)
+    # one guidance field, sharded (and with the zero halo planted) against the unsharded one, by rank:
+    # {precision: (sharded rel L2s, zero-halo rel L2s)}
+    fields = {prec: tuple([_rel_l2(r[f"field_{key}{sfx}"][0], r0[f"field_single{sfx}"][0]) for r in ranks]
+                          for key in ("sharded", "zero_halo"))
+              for prec, sfx in (("bf16 autocast" if on_card else "f32 as the chain", ""), ("f32", "_f32"))}
+    sharded_err = max(errs[(r, "check_sharded")] for r in range(SP_WORLD))
+    fault_err = min(errs[(r, "check_fault")] for r in range(SP_WORLD))
+    start_t = cfg.guidance.num_steps - 1
+    log(f"  (a) {SP_WORLD} gloo ranks on the one card, space={SP_WORLD}, spawned, ran and joined in "
+        f"{time.perf_counter() - t0:.1f} s; {os.path.basename(tcfg)}: {s} px latents, {cfg.srgan.upscale_factor}x "
+        f"SRGAN to {hr} px, {cfg.seg.model.name} at OS{cfg.seg.model.output_stride}, batch {SP_BATCH}, GSG in "
+        f"'sr' space from t = {start_t}, {'bf16 autocast' if on_card else 'f32'}, the draws replayed")
+    log(f"  (a) one guided step at lam {SP_CHECK_LAM}, the sharded chain's latent against the single-process "
+        f"one's: max |diff| / max |guided - unguided| = "
+        f"{', '.join(f'{errs[(r, "check_sharded")]:.3e}' for r in range(SP_WORLD))} by rank (limit {SP_LIMIT}; "
+        f"the guidance's own effect {effect:.4e}); planted fault, a per-shard valid-pixel count: "
+        f"{', '.join(f'{errs[(r, "check_fault")]:.3e}' for r in range(SP_WORLD))}; the timed chains ({SP_STEPS} "
+        f"steps at lam {SP_LAM}), max |sharded - single|: "
+        f"{', '.join(f'{errs[(r, "sharded")]:.3e}' for r in range(SP_WORLD))} (bf16's rounding, which the "
+        f"UNet amplifies from the second step on: not gated)")
+    for (prec, (sharded, halo)), limit in zip(fields.items(), SP_FIELD_LIMITS):
+        log(f"  (a) one guidance field (GSG's, at the input's upscale), {prec}, sharded against unsharded, rel L2 "
+            f"by rank: {', '.join(f'{e:.3e}' for e in sharded)} (limit {limit}); planted fault, every halo row "
+            f"fetched as zeros: {', '.join(f'{e:.3e}' for e in halo)}")
+    if sharded_err > SP_LIMIT:
+        raise AssertionError(f"phase 23: the sharded chain is {sharded_err:.3e} of the guidance's effect from the "
+                             f"single-process chain (limit {SP_LIMIT})")
+    if fault_err <= SP_LIMIT:
+        raise AssertionError(f"phase 23: the planted fault (a per-shard valid-pixel count) passed: {fault_err:.3e}")
+    for (prec, (sharded, halo)), limit in zip(fields.items(), SP_FIELD_LIMITS):
+        if max(sharded) > limit:
+            raise AssertionError(f"phase 23: the sharded guidance field ({prec}) is {max(sharded):.3e} (rel L2) from "
+                                 f"the unsharded one (limit {limit})")
+        if min(halo) <= limit:
+            raise AssertionError(f"phase 23: the planted fault (a zero halo) passed the {prec} field's limit: "
+                                 f"{min(halo):.3e}")
+    expected = FLASH_CALLS_PER_UNET * SP_STEPS
+    for r in ranks:
+        if on_card and r["sharded"][3] != expected:
+            raise AssertionError(f"phase 23 rank {r['rank']}: K1 launches {r['sharded'][3]}, expected {expected}")
+    single_ms, single_peak = r0["single"][1], r0["single"][2]
+    log(f"  (a) single process (rank 0 alone on the card): {single_ms:.1f} ms a step, peak above the weights "
+        f"{single_peak:.3f} GiB over the chain, {r0['field_single'][1]:.3f} GiB over one seg forward and backward; "
+        f"K1 launches {r0['single'][3]} a run of {SP_STEPS} steps [{card}]")
+    for r in ranks:
+        log(f"  (a) rank {r['rank']}: sharded chain {r['sharded'][1]:.1f} ms a step (both ranks on the one card, over "
+            f"gloo), peak above the weights {r['sharded'][2]:.3f} GiB over the chain, {r['field_sharded'][1]:.3f} GiB "
+            f"over one seg forward and backward ({r['field_sharded'][1] / max(r0['field_single'][1], 1e-9):.3f} of "
+            f"the unsharded); K1 launches {r['sharded'][3]} a run (expected {expected}) [{card}]")
+
+    # (b) the host feed
+    reason = None
+    missing = native.missing_headers()
+    if missing:
+        reason = f"missing headers {missing}"
+    else:
+        native.build()  # the headers are there: a failed build fails the phase
+        if not native.available():
+            raise AssertionError(f"phase 23: the native decoder built but did not load: {native.unavailable_reason()}")
+    feed = host_feed.measure(os.path.join(tmp, "feed"), feed_files, feed_size, FEED_EPOCHS, FEED_WORKERS)
+    if reason is None and feed["native_vs_pil_levels"] > 1:
+        raise AssertionError(f"phase 23: the native decoder is {feed['native_vs_pil_levels']} levels from PIL "
+                             f"(limit 1)")
+    if reason is not None:
+        log(f"  (b) native decoder: unavailable ({reason}); the datasets decode with PIL")
+    for ln in host_feed.report(feed):
+        log(f"  (b) {ln}")
+    log(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _round(x):
     return None if x is None else round(x, 4)
 
@@ -3006,6 +3327,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"phase 22: data parallel on the card [{card}]")
         phase_data_parallel(torch, A, device, card, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 23: spatial guidance across two ranks and the host feed [{card}]")
+        phase_spatial_feed(torch, device, card, tmp)
 
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []

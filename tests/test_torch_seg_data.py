@@ -204,12 +204,19 @@ def _acdc_tree(root, n_train=3, n_val=2, size=(37, 23)):
 
 @pytest.mark.parametrize("weather", [["fog", "rain"], "snow"])
 def test_seg_paired_dataset_matches_jax(tmp_path, monkeypatch, weather):
-    """The same pairs in the same order, and the same arrays (the JAX dataset
-    on its PIL path: the port has no native decoder)."""
+    """The same pairs in the same order, and the same arrays: both datasets
+    on their PIL path bit for bit, and the port's native decode (its first
+    choice, as JAX's) within one level of it; labels always go through PIL."""
     from weatherconverter_tpu.data import native
+    from weatherconverter_tpu_torch.data import native as port_native
 
-    monkeypatch.setattr(native, "decode_exact", lambda *a, **k: None)
     root = _acdc_tree(str(tmp_path))
+    native_images = {}
+    for split in ("train", "val"):
+        got = PD.SegPairedDataset(root, split=split, weather=weather, resize_hw=(20, 28))
+        native_images[split] = [got[i] for i in range(len(got))]
+    monkeypatch.setattr(native, "decode_exact", lambda *a, **k: None)
+    monkeypatch.setattr(port_native, "decode_exact", lambda *a, **k: None)
     for split in ("train", "val"):
         ref = JD.SegPairedDataset(root, split=split, weather=weather, resize_hw=(20, 28))
         got = PD.SegPairedDataset(root, split=split, weather=weather, resize_hw=(20, 28))
@@ -219,6 +226,8 @@ def test_seg_paired_dataset_matches_jax(tmp_path, monkeypatch, weather):
             assert gi.dtype == np.uint8 and gi.shape == (20, 28, 3) and gl.dtype == np.uint8 and gl.shape == (20, 28)
             assert np.array_equal(gi, ri) and np.array_equal(gl, rl)
             assert set(np.unique(gl)) <= {0, 1, 2, 3, 4, 255}
+            ni, nl = native_images[split][i]
+            assert np.abs(ni.astype(np.int16) - gi.astype(np.int16)).max() <= 1 and np.array_equal(nl, gl)
     path = str(got.image_paths[0])
     assert np.array_equal(PD.load_image_exact(path, (9, 13)), JD.load_image_exact(path, (9, 13)))
 

@@ -207,13 +207,25 @@ def test_generator_drives_the_chain_reproducibly(models):
                                 dict(guidance_style="gsg", lcg_present_k=4),
                                 dict(guidance_style="gsg")])
 def test_parts_not_ported_raise(kw):
-    """Spatial sharding is the part of `sample_with_sgg` still to port: it
-    raises under every style (LCG, the alternate schedule and
-    `lcg_present_k` are ported; tests/test_torch_lcg.py)."""
-    x = torch.zeros(1, 8, 8, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.sample_with_sgg(None, PS.linear_schedule(4), None, None, x, torch.zeros(1, 16, 16),
-                           spatial_mesh=object(), **kw)
+    """`spatial_mesh` refuses, by name and before any model runs, an HR
+    height that does not pool to whole latent rows on each 'space' rank,
+    under every style (a 15 px latent, its 30 px labels, space=2: 30 is not a
+    multiple of 2 x the pool factor 2). The mesh is made on a fake world of
+    two ranks in this process; the sharded chain itself is
+    tests/test_torch_spatial.py's."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from weatherconverter_tpu_torch.parallel import make_spatial_mesh
+
+    dist.init_process_group("fake", rank=0, world_size=2, store=FakeStore())
+    try:
+        mesh = make_spatial_mesh(space=2)
+        with pytest.raises(ValueError, match="HR height 30 is not divisible by space=2 x the pool factor 2"):
+            PT.sample_with_sgg(None, PS.linear_schedule(4), None, None, torch.zeros(1, 15, 15, 3),
+                               torch.zeros(1, 30, 30), spatial_mesh=mesh, **kw)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_port_imports_no_jax():

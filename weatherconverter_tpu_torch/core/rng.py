@@ -12,6 +12,8 @@ seed: a test that compares them replays the JAX draws (see the `t=`,
 from __future__ import annotations
 
 import hashlib
+import itertools
+from typing import Iterator
 
 import torch
 
@@ -22,9 +24,9 @@ def run_key(seed: int) -> int:
     return int(seed)
 
 
-def _derive_seed(key: int, index: int) -> int:
-    """A 63-bit seed for stream `index` of `key`, stable across runs and
-    platforms."""
+def _derive_seed(key: int, index) -> int:
+    """A 63-bit seed for stream `index` (an int, or a tagged string) of
+    `key`, stable across runs and platforms."""
     digest = hashlib.sha256(f"{key}/{index}".encode()).digest()
     return int.from_bytes(digest[:8], "little") >> 1
 
@@ -33,3 +35,16 @@ def split_named(key: int, *names: str, device=None) -> dict[str, torch.Generator
     """One generator per name on `device` (the CPU by default); stable: the
     order of the names matters, as in the JAX function."""
     return {name: torch.Generator(device=device).manual_seed(_derive_seed(key, i)) for i, name in enumerate(names)}
+
+
+def epoch_keys(key: int, num_epochs: int) -> list[int]:
+    """One derived int key per epoch. Tagged apart from `split_named`'s
+    streams, so no epoch key equals a named stream's seed."""
+    return [_derive_seed(key, f"epoch/{i}") for i in range(num_epochs)]
+
+
+def key_stream(key: int) -> Iterator[int]:
+    """An endless stream of fresh derived int keys (JAX's split chain),
+    tagged apart from `split_named`'s and `epoch_keys`'."""
+    for i in itertools.count():
+        yield _derive_seed(key, f"stream/{i}")

@@ -9,9 +9,10 @@ each folder, plus BDD/DAWN-style trees merged by `add_images`; and the ACDC
 pairs {root}/{images}/{condition}/{split}/**/*_rgb_anon.* with
 {root}/{labels}/.../*_gt_labelIds.*. Decoding is numpy and PIL on the host;
 the random crops, flips, jitter and the rest run on the device
-(data/transforms.py). The JAX package's optional C++ decoder has no port
-(ROADMAP Queue 1 item 16): every image goes through PIL, its documented
-fallback.
+(data/transforms.py). As in JAX, images take the native C++ decoder first
+(data/native.py: `__getitem__` one file, `get_batch` a whole batch on C++
+threads) and PIL where it is unavailable; labels always go through PIL with
+NEAREST (ids are never interpolated, and the native decoder makes RGB).
 
 PIL is imported here, so import this module where a dataset is built
 (`training.loop_diffusion.build_dataset`,
@@ -102,7 +103,20 @@ class DiffusionImageDataset:
         return len(self.img_paths)
 
     def __getitem__(self, idx: int) -> np.ndarray:
+        from weatherconverter_tpu_torch.data import native
+
+        arr = native.decode_box(self.img_paths[idx], self.resize_to, self.out_wh)
+        if arr is not None:
+            return arr
         return load_image_resized(self.img_paths[idx], self.resize_to, self.out_wh)
+
+    def get_batch(self, indices) -> Optional[np.ndarray]:
+        """The batch fast path (data/loader.py): one native call decodes every
+        file on C++ threads. None when the native decoder is unavailable, so
+        the loader decodes the batch on its thread pool instead."""
+        from weatherconverter_tpu_torch.data import native
+
+        return native.decode_box_batch([self.img_paths[i] for i in indices], self.resize_to, self.out_wh)
 
 
 class SegPairedDataset:
@@ -143,7 +157,11 @@ class SegPairedDataset:
         return len(self.image_paths)
 
     def __getitem__(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
+        from weatherconverter_tpu_torch.data import native
+
         h, w = self.resize_hw
-        img = load_image_exact(str(self.image_paths[idx]), (h, w))
+        img = native.decode_exact(str(self.image_paths[idx]), (h, w))
+        if img is None:
+            img = load_image_exact(str(self.image_paths[idx]), (h, w))
         lbl = Image.open(self.label_paths[idx]).resize((w, h), Image.NEAREST)
         return img, encode_target(np.asarray(lbl, dtype=np.uint8))

@@ -8,6 +8,13 @@ the global operator (GSG) and the local class-wise one (LCG).
 `seg_fn` maps an NCHW image to NCHW logits with frozen parameters; the
 gradient is taken with respect to the input only. Neither operator holds a
 hand-written kernel: the seg model runs on cuDNN/cuBLAS, as XLA ran it.
+
+Under a parallel.spatial.SpatialContext the high-resolution tensors (the
+upscale, the labels, the seg maps and the input gradient) are this rank's H
+rows: the per-image CE sum and valid-pixel count are summed over 'space',
+the field is pooled on the rank's rows and then gathered, and LCG's class
+masks are downsampled on the rank's rows and gathered for the recombine,
+which runs at the latent on every rank alike.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Callable
 import torch
 
 from weatherconverter_tpu_torch.ops.image import avg_pool, resize_nearest
+from weatherconverter_tpu_torch.parallel import spatial
 from weatherconverter_tpu_torch.training.losses import _per_pixel_ce
 
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -30,7 +38,12 @@ def seg_ce_per_image(seg_fn: SegFn, x: torch.Tensor, gt: torch.Tensor) -> torch.
     batch-mean CE would divide it by the batch size."""
     ce, valid = _per_pixel_ce(seg_fn(x), gt, 255)
     dims = tuple(range(1, ce.dim()))
-    return (ce.sum(dim=dims) / valid.sum(dim=dims).clamp_min(1)).sum()
+    ce_sum, count = ce.sum(dim=dims), valid.sum(dim=dims)
+    ctx = spatial.current()
+    if ctx is not None:  # this rank's rows: the image's sums are over every shard
+        ce_sum = ctx.sum_over_space(ce_sum, differentiable=True)
+        count = ctx.sum_over_space(count, differentiable=False)
+    return (ce_sum / count.clamp_min(1)).sum()
 
 
 def seg_input_gradients(seg_fn: SegFn, x: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -56,11 +69,19 @@ def gradient_magnitude(grads: torch.Tensor, denormalize: bool = True, norm: bool
     return mag
 
 
+def _hr_rows(sr_xt: torch.Tensor) -> int:
+    """The upscale's height: its global height under a SpatialContext."""
+    ctx = spatial.current()
+    return sr_xt.shape[2] if ctx is None else ctx.global_rows(sr_xt.shape[2])
+
+
 def guidance_field(seg_fn: SegFn, sr_xt: torch.Tensor, gt: torch.Tensor, pool: int = 4) -> torch.Tensor:
     """Input gradient -> average-pooled by `pool` -> denormalized magnitude,
     (B, 1, h, w) at latent resolution."""
     grads = seg_input_gradients(seg_fn, sr_xt, gt)
-    return gradient_magnitude(avg_pool(grads, pool, pool), denormalize=True, norm=False)
+    mag = gradient_magnitude(avg_pool(grads, pool, pool), denormalize=True, norm=False)
+    ctx = spatial.current()
+    return mag if ctx is None else ctx.gather_rows(mag)
 
 
 def apply_gsg(
@@ -77,7 +98,7 @@ def apply_gsg(
     """One GSG update. The pool factor is the ratio of `sr_xt`'s height to
     `mu`'s. `noise_scale` is the std of the added noise where it differs from
     the guidance scale `sigma` (a strided sampler's own sigma); None: sigma."""
-    mag = guidance_field(seg_fn, sr_xt, gt, pool=sr_xt.shape[2] // mu.shape[2])
+    mag = guidance_field(seg_fn, sr_xt, gt, pool=_hr_rows(sr_xt) // mu.shape[2])
     mu_hat = mu + lam * sigma * mag
     ns = sigma if noise_scale is None else noise_scale
     if mode == "reference" or noise is None:
@@ -147,7 +168,7 @@ def apply_lcg(
     `apply_gsg`."""
     b = sr_xt.shape[0]
     h, w = mu.shape[2:]
-    pool = sr_xt.shape[2] // h
+    pool = _hr_rows(sr_xt) // h
     if class_ids is None:
         n_slots = num_classes
     else:
@@ -177,7 +198,9 @@ def apply_lcg(
     ns = sigma if noise_scale is None else noise_scale
     xt_c = mu + lam * sigma * mags
     xt_c = xt_c + (ns if mode == "reference" or noise is None else ns * noise)
-    mc_small = resize_nearest(masks.reshape(-1, 1, *masks.shape[2:]), (h, w)).reshape(n_slots, b, 1, h, w)
+    ctx = spatial.current()
+    mc_small = resize_nearest(masks.reshape(-1, 1, *masks.shape[2:]), (h if ctx is None else ctx.local_rows(h), w))
+    mc_small = (mc_small if ctx is None else ctx.gather_rows(mc_small)).reshape(n_slots, b, 1, h, w)
     terms = xt_c * mc_small
     xt = terms[0]
     for c in range(1, n_slots):  # in slot order: what makes the packed sweep bit-equal to the full one

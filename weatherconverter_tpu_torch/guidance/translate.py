@@ -64,24 +64,33 @@ _STYLES = ("alternate", "gsg", "lcg", "none")
 
 
 def _guidance(seg_fn: SegFn, gt: torch.Tensor, lam: float, *, guidance_style: str, mode: str, num_classes: int,
-              lcg_class_chunk: int, lcg_present_k: Optional[int], normalize_seg_input: bool):
+              lcg_class_chunk: int, lcg_present_k: Optional[int], normalize_seg_input: bool, spatial=None):
     """The guided update of a chain step, shared by the three chains:
     guide(i, mean, scale, guide_in, z, noise_scale=None) applies LCG where
     the style is 'lcg', or 'alternate' and i is even, and GSG otherwise.
     Checks the style and finds the present classes (once: gt is fixed for
-    the chain)."""
+    the chain, and they are found on the whole of it). Under `spatial` (a
+    parallel.spatial.SpatialContext) the update takes this rank's H rows of
+    `guide_in` and of gt and runs inside the context."""
     if guidance_style not in _STYLES:
         raise ValueError(f"unknown guidance_style {guidance_style!r}")
     if normalize_seg_input:
         raw_seg_fn = seg_fn
         seg_fn = lambda x: raw_seg_fn(normalize(x, IMAGENET_MEAN, IMAGENET_STD))  # noqa: E731
     class_ids = None if lcg_present_k is None else present_class_ids(gt, lcg_present_k, num_classes)
+    gt_guide = gt if spatial is None else spatial.own_rows(gt, 1)
+
+    def update(i, mean, scale, guide_in, z, noise_scale):
+        if guidance_style == "lcg" or (guidance_style == "alternate" and i % 2 == 0):
+            return apply_lcg(seg_fn, mean, scale, guide_in, gt_guide, lam, num_classes=num_classes, noise=z,
+                             mode=mode, class_chunk=lcg_class_chunk, noise_scale=noise_scale, class_ids=class_ids)
+        return apply_gsg(seg_fn, mean, scale, guide_in, gt_guide, lam, noise=z, mode=mode, noise_scale=noise_scale)
 
     def guide(i, mean, scale, guide_in, z, noise_scale=None):
-        if guidance_style == "lcg" or (guidance_style == "alternate" and i % 2 == 0):
-            return apply_lcg(seg_fn, mean, scale, guide_in, gt, lam, num_classes=num_classes, noise=z, mode=mode,
-                             class_chunk=lcg_class_chunk, noise_scale=noise_scale, class_ids=class_ids)
-        return apply_gsg(seg_fn, mean, scale, guide_in, gt, lam, noise=z, mode=mode, noise_scale=noise_scale)
+        if spatial is None:
+            return update(i, mean, scale, guide_in, z, noise_scale)
+        with spatial:
+            return update(i, mean, scale, spatial.own_rows(guide_in, 2), z, noise_scale)
 
     return guide
 
@@ -144,32 +153,53 @@ def sample_with_sgg(
     `num_classes` classes, `lcg_class_chunk` masked copies of the batch a seg
     call; `lcg_present_k` packs the sweep into that many per-image slots
     holding the classes present in each image's gt (found once, before the
-    loop), the same result bit for bit when K covers them. `spatial_mesh` is
-    not ported yet and raises. `guidance_space` 'sr'
-    differentiates the seg CE on the SRGAN upscale and pools the field back;
-    'latent' differentiates it on (x_t + 1) / 2 against gt[:, ::pool, ::pool]
-    with lam / pool^2. `mode` 'fixed' keeps the guided x_t; 'reference'
-    overwrites it with mu + sigma every step, as the original code does.
+    loop), the same result bit for bit when K covers them. `guidance_space`
+    'sr' differentiates the seg CE on the SRGAN upscale and pools the field
+    back; 'latent' differentiates it on (x_t + 1) / 2 against
+    gt[:, ::pool, ::pool] with lam / pool^2.
+
+    `spatial_mesh` (parallel.spatial.make_spatial_mesh, every rank calling
+    with the same arguments) shards the high-resolution half of each guided
+    step in 'sr' space along image height: each rank runs the UNet, the
+    posterior and the SRGAN on its 'data' rows of the batch, alike on every
+    'space' rank, then the seg forward and input gradient on its H rows
+    under parallel.spatial.SpatialContext, pools its rows of the field and
+    gathers them. The result is the unsharded one, on every rank (the
+    whole batch: the 'data' rows are gathered at the end). Over 'data' > 1
+    each rank draws its rows: `generator` is then one generator a row, or
+    `noise=` replays the global draws. In 'latent' space the mesh is
+    accepted and the chain runs unsharded, as in JAX.
+
+    `mode` 'fixed' keeps the guided x_t; 'reference' overwrites it with
+    mu + sigma every step, as the original code does.
     `noise` = (noise0 (B, h, w, 3), z_steps (num_steps, B, h, w, 3)) replaces
     the generator's draws: noise0 for the forward q-sample, z_steps[s] for
     step s (i = num_steps - 1 - s).
     """
-    if spatial_mesh is not None:
-        raise NotImplementedError("spatial_mesh: spatial sharding (parallel/spatial.py) is not ported; ROADMAP "
-                                  "Queue 1 holds it first. Data-parallel translation: translate_across_ranks")
     if guidance_space not in ("sr", "latent"):
         raise ValueError(f"unknown guidance_space {guidance_space!r}")
+    guide_latent = guidance_space == "latent"
+    spatial = None
+    if spatial_mesh is not None and not guide_latent:
+        from weatherconverter_tpu_torch.parallel.spatial import SpatialContext, data_rows
+
+        spatial = SpatialContext(spatial_mesh)
+        spatial.check_guidance(gt.shape[1], gt.shape[1] // input_128.shape[1])
+        rows = data_rows(spatial_mesh, input_128.shape[0])
+        input_128, gt, xt_init = (None if a is None else a[rows] for a in (input_128, gt, xt_init))
+        generator = _rows_of_generator(generator, rows)
+        if noise is not None:
+            noise = (None if noise[0] is None else noise[0][rows], noise[1][:, rows])
 
     x_in = at_least_f32(nchw(input_128))
     b, device = x_in.shape[0], x_in.device
-    guide_latent = guidance_space == "latent"
     if guide_latent:
         pool = gt.shape[1] // x_in.shape[2]
         gt = gt[:, ::pool, ::pool] if pool > 1 else gt
         lam = lam / float(pool * pool)
     guide = _guidance(seg_fn, gt, lam, guidance_style=guidance_style, mode=mode, num_classes=num_classes,
                       lcg_class_chunk=lcg_class_chunk, lcg_present_k=lcg_present_k,
-                      normalize_seg_input=normalize_seg_input)
+                      normalize_seg_input=normalize_seg_input, spatial=spatial)
 
     if xt_init is not None:
         xt = nchw(xt_init)
@@ -192,7 +222,19 @@ def sample_with_sgg(
             else:
                 xt = mu + sigma * z if i > 0 else mu
         out = sr_fn(xt) if final_sr else xt
-    return nhwc(out)
+    out = nhwc(out)
+    return out if spatial is None else spatial.gather_data_rows(out)
+
+
+def _rows_of_generator(generator: Generators, rows: slice):
+    """A batch's generators cut to `rows`: one generator a row is cut; a
+    single generator serves only a batch that is not cut."""
+    if generator is None or isinstance(generator, torch.Generator):
+        if generator is not None and rows != slice(None):
+            raise ValueError("spatial_mesh with data > 1: a rank draws its rows, so pass one generator a row "
+                             "(or noise=) in place of one generator for the batch")
+        return generator
+    return list(generator)[rows]
 
 
 def _fast_start(sched: NoiseSchedule, input_128: torch.Tensor, span_t: Optional[int], num_steps: int,

@@ -1,5 +1,11 @@
 """Image primitives on NCHW tensors (port of the parts of
-weatherconverter_tpu/ops/image.py that guided translation uses)."""
+weatherconverter_tpu/ops/image.py that guided translation uses).
+
+The four resampling and pooling helpers take part in torch's function
+override protocol (`handle_torch_function`), so that a TorchFunctionMode
+can run them another way: parallel.spatial.SpatialContext computes them on
+maps split along H. Without such a mode they are the plain calls below.
+"""
 
 from __future__ import annotations
 
@@ -7,10 +13,13 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function_unary
 
 
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize with half-pixel centres (align_corners=False), no antialias."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(resize_bilinear, (x,), x, size)
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False)
 
 
@@ -20,6 +29,8 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     index floor((i + 0.5) * n_in / n_out), so a 2x reduction takes 2i + 1 and
     12 -> 3 takes 2, 6, 10. (`F.interpolate(mode="nearest")` would take 2i.)
     The indices are computed in f32 in JAX's order of operations."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(resize_nearest, (x,), x, size)
 
     def index(n_in: int, n_out: int) -> torch.Tensor:
         centres = (torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5) * n_in / n_out
@@ -30,11 +41,15 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
 
 def avg_pool(x: torch.Tensor, window: int, stride: int | None = None) -> torch.Tensor:
     """Average pool over VALID windows."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(avg_pool, (x,), x, window, stride)
     return F.avg_pool2d(x, kernel_size=window, stride=stride or window)
 
 
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     """AdaptiveAvgPool2d(1): the mean over H and W."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(global_avg_pool, (x,), x, keepdims)
     return x.mean(dim=(2, 3), keepdim=keepdims)
 
 

@@ -18,7 +18,9 @@ the global batch, and explicit collectives in the train steps:
   - `global_draws`: the generator a rank's augmentation draws from
     (GlobalDraws): each draw is made at the global batch's shape and this
     rank's rows kept, so its draws are its rows of the global batch's
-    draws; the augmentation itself runs on the rank's rows alone.
+    draws; the augmentation itself runs on the rank's rows alone;
+  - `loader`: data.loader.DataLoader in JAX's index order, each rank
+    decoding its rows of every global batch.
 
 The device count is the world size. Without a mesh every function is the
 single-process path.
@@ -263,44 +265,14 @@ def local_batch_slice(global_batch: int, mesh) -> int:
     return global_batch // n
 
 
-class GlobalBatchRows(torch.utils.data.Sampler):
-    """Batches of dataset indices for a DataLoader's `batch_sampler`: one
-    index order shared by every rank (a RandomSampler on `generator`, seeded
-    alike everywhere, or 0..n-1), cut into global batches; each yields this
-    rank's rows (`local_rows`). So each rank decodes only its rows, and at one
-    rank the batches are the single-process loader's. With `pad_ragged`, a
-    ragged last batch (drop_last False) is padded to the global size by
-    repeating its last index and every element is (index, is_pad), which a
-    dataset that marks pad rows reads; without it a ragged batch is yielded
-    as it is, which only one rank can take."""
+def loader(ds, global_batch: int, mesh, *, shuffle: bool, seed: int = 0, drop_last: bool = True,
+           accum_steps: int = 1, pad_ragged: bool = False, num_workers: int = 8, pin_memory: bool = False):
+    """data.loader.DataLoader over this rank's rows (`local_rows`) of each
+    global batch: JAX's index order, shared by every rank, of which each
+    decodes its rows. `num_workers` 0 means the default 8 decode threads,
+    as in the JAX loops."""
+    from weatherconverter_tpu_torch.data.loader import DataLoader
 
-    def __init__(self, n: int, global_batch: int, mesh, *, shuffle: bool, generator=None,
-                 drop_last: bool = True, accum_steps: int = 1, pad_ragged: bool = False):
-        self.global_batch, self.mesh, self.pad_ragged = global_batch, mesh, pad_ragged
-        self.rows = local_rows(global_batch, mesh, accum_steps)
-        order = (torch.utils.data.RandomSampler(range(n), generator=generator) if shuffle
-                 else torch.utils.data.SequentialSampler(range(n)))
-        self.batches = torch.utils.data.BatchSampler(order, global_batch, drop_last)
-
-    def __len__(self) -> int:
-        return len(self.batches)
-
-    def __iter__(self):
-        for batch in self.batches:
-            if self.pad_ragged:
-                batch = [(i, False) for i in batch] + [(batch[-1], True)] * (self.global_batch - len(batch))
-            elif len(batch) < self.global_batch:
-                if self.mesh is not None:
-                    raise ValueError("a ragged global batch over a mesh needs pad_ragged")
-                yield batch
-                continue
-            yield [batch[r] for r in self.rows]
-
-
-def loader(ds, global_batch: int, mesh, *, shuffle: bool, seed: Optional[int] = None, drop_last: bool = True,
-           accum_steps: int = 1, pad_ragged: bool = False, num_workers: int = 0, pin_memory: bool = False):
-    """A DataLoader over this rank's rows of each global batch (`GlobalBatchRows`)."""
-    gen = torch.Generator().manual_seed(seed) if shuffle else None
-    sampler = GlobalBatchRows(len(ds), global_batch, mesh, shuffle=shuffle, generator=gen, drop_last=drop_last,
-                              accum_steps=accum_steps, pad_ragged=pad_ragged)
-    return torch.utils.data.DataLoader(ds, batch_sampler=sampler, num_workers=num_workers, pin_memory=pin_memory)
+    return DataLoader(ds, global_batch, shuffle=shuffle, seed=seed, num_workers=num_workers or 8,
+                      drop_last=drop_last, rows=local_rows(global_batch, mesh, accum_steps), pad_ragged=pad_ragged,
+                      pin_memory=pin_memory)

@@ -14,7 +14,8 @@ plan_data_parallel): under torchrun every process is a data rank, the
 global batch is `batch_size` a rank (`scale_batch_to_mesh`, the default;
 batch_size as the global batch where the dataset is smaller than that),
 `scale_lr_with_batch` scales lr with it, and each rank decodes only its
-rows of each global batch, from one index order (parallel.sharding.loader).
+rows of each global batch, from JAX's index order (parallel.sharding.loader,
+data/loader.py; `training.num_workers` 0 means JAX's 8 decode threads).
 `training.fsdp` shards the state after any restore (parallel.fsdp); it
 needs a process group. The primary alone writes the run directory, the
 log and the checkpoints; every rank restores. On CUDA the step runs
@@ -149,6 +150,10 @@ def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -
                      f"{sharding.mesh_width(mesh)} ranks")
     if global_batch != tr.batch_size:
         logger.print(f"DP x{sharding.mesh_width(mesh)}: global batch {global_batch} ({tr.batch_size}/rank), lr={lr}")
+    if dataset is None:
+        from weatherconverter_tpu_torch.data import native
+
+        logger.print(native.describe())
 
     loader = sharding.loader(ds, global_batch, mesh, shuffle=True, seed=tr.random_seed, drop_last=True,
                              accum_steps=tr.accum_steps, num_workers=tr.num_workers,

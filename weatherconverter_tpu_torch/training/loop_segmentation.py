@@ -88,7 +88,7 @@ def make_augment(cfg: SegConfig):
     return augment
 
 
-class PaddedPairs(torch.utils.data.Dataset):
+class PaddedPairs:
     """A pair dataset read by (index, is_pad) keys (parallel.sharding's
     `pad_ragged` loader): a pad row is the pair with every label 255
     (ignored), so it adds nothing to the confusion matrix."""
@@ -233,11 +233,11 @@ def train(cfg: SegConfig, max_steps: Optional[int] = None, datasets=None) -> Seg
     model = model.to(device)
 
     pin = device.type == "cuda"
+    # the JAX seg loop decodes on the loader's default 8 threads, whatever training.num_workers says
     loader = sharding.loader(train_ds, global_batch, mesh, shuffle=True, seed=tr.random_seed, drop_last=True,
-                             accum_steps=tr.accum_steps, num_workers=tr.num_workers, pin_memory=pin)
+                             accum_steps=tr.accum_steps, pin_memory=pin)
     val_loader = sharding.loader(val_ds if mesh is None else PaddedPairs(val_ds), global_batch, mesh, shuffle=False,
-                                 drop_last=False, pad_ragged=mesh is not None, num_workers=tr.num_workers,
-                                 pin_memory=pin)
+                                 drop_last=False, pad_ragged=mesh is not None, pin_memory=pin)
     max_iters = max(1, len(loader) * tr.epochs)
     state = create_seg_state(model, cfg.optimizer, max_iters, tr.scheduler.type, tr.scheduler.params)
 
@@ -255,6 +255,10 @@ def train(cfg: SegConfig, max_steps: Optional[int] = None, datasets=None) -> Seg
                      f"{sharding.mesh_width(mesh)} ranks")
     if global_batch != tr.batch_size:
         logger.print(f"DP x{sharding.mesh_width(mesh)}: global batch {global_batch} ({tr.batch_size}/rank)")
+    if datasets is None:
+        from weatherconverter_tpu_torch.data import native
+
+        logger.print(native.describe())
     step_fn = make_augmented_seg_train_step(cfg, make_seg_loss(tr.loss_function.type, tr.loss_function.params),
                                             mesh=mesh, dtype=dtype)
     val_fns = make_val_fns(cfg, state.model, mesh=mesh, dtype=dtype)

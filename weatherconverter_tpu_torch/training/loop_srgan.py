@@ -119,6 +119,10 @@ def train(cfg: SRGANTrainConfig, max_steps: Optional[int] = None, dataset=None) 
         logger.print("training.fsdp: the SRGAN loop replicates G and D, as the JAX loop does")
     if global_batch != tr.batch_size:
         logger.print(f"DP x{sharding.mesh_width(mesh)}: global batch {global_batch} ({tr.batch_size}/rank)")
+    if dataset is None:
+        from weatherconverter_tpu_torch.data import native
+
+        logger.print(native.describe())
 
     pairs = make_pair_fn(tr.hr_crop, s.upscale_factor)
 
