@@ -20,10 +20,16 @@ Phases, each of which fails the run (exit code != 0, no result line):
      times; K1 and K3 also at the 256 px UNet's (N, D) =
      (1024, 192), K1 at the legacy UNet's (1024, 24) (D = 32 tiles with
      zero-filled tails), K1-f32 (3xTF32 on the tensor cores) at the legacy
-     UNet's (1024, 16) and (1024, 24) in f32, within 1e-5 of max |ref| (beside
-     its f32 FMA bound and sdpa's f32 forward); one forward and backward of the
-     256 px UNet under bf16, and one forward of it with qk_int8 (K2 at its
-     eight layers of D <= 128, K1 at its four of D = 192);
+     UNet's (1024, 16) and (1024, 24), at the four path shapes and at
+     (1024, 192) in f32, within 1e-5 of max |ref| (beside its f32 FMA bound
+     and sdpa's f32 forward); K3-f32 at the four path shapes and (1024, 192)
+     in f32, within F32_BWD_REL_TOL of max |ref| for dQ, dK and dV, two calls
+     bit-equal, the plain backward with TF32 matmuls for that call (the
+     planted fault) beyond the limit, beside its bound and sdpa's f32
+     backward; one forward and backward of the
+     256 px UNet in f32 (K1-f32 and K3-f32 at its twelve flash-length
+     layers) and under bf16 (K1 and K3), and one forward of it with qk_int8
+     (K2 at all twelve, D = 192 included; in f32 refused by name);
   3. run guided translation at full width -- the production 128px UNet,
      DeepLabV3+/ResNet-101 at output stride 16 with 19 classes, a 2x
      Swift-SRGAN, batch 8, bf16 autocast over f32 parameters, random weights
@@ -219,7 +225,18 @@ Phases, each of which fails the run (exit code != 0, no result line):
      JPEG files decoded through the port's loader by the native batch path
      and by PIL on the loader's threads (probes/host_feed.py at a smoke
      size: one untimed epoch, then two timed): images per second each,
-     beside the host's CPU count; native held within 1 level of PIL.
+     beside the host's CPU count; native held within 1 level of PIL;
+ 24. DDPM training in f32 on the card (training.dtype float32: K1-f32 and
+     K3-f32 at the UNet's flash-length layers, TF32 off for its
+     convolutions and matmuls), cuDNN by its heuristics: (a) one step at
+     batch 2 against phase 7's CPU f32 step (its weights, draws and result),
+     within limits that phase 7's bf16 step must break; (b) `train-ddpm
+     --set training.dtype=float32` through the CLI at configs/diffusion.yaml,
+     batch 8, one 4-step epoch of phase 13's synthetic tree: exit 0, finite
+     losses, the epoch's checkpoint restored at step 4, K1-f32 and K3-f32
+     8 launches a step each, K1 and K3 none; (c) the f32 step at batch 8 on
+     one batch: wall ms a step, a profiled step's device ms, idle share and
+     launches, peak GiB.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors, times, bounds
 and library times.
@@ -253,8 +270,17 @@ D192_SHAPE = (BATCH, 4, 1024, 192)
 D24_SHAPE = (BATCH, 4, 1024, 24)
 F32_SHAPES = [(BATCH, 4, 1024, 16), (BATCH, 4, 1024, 24)]
 # K1-f32 against its plain version in f32: max |err| / max |ref| (the same products in another order, exp2 by
-# ex2.approx: 2 ulp)
+# ex2.approx: 2 ulp); also at the path shapes in f32 (the f32 training path) and at D192_SHAPE
 F32_REL_TOL = 1e-5
+# K3-f32 against its plain version in f32: max |err| / max |ref| of dQ, dK and dV each. H100 readings (this phase
+# at the path shapes and D192_SHAPE): 1.2e-6-3.2e-6; the plain backward with TF32 matmuls (one TF32 pass, the
+# planted fault) read 5.5e-4-1.6e-3 there and must break it
+F32_BWD_REL_TOL = 2e-5
+# phase 24 (a): one f32 train step at batch 2, card (K1-f32, K3-f32, TF32 off) against phase 7's CPU f32 step:
+# relative error of the loss, relative L2 error of the flattened UNet gradient. Both must sit below phase 7's bf16
+# readings against the same CPU step, which they must reject. H100 readings (PERF.md section 6): f32 0.0 and
+# 1.6e-6; bf16 3.3e-4 and 1.2e-2
+F32_TRAIN_LOSS_REL_TOL, F32_TRAIN_GRAD_REL_TOL = 1e-5, 1e-4
 # bf16 outputs of attention over N(0,1) inputs are O(0.1-1): one bf16 ulp is
 # <= 2^-8 there; kernel and plain version differ in f32 summation order and
 # exp rounding, so some entries round to the neighbouring bf16 value
@@ -274,6 +300,12 @@ CHAIN_REL_TOL = 5e-2
 # the loss, and relative L2 error of the flattened UNet gradient
 TRAIN_LOSS_REL_TOL, TRAIN_GRAD_REL_TOL = 2e-2, 5e-2
 REPEATS = 2
+# phase 10 times each sampler path once: its twelve timed runs took ~28 s of a run that passed its 1,200 s limit on
+# an H100 (its two rounds differed by 1.6-9.6 % there)
+SAMPLER_REPEATS = 1
+# phase 3's warm-up runs: 4 steps take GSG, LCG and an unguided last step in every variant (the 20-step warm-ups took
+# ~7 s of the run; phase 10 warms up at PROFILE_STEPS steps, where its full-length warm-ups took ~16 s)
+WARMUP_STEPS = 4
 # training: steps through loop_diffusion.train (one epoch, one checkpoint),
 # then WINDOWS timed windows of WINDOW_STEPS steps on one fixed batch
 TRAIN_STEPS, WINDOWS, WINDOW_STEPS = 24, 3, 20
@@ -336,17 +368,17 @@ LEGACY_STEPS, LEGACY_CHECK_BATCH = 20, 2
 # phase 19: the quality command on configs/translation.yaml: --synthetic QUALITY_N --batch BATCH --steps
 QUALITY_N, QUALITY_STEPS = 8, 20
 # phase 20: visualize, a frame every VIS_EVERY steps of a copy of configs/diffusion.yaml with a VIS_T-step schedule
-# (the full 1000-step chain took 49 s of a run that reached 1,242 s); translate --debug-dir at DEBUG_STEPS steps, a
-# dump every DEBUG_EVERY. Each is traced on a short run beside it: visualize on a copy of the config with a
+# (the full 1000-step chain took 49 s of a run that reached 1,242 s, the 250-step one 15 s); translate --debug-dir at
+# DEBUG_STEPS steps, a dump every DEBUG_EVERY. Each is traced on a short run beside it: visualize on a copy of the config with a
 # VIS_TRACE_T-step schedule, translate --debug-dir at DEBUG_TRACE_STEPS steps (a trace holds every host op and kernel:
 # 68 MiB for 20 visualize steps, 304 MiB for 20 guided steps on an H100, so traces of the full runs would take
 # minutes to write)
-VIS_T, VIS_EVERY, VIS_TRACE_T, DEBUG_STEPS, DEBUG_EVERY, DEBUG_TRACE_STEPS = 250, 25, 20, 10, 5, 4
+VIS_T, VIS_EVERY, VIS_TRACE_T, DEBUG_STEPS, DEBUG_EVERY, DEBUG_TRACE_STEPS = 100, 10, 20, 10, 5, 4
 # phase 14: the server's DPM chains (translate and /v1/sample) take SERVER_STEPS steps where the server's default is
 # 20, for SERVER_TRANSLATIONS concurrent translations and SERVER_SAMPLES samples, and phase 20's --debug-dir chains
 # DEBUG_STEPS, so that phase 23 fits: with 10 steps and 16 + 4 requests the whole script reached 1,242 s of its
-# 1,200 (PERF.md section 6)
-SERVER_STEPS, SERVER_TRANSLATIONS, SERVER_SAMPLES = 5, 8, 2
+# 1,200 (PERF.md section 6). Three steps take each kind of step the server's warm-up takes: LCG, GSG, unguided
+SERVER_STEPS, SERVER_TRANSLATIONS, SERVER_SAMPLES = 3, 8, 2
 # phase 21: export-hlo --attn int8 of the translate program at configs/translation.yaml: steps (the JAX default
 # schedule: GSG at i = 1, none at i = 0) and batch. At 3 steps (LCG at i = 2: five seg calls) the graph held 24,004
 # nodes and the phase took 143 s on an H100 (save 28 s, load 41 s); tests/test_torch_export.py runs 3 steps tiny
@@ -444,20 +476,24 @@ def phase_kernels(torch, A, device, card):
                          library_ms=total["library_ms"] + lib_ms)
             del q, k, v, out, ref
         results[name] = dict(total, bound=add_rooflines(*bounds))
-    results["flash_attention_f32"] = _f32_kernel(torch, A, device, card, gen)
+    results.update(_f32_kernel(torch, A, device, card, gen))
     return results
 
 
 def _f32_kernel(torch, A, device, card, gen):
     """K1-f32 against its plain version in f32 at the legacy UNet's two
-    flash-length shapes, with its bound (the larger of the exponentials and
+    flash-length shapes, the default UNet's four path shapes and the 256 px
+    UNet's (1024, 192), with its bound (the larger of the exponentials and
     the 3xTF32 products at 494.7 TFLOP/s), the f32 FMA bound beside it, and
-    scaled_dot_product_attention's f32 time; sums over the two shapes."""
+    scaled_dot_product_attention's f32 time. Returns {"flash_attention_f32":
+    sums over the legacy shapes, "flash_attention_f32_train": sums over the
+    path shapes}."""
     from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, f32_fma_ms, peaks,
                                                           time_ms)
 
-    total, bounds = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0), []
-    for shape in F32_SHAPES:
+    sums = {name: (dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0), []) for name in
+            ("flash_attention_f32", "flash_attention_f32_train")}
+    for shape in F32_SHAPES + PATH_SHAPES + [D192_SHAPE]:
         q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
         out = A.flash_attention_f32(q, k, v)
         torch.cuda.synchronize()
@@ -466,20 +502,27 @@ def _f32_kernel(torch, A, device, card, gen):
         rel = err / ref.abs().max().item()
         if not (rel <= F32_REL_TOL and torch.isfinite(out).all().item()):
             raise AssertionError(f"flash_attention_f32 {shape}: max|err|/max|ref| {rel} > {F32_REL_TOL} or not finite")
+        del out, ref
         k_ms = time_ms(lambda: A.flash_attention_f32(q, k, v), reps=20)
         p_ms = time_ms(lambda: A.flash_attention_plain(q, k, v), reps=5)
         lib_ms = _sdpa_ms(torch, q, k, v)
         bound = attention_roofline(peaks(card), shape, f32=True)
         b, h, n, d = shape
         fma = f32_fma_ms(peaks(card), shape)
-        log(f"  flash_attention_f32 B*H={b * h} N={n} D={d}: max_abs_err {err:.3e}, max|err|/max|ref| {rel:.3e} "
-            f"(tol {F32_REL_TOL}); kernel {k_ms:.4f} ms ({4 * b * h * n * n * d / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s "
-            f"of f32 products in 3xTF32), plain {p_ms:.3f} ms, {_bound_text(bound)}, f32 FMA bound "
+        where = ("the legacy UNet's" if shape in F32_SHAPES else "the 256 px UNet's: not in the sums"
+                 if shape == D192_SHAPE else "the f32 training path's")
+        log(f"  flash_attention_f32 B*H={b * h} N={n} D={d} [{where}]: max_abs_err {err:.3e}, max|err|/max|ref| "
+            f"{rel:.3e} (tol {F32_REL_TOL}); kernel {k_ms:.4f} ms ({4 * b * h * n * n * d / (k_ms * 1e-3) / 1e12:.2f} "
+            f"TFLOP/s of f32 products in 3xTF32), plain {p_ms:.3f} ms, {_bound_text(bound)}, f32 FMA bound "
             f"{'not known' if fma is None else f'{fma:.4f} ms'}, sdpa forward in f32 {lib_ms:.4f} ms (yardstick)")
-        bounds.append(bound)
-        total = dict(err=max(total["err"], err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms,
-                     library_ms=total["library_ms"] + lib_ms)
-    return dict(total, bound=add_rooflines(*bounds))
+        if shape != D192_SHAPE:
+            total, bounds = sums["flash_attention_f32" if shape in F32_SHAPES else "flash_attention_f32_train"]
+            bounds.append(bound)
+            total.update(err=max(total["err"], err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms,
+                         library_ms=total["library_ms"] + lib_ms)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {name: dict(total, bound=add_rooflines(*bounds)) for name, (total, bounds) in sums.items()}
 
 
 def phase_backward_kernel(torch, A, device, card):
@@ -520,6 +563,72 @@ def phase_backward_kernel(torch, A, device, card):
             f"dv {rel[2]:.3e} (tol {BWD_REL_TOL}), max abs err {abs_err:.3e}, two calls bit-equal; kernel "
             f"{k_ms:.4f} ms ({tflops:.1f} TFLOP/s of the five products a backward needs), plain {p_ms:.3f} ms, "
             f"{_bound_text(bound)}, sdpa backward alone {lib_ms:.4f} ms (yardstick, never called by the port)"
+            + (" [the 256 px UNet's shape: not in the sums]" if shape == D192_SHAPE else ""))
+        if shape != D192_SHAPE:
+            bounds.append(bound)
+            total = dict(err=max(total["err"], abs_err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms,
+                         library_ms=total["library_ms"] + lib_ms)
+        del q, k, v, do, o, l, args
+        torch.cuda.empty_cache()
+    return dict(total, bound=add_rooflines(*bounds))
+
+
+def phase_backward_f32_kernel(torch, A, device, card):
+    """K3-f32 against its plain version in f32 (TF32 off, as this script sets
+    it) at the path shapes and the 256 px UNet's (1024, 192), within
+    F32_BWD_REL_TOL of max |ref| for dQ, dK and dV each; two calls must agree
+    bit for bit; the plain backward with TF32 matmuls for that call alone
+    (one TF32 pass: the planted fault) must break the limit. Each shape's
+    kernel time beside its bound (five products in 3xTF32), sdpa's f32
+    backward alone and the plain version's time. Returns dict(err, ms,
+    plain_ms, library_ms, bound), sums over the path shapes."""
+    from weatherconverter_tpu_torch.probes.common import add_rooflines, attention_roofline, peaks, time_ms
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    total, bounds = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0), []
+    for shape in PATH_SHAPES + [D192_SHAPE]:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=device) for _ in range(4))
+        o, l = A.flash_attention_plain(q, k, v, return_l=True)
+        args = (q, k, v, o, do, l)
+        got = A.flash_attention_bwd_f32(*args)
+        torch.cuda.synchronize()
+        again = A.flash_attention_bwd_f32(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd_f32 {shape}: two calls on the same inputs differ")
+        ref = A.flash_attention_bwd_plain(*args)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            fault = A.flash_attention_bwd_plain(*args)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        rel, fault_rel, abs_err = [], [], 0.0
+        for name, g, f, r in zip(("dq", "dk", "dv"), got, fault, ref):
+            diff = (g - r).abs().max().item()
+            scale = max(r.abs().max().item(), 1e-30)
+            rel.append(diff / scale)
+            fault_rel.append((f - r).abs().max().item() / scale)
+            abs_err = max(abs_err, diff)
+            if not (rel[-1] <= F32_BWD_REL_TOL and torch.isfinite(g).all().item()):
+                raise AssertionError(f"flash_attention_bwd_f32 {shape} {name}: max|err|/max|ref| {rel[-1]} > "
+                                     f"{F32_BWD_REL_TOL} or not finite")
+        if not max(fault_rel) > F32_BWD_REL_TOL:
+            raise AssertionError(f"flash_attention_bwd_f32 {shape}: the planted fault (one TF32 pass) reads "
+                                 f"{fault_rel}, within the limit {F32_BWD_REL_TOL}: the gate cannot tell 3xTF32 "
+                                 "from it")
+        del got, again, ref, fault
+        k_ms = time_ms(lambda: A.flash_attention_bwd_f32(*args), reps=20)
+        p_ms = time_ms(lambda: A.flash_attention_bwd_plain(*args), reps=3, warmup=1)
+        lib_ms = _sdpa_ms(torch, q, k, v, do)
+        bound = attention_roofline(peaks(card), shape, backward=True, f32=True)
+        b, h, n, d = shape
+        tflops = 10 * b * h * n * n * d / (k_ms * 1e-3) / 1e12
+        log(f"  flash_attention_bwd_f32 B*H={b * h} N={n} D={d}: max|err|/max|ref| dq {rel[0]:.3e} dk {rel[1]:.3e} "
+            f"dv {rel[2]:.3e} (tol {F32_BWD_REL_TOL}), max abs err {abs_err:.3e}, two calls bit-equal; the planted "
+            f"fault (plain backward, one TF32 pass) dq {fault_rel[0]:.3e} dk {fault_rel[1]:.3e} dv {fault_rel[2]:.3e}: "
+            f"breaks it; kernel {k_ms:.4f} ms ({tflops:.2f} TFLOP/s of the five f32 products a backward needs, in "
+            f"3xTF32), plain {p_ms:.3f} ms, {_bound_text(bound)}, sdpa backward alone in f32 {lib_ms:.4f} ms "
+            f"(yardstick, never called by the port)"
             + (" [the 256 px UNet's shape: not in the sums]" if shape == D192_SHAPE else ""))
         if shape != D192_SHAPE:
             bounds.append(bound)
@@ -642,8 +751,10 @@ def phase_quantizer(torch, A, device, card):
 def phase_unet_256(torch, A, device):
     """One forward and backward of the default ladder at im_size 256 (batch 1,
     random weights from a seed) under bf16 autocast: its twelve flash-length
-    layers, four of them at D = 192, go through K1 and K3; in f32 the entry
-    refuses it by name."""
+    layers, four of them at D = 192, go through K1 and K3; and in f32 (TF32
+    off) through K1-f32 and K3-f32. With qk_int8 a forward takes K2 at all
+    twelve under bf16, and in f32 the entry refuses it by name (K2's V is
+    16-bit)."""
     from weatherconverter_tpu_torch.core.config import UnetModelConfig
     from weatherconverter_tpu_torch.models.unet import Unet
 
@@ -651,13 +762,19 @@ def phase_unet_256(torch, A, device):
     model = Unet(UnetModelConfig(im_size=256)).to(device)
     shapes = [s for s in model.attention_shapes(256) if A.is_flash_length(s[0])]
     x = torch.randn((1, 3, 256, 256), generator=torch.Generator(device=device).manual_seed(7), device=device)
-    try:
-        model(x, 5)
-    except ValueError as err:
-        if "dtype=torch.bfloat16" not in str(err):
-            raise
-    else:
-        raise AssertionError("an f32 flash-length UNet on CUDA was not refused at Unet.forward")
+    A.flash_attention_f32.launches = A.flash_attention_bwd_f32.launches = 0
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
+        out = model(x, 5)
+        out.square().mean().backward()
+    torch.cuda.synchronize()
+    counts = (A.flash_attention_f32.launches, A.flash_attention_bwd_f32.launches)
+    if counts != (len(shapes),) * 2 or not torch.isfinite(out).all().item():
+        raise AssertionError(f"256 px UNet in f32: launches (K1-f32, K3-f32) {counts}, expected {len(shapes)} each; "
+                             "or not finite")
+    log(f"  the default UNet at im_size 256, batch 1, f32 (TF32 off): forward and backward in "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms (first call), K1-f32 and K3-f32 launched {counts[0]} times each")
+    model.zero_grad(set_to_none=True)
     A.flash_attention.launches = A.flash_attention_bwd.launches = 0
     t0 = time.perf_counter()
     # no autotuning here: this model's conv shapes are run once (it would take half a minute)
@@ -673,11 +790,19 @@ def phase_unet_256(torch, A, device):
                              "is not finite")
     log(f"  the default UNet at im_size 256, batch 1, bf16 autocast: forward and backward in "
         f"{(time.perf_counter() - t0) * 1e3:.0f} ms (first call), K1 and K3 launched {counts[0]} times each at "
-        f"(N, D) = {sorted(set(shapes))}; in f32 Unet.forward refuses it by name")
+        f"(N, D) = {sorted(set(shapes))}")
     # what the CLI builds on the card: qk_int8, which takes K2 in every flash-length layer, D = 192 included
     int8 = Unet(UnetModelConfig(im_size=256), qk_int8=True).to(device).eval()
     int8.load_state_dict(model.state_dict())
     kinds = [kind for _, _, kind in int8.attention_kernels(256)]
+    try:
+        with torch.no_grad():
+            int8(x, 5)
+    except ValueError as err:
+        if "K2" not in str(err) or "dtype=torch.bfloat16" not in str(err):
+            raise
+    else:
+        raise AssertionError("an f32 UNet with qk_int8 on CUDA was not refused at Unet.forward")
     A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
     A.flash_attention_qk_i8.launches_by_head_dim = {}
     with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
@@ -691,7 +816,7 @@ def phase_unet_256(torch, A, device):
                              f"= (0, 12, 12), K2 by head dim {by_d} (4 at D = 192); or not finite")
     log(f"  the same UNet with qk_int8 (the CLI's default on the card): a forward takes K2 and its quantizer at all "
         f"its {counts[1]} flash-length layers, by head dim {by_d} (4 at D = 192, K2's new instantiation); "
-        "output finite")
+        "output finite; in f32 Unet.forward refuses it by name")
     return by_d[192]
 
 
@@ -710,8 +835,9 @@ def build_models(torch):
 
 def phase_slice(torch, A, device, models, card):
     """The five variants at full width. Warm-up runs first (cuDNN picks its
-    algorithms), then REPEATS rounds that time each variant in turn, so drift
-    on the shared host spreads over all alike. Peak memory is read per
+    algorithms; WARMUP_STEPS steps each, which take every kind of step the
+    timed runs take), then REPEATS rounds that time each variant in turn, so
+    drift on the shared host spreads over all alike. Peak memory is read per
     variant."""
     from weatherconverter_tpu_torch.core.config import UnetModelConfig
     from weatherconverter_tpu_torch.diffusion.schedule import linear_schedule
@@ -738,9 +864,10 @@ def phase_slice(torch, A, device, models, card):
         ("alternate", unet, ALTERNATE, gt, ALT_STEPS, (alt_calls, 0, 0)),
         ("alternate_present_k8", unet, ALTERNATE_PRESENT_K, gt8, ALT_STEPS, (alt_calls, 0, 0)),
     ):
-        fn = make_translate_fn(model, sched, seg, gen, dtype=torch.bfloat16,
-                               **{**dict(num_steps=steps, start_t=steps - 1, mode="fixed", guidance_style="gsg"), **kw})
-        fn(inp, labels, torch.Generator(device=device).manual_seed(2))  # warm-up
+        fn, warm = (make_translate_fn(model, sched, seg, gen, dtype=torch.bfloat16,
+                                      **{**dict(num_steps=n, start_t=n - 1, mode="fixed", guidance_style="gsg"), **kw})
+                    for n in (steps, WARMUP_STEPS))
+        warm(inp, labels, torch.Generator(device=device).manual_seed(2))
         variants[name] = (fn, kw, labels, steps, expected, [])
     torch.cuda.synchronize()
     log(f"  peak device memory over the warm-up runs, in which cuDNN tries its algorithms: "
@@ -822,7 +949,6 @@ def phase_profile(torch, device, slice_state):
     from weatherconverter_tpu_torch.guidance.translate import make_translate_fn
 
     unet, unet_i8, seg, gen, sched, inp, gt, gt8 = slice_state
-    cuda = torch.autograd.DeviceType.CUDA
     per_step = {}
     for name, model, kw, labels in (("headline", unet, HEADLINE, gt), ("reference_exact", unet, REFERENCE_EXACT, gt),
                                     ("headline_qk_int8", unet_i8, HEADLINE, gt), ("alternate", unet, ALTERNATE, gt),
@@ -836,8 +962,7 @@ def phase_profile(torch, device, slice_state):
             fn(inp, labels, torch.Generator(device=device).manual_seed(6))
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None) == cuda and getattr(e, "device_time_total", 0) > 0]
+        events = _kernel_events(torch, prof)
         total_us = sum(e.device_time_total for e in events)
         if total_us == 0:
             log(f"  {name}: the profiler saw no device time; device breakdown not measured")
@@ -981,7 +1106,9 @@ def phase_train_reference(torch, device, model_config):
     same t, noise, crop and flip. Freshly initialised weights keep the
     comparison the same from run to run: after the training phase the
     weights depend on cuDNN's algorithm choices, and as the loss falls the
-    bf16 error of the gradient grows relative to the gradient itself."""
+    bf16 error of the gradient grows relative to the gradient itself.
+    Returns what phase 24 (a) holds its f32 card step against: the weights,
+    the draws, the CPU step's loss and gradient, and this step's readings."""
     import copy
 
     from weatherconverter_tpu_torch.data.transforms import diffusion_train_augment
@@ -1008,13 +1135,152 @@ def phase_train_reference(torch, device, model_config):
         grad = torch.cat([p.grad.float().flatten() for p in model.parameters()]).cpu()
         results.append((loss.item(), grad, time.perf_counter() - t0))
     (l_card, g_card, _), (l_cpu, g_cpu, cpu_s) = results
-    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    grad_rel = ((g_card - g_cpu).norm() / g_cpu.norm()).item()
+    loss_rel, grad_rel = _step_errors(l_card, g_card, l_cpu, g_cpu)
     log(f"  card bf16 vs CPU f32, one train step at batch 2: loss {l_card:.6f} vs {l_cpu:.6f}, relative error "
         f"{loss_rel:.3e} (tol {TRAIN_LOSS_REL_TOL}); UNet gradient relative L2 error {grad_rel:.3e} "
         f"(tol {TRAIN_GRAD_REL_TOL}); CPU step {cpu_s:.1f} s")
     if not (loss_rel <= TRAIN_LOSS_REL_TOL and grad_rel <= TRAIN_GRAD_REL_TOL):
         raise AssertionError(f"card and CPU train steps disagree: loss {loss_rel}, gradient {grad_rel}")
+    return dict(model=reference_model, images=images, offsets=offsets, flip=flip, t=t, noise=noise,
+                cpu=(l_cpu, g_cpu), bf16=(loss_rel, grad_rel))
+
+
+def _step_errors(l_card, g_card, l_cpu, g_cpu):
+    """(relative error of the loss, relative L2 error of the flattened gradient) of a card step against the CPU's."""
+    return abs(l_card - l_cpu) / abs(l_cpu), ((g_card - g_cpu).norm() / g_cpu.norm()).item()
+
+
+def phase_train_f32(torch, A, device, card, tmp, reference, dcfg=None, steps=4, window_steps=3):
+    """DDPM training with training.dtype float32 on the card: K1-f32 forward
+    and K3-f32 backward at every flash-length layer, convolutions and
+    matmuls with TF32 off (loop_diffusion.f32_arithmetic).
+    (a) One f32 train step at batch 2 held against phase 7's CPU f32 step
+    (`reference`: the same weights, t, noise, crop and flip; its CPU result
+    reused): the loss's relative error and the UNet gradient's relative L2
+    error within F32_TRAIN_*_REL_TOL, which phase 7's bf16 step, the planted
+    fault, must break.
+    (b) `train-ddpm --set training.dtype=float32` through the CLI at
+    configs/diffusion.yaml's model, batch 8, on phase 13's synthetic tree
+    (32 images under `tmp`/data: one epoch of `steps` steps, so the epoch's
+    checkpoint is written; --max-steps would stop before it, as in JAX's
+    loop): exit 0, finite losses, a checkpoint that restores at step
+    `steps`; K1-f32 and K3-f32 launched as unet_attention_shapes predicts
+    (8 a step each), K1 and K3 never.
+    (c) The augmented f32 train step at batch 8 on one batch: wall ms a step
+    over `window_steps`, device ms a step, idle share and launches from a
+    profiled run, peak GiB.
+    Returns the K1-f32 and K3-f32 launches that (b)'s counters read."""
+    import copy
+
+    from weatherconverter_tpu_torch.cli.main import main as cli_main
+    from weatherconverter_tpu_torch.core.config import load_diffusion_config
+    from weatherconverter_tpu_torch.data.transforms import diffusion_train_augment
+    from weatherconverter_tpu_torch.diffusion.schedule import make_schedule
+    from weatherconverter_tpu_torch.models.unet import Unet, unet_attention_shapes
+    from weatherconverter_tpu_torch.training import loop_diffusion
+    from weatherconverter_tpu_torch.training.diffusion import create_ddpm_state, train_step
+
+    on_card = device.type == "cuda"
+    counters = (A.flash_attention, A.flash_attention_bwd, A.flash_attention_f32, A.flash_attention_bwd_f32)
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def counts():
+        return tuple(c.launches for c in counters)
+
+    # (a)
+    model = copy.deepcopy(reference["model"]).to(device)
+    state = create_ddpm_state(model, lr=1e-4)
+    x = diffusion_train_augment(reference["images"].to(device), crop=128, offsets=reference["offsets"],
+                                flip=reference["flip"].to(device))
+    flash = sum(A.is_flash_length(n) for n, _ in model.attention_shapes(128))
+    zero()
+    with loop_diffusion.f32_arithmetic(device, None):
+        _, loss = train_step(state, x, make_schedule("linear", 1000, device=device), t=reference["t"].to(device),
+                             noise=reference["noise"].to(device))
+    grad = torch.cat([p.grad.float().flatten() for p in model.parameters()]).cpu()
+    got = counts()
+    if on_card and got != (0, 0, flash, flash):
+        raise AssertionError(f"f32 train step: launches (K1, K3, K1-f32, K3-f32) {got}, expected (0, 0, {flash}, "
+                             f"{flash})")
+    loss_rel, grad_rel = _step_errors(loss.item(), grad, *reference["cpu"])
+    bf16_loss, bf16_grad = reference["bf16"]
+    log(f"  (a) card f32 vs CPU f32, one train step at batch 2 (phase 7's weights, draws and CPU step): loss relative "
+        f"error {loss_rel:.3e} (tol {F32_TRAIN_LOSS_REL_TOL}), UNet gradient relative L2 error {grad_rel:.3e} (tol "
+        f"{F32_TRAIN_GRAD_REL_TOL}); the planted fault, phase 7's bf16 step: {bf16_loss:.3e} and {bf16_grad:.3e}; "
+        f"launches K1-f32 {got[2]}, K3-f32 {got[3]}")
+    if not (loss_rel <= F32_TRAIN_LOSS_REL_TOL and grad_rel <= F32_TRAIN_GRAD_REL_TOL):
+        raise AssertionError(f"f32 card and CPU train steps disagree: loss {loss_rel}, gradient {grad_rel}")
+    if on_card and not (bf16_loss > F32_TRAIN_LOSS_REL_TOL and bf16_grad > F32_TRAIN_GRAD_REL_TOL):
+        raise AssertionError(f"the f32 limits do not reject phase 7's bf16 step ({bf16_loss}, {bf16_grad})")
+    del model, state, x, grad
+    torch.cuda.empty_cache()
+
+    # (b)
+    dcfg = dcfg or os.path.join(REPO, "configs", "diffusion.yaml")
+    run = os.path.join(tmp, "train_f32")
+    argv = ["train-ddpm", "--config", dcfg, "--set", "training.dtype=float32",
+            f"data.root_dir={os.path.join(tmp, 'data')}", "data.acdc_images=rgb_anon", 'data.weather=["fog"]',
+            f"training.batch_size={BATCH}", "training.num_workers=0", "training.log_interval=1", "training.epochs=1",
+            "training.save_interval=1", f"folders.output={run}"]
+    argv += [] if on_card else ["--device", "cpu"]
+    model_cfg = load_diffusion_config(dcfg).model
+    flash = sum(A.is_flash_length(n) for n, _ in unet_attention_shapes(model_cfg, model_cfg.im_size))
+    zero()
+    t0 = time.perf_counter()
+    code = cli_main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_got = got = counts()
+    expected = (0, 0, flash * steps, flash * steps) if on_card else (0, 0, 0, 0)
+    if code != 0 or got != expected:
+        raise AssertionError(f"cli train-ddpm f32: exit {code}, launches (K1, K3, K1-f32, K3-f32) {got}, expected 0 "
+                             f"and {expected}")
+    with open(os.path.join(run, "0", "metrics.jsonl")) as f:
+        losses = [r["train/loss"] for r in map(json.loads, f) if "train/loss" in r]
+    if len(losses) != steps or not all(l == l and abs(l) < float("inf") for l in losses):
+        raise AssertionError(f"cli train-ddpm f32: {steps} finite losses expected, got {losses}")
+    fresh = create_ddpm_state(Unet(model_cfg).to(device), lr=1e-4)
+    loop_diffusion.ckpt_restore_into(os.path.join(run, "0", "checkpoints"), fresh)
+    if fresh.step != steps:
+        raise AssertionError(f"cli train-ddpm f32: the checkpoint's step {fresh.step}, expected {steps}")
+    log(f"  (b) cli train-ddpm --set training.dtype=float32, batch {BATCH}, {steps} steps: exit 0 in {cli_s:.1f} s "
+        f"(model from the seed, cuDNN's first shapes included), losses {', '.join(f'{l:.4f}' for l in losses)}, "
+        f"checkpoint restored at step {fresh.step}; launches K1/K3/K1-f32/K3-f32 {'/'.join(map(str, got))} "
+        f"({flash} a step each for the f32 kernels)")
+
+    # (c)
+    state = fresh
+    del fresh
+    step_fn = loop_diffusion.make_augmented_train_step(make_schedule("linear", 1000, device=device), model_cfg.im_size)
+    batch = torch.stack([torch.from_numpy(SyntheticImages(BATCH, seed=1)[i]) for i in range(BATCH)]).to(device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    with loop_diffusion.f32_arithmetic(device, None):
+        step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        t0 = time.perf_counter()
+        for _ in range(window_steps):
+            _, loss = step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / window_steps
+        got = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not (loss.item() == loss.item() and abs(loss.item()) < float("inf")):
+            raise AssertionError(f"f32 train step: loss {loss.item()}")
+        if on_card:
+            prof_wall, dev_ms, launches = _device_profile(torch, lambda: step_fn(state, batch, gen), 1)
+    if on_card and got != (0, 0, flash * window_steps, flash * window_steps):
+        raise AssertionError(f"f32 train window: launches (K1, K3, K1-f32, K3-f32) {got}")
+    log(f"  (c) f32 train step (augment + fwd + bwd + Adam + EMA) at batch {BATCH}: {wall:.1f} ms/step wall over "
+        f"{window_steps} steps, {1e3 * BATCH / wall:.1f} images/s [{card}]; "
+        + (f"a profiled step: wall {prof_wall:.1f} ms, device {dev_ms:.1f} ms, idle share "
+           f"{max(0.0, 1 - dev_ms / prof_wall):.2f}, {launches} kernel launches; " if on_card else "")
+        + f"peak {peak:.2f} GiB; launches a step K1-f32 {got[2] // window_steps}, K3-f32 {got[3] // window_steps}")
+    return cli_got[2], cli_got[3]
 
 
 def phase_train_profile(torch, train_state):
@@ -1032,9 +1298,7 @@ def phase_train_profile(torch, train_state):
             step_fn(state, batch, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == cuda and getattr(e, "device_time_total", 0) > 0]
+    events = _kernel_events(torch, prof)
     # the optimizer's record_function range shows up on the device as well,
     # spanning its own kernels: report it apart, never add it to the sum
     adam_us = sum(e.device_time_total for e in events if e.key.startswith("Optimizer."))
@@ -1103,18 +1367,37 @@ def _device_profile(torch, fn, steps: int, top: int = 0):
     return total + ([(e.key, e.device_time_total / 1e3, e.count) for e in ranked],)
 
 
+class _DeviceSum:
+    """One name's device time (us) and launch count, as an entry of key_averages() gives them."""
+
+    def __init__(self, key, device_time_total, count):
+        self.key, self.device_time_total, self.count = key, device_time_total, count
+
+
 def _kernel_events(torch, prof):
-    """The profiler's averages of the kernels that ran on the device."""
+    """The device's events (kernels, copies, annotated ranges) summed by name, those of non-zero time: the
+    entries of the profiler's key_averages() whose device type is CUDA, read from its raw events with the
+    same filters. key_averages() first builds a tree of every event, host operators included, which took
+    ~80 s of this script's run on the chains' tens of thousands of launches."""
+    from torch.autograd.profiler import _filter_name
+
     cuda = torch.autograd.DeviceType.CUDA
-    return [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == cuda and getattr(e, "device_time_total", 0) > 0]
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != cuda or _filter_name(e.name()) or getattr(e, "is_hidden_event", lambda: False)()
+                or e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            continue
+        s = sums.setdefault(e.name(), [0.0, 0])
+        s[0] += e.duration_ns() / 1e3
+        s[1] += 1
+    return [_DeviceSum(torch._C._demangle(k), us, n) for k, (us, n) in sums.items() if us > 0]
 
 
 def phase_samplers(torch, A, device, models, card):
     """ddpm_sample, sample_with_sgg_ddim and sample_with_sgg_dpm at batch 8,
-    each through K1 and through K2 with its quantizer: warm-up, then REPEATS
-    rounds timing each in turn (host clock, ending in a synchronize), the
-    kernels counted in every run, peak memory per run; then one profiled run
+    each through K1 and through K2 with its quantizer: warm-up (PROFILE_STEPS
+    steps each: the same shapes), then SAMPLER_REPEATS rounds timing each in turn (host clock, ending in a
+    synchronize), the kernels counted in every run, peak memory per run; then one profiled run
     of PROFILE_STEPS steps each for device time, idle share and launches."""
     from weatherconverter_tpu_torch.core.config import UnetModelConfig
     from weatherconverter_tpu_torch.diffusion.sampling import ddpm_sample
@@ -1146,9 +1429,9 @@ def phase_samplers(torch, A, device, models, card):
                 expected=(0, calls, calls) if int8 else (calls, 0, 0))
     with torch.autocast("cuda", dtype=torch.bfloat16):
         for p in paths.values():  # warm-up: cuDNN picks its algorithms
-            p["run"](torch.Generator(device=device).manual_seed(29))
+            runner(p["kind"], p["model"], PROFILE_STEPS)(torch.Generator(device=device).manual_seed(29))
         torch.cuda.synchronize()
-        for rep in range(REPEATS):
+        for rep in range(SAMPLER_REPEATS):
             for name, p in paths.items():
                 A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
                 torch.cuda.reset_peak_memory_stats()
@@ -1182,7 +1465,7 @@ def phase_samplers(torch, A, device, models, card):
             metric = (f"guided_256px_{p['steps']}step_{tag}_translations_per_min_per_chip "
                       f"{60e3 * BATCH / run_ms:.3f} (measured, whole runs)")
         wall, kernel, count = p["profile"]
-        log(f"  {name}: {ms_step:.2f} ms/step wall (median of {REPEATS} runs of {p['steps']} steps: "
+        log(f"  {name}: {ms_step:.2f} ms/step wall (median of {SAMPLER_REPEATS} runs of {p['steps']} steps: "
             f"{', '.join(f'{t / p['steps']:.2f}' for t in p['times'])}); {metric} [{card}]; profiled "
             f"{PROFILE_STEPS}-step run: device {kernel / PROFILE_STEPS:.2f} ms/step, wall {wall / PROFILE_STEPS:.2f} "
             f"ms/step under the profiler, idle share ~{max(0.0, 1 - kernel / wall):.2f}, {count / PROFILE_STEPS:.0f} "
@@ -2468,7 +2751,9 @@ def phase_export(torch, A, device, card, tmp, tcfg=None, steps=None, batch=None)
     quantizer 8 a UNet forward, no K1, live and loaded), bf16 casts in the
     loaded graph, output dtypes equal, the loaded output equal to the live
     one bit for bit, finite, in [0, 1], of (B, 512, 512, 3). Prints the
-    trace, export, save, load and run seconds and the archive's MiB."""
+    trace, export, save, load and run seconds and the archive's MiB. Returns
+    with the fresh process running: the call it returns waits for it, holds
+    it to those gates and prints the line."""
     import subprocess
 
     from weatherconverter_tpu_torch.cli import commands
@@ -2510,41 +2795,56 @@ def phase_export(torch, A, device, card, tmp, tcfg=None, steps=None, batch=None)
             lives.append(fn(*args).cpu())
             live_s = time.perf_counter() - t0
         live_counts = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
-    live = lives[0]
     torch.save(args, os.path.join(tmp, "export_args.pt"))
     del args, models, data
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", _EXPORT_CONSUMER, out, os.path.join(tmp, "export_args.pt"),
-                           os.path.join(tmp, "export_out.pt"), REPO, device.type], capture_output=True, text=True,
-                          timeout=600)
-    fresh_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"hlo_runtime in a fresh process: exit {proc.returncode}\n{proc.stderr[-3000:]}")
-    with open(os.path.join(tmp, "export_out.pt.json")) as fh:
-        fresh = json.load(fh)
-    served = torch.load(os.path.join(tmp, "export_out.pt"))
-    expect = (0, FLASH_CALLS_PER_UNET * steps, FLASH_CALLS_PER_UNET * steps) if on_card else (0, 0, 0)
-    loaded_counts = (fresh["k1"], fresh["k2"], fresh["quantizer"])
-    log(f"  export-hlo --attn {info['attn']} translate, {steps} steps, batch {batch}: exit 0 in {export_wall:.1f} s "
-        f"(trace {info['export']['trace_s']:.1f} s, torch.export {info['export']['export_s']:.1f} s, save "
-        f"{info['export']['save_s']:.1f} s), {info['export']['nodes']} nodes, {info['export']['mib']:.1f} MiB, "
-        f"{len(info['args'])} arguments; the live program {live_s:.2f} s, launches K1/K2/quantizer "
-        f"{'/'.join(map(str, live_counts))}; two live runs {'bit-equal' if torch.equal(*lives) else 'DIFFER'}; the "
-        f"fresh process {fresh_s:.1f} s (imports {fresh['import_s']:.1f} s, load {fresh['load_s']:.1f} s, run "
-        f"{fresh['run_s']:.2f} s), launches K1/K2/quantizer {'/'.join(map(str, loaded_counts))}, {fresh['bf16_casts']} "
-        f"bf16 casts in the loaded graph, model modules imported {fresh['model_modules'] or 'none'}; loaded against "
-        f"live: max |diff| {(served - live).abs().max().item():.3e} [{card}]")
-    if not (torch.equal(*lives) and torch.equal(served, live)):
-        raise AssertionError(f"export: the loaded program differs from the live one (or two live runs differ: "
-                             f"{(lives[0] - lives[1]).abs().max().item()})")
-    if live_counts != expect or loaded_counts != expect or fresh["model_modules"] or fresh["dtype"] != str(live.dtype) \
-            or (on_card and not fresh["bf16_casts"]):
-        raise AssertionError(f"export: launches live {live_counts} / loaded {loaded_counts}, expected {expect}; model "
-                             f"modules {fresh['model_modules']}; dtypes {fresh['dtype']} / {live.dtype}; bf16 casts "
-                             f"{fresh['bf16_casts']}")
-    if live.shape != (batch, hr, hr, 3) or not (torch.isfinite(live).all() and live.min() >= 0 and live.max() <= 1):
-        raise AssertionError(f"export: output {tuple(live.shape)}, finite and in [0, 1]: not so")
+    err = open(os.path.join(tmp, "export_consumer.err"), "w+")
+    proc = subprocess.Popen([sys.executable, "-c", _EXPORT_CONSUMER, out, os.path.join(tmp, "export_args.pt"),
+                             os.path.join(tmp, "export_out.pt"), REPO, device.type], stdout=subprocess.DEVNULL,
+                            stderr=err)
+
+    def finish():
+        try:
+            proc.wait(timeout=max(600 - (time.perf_counter() - t0), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        fresh_s = time.perf_counter() - t0
+        err.seek(0)
+        stderr = err.read()
+        err.close()
+        if proc.returncode != 0:
+            raise AssertionError(f"hlo_runtime in a fresh process: exit {proc.returncode}\n{stderr[-3000:]}")
+        live = lives[0]
+        with open(os.path.join(tmp, "export_out.pt.json")) as fh:
+            fresh = json.load(fh)
+        served = torch.load(os.path.join(tmp, "export_out.pt"))
+        expect = (0, FLASH_CALLS_PER_UNET * steps, FLASH_CALLS_PER_UNET * steps) if on_card else (0, 0, 0)
+        loaded_counts = (fresh["k1"], fresh["k2"], fresh["quantizer"])
+        log(f"  export-hlo --attn {info['attn']} translate, {steps} steps, batch {batch}: exit 0 in "
+            f"{export_wall:.1f} s (trace {info['export']['trace_s']:.1f} s, torch.export {info['export']['export_s']:.1f} s, save "
+            f"{info['export']['save_s']:.1f} s), {info['export']['nodes']} nodes, {info['export']['mib']:.1f} MiB, "
+            f"{len(info['args'])} arguments; the live program {live_s:.2f} s, launches K1/K2/quantizer "
+            f"{'/'.join(map(str, live_counts))}; two live runs {'bit-equal' if torch.equal(*lives) else 'DIFFER'}; "
+            f"the fresh process {fresh_s:.1f} s (imports "
+            f"{fresh['import_s']:.1f} s, load {fresh['load_s']:.1f} s, run {fresh['run_s']:.2f} s), launches "
+            f"K1/K2/quantizer {'/'.join(map(str, loaded_counts))}, {fresh['bf16_casts']} bf16 casts in the loaded "
+            f"graph, model modules imported {fresh['model_modules'] or 'none'}; loaded against live: max |diff| "
+            f"{(served - live).abs().max().item():.3e} [{card}]")
+        if not (torch.equal(*lives) and torch.equal(served, live)):
+            raise AssertionError(f"export: the loaded program differs from the live one (or two live runs differ: "
+                                 f"{(lives[0] - lives[1]).abs().max().item()})")
+        if live_counts != expect or loaded_counts != expect or fresh["model_modules"] \
+                or fresh["dtype"] != str(live.dtype) or (on_card and not fresh["bf16_casts"]):
+            raise AssertionError(f"export: launches live {live_counts} / loaded {loaded_counts}, expected {expect}; "
+                                 f"model modules {fresh['model_modules']}; dtypes {fresh['dtype']} / {live.dtype}; "
+                                 f"bf16 casts {fresh['bf16_casts']}")
+        if live.shape != (batch, hr, hr, 3) or not (torch.isfinite(live).all() and live.min() >= 0
+                                                    and live.max() <= 1):
+            raise AssertionError(f"export: output {tuple(live.shape)}, finite and in [0, 1]: not so")
+
+    return finish
 
 
 # phase 22: two ranks on the one card; the DDPM step at global batch DP_BATCH (DP_BATCH / 2 a rank), the seg step
@@ -2759,6 +3059,26 @@ def phase_data_parallel(torch, A, device, card, tmp, scfg=None, dcfg=None, unet_
     log(f"  single-process references on the card in {time.perf_counter() - t_phase:.1f} s: DDPM loss "
         f"{ref['loss']:.6f}, seg loss {seg_ref['loss']:.6f}")
 
+    # (c) FSDP over NCCL at world size 1, through torchrun and the CLI: started here, beside the two ranks, and
+    # held to its gates after them (its run is mostly process start-up, imports and the model's build)
+    root = os.path.join(tmp, "dp_data")
+    folder = os.path.join(root, "rgb_anon", "fog", "train")
+    os.makedirs(folder)
+    for i in range(2 * DP_BATCH):
+        Image.fromarray(SyntheticImages(1, seed=30 + i)[0][:, :px * 228 // 128][:px]).save(
+            os.path.join(folder, f"{i}.png"))
+    runs = os.path.join(tmp, "dp_runs")
+    t_run = time.perf_counter()
+    with open(os.path.join(tmp, "torchrun.out"), "w") as out, open(os.path.join(tmp, "torchrun.err"), "w") as err:
+        torchrun = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1", "-m",
+             "weatherconverter_tpu_torch.cli.main", "train-ddpm", "--config",
+             dcfg or os.path.join(REPO, "configs", "diffusion.yaml"), "--set", "training.fsdp=true",
+             "training.epochs=1", "training.save_interval=1", f"training.batch_size={DP_BATCH}",
+             "training.num_workers=0", f"data.root_dir={root}", "data.acdc_images=rgb_anon", 'data.weather=["fog"]',
+             f"folders.output={runs}"] + ([] if on_card else ["--device", "cpu"]),
+            cwd=REPO, stdout=out, stderr=err)
+
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -2848,36 +3168,26 @@ def phase_data_parallel(torch, A, device, card, tmp, scfg=None, dcfg=None, unet_
         log(f"  (b) rank {r['rank']}: seg step {r['seg']['wall_ms']:.1f} ms wall (first step, cuDNN pinned to its "
             f"heuristics) [{card}; two ranks sharing one card: no scaling figure]")
 
-    # (c) FSDP over NCCL at world size 1, through torchrun and the CLI
-    root = os.path.join(tmp, "dp_data")
-    folder = os.path.join(root, "rgb_anon", "fog", "train")
-    os.makedirs(folder)
-    for i in range(2 * DP_BATCH):
-        Image.fromarray(SyntheticImages(1, seed=30 + i)[0][:, :px * 228 // 128][:px]).save(
-            os.path.join(folder, f"{i}.png"))
-    runs = os.path.join(tmp, "dp_runs")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1", "-m",
-         "weatherconverter_tpu_torch.cli.main", "train-ddpm", "--config",
-         dcfg or os.path.join(REPO, "configs", "diffusion.yaml"), "--set", "training.fsdp=true", "training.epochs=1",
-         "training.save_interval=1", f"training.batch_size={DP_BATCH}", "training.num_workers=0",
-         f"data.root_dir={root}", "data.acdc_images=rgb_anon", 'data.weather=["fog"]', f"folders.output={runs}"]
-        + ([] if on_card else ["--device", "cpu"]),
-        cwd=REPO, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
-    secs = time.perf_counter() - t0
-    fsdp_line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("FSDP:")), None)
+    # (c) the torchrun started above
+    try:
+        torchrun.wait(timeout=max(DP_TIMEOUT_S - (time.perf_counter() - t_run), 1))
+    except subprocess.TimeoutExpired:
+        torchrun.kill()
+        torchrun.wait()
+    secs = time.perf_counter() - t_run
+    stdout, stderr = (open(os.path.join(tmp, f"torchrun.{n}")).read() for n in ("out", "err"))
+    fsdp_line = next((ln for ln in stdout.splitlines() if ln.startswith("FSDP:")), None)
     listing = sorted(os.listdir(runs)) if os.path.isdir(runs) else []
-    if proc.returncode != 0 or listing != ["0"] or fsdp_line is None:
-        raise AssertionError(f"torchrun train-ddpm fsdp: exit {proc.returncode}, runs {listing}, FSDP line "
-                             f"{fsdp_line!r}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    if torchrun.returncode != 0 or listing != ["0"] or fsdp_line is None:
+        raise AssertionError(f"torchrun train-ddpm fsdp: exit {torchrun.returncode}, runs {listing}, FSDP line "
+                             f"{fsdp_line!r}\n{stdout[-3000:]}\n{stderr[-3000:]}")
     plain = PD.create_ddpm_state(Unet(UnetModelConfig(**unet_cfg)).to(device), lr=1e-4)
     ckpt_restore_into(os.path.join(runs, "0", "checkpoints"), plain)
     if plain.step != 2 or not all(torch.isfinite(p).all().item() for p in plain.model.parameters()):
         raise AssertionError(f"torchrun train-ddpm fsdp: the checkpoint's step {plain.step}, expected 2")
     log(f"  (c) torchrun --nproc-per-node 1 ... cli.main train-ddpm, training.fsdp=true, NCCL at world size 1: exit 0 in "
-        f"{secs:.1f} s (process start-up included), one run directory, {fsdp_line!r}, its checkpoint (step "
-        f"{plain.step}) loaded into a plain single-process state")
+        f"{secs:.1f} s (process start-up included; beside the two ranks), one run directory, {fsdp_line!r}, its "
+        f"checkpoint (step {plain.step}) loaded into a plain single-process state")
     log(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3178,7 +3488,8 @@ def _round(x):
 
 
 PTXAS_KERNELS = ("flash_fwd_qk_i8_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
-                 "flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel", "absmax_qk_kernel", "quantize_qk_kernel",
+                 "flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
+                 "flash_bwd_f32_dq_kernel", "flash_bwd_f32_dkv_kernel", "absmax_qk_kernel", "quantize_qk_kernel",
                  "probe_exp2_attn_wgmma_kernel", "probe_qk_kernel", "probe_dw3x3_kernel",
                  "probe_dw_fma81_kernel")
 
@@ -3193,7 +3504,9 @@ def ptxas_summary(build_log: str) -> list[str]:
             args = (["f16"] if "6__half" in mangled else ["bf16"] if "13__nv_bfloat16" in mangled or "4Bf16E" in mangled
                     else ["int8"] if "2I8E" in mangled else [])
             dims = re.findall(r"Li(\d+)E", mangled)  # K1: <T, D, G>, G the head dim on D-wide tiles
-            if dims:
+            if "dkv" in name and len(dims) == 2:  # K3's and K3-f32's pass 2: <(T,) D, which gradients>
+                args.append(f"D={dims[0]}, {('dV', 'dK', 'dK and dV')[int(dims[1]) - 1]}")
+            elif dims:
                 args.append(f"D={dims[-1]}" + (f" on {dims[0]}-wide tiles" if dims[0] != dims[-1] else ""))
             name += f"<{', '.join(args)}>" if args else ""
         elif "spill stores" in ln:
@@ -3233,23 +3546,25 @@ def main() -> int:
     log(f"  built {', '.join(cuda_build.SOURCES)} in {time.perf_counter() - t0:.1f} s; ptxas, per kernel:")
     for ln in ptxas:
         log(f"    {ln}")
-    # K1-K4, the wgmma kernels, must not spill; the log is that of the loaded library, also when an
-    # earlier run built it
-    wgmma = [ln for ln in ptxas if "wgmma_kernel" in ln]
-    missing = [k for k in PTXAS_KERNELS if "wgmma_kernel" in k and not any(k in ln for ln in wgmma)]
+    # K1-K4, the wgmma kernels, and the f32 flash kernels K1-f32 and K3-f32 must not spill; the log is that of the
+    # loaded library, also when an earlier run built it
+    gated = [k for k in PTXAS_KERNELS if "wgmma_kernel" in k or "_f32_" in k]
+    wgmma = [ln for ln in ptxas if any(ln.startswith(k + "<") or ln.startswith(k + ":") for k in gated)]
+    missing = [k for k in gated if not any(ln.startswith(k + "<") or ln.startswith(k + ":") for ln in wgmma)]
     if missing:
         raise AssertionError(f"the build log does not name {missing}: the spill and wgmma gates have nothing to read")
     spilled = [ln for ln in wgmma if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     if spilled:
-        raise AssertionError(f"ptxas reports register spills in K1-K4: {spilled}")
+        raise AssertionError(f"ptxas reports register spills in K1-K4, K1-f32 or K3-f32: {spilled}")
     if "Potential Performance Loss" in cuda_build.build_log():
         raise AssertionError("ptxas serialized the wgmma instructions of a kernel (see the build log): "
                              + next(ln for ln in cuda_build.build_log().splitlines() if "Potential" in ln))
 
-    log(f"phase 2: kernels against their plain versions, bf16 [{card}]")
+    log(f"phase 2: kernels against their plain versions, bf16 and f32 [{card}]")
     kernel_results = phase_kernels(torch, A, device, card)
     kernel_results.update(phase_quantizer(torch, A, device, card))
     kernel_results["flash_attention_bwd"] = phase_backward_kernel(torch, A, device, card)
+    kernel_results["flash_attention_bwd_f32"] = phase_backward_f32_kernel(torch, A, device, card)
     k2_d192_launches = phase_unet_256(torch, A, device)
     torch.cuda.empty_cache()
 
@@ -3271,7 +3586,7 @@ def main() -> int:
     train_state = phase_train(torch, A, device, card, UnetModelConfig())
 
     log("phase 7: one train step, card against CPU")
-    phase_train_reference(torch, device, UnetModelConfig())
+    train_reference = phase_train_reference(torch, device, UnetModelConfig())
 
     log(f"phase 8: training profile [{card}]")
     phase_train_profile(torch, train_state)
@@ -3295,7 +3610,11 @@ def main() -> int:
 
     import tempfile
 
-    with tempfile.TemporaryDirectory() as tmp:
+    # from phase 13 on cuDNN picks its algorithms by its heuristics, as in a process of the CLI, the server or a
+    # training loop (torch's default): the timed windows of phases 3, 6 and 10 keep its first-shape trials, which
+    # took ~96 s of phase 16's 120 before phase 16 ran without them (PERF.md section 6)
+    with tempfile.TemporaryDirectory() as tmp, \
+            torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
         log(f"phase 13: the CLI on the card [{card}]")
         phase_cli(torch, A, device, card, tmp)
         torch.cuda.empty_cache()
@@ -3306,9 +3625,7 @@ def main() -> int:
         phase_seg(torch, device, card, tmp)
         torch.cuda.empty_cache()
         log(f"phase 16: the rest of the DeepLab family on the card [{card}]")
-        # cuDNN by its heuristics here: its first-shape trials took ~96 s of this phase's 120 (PERF.md section 6)
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
-            phase_seg_family(torch, device, card)
+        phase_seg_family(torch, device, card)
         torch.cuda.empty_cache()
         log(f"phase 17: SRGAN training on the card [{card}]")
         phase_srgan(torch, device, card, tmp)
@@ -3323,13 +3640,20 @@ def main() -> int:
         phase_visualize_debug(torch, A, device, card, tmp)
         torch.cuda.empty_cache()
         log(f"phase 21: export-hlo --attn int8 and serving/hlo_runtime on the card [{card}]")
-        phase_export(torch, A, device, card, tmp)
+        # the fresh process that loads the archive runs beside phase 22, and is held to its gates after it
+        export_finish = phase_export(torch, A, device, card, tmp)
         torch.cuda.empty_cache()
         log(f"phase 22: data parallel on the card [{card}]")
         phase_data_parallel(torch, A, device, card, tmp)
         torch.cuda.empty_cache()
+        log("  phase 21's fresh process, which ran beside phase 22:")
+        export_finish()
         log(f"phase 23: spatial guidance across two ranks and the host feed [{card}]")
         phase_spatial_feed(torch, device, card, tmp)
+        torch.cuda.empty_cache()
+        log(f"phase 24: DDPM training in f32 on the card [{card}]")
+        f32_fwd_launches, f32_bwd_launches = phase_train_f32(torch, A, device, card, tmp, train_reference)
+        del train_reference
 
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []
@@ -3345,6 +3669,10 @@ def main() -> int:
          train_launches[2]),
         ("flash_attention_f32", csrc + "flash_fwd_f32.cu", "weatherconverter_tpu/ops/attention.py:78",
          legacy_launches[3]),
+        ("flash_attention_f32_train", csrc + "flash_fwd_f32.cu", "weatherconverter_tpu/ops/attention.py:456",
+         f32_fwd_launches),
+        ("flash_attention_bwd_f32", csrc + "flash_bwd_f32.cu", "weatherconverter_tpu/ops/attention.py:305",
+         f32_bwd_launches),
         ("flash_attention_qk_i8_per_item", csrc + "flash_fwd_qk_i8.cu",
          "weatherconverter_tpu/ops/attention.py:125 under jax.vmap (weatherconverter_tpu/serving/server.py:191-226)",
          server_k2_launches),
@@ -3377,9 +3705,12 @@ def main() -> int:
         "quantization it replaces and whose launches count calls of two kernels each) are sums over the four "
         "path shapes (K1's and K3's lines at (1024, 192) and K1's at (1024, 24) stand beside them in phase 2, not in "
         "the sums); K2's ms includes its quantizer's; K1-f32's are sums over the legacy UNet's (1024, 16) and "
-        "(1024, 24) in f32, its library sdpa's f32 forward; launches are from "
-        "the headline run (K1), the int8 run (K2, quantizer), the loop_diffusion.train run (K3) and phase 18's f32 "
-        "legacy run (K1-f32); the *_per_item lines are K2 and its quantizer with one int8 scale a batch row (the "
+        "(1024, 24) in f32, its library sdpa's f32 forward; flash_attention_f32_train (K1-f32 with l) and "
+        "flash_attention_bwd_f32 (K3-f32) sum over the four path shapes in f32, their library sdpa's f32 forward and "
+        "f32 backward alone; launches are from "
+        "the headline run (K1), the int8 run (K2, quantizer), the loop_diffusion.train run (K3), phase 18's f32 "
+        "legacy run (K1-f32) and phase 24's train-ddpm run in f32 (K1-f32 with l, K3-f32); the *_per_item lines "
+        "are K2 and its quantizer with one int8 scale a batch row (the "
         "server's), timed in phase 2 at the path shapes (K2's ms whole, quantizer included), launched in phase 14's "
         "K2 full-sweep run; the *_d24 and *_d192 lines are K2 (quantizer included) at (1024, 24) and (1024, 192), "
         "B*H = 32, timed in phase 2, launched at those head dims in phase 18's bf16 qk_int8 legacy run (attn_up2) "
@@ -3389,7 +3720,8 @@ def main() -> int:
         "torch.mm(out_dtype=torch.float32), null if this torch lacks the latter; dw3x3: library cuDNN's channels-last "
         "depthwise conv; null where no single PyTorch call computes the function). bound_ms is the larger of "
         "bytes over 3.35 TB/s and operations over the peak of their type (989 TFLOP/s bf16, 1979 TOP/s int8, "
-        "494.7 TFLOP/s TF32, three TF32 products a K1-f32 product, 67 TFLOP/s f32, 3.86e12 exponentials/s)")
+        "494.7 TFLOP/s TF32, three TF32 products a K1-f32 or K3-f32 product, 67 TFLOP/s f32, 3.86e12 "
+        "exponentials/s)")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -203,12 +203,13 @@ def _op_cases():
     q8, k8, scales = A.quantize_qk_i8_plain(q, k, per_item=True)
     return [("flash_fwd", A._k1_op, (q, k, v, True)), ("flash_fwd_no_l", A._k1_op, (q, k, v, False)),
             ("flash_fwd_f32", A._k1_f32_op, (q, k, v, True)), ("flash_bwd", A._k3_op, (q, k, v, o, do, l)),
+            ("flash_bwd_f32", A._k3_f32_op, (q, k, v, o, do, l)),
             ("quantize_qk_i8", A._quantize_op, (q.bfloat16(), k.bfloat16(), False)),
             ("quantize_qk_i8_per_item", A._quantize_op, (q.bfloat16(), k.bfloat16(), True)),
             ("flash_fwd_qk_i8", A._k2_op, (q8, k8, scales, v.bfloat16()))]
 
 
-@pytest.mark.parametrize("case", range(7), ids=[c[0] for c in _op_cases()])
+@pytest.mark.parametrize("case", range(8), ids=[c[0] for c in _op_cases()])
 def test_kernel_custom_ops_pass_opcheck(case):
     """Each kernel's op (ops/attention.OPS): its schema, its fake
     implementation against the CPU one, its dispatch under autograd and

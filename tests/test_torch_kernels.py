@@ -8,6 +8,8 @@ This file imports no JAX (the card's machine has none); the JAX parity of
 the plain versions is in tests/test_torch_ops.py and tests/test_torch_probes.py.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -331,7 +333,7 @@ def test_flash_qk_i8_forward_takes_one_scale_or_one_a_row(cuda):
 
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    q, k, v = _qkv((1, 1, 128, 64), torch.float32, cuda)
+    q, k, v = _qkv((1, 1, 128, 64), torch.float64, cuda)  # f32 takes K1-f32; no kernel takes f64
     with pytest.raises(ValueError, match="dtype"):
         A.flash_attention(q, k, v)
     q, k, v = _qkv((1, 1, 96, 64), torch.bfloat16, cuda)
@@ -436,9 +438,19 @@ def test_256px_unet_with_qk_int8_takes_k2_where_it_has_the_head_dim(cuda):
 
 
 # K1-f32 against its plain version in f32: the same products in another
-# order, exp2 by ex2.approx (2 ulp): 1e-5 of max |ref|, l to 1e-5 relative
-F32_SHAPES = [(1, 1, 64, 16), (2, 3, 192, 24), (8, 4, 1024, 16), (8, 4, 1024, 24)]
+# order, exp2 by ex2.approx (2 ulp): 1e-5 of max |ref|, l to 1e-5 relative.
+# The legacy UNet's shapes (D = 16, 24), then one to three tiles and the
+# default UNet's path shapes at batch 8 at every other head dim (the 256 px
+# ladder's D = 192 included)
+F32_SHAPES = [(1, 1, 64, 16), (2, 3, 192, 24), (8, 4, 1024, 16), (8, 4, 1024, 24),
+              (1, 1, 64, 32), (2, 3, 192, 64), (1, 2, 128, 128), (1, 1, 192, 192),
+              (8, 4, 4096, 64), (8, 4, 1024, 128), (8, 4, 1024, 32), (8, 4, 4096, 16), (8, 4, 1024, 192)]
 F32_REL_TOL = 1e-5
+# K3-f32 against its plain version in f32: max |err| / max |ref| of each
+# gradient (3xTF32 products, f32 sums in another order)
+F32_BWD_REL_TOL = 1e-4
+F32_BWD_SHAPES = [(1, 1, 64, 16), (2, 3, 192, 32), (1, 2, 128, 64), (1, 1, 192, 128), (1, 2, 64, 192),
+                  (8, 4, 4096, 64), (8, 4, 1024, 128), (8, 4, 1024, 32), (8, 4, 4096, 16), (8, 4, 1024, 192)]
 
 
 @pytest.mark.gpu
@@ -456,7 +468,7 @@ def test_flash_f32_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [16, 24])
+@pytest.mark.parametrize("d", [16, 24, 32, 64, 128, 192])
 def test_flash_f32_kernel_at_both_clamp_rails(cuda, d):
     q, k, v = _qkv((2, 2, 192, d), torch.float32, cuda, seed=d)
     gain = 2.0 * (60.0 / d**0.5) ** 0.5
@@ -469,17 +481,105 @@ def test_flash_f32_kernel_at_both_clamp_rails(cuda, d):
 
 @pytest.mark.gpu
 def test_flash_f32_kernel_refuses_what_it_does_not_take(cuda):
-    q, k, v = _qkv((1, 1, 128, 32), torch.float32, cuda)
-    with pytest.raises(ValueError, match="flash_attention_f32: head dim 32"):
+    q, k, v = _qkv((1, 1, 128, 48), torch.float32, cuda)
+    with pytest.raises(ValueError, match="flash_attention_f32: head dim 48"):
         A.flash_attention(q, k, v)
     q, k, v = _qkv((1, 1, 96, 16), torch.float32, cuda)
     with pytest.raises(ValueError, match="multiple"):
         A.flash_attention_f32(q, k, v)
     q, k, v = _qkv((1, 1, 128, 16), torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="f32"):
-        A.flash_attention(q.requires_grad_(True), k, v)
+    with pytest.raises(NotImplementedError, match="K3-f32"):  # the forward alone: the gradient is flash_attention's
+        A.flash_attention_f32(q.requires_grad_(True), k, v)
     with pytest.raises(ValueError, match="float32"):
         A.flash_attention_f32(q.detach().to(torch.bfloat16), k, v)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """f32 matmuls and convolutions in full f32 inside the block."""
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def _f32_bwd_args(shape, device, seed=0, gain=1.0):
+    q, k, v = _qkv(shape, torch.float32, device, seed=seed)
+    q, k = q * gain, k * gain
+    do = _qkv(shape, torch.float32, device, seed=seed + 100)[0]
+    o, l = A.flash_attention_plain(q, k, v, return_l=True)
+    return q, k, v, o, do, l
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", F32_BWD_SHAPES)
+def test_flash_bwd_f32_kernel_matches_plain(cuda, shape):
+    args = _f32_bwd_args(shape, cuda, seed=shape[2] + shape[3])
+    before = (A.flash_attention_bwd.launches, A.flash_attention_bwd_f32.launches)
+    got = A.flash_attention_bwd_f32(*args)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_bwd.launches, A.flash_attention_bwd_f32.launches) == (before[0], before[1] + 1)
+    ref = A.flash_attention_bwd_plain(*args)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.float32 and g.shape == shape and torch.isfinite(g).all(), name
+        assert _rel_err(g, r) <= F32_BWD_REL_TOL, (name, _rel_err(g, r))
+    # no atomics: a second call gives the same bits
+    for name, g, again in zip(("dq", "dk", "dv"), got, A.flash_attention_bwd_f32(*args)):
+        assert torch.equal(g, again), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 192])
+def test_flash_bwd_f32_kernel_at_both_clamp_rails(cuda, d):
+    """Scores past +60 and -60: p at its e^60 ceiling, the gradient mask
+    firing on both sides."""
+    shape = (1, 2, 256, d)
+    args = _f32_bwd_args(shape, cuda, seed=20 + d, gain=2.0 * (60.0 / d**0.5) ** 0.5)
+    s = torch.matmul(args[0], args[1].transpose(-1, -2)) / d**0.5
+    assert (s > 60).any() and (s < -60).any()
+    for name, g, r in zip(("dq", "dk", "dv"), A.flash_attention_bwd_f32(*args), A.flash_attention_bwd_plain(*args)):
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, r) <= 1e-3, (name, _rel_err(g, r))
+
+
+@pytest.mark.gpu
+def test_flash_bwd_f32_kernel_refuses_head_dim_24(cuda):
+    """The legacy UNet, the one model at D = 24, only samples: K3-f32 has no
+    D = 24, and `flash_attention` refuses f32 inputs at D = 24 that require
+    grad before its forward runs, by name."""
+    args = _f32_bwd_args((1, 1, 128, 24), cuda)
+    with pytest.raises(ValueError, match="flash_attention_bwd_f32: head dim 24"):
+        A.flash_attention_bwd_f32(*args)
+    before = A.flash_attention_f32.launches
+    with pytest.raises(ValueError, match="flash_attention_bwd_f32: head dim 24"):
+        A.flash_attention(*(t.clone().requires_grad_(True) for t in args[:3]))
+    assert A.flash_attention_f32.launches == before
+    args = _f32_bwd_args((1, 1, 128, 16), cuda)
+    with pytest.raises(ValueError, match="float32"):
+        A.flash_attention_bwd_f32(*(t.to(torch.bfloat16) for t in args[:5]), args[5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 2, 1024, 64), (1, 4, 1024, 128), (2, 2, 4096, 16), (1, 4, 1024, 192)])
+def test_flash_attention_f32_autograd_matches_autograd_through_plain(cuda, shape):
+    """The autograd Function on f32 CUDA inputs (K1-f32 forward, K3-f32
+    backward; K1 and K3 not launched) against torch's autograd through
+    `flash_attention_plain`, in f32 with TF32 off."""
+    grads = []
+    with _no_tf32():
+        for fn in (A.flash_attention, A.flash_attention_plain):
+            q, k, v = (t.requires_grad_(True) for t in _qkv(shape, torch.float32, cuda, seed=9))
+            g = _qkv(shape, torch.float32, cuda, seed=10)[0]
+            counters = (A.flash_attention, A.flash_attention_bwd, A.flash_attention_f32, A.flash_attention_bwd_f32)
+            before = [c.launches for c in counters]
+            (fn(q, k, v) * g).sum().backward()
+            if fn is A.flash_attention:
+                assert [c.launches - b for c, b in zip(counters, before)] == [0, 0, 1, 1]
+            grads.append((q.grad, k.grad, v.grad))
+    for name, g, r in zip(("dq", "dk", "dv"), *grads):
+        assert g.dtype == torch.float32 and _rel_err(g, r) <= F32_BWD_REL_TOL, (name, _rel_err(g, r))
 
 
 @pytest.mark.gpu
@@ -619,8 +719,9 @@ def test_flash_attention_autograd_matches_autograd_through_plain(cuda, shape):
 def test_256px_default_unet_runs_forward_and_backward_on_the_card(cuda):
     """The default ladder at im_size 256 attends at (N, D) = (4096, 128),
     (1024, 192), (1024, 128), (1024, 64) and (4096, 32): under bf16 autocast
-    every flash-length layer goes through K1 and, backwards, K3; in f32 it is
-    refused at the entry, by name."""
+    every flash-length layer goes through K1 and, backwards, K3; in f32
+    through K1-f32 and K3-f32; in f32 with qk_int8 it is refused at the
+    entry, by name."""
     from weatherconverter_tpu_torch.core.config import UnetModelConfig
     from weatherconverter_tpu_torch.models.unet import Unet
 
@@ -629,17 +730,64 @@ def test_256px_default_unet_runs_forward_and_backward_on_the_card(cuda):
     flash_layers = sum(A.is_flash_length(n) for n, _ in model.attention_shapes(256))
     assert flash_layers == 12
     x = torch.randn(1, 3, 256, 256, device=cuda)
-    with pytest.raises(ValueError, match="Unet.forward: .*dtype=torch.bfloat16"):
-        model(x, 5)
-    before = (A.flash_attention.launches, A.flash_attention_bwd.launches)
-    with torch.autocast("cuda", dtype=torch.bfloat16):
-        out = model(x, 5)
-    out.square().mean().backward()
-    torch.cuda.synchronize()
-    assert (A.flash_attention.launches - before[0], A.flash_attention_bwd.launches - before[1]) == (12, 12)
-    assert out.shape == x.shape and torch.isfinite(out).all()
-    grads = [p.grad for p in model.parameters()]
-    assert all(g is not None and torch.isfinite(g).all() for g in grads) and any(g.abs().sum() > 0 for g in grads)
+    with pytest.raises(ValueError, match="Unet.forward: .*qk_int8.*K2"):
+        Unet(UnetModelConfig(im_size=256), qk_int8=True).to(cuda)(x, 5)
+    counters = (A.flash_attention, A.flash_attention_bwd, A.flash_attention_f32, A.flash_attention_bwd_f32)
+    for ctx, expected in ((torch.autocast("cuda", dtype=torch.bfloat16), [12, 12, 0, 0]),
+                          (_no_tf32(), [0, 0, 12, 12])):
+        model.zero_grad(set_to_none=True)
+        before = [c.launches for c in counters]
+        with ctx:
+            out = model(x, 5)
+            out.square().mean().backward()
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == expected
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        grads = [p.grad for p in model.parameters()]
+        assert all(g is not None and torch.isfinite(g).all() for g in grads) and any(g.abs().sum() > 0 for g in grads)
+
+
+@pytest.mark.gpu
+def test_unet_f32_train_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 DDPM train step of a small UNet that attends at flash length
+    at D = 32 and 64 (N = 1024), card (K1-f32, K3-f32, TF32 off) against the
+    CPU (plain versions) from the same weights and draws: the loss to 1e-4
+    and the gradient to 1e-3 relative L2 (f32 sums in other orders)."""
+    import copy
+
+    from weatherconverter_tpu_torch.core.config import UnetModelConfig
+    from weatherconverter_tpu_torch.diffusion.schedule import linear_schedule
+    from weatherconverter_tpu_torch.models.unet import Unet
+    from weatherconverter_tpu_torch.training.diffusion import create_ddpm_state, train_step
+
+    cfg = UnetModelConfig(im_size=32, down_channels=[32, 64, 64], mid_channels=[64, 64, 64], down_sample=[False, False],
+                          time_emb_dim=16, num_down_layers=1, num_mid_layers=1, num_up_layers=1, num_heads=1,
+                          attn_resolutions=[32])
+    shapes = Unet(cfg).attention_shapes(32)
+    assert {d for n, d in shapes if A.is_flash_length(n)} == {32, 64}
+    flash = sum(A.is_flash_length(n) for n, _ in shapes)
+    torch.manual_seed(0)
+    ref_model = Unet(cfg)
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32))
+    t, noise = torch.tensor([17, 640]), torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32))
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        model = copy.deepcopy(ref_model).to(dev)
+        state = create_ddpm_state(model, lr=1e-4)
+        before = [c.launches for c in (A.flash_attention_f32, A.flash_attention_bwd_f32)]
+        with _no_tf32():
+            _, loss = train_step(state, images.to(dev), linear_schedule(1000, device=dev), t=t.to(dev),
+                                 noise=noise.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert [c.launches - b for c, b in zip((A.flash_attention_f32, A.flash_attention_bwd_f32), before)] \
+                == [flash, flash]
+        results.append((loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]).cpu()))
+    (l_card, g_card), (l_cpu, g_cpu) = results
+    assert abs(l_card - l_cpu) / abs(l_cpu) <= 1e-4
+    assert ((g_card - g_cpu).norm() / g_cpu.norm()).item() <= 1e-3
+    assert torch.isfinite(g_card).all() and g_card.abs().sum() > 0
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():

@@ -1,25 +1,14 @@
 """The PyTorch port's local class-wise guidance (LCG), its present-class
-packing, the nearest resize under it and the `alternate` / `lcg` schedules of
-`sample_with_sgg` against the JAX package, on the CPU, in f32.
+packing and the nearest resize under it against the JAX package, on the CPU,
+in f32; the `alternate` / `lcg` schedules of `sample_with_sgg` are in
+tests/test_torch_lcg_chains.py (the two files split the time of one).
 
-The models are those of tests/test_torch_translate.py: the tiny UNet,
-DeepLabV3+/ResNet-18 with 19 classes and a 2x Swift-SRGAN generator, the same
-perturbed weights on both sides; the JAX noise stream is drawn in JAX and
-replayed into the port.
-
-LCG blacks out everything outside a class, and over an exactly constant
-region the ResNet stem's max-pool sees windows of equal values: which
-element of a tie takes the gradient differs between XLA and ATen (measured
-here: 1 % of the input gradient, 6e-4 of an LCG update, against 2e-6 once the
-ties are gone). That is no property of the operators under test, so the seg
-function of both sides first adds one fixed low-amplitude pattern (DITHER) to
-its input, which breaks the ties and leaves d CE / d x as it is.
+The models, their dither and the sizes are tests/lcg_parity.py's, the same
+perturbed weights on both sides.
 Tolerances: one operator call agrees to 1e-5 of the largest value (f32
-through ResNet-18's forward and backward, sums in another order); the chains
-take the GSG chain tests' tolerance.
+through ResNet-18's forward and backward, sums in another order).
 """
 
-import inspect
 from functools import partial
 
 import jax
@@ -27,56 +16,25 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import generator_pair, jax_fns, nhwc_to_nchw, seg_pair, tiny_unet_pair
+from lcg_parity import CLASSES, HR, LAM, LATENT, B, blocky_gt as _blocky_gt, build_models
+from torch_parity import nhwc_to_nchw
 
-from weatherconverter_tpu.diffusion import schedule as JS
 from weatherconverter_tpu.guidance import sgg as JG
-from weatherconverter_tpu.guidance import translate as JT
 from weatherconverter_tpu.ops import image as JI
-from weatherconverter_tpu_torch.diffusion import schedule as PS
 from weatherconverter_tpu_torch.guidance import sgg as PG
-from weatherconverter_tpu_torch.guidance import translate as PT
 from weatherconverter_tpu_torch.ops import image as PI
 
-B, LATENT, HR, STEPS, CLASSES = 2, 32, 64, 4, 19
-SCHED_ARGS = (STEPS, 1e-3, 0.2)
-LAM = 0.05
-DITHER = 1e-2  # against images in [0, 1]
 # one operator call: max |port - jax| over max |jax|
 OP_REL_TOL = 1e-5
 # the sweep over all 19 classes, 38 masked copies: in one of them a ReLU of the
 # ASPP's pooled branch sits within rounding of 0 and opens in one framework
 # only, which moves that copy's whole field by 1e-3 of itself
 SWEEP_REL_TOL = 5e-5
-# a chain: tests/test_torch_translate.py's CHAIN_RTOL / CHAIN_ATOL
-CHAIN_RTOL, CHAIN_ATOL = 1e-4, 1e-4
 
 
 @pytest.fixture(scope="module")
 def models():
-    junet, uparams, port_unet = tiny_unet_pair()
-    jseg, seg_vars, port_seg = seg_pair("deeplabv3plus_resnet18", HR)
-    jgen, gen_vars, port_gen = generator_pair(2, hw=LATENT)
-    port_seg.requires_grad_(False)
-    diff_fn, seg_fn, sr_fn = jax_fns(junet, uparams, jseg, seg_vars, jgen, gen_vars)
-    dither = {hw: (DITHER * np.random.default_rng(hw).standard_normal((1, hw, hw, 3))).astype(np.float32)
-              for hw in (LATENT, HR)}
-    port_dither = {hw: nhwc_to_nchw(d) for hw, d in dither.items()}
-
-    def jax_seg(x):
-        return seg_fn(x + dither[x.shape[1]])
-
-    def port_seg_fn(x):
-        return port_seg(x + port_dither[x.shape[2]])
-
-    return dict(jax_fns=(diff_fn, jax_seg, sr_fn), port=(port_unet, port_seg_fn, port_gen),
-                port_modules=(port_unet, port_seg, port_gen))
-
-
-def _blocky_gt(rng, classes, size=HR, block=8):
-    """(B, size, size) labels constant over block x block squares, drawn from `classes`."""
-    small = rng.choice(np.asarray(classes), size=(B, size // block, size // block))
-    return small.repeat(block, 1).repeat(block, 2).astype(np.int32)
+    return build_models()
 
 
 def _operator_inputs(seed, classes=range(CLASSES), hr=HR):
@@ -277,93 +235,3 @@ def test_apply_lcg_labels_the_masked_out_pixels_as_class_0(models, monkeypatch):
     gt_t = torch.from_numpy(gt).long()
     assert torch.equal(labels, torch.where(gt_t == 7, 7, 0))
     assert torch.equal(image, nhwc_to_nchw(sr_xt) * (gt_t == 7)[:, None])
-
-
-# --- the chain ---
-
-def _jax_noise(key, num_steps):
-    shape = (B, LATENT, LATENT, 3)
-    key, _tkey, nkey = jax.random.split(key, 3)
-    noise0 = jax.random.normal(nkey, shape)
-    zs = []
-    for _ in range(num_steps):
-        key, zkey = jax.random.split(key)
-        zs.append(jax.random.normal(zkey, shape))
-    return torch.from_numpy(np.array(noise0)), torch.from_numpy(np.stack([np.asarray(z) for z in zs]))
-
-
-def _chain_inputs(seed, classes=range(CLASSES)):
-    rng = np.random.default_rng(seed)
-    x = (rng.standard_normal((B, LATENT, LATENT, 3)) * 0.2).astype(np.float32)
-    gt = _blocky_gt(rng, list(classes))
-    gt[:, :8, :8] = 255
-    return x, gt
-
-
-@pytest.mark.parametrize("style, space, present_k", [("alternate", "sr", None), ("lcg", "latent", None),
-                                                     ("alternate", "latent", 3)])
-def test_sample_with_sgg_lcg_styles_match_jax(models, style, space, present_k):
-    """Four steps: under 'alternate' i = 3 and 1 take GSG, i = 2 LCG, i = 0
-    nothing; under 'lcg' all three take LCG."""
-    diff_fn, seg_fn, sr_fn = models["jax_fns"]
-    x, gt = _chain_inputs(10, classes=[0, 3, 8, 12] if present_k else range(CLASSES))
-    key = jax.random.PRNGKey(10)
-    kw = dict(lam=LAM, num_steps=STEPS, num_classes=CLASSES, mode="fixed", start_t=STEPS - 1, guidance_every=1,
-              guidance_style=style, guidance_space=space, lcg_class_chunk=4, lcg_present_k=present_k)
-    ref = np.asarray(JT.sample_with_sgg(diff_fn, JS.linear_schedule(*SCHED_ARGS), seg_fn, sr_fn, jnp.asarray(x),
-                                        jnp.asarray(gt), key, **kw))
-    sched, noise = PS.linear_schedule(*SCHED_ARGS), _jax_noise(key, STEPS)
-    args = (*models["port"][:1], sched, *models["port"][1:], torch.from_numpy(x), torch.from_numpy(gt).long())
-    out = PT.sample_with_sgg(*args, noise=noise, **kw).numpy()
-    assert out.shape == (B, HR, HR, 3) and np.isfinite(out).all()
-    np.testing.assert_allclose(out, ref, rtol=CHAIN_RTOL, atol=CHAIN_ATOL)
-    # LCG is what is compared: the chain differs from the all-GSG one by far more than the tolerance (least at
-    # latent resolution, where lam is divided by pool^2)
-    gsg = PT.sample_with_sgg(*args, noise=noise, **dict(kw, guidance_style="gsg")).numpy()
-    assert np.abs(out - gsg).max() > 30 * CHAIN_ATOL
-
-
-def test_sample_with_sgg_present_k_bit_identical_end_to_end(models):
-    """`lcg_present_k` with enough slots gives the full sweep's chain bit for
-    bit, through `make_translate_fn`, with every step guided."""
-    x, gt = _chain_inputs(11, classes=[1, 6, 14])
-    noise = _jax_noise(jax.random.PRNGKey(11), STEPS)
-    outs = []
-    for present_k in (None, 4):
-        fn = PT.make_translate_fn(*models["port_modules"][:1], PS.linear_schedule(*SCHED_ARGS),
-                                  *models["port_modules"][1:],
-                                  lam=LAM, num_steps=STEPS, start_t=STEPS - 1, guidance_style="alternate",
-                                  guidance_space="sr", lcg_class_chunk=4, lcg_present_k=present_k)
-        outs.append(fn(torch.from_numpy(x), torch.from_numpy(gt).long(), noise=noise))
-    assert torch.equal(outs[0], outs[1])
-
-
-def test_sample_with_sgg_takes_every_keyword_of_the_jax_signature():
-    """But `key` (a torch.Generator, or replayed noise, stands for it).
-    `xt_init` / `t_offset`, the chain's segments, are ported too
-    (tests/test_torch_segments.py). The defaults agree too."""
-    jax_params = inspect.signature(JT.sample_with_sgg).parameters
-    port_params = inspect.signature(PT.sample_with_sgg).parameters
-    for name, p in jax_params.items():
-        if name == "key":
-            assert name not in port_params
-            continue
-        assert name in port_params, name
-        assert port_params[name].default == p.default, name
-    assert port_params["guidance_style"].default == "alternate"
-    kw = {name: p.default for name, p in jax_params.items() if p.default is not inspect.Parameter.empty}
-    kw.update(num_steps=2, start_t=1, lcg_present_k=2, num_classes=3)
-    seg = lambda img: torch.cat([img, img.sum(1, keepdim=True)], dim=1)[:, :3]  # noqa: E731
-    sr = lambda lat: torch.nn.functional.interpolate(lat, scale_factor=2).mul(0.5).add(0.5).clamp(0, 1)  # noqa: E731
-    out = PT.sample_with_sgg(lambda xt, t: torch.zeros_like(xt), PS.linear_schedule(4), seg, sr,
-                             torch.zeros(1, 8, 8, 3), torch.randint(0, 3, (1, 16, 16)),
-                             torch.Generator().manual_seed(0), **kw)
-    assert out.shape == (1, 16, 16, 3) and torch.isfinite(out).all()
-
-
-def test_unknown_guidance_style_raises_as_in_jax():
-    x = torch.zeros(1, 8, 8, 3)
-    with pytest.raises(ValueError, match="unknown guidance_style"):
-        PT.sample_with_sgg(None, PS.linear_schedule(4), None, None, x, torch.zeros(1, 16, 16), guidance_style="both")
-    with pytest.raises(ValueError, match="lcg_present_k out of range"):
-        PT.sample_with_sgg(None, PS.linear_schedule(4), None, None, x, torch.zeros(1, 16, 16), lcg_present_k=0)

@@ -100,6 +100,27 @@ def test_pooling_pixel_shuffle_normalize_match_jax():
         _close(port, np.asarray(ref).transpose(0, 3, 1, 2), rtol=1e-5, atol=1e-6)
 
 
+# tests/test_ops.py's shapes (a 6 x 6 map cropped to 4 x 4), then offsets where
+# the halves round to even: (in - out) = 3 -> 2 (not 1), 7 -> 4 (not 3), 5 -> 2, 1 -> 0
+@pytest.mark.parametrize("shape, size", [((1, 6, 6, 1), (4, 4)), ((2, 9, 10, 3), (6, 7)),
+                                         ((1, 13, 12, 2), (6, 5)), ((1, 5, 9, 1), (4, 4))])
+def test_center_crop_matches_jax(shape, size):
+    x = _rand(shape, seed=sum(shape))
+    port, ref = PI.center_crop(_nchw(x), size), JI.center_crop(jnp.asarray(x), size)
+    assert tuple(port.shape) == (shape[0], shape[3], *size)
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref).transpose(0, 3, 1, 2))  # a window: exact
+
+
+def test_denormalize_matches_jax_and_inverts_normalize():
+    """At tests/test_ops.py's shape: (1, 4, 4, 3) with ImageNet's mean and std."""
+    x = np.random.default_rng(5).uniform(size=(1, 4, 4, 3)).astype(np.float32)
+    mean, std = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+    y = _rand((1, 4, 4, 3), seed=6)
+    ref = np.asarray(JI.denormalize(jnp.asarray(y), mean, std)).transpose(0, 3, 1, 2)
+    _close(PI.denormalize(_nchw(y), mean, std), ref, rtol=1e-6, atol=1e-7)
+    _close(PI.denormalize(PI.normalize(_nchw(x), mean, std), mean, std), _nchw(x), rtol=1e-5, atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # attention: the reference path, K1's and K2's plain versions, the dispatch
 # ---------------------------------------------------------------------------
@@ -244,7 +265,8 @@ def test_quantize_qk_i8_refuses_gradients():
 # f32 against f32, as tests/test_ops.py:519-527 holds the JAX backwards to
 # each other: the same sums in another order
 BWD_TOL = 3e-4
-BWD_SHAPES = [(1, 2, 1024, 32), (1, 2, 256, 16)]
+# (the last two: the default UNet's wide head dims, which the f32 flash backward, K3-f32, serves on the card)
+BWD_SHAPES = [(1, 2, 1024, 32), (1, 2, 256, 16), (1, 1, 1024, 64), (1, 1, 1024, 128)]
 
 
 def _bwd_case(shape, seed, qk_scale):

@@ -1,8 +1,10 @@
 """Where the PyTorch port refuses a dtype or admits a shape before any kernel
-runs: an f32 UNet with a flash-length attention layer is refused on CUDA at
-the three entry points a user picks the dtype at (`Unet.forward`,
-`make_translate_fn`, `training/loop_diffusion.train`), and the attention
-shapes of the supported UNets are ones the flash kernels take.
+runs: on CUDA a UNet with a flash-length attention layer runs in bf16/f16,
+or in f32 where the f32 kernels (K1-f32 forward, K3-f32 backward) take each
+such layer's head dim and no layer takes K2; anything else is refused at the
+three entry points a user picks the dtype at (`Unet.forward`,
+`make_translate_fn`, `training/loop_diffusion.train`). The attention shapes
+of the supported UNets are ones the flash kernels take.
 
 There is no card here, so the entry points are shown the device type "cuda"
 through the name `check_flash_precision` each of them imports; everything
@@ -26,22 +28,25 @@ FLASH_UNET = dict(im_size=32, down_channels=[32, 32, 48], mid_channels=[48, 48, 
                   attn_resolutions=[32])
 # the same ladder attending at 16 x 16 only: no flash-length layer
 SHORT_UNET = dict(FLASH_UNET, attn_resolutions=[16])
+# flash-length layers at head dims the f32 kernels lack: D = 48 (neither), D = 24 (the forward only)
+FLASH_UNET_D48 = dict(FLASH_UNET, down_channels=[96, 96, 48], mid_channels=[48, 48, 96])
+FLASH_UNET_D24 = dict(FLASH_UNET, down_channels=[48, 48, 64], mid_channels=[64, 64, 48])
 
 
 def _as_if_on_cuda(monkeypatch, module):
     """`module`'s precision check sees device type "cuda"; returns the calls it got."""
     calls = []
 
-    def check(device_type, dtype, shapes, where):
+    def check(device_type, dtype, shapes, where, **kw):
         calls.append((device_type, dtype, list(shapes), where))
-        A.check_flash_precision("cuda", dtype, shapes, where)
+        A.check_flash_precision("cuda", dtype, shapes, where, **kw)
 
     monkeypatch.setattr(module, "check_flash_precision", check)
     return calls
 
 
 @pytest.mark.parametrize("device_type, dtype, shapes, refused", [
-    ("cuda", torch.float32, [(256, 64), (1024, 16)], True),
+    ("cuda", torch.float32, [(256, 64), (1024, 48)], True),  # D = 48: no f32 kernel has it
     ("cuda", torch.float64, [(4096, 64)], True),
     ("cuda", torch.bfloat16, [(1024, 16)], False),
     ("cuda", torch.float16, [(16384, 64)], False),
@@ -49,6 +54,11 @@ def _as_if_on_cuda(monkeypatch, module):
     ("cuda", torch.float32, [(256, 64), (64, 128)], False),  # plain softmax attention only
     ("cuda", torch.float32, [(1088, 32)], False),  # N % 128 != 0: plain softmax attention
     ("cuda", torch.float32, [], False),
+    ("cuda", torch.float32, [(256, 64), (1024, 16)], False),  # K1-f32 and K3-f32
+    ("cuda", torch.float32, [(4096, 64), (1024, 128), (1024, 32), (4096, 16)], False),  # the default UNet
+    ("cuda", torch.float32, [(1024, 192)], False),
+    ("cuda", torch.float32, [(1024, 16), (1024, 24)], True),  # D = 24: K3-f32 lacks it
+    ("cuda", torch.float64, [(1024, 16)], True),
 ])
 def test_check_flash_precision(device_type, dtype, shapes, refused):
     if not refused:
@@ -62,18 +72,47 @@ def test_check_flash_precision(device_type, dtype, shapes, refused):
     assert all(str(s) in msg for s in shapes if A.is_flash_length(s[0]))
 
 
+@pytest.mark.parametrize("forward_only, qk_int8, shapes, refused", [
+    (True, False, [(1024, 16), (1024, 24)], False),  # the legacy UNet samples in f32: K1-f32 alone
+    (True, False, [(1024, 48)], True),
+    (False, True, [(1024, 16)], True),  # K2 takes 16-bit V
+    (True, True, [(1024, 16), (1024, 24)], True),
+    (False, True, [(256, 16)], False),  # no flash-length layer: plain softmax attention
+])
+def test_check_flash_precision_f32_rules(forward_only, qk_int8, shapes, refused):
+    """f32 on CUDA: a forward-only model needs K1-f32's head dims, a model
+    that trains K3-f32's as well, and no K2; a refusal names the kernel and
+    the head dims it has."""
+    args = ("cuda", torch.float32, [(n, d, "K2" if qk_int8 else "K1") for n, d in shapes], "here", forward_only)
+    if not refused:
+        A.check_flash_precision(*args)
+        return
+    with pytest.raises(ValueError) as err:
+        A.check_flash_precision(*args)
+    msg = str(err.value)
+    assert msg.startswith("here:") and 'training.dtype="bfloat16"' in msg
+    assert ("K2" in msg and "qk_int8=False" in msg) if qk_int8 else ("K1-f32" in msg and str(A.F32_HEAD_DIMS) in msg)
+
+
 def test_unet_forward_refuses_f32_on_cuda_by_name(monkeypatch):
     calls = _as_if_on_cuda(monkeypatch, unet_module)
     torch.manual_seed(0)
-    model, x = Unet(UnetModelConfig(**FLASH_UNET)).eval(), torch.zeros(1, 3, 32, 32)
-    with pytest.raises(ValueError, match=r"Unet.forward: .*\(1024, 16\).*torch.float32"):
+    x = torch.zeros(1, 3, 32, 32)
+    model = Unet(UnetModelConfig(**FLASH_UNET_D48)).eval()
+    with pytest.raises(ValueError, match=r"Unet.forward: .*\(1024, 48\).*torch.float32.*K1-f32.*K3-f32"):
         model(x, 3)
     assert calls[-1][:2] == ("cpu", torch.float32)
     with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):  # the remedy: it runs
         assert model(x, 3).shape == x.shape
     assert calls[-1][1] == torch.bfloat16
-    # no flash-length layer: f32 stays allowed on CUDA (plain softmax attention)
+    with pytest.raises(ValueError, match=r"Unet.forward: .*\(1024, 24\).*K3-f32"):  # a model that trains
+        Unet(UnetModelConfig(**FLASH_UNET_D24)).eval()(x, 3)
+    with pytest.raises(ValueError, match=r"Unet.forward: .*qk_int8.*K2"):
+        Unet(UnetModelConfig(**FLASH_UNET), qk_int8=True).eval()(x, 3)
     with torch.no_grad():
+        # D = 16: the f32 kernels take it, forward and backward
+        assert Unet(UnetModelConfig(**FLASH_UNET)).eval()(x, 3).dtype == torch.float32
+        # no flash-length layer: f32 stays allowed on CUDA (plain softmax attention)
         assert Unet(UnetModelConfig(**SHORT_UNET)).eval()(x, 3).dtype == torch.float32
 
 
@@ -86,11 +125,14 @@ def test_unet_forward_runs_f32_on_the_cpu():
 
 def test_make_translate_fn_refuses_f32_on_cuda_by_name(monkeypatch):
     _as_if_on_cuda(monkeypatch, PT)
-    models = (Unet(UnetModelConfig(**FLASH_UNET)), linear_schedule(4), torch.nn.Identity(), torch.nn.Identity())
-    with pytest.raises(ValueError, match=r"make_translate_fn: .*dtype=torch.bfloat16"):
+    models = (Unet(UnetModelConfig(**FLASH_UNET_D48)), linear_schedule(4), torch.nn.Identity(), torch.nn.Identity())
+    with pytest.raises(ValueError, match=r"make_translate_fn: .*K1-f32.*dtype=torch.bfloat16"):
         PT.make_translate_fn(*models)
     assert callable(PT.make_translate_fn(*models, dtype=torch.bfloat16))
     assert callable(PT.make_translate_fn(Unet(UnetModelConfig(**SHORT_UNET)), *models[1:]))
+    assert callable(PT.make_translate_fn(Unet(UnetModelConfig(**FLASH_UNET)), *models[1:]))  # K1-f32 at D = 16
+    with pytest.raises(ValueError, match=r"make_translate_fn: .*K2"):
+        PT.make_translate_fn(Unet(UnetModelConfig(**FLASH_UNET), qk_int8=True), *models[1:])
     monkeypatch.undo()
     assert callable(PT.make_translate_fn(*models))  # on the CPU f32 is fine
 
@@ -99,8 +141,8 @@ class _Checked(Exception):
     pass
 
 
-@pytest.mark.parametrize("dtype, model, refused", [("float32", FLASH_UNET, True), ("bfloat16", FLASH_UNET, False),
-                                                   ("float32", SHORT_UNET, False)])
+@pytest.mark.parametrize("dtype, model, refused", [("float32", FLASH_UNET_D24, True), ("bfloat16", FLASH_UNET, False),
+                                                   ("float32", SHORT_UNET, False), ("float32", FLASH_UNET, False)])
 def test_train_refuses_f32_on_cuda_by_name(monkeypatch, tmp_path, dtype, model, refused):
     """`train` checks right after it resolved the device, before anything
     touches it; a configuration that passes goes on (stopped here)."""
@@ -115,7 +157,7 @@ def test_train_refuses_f32_on_cuda_by_name(monkeypatch, tmp_path, dtype, model, 
     with pytest.raises(ValueError if refused else _Checked) as err:
         loop_diffusion.train(cfg, dataset=[0])
     if refused:
-        assert "train (training.dtype='float32')" in str(err.value) and 'training.dtype="bfloat16"' in str(err.value)
+        assert f"train (training.dtype={dtype!r})" in str(err.value) and 'training.dtype="bfloat16"' in str(err.value)
 
 
 def test_train_checks_nothing_away_on_the_cpu(monkeypatch, tmp_path):

@@ -1,60 +1,82 @@
 // K1-f32: the clamped-softmax flash-attention forward in float32, for
-// sm_90a, at the legacy UNet's head dims (16: attn_down3, 24: attn_up2), on
-// the tensor cores in 3xTF32.
+// sm_90a, on the tensor cores in 3xTF32, at every head dim of the repo's
+// models: 16 and 24 (the legacy UNet, which samples in f32) and 32, 64, 128
+// and 192 (the UNet trained with training.dtype float32: its default ladder
+// attends at flash length at D = 64, 128, 32 and 16, the 256 px ladder also
+// at 192).
 //
 // Replaces weatherconverter_tpu/ops/attention.py `_flash_kernel` (:78, via
-// `_flash_attention_fwd_impl`) where the JAX legacy UNet runs it, in f32
-// (weatherconverter_tpu/models/unet_legacy.py:151):
+// `_flash_attention_fwd_impl`) and `_flash_kernel_stream_fwd` (:456, which
+// also returns l) where JAX runs them on f32 tiles: the legacy UNet
+// (weatherconverter_tpu/models/unet_legacy.py:151) and the UNet its DDPM loop
+// trains in f32 (weatherconverter_tpu/training/loop_diffusion.py:114-119):
 //   O = (exp(clip(Q K^T * D^-1/2, -60, 60)) V) / l,   l = row sum of the exponentials,
 // every sum in f32, as K1's plain version computes it in f32. The bf16 K1
-// (flash_fwd.cu) serves bf16 models; this one serves the legacy UNet run in
-// f32, as JAX runs it (probes/legacy_precision.py holds its bf16 chain
-// against its f32 chain). Forward only: the legacy UNet only samples.
+// (flash_fwd.cu) serves bf16 models. The backward of this forward is K3-f32
+// (flash_bwd_f32.cu), which takes l.
 //
 // What bounds it on the H100: per head N^2 exponentials (3.86e12/s) and
-// 4*N^2*D products. One TF32 pass would round the scores to 10 bits, which
-// is the precision this kernel exists to keep; so each operand x is split
-// into hi = tf32(x) and lo = tf32(x - hi), and each product is formed as
-// lo*hi + hi*lo + hi*hi, accumulated in f32 (about 21 bits of the product:
-// the dropped lo*lo term is below 2^-22 of it): three TF32 products at
+// 4*N^2*D products, each formed as three TF32 products (flash_tf32.cuh) at
 // 494.7 TFLOP/s in place of one f32 FMA at 67 (the first design, one thread
 // a query row on the CUDA cores, ran at 34-36 % of that FMA bound: its
 // serial chain of D dependent FMAs a score, and ~250 threads an SM, could
 // not hide latency).
 //
-// The design: a block is 4 warps, each owning 16 query rows, and walks the
-// keys in 64-key tiles. Tiles of K and V are staged by cp.async, double
-// buffered (tile t+1 is in flight while tile t is split and used), into rows
-// padded to D + 4 floats, so every fragment load below is free of bank
-// conflicts. Once a tile has landed, the block splits it once: hi over the
-// staged value in place, lo into a second buffer. Each warp keeps its Q
-// fragments, scaled by D^-1/2 * log2(e) and split, in registers for the
-// whole walk. Per tile a warp forms S = Q K^T (16 x 64: eight n-tiles of
-// mma.sync.m16n8k8.tf32, D/8 k-steps each, three products a step), takes
-// p = exp2(clamp(S)) in registers (no running max: as in K1, O and l add up
-// unscaled), splits p there, and adds P V (eight k-steps, D/8 n-tiles) into
-// two sets of accumulators (even and odd key steps, two independent chains
-// an n-tile), which join the running sum by FADD at the end of the tile.
-// That last step is for precision: the tensor cores' f32 accumulation does
-// not round to nearest, and one chain of MMAs over all N keys left O 3-7e-6
-// of max|O| from the plain version (f32) at N = 1024, where a tile's chain
-// of eight k-steps leaves 1-2e-6 (ablations timed once on the H100, PERF.md
-// section 6; fresh accumulators for each k-step of S left the error as it
-// was and cost 2-13 %). __launch_bounds__ asks for 4 blocks an SM (at most
-// 128 registers): the legacy UNet's batch 8 makes 512 blocks, one wave of
-// 528; ptxas's own choice at D = 24, 133 registers and 3 blocks, took 30 %
-// longer. P's fragment comes straight from S's accumulators: a thread
-// holds keys 2t and 2t+1 of each 8-key step, which it feeds as the A
-// fragment's columns t and t+4; V's B fragment reads the same keys (rows 2t
-// and 2t+1 of the step), so the reduction pairs them up.
+// Two designs, one a head-dim range. The wide kernel also compiles and
+// passes at D = 16 and 24 (108 and 179 registers, no spill), but at B*H = 32
+// it took 0.7823 / 0.0577 / 0.0760 ms at (N, D) = (4096, 16) / (1024, 16) /
+// (1024, 24) where the narrow kernel took 0.7364 / 0.0548 / 0.0760 in the
+// same runs (probes/time_flash.py, H100 80GB HBM3 at 700 W; PERF.md
+// section 6): 5-6 % slower at D = 16, where the narrow kernel splits each
+// tile once for the block and not in every warp.
+// Both: a block is 4 warps, each owning 16 query rows, and walks the keys in
+// tiles staged by cp.async, double buffered (tile t+1 is in flight while
+// tile t is used), into rows padded to D + 4 floats, so every fragment load
+// is free of bank conflicts. No running max: as in K1, O and l add up
+// unscaled. P's fragment comes straight from S's accumulators
+// (flash_tf32.cuh).
 //
-// mma.sync.m16n8k8 with .tf32 (PTX ISA), lane = 4*g + t:
-//   A (16x8):  a0 (row g, col t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
-//   B (8x8):   b0 (k t, n g)      b1 (k t+4, n g)
-//   C (16x8):  c0, c1 (row g, cols 2t, 2t+1)   c2, c3 (row g+8, cols 2t, 2t+1)
+// The narrow kernel (D = 16, 24): 64-key tiles. Once a tile has landed, the
+// block splits it once: hi over the staged value in place, lo into a second
+// buffer. Each warp keeps its Q fragments, scaled by D^-1/2 * log2(e) and
+// split, in registers for the whole walk. Per tile a warp forms S = Q K^T
+// (16 x 64: eight n-tiles of mma.sync.m16n8k8.tf32, D/8 k-steps each, three
+// products a step), takes p = exp2(clamp(S)) in registers, splits p there,
+// and adds P V (eight k-steps, D/8 n-tiles) into two sets of accumulators
+// (even and odd key steps, two independent chains an n-tile), which join
+// the running sum by FADD at the end of the tile. That last step is for
+// precision: the tensor cores' f32 accumulation does not round to nearest,
+// and one chain of MMAs over all N keys left O 3-7e-6 of max|O| from the
+// plain version (f32) at N = 1024, where a tile's chain of eight k-steps
+// leaves 1-2e-6 (ablations timed once on the H100, PERF.md section 6; fresh
+// accumulators for each k-step of S left the error as it was and cost
+// 2-13 %). __launch_bounds__ asks for 4 blocks an SM (at most 128
+// registers): the legacy UNet's batch 8 makes 512 blocks, one wave of 528;
+// ptxas's own choice at D = 24, 133 registers and 3 blocks, took 30 % longer.
+//
+// The wide kernel (D = 32-192). Carried over, that design would not fit: Q's
+// split fragments (D registers a thread) beside the two O chains (another D)
+// and S (32) pass the 255 registers a thread may have from D = 128 on, and
+// two staged (K, V) tile sets plus a lo buffer, 64 keys x (D + 4) floats
+// each, take 203 KB at D = 128 and 301 KB at 192 of a block's 227. So:
+//   * Q stays in shared memory (64 rows x (D + 4), raw f32) and each A
+//     fragment is scaled and split as it is loaded, once a k-step for all of
+//     a tile's key n-tiles; the K and V fragments are split as they are
+//     loaded too, so no lo buffer is staged (each warp splits the tile
+//     anew: 5 operations an element, about as many instructions as the
+//     MMAs it feeds);
+//   * tiles of 64 keys at D <= 64 and 32 at D >= 128; shared memory 46, 87,
+//     101 and 150 KB at D = 32, 64, 128, 192;
+//   * O's n-tiles are formed one at a time: all of a tile's P fragments
+//     (split, one register a key) stay in registers, and each n-tile's sum
+//     over the tile runs in chains of four k-steps joined to the running O
+//     by FADD, as the narrow kernel's two chains do; S's sum over D runs in
+//     chains of four k-steps joined by FADD as well (24 k-steps at D = 192);
+//   * __launch_bounds__ asks for 2 blocks an SM (at most 255 registers):
+//     running O (D/2 registers) and P (one a key) dominate.
 #include <cuda_runtime.h>
 
-#include "flash_wgmma.cuh"
+#include "flash_tf32.cuh"
 
 namespace wcflash32 {
 
@@ -64,41 +86,15 @@ using wcflash::cp_async_wait;
 using wcflash::kClampLog2;
 using wcflash::kLog2e;
 using wcflash::smem_u32;
+using wctf32::c_to_a;
+using wctf32::ex2;
+using wctf32::mma_3xtf32;
+using wctf32::split;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // query rows a block
-constexpr int kKeys = 64;           // keys a shared-memory tile
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// x rounded to the nearest TF32 value (ties away from zero), its low 13 bits zero.
-__device__ __forceinline__ uint32_t tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
-
-// x = hi + lo to about 2^-22 of x: hi its TF32 rounding, lo that of the (exact) rest.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32: the two small cross terms first, then hi * hi.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                           uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
+constexpr int kKeys = 64;           // keys a shared-memory tile of the narrow kernel
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 4)
@@ -234,6 +230,89 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
+// The wide kernel's tile and shared memory at head dim D.
+template <int D>
+struct Wide {
+  static constexpr int kKeys = D <= 64 ? 64 : 32;  // keys a staged tile
+  static constexpr int kStride = D + 4;            // floats a staged row
+  static constexpr int kNt = kKeys / 8;            // S's n-tiles, P V's k-steps, a tile
+  // Q's 64 rows, then [buffer][K, V] tiles
+  static constexpr int kSmemBytes = (kRows + 4 * kKeys) * kStride * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                              float* __restrict__ o, float* __restrict__ l_out, int n, float scale_log2) {
+  using W = Wide<D>;
+  constexpr int kStride = W::kStride, kKeysW = W::kKeys, kNt = W::kNt, kSteps = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                    // [kRows][kStride]
+  float* kv = smem + kRows * kStride;  // [2][K, V][kKeysW][kStride]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const size_t head = (size_t)blockIdx.y * n * D;
+  const int r0 = blockIdx.x * kRows + warp * 16;
+  const float* kg = k + head;
+  const float* vg = v + head;
+
+  auto stage = [&](int tile, int buf) {
+    float* dst = kv + buf * 2 * kKeysW * kStride;
+    wctf32::stage_rows<D>(dst, kg + (size_t)tile * kKeysW * D, kKeysW, kStride, threadIdx.x, kThreads);
+    wctf32::stage_rows<D>(dst + kKeysW * kStride, vg + (size_t)tile * kKeysW * D, kKeysW, kStride, threadIdx.x,
+                          kThreads);
+    cp_async_commit();
+  };
+  wctf32::stage_rows<D>(qs, q + head + (size_t)blockIdx.x * kRows * D, kRows, kStride, threadIdx.x, kThreads);
+  stage(0, 0);  // Q's copies join the first tile's group
+
+  const float* qw = qs + warp * 16 * kStride;  // this warp's 16 rows
+  const float ones[kNt][2] = {};               // product_nn's row multipliers: unused here
+  float tot[kSteps][4] = {};                   // O's n-tiles, summed over the tiles
+  float l_g = 0.f, l_g8 = 0.f;                 // rows g and g+8: this thread's columns
+
+  const int tiles = n / kKeysW;
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int buf = tile & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile `tile` has landed for every thread; every warp is done with the previous one
+    if (tile + 1 < tiles) stage(tile + 1, buf ^ 1);
+    const float* ks = kv + buf * 2 * kKeysW * kStride;
+    const float* vs = ks + kKeysW * kStride;
+
+    float sc[kNt][4];  // S (exp2 domain) for the tile's keys: n-tile j holds keys 8j..8j+7
+    wctf32::product_nt<D, kNt>(sc, qw, scale_log2, ks, kStride, g, t);
+    uint32_t ph[kNt][4], pl[kNt][4];
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = ex2(fminf(fmaxf(sc[j][e], -kClampLog2), kClampLog2));
+      l_g += p[0] + p[1];
+      l_g8 += p[2] + p[3];
+      c_to_a(p, ph[j], pl[j]);
+    }
+    wctf32::product_nn<D, kNt, false>(tot, ph, pl, vs, kStride, g, t, ones);
+  }
+
+  l_g += __shfl_xor_sync(0xffffffffu, l_g, 1);
+  l_g += __shfl_xor_sync(0xffffffffu, l_g, 2);
+  l_g8 += __shfl_xor_sync(0xffffffffu, l_g8, 1);
+  l_g8 += __shfl_xor_sync(0xffffffffu, l_g8, 2);
+  if (l_out != nullptr && t == 0) {
+    l_out[(size_t)blockIdx.y * n + r0 + g] = l_g;
+    l_out[(size_t)blockIdx.y * n + r0 + g + 8] = l_g8;
+  }
+  const float inv_g = 1.f / l_g, inv_g8 = 1.f / l_g8;
+  float* og = o + head + (size_t)r0 * D;
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const int col = 8 * s + 2 * t;
+    *reinterpret_cast<float2*>(og + g * D + col) = make_float2(tot[s][0] * inv_g, tot[s][1] * inv_g);
+    *reinterpret_cast<float2*>(og + (g + 8) * D + col) = make_float2(tot[s][2] * inv_g8, tot[s][3] * inv_g8);
+  }
+}
+
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* l, int bh, int n, float scale,
                    cudaStream_t stream) {
@@ -241,10 +320,22 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_wide(const float* q, const float* k, const float* v, float* o, float* l, int bh, int n,
+                        float scale, cudaStream_t stream) {
+  constexpr int smem = Wide<D>::kSmemBytes;
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_f32_wide_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_f32_wide_kernel<D><<<dim3(n / kRows, bh), kThreads, smem, stream>>>(q, k, v, o, l, n, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace wcflash32
 
 // q, k, v, o: contiguous f32 (bh, n, d), 16-byte aligned; l: f32 (bh, n) or
-// null. d in (16, 24), n a multiple of 64. Returns the cudaError_t of the launch.
+// null. d in (16, 24, 32, 64, 128, 192), n a multiple of 64. Returns the
+// cudaError_t of the launch.
 extern "C" int wc_flash_fwd_f32(const float* q, const float* k, const float* v, float* o, float* l, int bh, int n,
                                 int d, float scale, void* stream) {
   if (bh <= 0 || bh > 65535 || n <= 0 || n % wcflash32::kKeys != 0 || n % wcflash32::kRows != 0)
@@ -253,6 +344,10 @@ extern "C" int wc_flash_fwd_f32(const float* q, const float* k, const float* v, 
   switch (d) {
     case 16: return wcflash32::launch<16>(q, k, v, o, l, bh, n, scale, s);
     case 24: return wcflash32::launch<24>(q, k, v, o, l, bh, n, scale, s);
+    case 32: return wcflash32::launch_wide<32>(q, k, v, o, l, bh, n, scale, s);
+    case 64: return wcflash32::launch_wide<64>(q, k, v, o, l, bh, n, scale, s);
+    case 128: return wcflash32::launch_wide<128>(q, k, v, o, l, bh, n, scale, s);
+    case 192: return wcflash32::launch_wide<192>(q, k, v, o, l, bh, n, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -370,15 +370,16 @@ def make_translate_fn(
     the image alone. `dtype` (e.g. torch.bfloat16) runs the models under
     autocast: parameters stay f32 and are cast at use; None runs them in
     their own dtype. A CUDA UNet with a flash-length attention layer that
-    would so run in f32 is refused here, by name (the kernels take bf16/f16).
+    would so run in a dtype or at a head dim the kernels do not take (f32
+    with K2, or at a head dim the f32 kernels lack) is refused here, by name.
     """
     for m in (diff_model, seg_model, sr_model):
         m.eval()
     seg_model.requires_grad_(False)
-    if hasattr(diff_model, "attention_shapes"):
+    if hasattr(diff_model, "attention_kernels"):
         param = next(diff_model.parameters())
         check_flash_precision(param.device.type, param.dtype if dtype is None else dtype,
-                              diff_model.attention_shapes(diff_model.config.im_size), "make_translate_fn")
+                              diff_model.attention_kernels(diff_model.config.im_size), "make_translate_fn")
 
     def translate(input_128, gt, generator=None, noise=None, **segment):
         ctx = (torch.autocast(input_128.device.type, dtype=dtype) if dtype is not None

@@ -142,13 +142,14 @@ class Unet(nn.Module):
 
     def forward(self, x: torch.Tensor, t) -> torch.Tensor:
         """x (B, C, H, W), t (B,) or scalar int timesteps -> eps (B, C, H, W) f32.
-        On CUDA a fused model with a flash-length attention layer must compute
-        in bf16/f16 (autocast, or 16-bit parameters): f32 is refused here by
-        name."""
+        On CUDA a fused model with a flash-length attention layer computes in
+        bf16/f16 (autocast, or 16-bit parameters), or in f32 where the f32
+        kernels take each such layer's head dim (forward and backward) and
+        none takes K2: another dtype or head dim is refused here by name."""
         dev = x.device.type
         dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else self.conv_in.weight.dtype
         if self.fused:
-            check_flash_precision(dev, dtype, self.attention_shapes(*x.shape[2:]), "Unet.forward")
+            check_flash_precision(dev, dtype, self.attention_kernels(*x.shape[2:]), "Unet.forward")
         t = torch.as_tensor(t, device=x.device).reshape(-1).expand(x.shape[0])
         # f32, or f64 in a model run in f64 (as the JAX Dense casts it to the module's dtype)
         t_emb = self.t_proj(timestep_embedding(t, self.config.time_emb_dim).to(self.conv_in.weight.dtype))

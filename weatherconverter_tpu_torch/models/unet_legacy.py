@@ -178,7 +178,7 @@ class LegacyUNet(nn.Module):
     def forward(self, x: torch.Tensor, t) -> torch.Tensor:
         dev = x.device.type
         dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else self.pre_conv.weight.dtype
-        check_flash_precision(dev, dtype, self.attention_shapes(*x.shape[2:]), "LegacyUNet.forward", forward_only=True)
+        check_flash_precision(dev, dtype, self.attention_kernels(*x.shape[2:]), "LegacyUNet.forward", forward_only=True)
         t = torch.as_tensor(t, dtype=torch.float32, device=x.device).reshape(-1).expand(x.shape[0])
         temb = alpha_plane_embedding(t, self.image_size, 32).permute(0, 3, 1, 2)
         h = self.pre_conv(x)

@@ -5,13 +5,14 @@ hand-written CUDA kernels for Hopper (csrc/, built by ops/cuda_build.py):
 
   K1 `flash_attention`       <- `_flash_kernel` and `_flash_kernel_stream_fwd`
                                 (D = 24 on zero-filled D = 32 tiles)
-  K1-f32 `flash_attention_f32` <- `_flash_kernel` in f32, forward only, at
-                                the legacy UNet's head dims (csrc/flash_fwd_f32.cu)
+  K1-f32 `flash_attention_f32` <- `_flash_kernel` and `_flash_kernel_stream_fwd`
+                                in f32 (csrc/flash_fwd_f32.cu)
   K2 `flash_attention_qk_i8` <- `_flash_kernel_qk_i8` (pv_int8=False; D = 24
                                 on zero-filled D = 32 tiles as K1)
   K3 `flash_attention_bwd`   <- `_flash_bwd_kernel`, `_flash_bwd_kernel_v2`,
                                 `_flash_bwd_dq_kernel_stream` and
                                 `_flash_bwd_dkv_kernel_stream`
+  K3-f32 `flash_attention_bwd_f32` <- the same four in f32 (csrc/flash_bwd_f32.cu)
 
 and the quantization of Q and K in front of K2, which XLA fused on the TPU,
 another: `quantize_qk_i8` (csrc/quantize_i8.cu). K2 and its quantizer take
@@ -33,14 +34,16 @@ tensor launches the kernel or raises. Each wrapper counts its launches in
 
 `flash_attention` is differentiable: inputs that require grad go through
 `FlashAttentionFunction`, whose forward is K1 with l and whose backward is
-K3, as `jax.custom_vjp` wires `_fa_fwd`/`_fa_bwd`. K2 is forward-only, as
+K3 (K1-f32 and K3-f32 for f32 CUDA inputs), as `jax.custom_vjp` wires
+`_fa_fwd`/`_fa_bwd`. K2 is forward-only, as
 in JAX, which has no VJP for the int8 path: it raises for inputs that
 require grad, on every device.
 
 The kernels take fixed head dims: K1 `KERNEL_HEAD_DIMS`, K1-f32
-`F32_HEAD_DIMS`, K3 `BWD_HEAD_DIMS` (no 24: the one model at D = 24, the
-legacy UNet, only samples), K2 `QK_I8_HEAD_DIMS`, every head dim a model of
-the repo has, as JAX's int8 kernel takes any. Each refuses another by name.
+`F32_HEAD_DIMS`, K3 `BWD_HEAD_DIMS` and K3-f32 `F32_BWD_HEAD_DIMS` (no 24:
+the one model at D = 24, the legacy UNet, only samples), K2
+`QK_I8_HEAD_DIMS`, every head dim a model of the repo has, as JAX's int8
+kernel takes any. Each refuses another by name.
 A model with `qk_int8` set takes K2 in every flash-length layer
 (`qk_int8_takes`, read by the attention layers).
 """
@@ -63,7 +66,8 @@ FLASH_MIN_SEQ = 1024
 KERNEL_HEAD_DIMS = (16, 24, 32, 64, 128, 192)  # K1
 BWD_HEAD_DIMS = (16, 32, 64, 128, 192)  # K3
 QK_I8_HEAD_DIMS = (16, 24, 32, 64, 128, 192)  # K2
-F32_HEAD_DIMS = (16, 24)  # K1-f32: the legacy UNet's flash-length layers
+F32_HEAD_DIMS = (16, 24, 32, 64, 128, 192)  # K1-f32
+F32_BWD_HEAD_DIMS = (16, 32, 64, 128, 192)  # K3-f32
 KERNEL_BLOCK = 64  # N must be a multiple of the kernels' query/key tile
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
@@ -89,28 +93,42 @@ def layer_kernel(n: int, head_dim: int, qk_int8: bool, fused: bool = True) -> st
     return "K2" if qk_int8 else "K1"
 
 
-def check_flash_precision(device_type: str, dtype: torch.dtype, attn_shapes, where: str,
+def check_flash_precision(device_type: str, dtype: torch.dtype, layers, where: str,
                           forward_only: bool = False) -> None:
     """Refuse, where the user chose the dtype, a CUDA model that would reach a
-    flash-length attention layer in a dtype the kernels do not take.
-    `attn_shapes` is the model's (N, D) list, `dtype` what its attention
-    layers compute in (the autocast dtype, else the parameters'). The JAX
-    kernels take f32; the port's take bf16/f16, and f32 only forward (K1-f32)
-    at F32_HEAD_DIMS, which a `forward_only` model (the legacy UNet) may use.
-    Nothing is cast silently: the caller picks the dtype. The CPU runs any
-    dtype (plain versions), and so does a CUDA model with no flash-length
-    layer (plain softmax attention)."""
+    flash-length attention layer in a dtype or at a head dim the kernels do
+    not take. `layers` is the model's `attention_kernels` list, (N, D, "K1",
+    "K2" or "softmax"), or its (N, D) list where no layer takes K2; `dtype`
+    is what its attention layers compute in (the autocast dtype, else the
+    parameters'). bf16/f16 run K1 and K3, or K2. f32 runs
+    K1-f32 (F32_HEAD_DIMS) and, unless the model is `forward_only` (the
+    legacy UNet, which only samples), K3-f32 (F32_BWD_HEAD_DIMS), but not K2,
+    whose V is 16-bit. Nothing is cast silently: the caller picks the dtype.
+    The CPU runs any dtype (plain versions), and so does a CUDA model with no
+    flash-length layer (plain softmax attention)."""
     if device_type != "cuda" or dtype in KERNEL_DTYPES:
         return
-    flash = sorted({(n, d) for n, d in attn_shapes if is_flash_length(n)})
-    if forward_only and dtype == torch.float32 and all(d in F32_HEAD_DIMS for _, d in flash):
+    flash = sorted({(n, d) for n, d, *kind in layers if is_flash_length(n) and kind != ["softmax"]})
+    if not flash:
         return
-    if flash:
-        raise ValueError(
-            f"{where}: this model attends at flash length, (N, D) = {flash}, and on CUDA the flash-attention "
-            f"kernels take bfloat16/float16, not {dtype}. Run it under autocast: "
-            f'make_translate_fn(..., dtype=torch.bfloat16), training.dtype="bfloat16", or '
-            f'torch.autocast("cuda", dtype=torch.bfloat16) around the call; float32 runs on the CPU')
+    qk_int8 = any(kind == ["K2"] for _, _, *kind in layers)
+    remedy = (f'Run it under autocast: make_translate_fn(..., dtype=torch.bfloat16), training.dtype="bfloat16", or '
+              f'torch.autocast("cuda", dtype=torch.bfloat16) around the call; {dtype} runs on the CPU')
+    if dtype != torch.float32:
+        raise ValueError(f"{where}: this model attends at flash length, (N, D) = {flash}, and on CUDA the "
+                         f"flash-attention kernels take bfloat16/float16 or float32, not {dtype}. {remedy}")
+    if qk_int8:
+        raise ValueError(f"{where}: this model attends at flash length, (N, D) = {flash}, with qk_int8, and on CUDA "
+                         f"the int8 forward (K2, flash_attention_qk_i8) takes bfloat16/float16 V, not {dtype}. Build "
+                         f"it with qk_int8=False to run it in {dtype} (K1-f32), or: {remedy}")
+    dims = F32_HEAD_DIMS if forward_only else set(F32_HEAD_DIMS) & set(F32_BWD_HEAD_DIMS)
+    if all(d in dims for _, d in flash):
+        return
+    kernels = (f"the f32 forward (K1-f32, flash_attention_f32) takes head dims {F32_HEAD_DIMS}"
+               + ("" if forward_only else f" and the f32 backward (K3-f32, flash_attention_bwd_f32) "
+                                          f"{F32_BWD_HEAD_DIMS}"))
+    raise ValueError(f"{where}: this model attends at flash length, (N, D) = {flash}, and on CUDA in {dtype} "
+                     f"{kernels}. {remedy}")
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -317,18 +335,25 @@ def _(q, k, v, o, do, l):
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
+def _check_bwd_inputs(name: str, q, k, v, o, do, l) -> None:
+    """What K3 and K3-f32 take beside their dtype and head dims: five (B, H,
+    N, D) tensors of q's shape, dtype and device, and l (B, H, N, 1) f32."""
+    b, h, n, d = q.shape
+    for what, t in (("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {what} must match q's shape, dtype and device, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+    if l.shape != (b, h, n, 1) or l.dtype != torch.float32 or l.device != q.device:
+        raise ValueError(f"{name}: l must be (B, H, N, 1) f32 on q's device, got "
+                         f"{tuple(l.shape)} {l.dtype} {l.device}")
+
+
 @_k3_op.register_kernel("cuda")
 def _(q, k, v, o, do, l):
     _check_bwd_head_dim(q.shape[-1])
     check_kernel_inputs("flash_attention_bwd", q, k, v, BWD_HEAD_DIMS)
+    _check_bwd_inputs("flash_attention_bwd", q, k, v, o, do, l)
     b, h, n, d = q.shape
-    for name, t in (("k", k), ("v", v), ("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"flash_attention_bwd: {name} must match q's shape, dtype and device, got "
-                             f"{tuple(t.shape)} {t.dtype} {t.device}")
-    if l.shape != (b, h, n, 1) or l.dtype != torch.float32 or l.device != q.device:
-        raise ValueError(f"flash_attention_bwd: l must be (B, H, N, 1) f32 on q's device, got "
-                         f"{tuple(l.shape)} {l.dtype} {l.device}")
     q, k, v, o, do, l = (t.contiguous() for t in (q, k, v, o, do, l))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dvec = torch.empty((2, b * h, n), device=q.device, dtype=torch.float32)  # Dv and 1/l, pass 1 -> pass 2
@@ -341,6 +366,42 @@ def _(q, k, v, o, do, l):
         )
     cuda_build.check_launch("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+@torch.library.custom_op(f"{OPS}::flash_bwd_f32", mutates_args=(), device_types="cpu")
+def _k3_f32_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+               l: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_attention_bwd_plain(q, k, v, o, do, l)
+
+
+@_k3_f32_op.register_fake
+def _(q, k, v, o, do, l):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+@_k3_f32_op.register_kernel("cuda")
+def _(q, k, v, o, do, l):
+    _check_bwd_f32_head_dim(q.shape[-1])
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd_f32: the kernel runs on CUDA tensors, got {q.device}")
+    if q.dim() != 4 or q.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd_f32: q must be (B, H, N, D) float32, got {tuple(q.shape)} {q.dtype}")
+    _check_bwd_inputs("flash_attention_bwd_f32", q, k, v, o, do, l)
+    b, h, n, d = q.shape
+    check_kernel_shape("flash_attention_bwd_f32", b, h, n, d, head_dims=F32_BWD_HEAD_DIMS)
+    q, k, v, o, do, l = (t.contiguous() for t in (q, k, v, o, do, l))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dvec = torch.empty((2, b * h, n), device=q.device, dtype=torch.float32)  # Dv and 1/l, pass 1 -> pass 2
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        err = lib.wc_flash_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), l.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(), b * h, n, d, 1.0 / d**0.5,
+            cuda_build.stream(q.device),
+        )
+    cuda_build.check_launch("flash_attention_bwd_f32", err)
+    flash_attention_bwd_f32.launches += 1
     return dq, dk, dv
 
 
@@ -452,16 +513,17 @@ def _(q8, k8, qk_scale, v):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_l: bool = False):
     """K1, (B, H, N, D) -> O in q's dtype (and l, (B, H, N, 1) f32, with
     `return_l`). A CPU tensor takes `flash_attention_plain`; a CUDA tensor
-    launches the kernel (bf16/f16, D in KERNEL_HEAD_DIMS, N % 64 == 0) or
-    raises. Inputs that require grad (under grad mode) go through
-    `FlashAttentionFunction`, so the backward is K3; on CUDA a head dim K3
-    lacks (24) is refused before the forward runs."""
+    launches the kernel (bf16/f16, D in KERNEL_HEAD_DIMS, N % 64 == 0; f32
+    goes to K1-f32) or raises. Inputs that require grad (under grad mode) go
+    through `FlashAttentionFunction`, so the backward is K3 (K3-f32 for f32);
+    on CUDA a head dim the backward lacks (24) is refused before the forward
+    runs."""
     if _wants_grad(q, k, v):
-        if q.device.type != "cpu":
-            _check_bwd_head_dim(q.shape[-1])  # before the forward, not in the backward
+        if q.device.type != "cpu":  # before the forward, not in the backward
             if q.dtype == torch.float32:
-                raise NotImplementedError("flash_attention: the f32 forward (K1-f32) has no backward; train in "
-                                          "bf16 (K1 and K3)")
+                _check_bwd_f32_head_dim(q.shape[-1])
+            else:
+                _check_bwd_head_dim(q.shape[-1])
         o, l = FlashAttentionFunction.apply(q, k, v)
         return (o, l) if return_l else o
     return _flash_forward(q, k, v, return_l=return_l)
@@ -478,15 +540,17 @@ flash_attention.launches = 0
 
 
 def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_l: bool = False):
-    """K1-f32, forward only: (B, H, N, D) f32 -> O f32 (and l with
-    `return_l`), every sum in f32 and every product in 3xTF32 on the tensor
-    cores (each operand split into TF32 high and low parts, the lo*lo term
-    dropped: about 21 bits of the product). A CPU tensor takes
-    `flash_attention_plain`; a CUDA tensor (f32, D in F32_HEAD_DIMS, N % 64
-    == 0) launches the kernel or raises. `flash_attention` sends f32 CUDA
-    inputs here."""
+    """K1-f32: (B, H, N, D) f32 -> O f32 (and l with `return_l`), every sum
+    in f32 and every product in 3xTF32 on the tensor cores (each operand
+    split into TF32 high and low parts, the lo*lo term dropped: about 21
+    bits of the product). A CPU tensor takes `flash_attention_plain`; a CUDA
+    tensor (f32, D in F32_HEAD_DIMS, N % 64 == 0) launches the kernel or
+    raises. `flash_attention` sends f32 CUDA inputs here, and its autograd
+    Function takes this forward's l to K3-f32; this function alone is the
+    forward, and raises for inputs that require grad."""
     if _wants_grad(q, k, v):
-        raise NotImplementedError("flash_attention_f32 is forward-only (no f32 backward): train in bf16")
+        raise NotImplementedError("flash_attention_f32 is the forward alone: call flash_attention, whose f32 "
+                                  "backward is K3-f32")
     o, l = _k1_f32_op(q, k, v, return_l)
     return (o, l) if return_l else o
 
@@ -530,16 +594,37 @@ def flash_attention_bwd(q, k, v, o, do, l):
 flash_attention_bwd.launches = 0
 
 
+def flash_attention_bwd_f32(q, k, v, o, do, l):
+    """K3-f32, the flash backward in f32: (q, k, v, o, dO) (B, H, N, D) f32
+    and l (B, H, N, 1) f32 from the forward -> (dq, dk, dv) f32, every sum in
+    f32 and every product in 3xTF32, as K1-f32. A CPU tensor takes
+    `flash_attention_bwd_plain`; a CUDA tensor launches the kernel's passes
+    (dQ, then dK/dV, dV and dK apart at D >= 128) or raises. Head dims
+    F32_BWD_HEAD_DIMS."""
+    return _k3_f32_op(q, k, v, o, do, l)
+
+
+flash_attention_bwd_f32.launches = 0
+
+
 def _check_bwd_head_dim(d: int) -> None:
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head dim {d} not in {BWD_HEAD_DIMS}: the flash backward has no such "
                          f"instantiation (K1 takes it forward only; the legacy UNet, at D = 24, only samples)")
 
 
+def _check_bwd_f32_head_dim(d: int) -> None:
+    if d not in F32_BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_f32: head dim {d} not in {F32_BWD_HEAD_DIMS}: the f32 flash backward "
+                         f"has no such instantiation (K1-f32 takes {F32_HEAD_DIMS} forward only; the legacy UNet, at "
+                         f"D = 24, only samples)")
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """O = flash_attention(q, k, v) with the flash backward: the forward is K1
-    with l (its plain version on the CPU) and saves (q, k, v, o, l); the
-    backward is `flash_attention_bwd`. Under autocast the backward runs in
+    with l (K1-f32 for f32 CUDA inputs; its plain version on the CPU) and
+    saves (q, k, v, o, l); the backward is `flash_attention_bwd`
+    (`flash_attention_bwd_f32` for f32 CUDA inputs). Under autocast the backward runs in
     the forward's autocast state and sees the dtypes the forward saw; dO is
     cast to q's dtype, as `_fa_bwd` does. Returns (o, l); l takes no
     gradient."""
@@ -557,7 +642,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, do, _dl):
         q, k, v, o, l = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, o, do.to(q.dtype).contiguous(), l)
+        bwd = flash_attention_bwd_f32 if q.device.type != "cpu" and q.dtype == torch.float32 else flash_attention_bwd
+        return bwd(q, k, v, o, do.to(q.dtype).contiguous(), l)
 
 
 def quantize_qk_i8(q: torch.Tensor, k: torch.Tensor, *, per_item: bool = False):

@@ -2,8 +2,9 @@
 
 The kernels have a plain C interface, so nvcc builds them with no PyTorch
 headers, in seconds, and `ctypes` loads the result. Each source compiles in
-its own nvcc process, all started together, and one more links the objects
-into a shared library. The build happens at first use, into `_build/` beside
+its own nvcc process, all started together (a source in `VARIANTS` once for
+each of its flag sets), and one more links the objects into a shared
+library. The build happens at first use, into `_build/` beside
 the package (listed in .gitignore); the library's name carries a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 reused. nvcc's output is kept beside the library under the same hash, so
@@ -24,8 +25,11 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("flash_fwd.cu", "flash_fwd_f32.cu", "flash_fwd_qk_i8.cu", "quantize_i8.cu", "flash_bwd.cu",
-           "probe_exp2_attn.cu", "probe_qk_dot.cu", "probe_dw3x3.cu", "probe_dw9x9.cu")
-HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_fwd_loop.cuh")
+           "flash_bwd_f32.cu", "probe_exp2_attn.cu", "probe_qk_dot.cu", "probe_dw3x3.cu", "probe_dw9x9.cu")
+HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_fwd_loop.cuh", "flash_tf32.cuh")
+# Sources compiled more than once, each time with other flags into an object of its own: K3-f32 once a head dim
+# (its kernels) and once for its entry point, so that nvcc compiles the head dims in parallel
+VARIANTS = {"flash_bwd_f32.cu": [()] + [(f"-DWC_BWD_F32_D={d}",) for d in (16, 32, 64, 128, 192)]}
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,8 +51,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): cannot build the CUDA kernels")
 
 
+def _compiles() -> list[tuple[str, tuple[str, ...], str]]:
+    """(source, its extra flags, object name) of every nvcc compile of a build."""
+    return [(s, flags, f"{s}.{i}.o") for s in SOURCES for i, flags in enumerate(VARIANTS.get(s, [()]))]
+
+
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(sorted(VARIANTS.items()))).encode())
     for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as fh:
             h.update(name.encode() + b"\0" + fh.read())
@@ -76,9 +85,10 @@ def _build(target: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        objs = [os.path.join(work, s + ".o") for s in SOURCES]
-        log = _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, s)])
-                    for s, obj in zip(SOURCES, objs)])
+        compiles = _compiles()
+        objs = [os.path.join(work, obj) for _, _, obj in compiles]
+        log = _run([_start([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj, os.path.join(CSRC_DIR, s)])
+                    for (s, flags, _), obj in zip(compiles, objs)])
         tmp = os.path.join(work, "lib.so")
         log += _run([_start([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs])])
         with open(os.path.join(work, "log"), "w") as fh:
@@ -116,6 +126,8 @@ def library() -> ctypes.CDLL:
             lib.wc_quantize_qk_i8.restype = _int
             lib.wc_flash_bwd.argtypes = [_ptr] * 10 + [_int, _int, _int, _int, ctypes.c_float, _ptr]
             lib.wc_flash_bwd.restype = _int
+            lib.wc_flash_bwd_f32.argtypes = [_ptr] * 10 + [_int, _int, _int, ctypes.c_float, _ptr]
+            lib.wc_flash_bwd_f32.restype = _int
             lib.wc_probe_exp2_attn.argtypes = [_ptr] * 4 + [_int] * 4 + [ctypes.c_float, _ptr]
             lib.wc_probe_qk_i8.argtypes = [_ptr] * 3 + [_int] * 3 + [_ptr]
             lib.wc_probe_qk_bf16.argtypes = [_ptr] * 3 + [_int] * 3 + [_ptr]

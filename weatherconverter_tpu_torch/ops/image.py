@@ -1,5 +1,5 @@
-"""Image primitives on NCHW tensors (port of the parts of
-weatherconverter_tpu/ops/image.py that guided translation uses).
+"""Image primitives on NCHW tensors (port of weatherconverter_tpu/ops/image.py:
+the parts that guided translation uses, and `center_crop` and `denormalize`).
 
 The four resampling and pooling helpers take part in torch's function
 override protocol (`handle_torch_function`), so that a TorchFunctionMode
@@ -63,3 +63,22 @@ def normalize(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> t
     m = torch.as_tensor(mean, dtype=x.dtype, device=x.device).reshape(1, -1, 1, 1)
     s = torch.as_tensor(std, dtype=x.dtype, device=x.device).reshape(1, -1, 1, 1)
     return (x - m) / s
+
+
+def denormalize(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:
+    """Channel-wise x * std + mean: the inverse of `normalize`."""
+    m = torch.as_tensor(mean, dtype=x.dtype, device=x.device).reshape(1, -1, 1, 1)
+    s = torch.as_tensor(std, dtype=x.dtype, device=x.device).reshape(1, -1, 1, 1)
+    return x * s + m
+
+
+def center_crop(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """The centre (th, tw) window of (N, C, H, W) `x`, a view. torchvision's
+    CenterCrop offset, int(round((in - out) / 2)), with Python's rounding of
+    halves to even, as the JAX op takes it: one pixel less than
+    (in - out + 1) // 2 where (in - out) % 4 == 1, and one more than
+    (in - out) // 2 where it is 3."""
+    th, tw = size
+    top = int(round((x.shape[2] - th) / 2.0))
+    left = int(round((x.shape[3] - tw) / 2.0))
+    return x[:, :, top:top + th, left:left + tw]

@@ -105,13 +105,18 @@ def attention_roofline(peak: dict | None, shape, backward: bool = False, qk_int8
     needs, the five products of a one-pass backward (10 N^2 D) and one
     exponential a score (N^2), with Q, K, V, O, dO and l read and dQ, dK, dV
     written; a two-pass backward spends seven products and 2 N^2
-    exponentials against this bound."""
+    exponentials against this bound. With `f32` the backward's inputs and
+    outputs are f32 and each of its five products is three TF32 products
+    (K3-f32's design)."""
     if peak is None:
         return roofline(None, 0)
     b, h, n, d = shape
     bh = b * h
     product = 2 * bh * n * n * d
     ex2 = bh * n * n / peak["ex2"]
+    if backward and f32:
+        return _bound({"hbm": bh * n * (8 * d * 4 + 4) / peak["hbm"], "tf32x3": 3 * 5 * product / peak["tf32"],
+                       "ex2": ex2})
     if backward:
         return _bound({"hbm": bh * n * (8 * d * 2 + 4) / peak["hbm"], "bf16": 5 * product / peak["bf16"], "ex2": ex2})
     if f32:

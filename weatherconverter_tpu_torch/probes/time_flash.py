@@ -11,7 +11,11 @@ attention shapes, bf16, each kernel (K1 `flash_attention`, K3
 `exp2_attention`) is timed in turns (other, this, this, other) with
 `common.time_ms`, and the two checkouts' outputs are compared. Then, for this
 checkout alone: K2 apart (the quantizer, the eager quantization it replaces,
-the forward on quantized inputs). Without OTHER_ROOT only this checkout is timed.
+the forward on quantized inputs). Last, K1-f32 `flash_attention_f32` at
+F32_SHAPES (the default UNet's (4096, 16) and the legacy UNet's two, f32,
+TF32 off) in the same turns, each checkout's max|err|/max|ref| against the
+plain version printed beside its time. Without OTHER_ROOT only this checkout
+is timed.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from weatherconverter_tpu_torch.probes import common, micro_attn
 
 PACKAGE = A.__name__.split(".")[0]
 SHAPES = [(8, 4, 4096, 64), (8, 4, 1024, 128), (8, 4, 1024, 32), (8, 4, 4096, 16)]
+F32_SHAPES = [(8, 4, 4096, 16), (8, 4, 1024, 16), (8, 4, 1024, 24)]
 THIS = types.SimpleNamespace(attention=A, micro_attn=micro_attn)
 
 
@@ -83,6 +88,25 @@ def run(device, card: str, other=None) -> None:
                    f"({eager / quant:.1f}x), the forward alone {sum(fwd) / 2:.4f} ms (runs {_runs(fwd)}) [{card}]")
 
 
+def run_f32(device, card: str, other=None) -> None:
+    gen = torch.Generator(device=device).manual_seed(1)
+    turns = [("this", THIS)] if other is None else [("other", other), ("this", THIS), ("this", THIS), ("other", other)]
+    for shape in F32_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
+        ref = A.flash_attention_plain(q, k, v)
+        ms = {"this": [], "other": []}
+        for who, checkout in turns:
+            ms[who].append(common.time_ms(lambda: checkout.attention.flash_attention_f32(q, k, v), reps=20))
+        errs = {who: ((checkout.attention.flash_attention_f32(q, k, v) - ref).abs().max() / ref.abs().max()).item()
+                for who, checkout in dict(turns).items()}
+        line = (f"K1-f32 flash_attention_f32 {shape}: this {sum(ms['this']) / len(ms['this']):.4f} ms "
+                f"(runs {_runs(ms['this'])}), max|err|/max|ref| {errs['this']:.2e}")
+        if other is not None:
+            line += (f", other {sum(ms['other']) / 2:.4f} ms (runs {_runs(ms['other'])}), other/this "
+                     f"{sum(ms['other']) / sum(ms['this']):.2f}x, max|err|/max|ref| {errs['other']:.2e}")
+        common.log(f"{line} [{card}]")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not common.require_cuda("time_flash"):
@@ -90,7 +114,9 @@ def main(argv=None) -> int:
     card = common.card_line()
     common.log(card)
     common.log(common.setup())
-    run(torch.device("cuda"), card, load_checkout(argv[0]) if argv else None)
+    other = load_checkout(argv[0]) if argv else None
+    run(torch.device("cuda"), card, other)
+    run_f32(torch.device("cuda"), card, other)
     return 0
 
 

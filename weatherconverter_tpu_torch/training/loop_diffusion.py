@@ -18,14 +18,26 @@ rows of each global batch, from JAX's index order (parallel.sharding.loader,
 data/loader.py; `training.num_workers` 0 means JAX's 8 decode threads).
 `training.fsdp` shards the state after any restore (parallel.fsdp); it
 needs a process group. The primary alone writes the run directory, the
-log and the checkpoints; every rank restores. On CUDA the step runs
-under bf16 autocast when `training.dtype` is "bfloat16"; another dtype is
-refused there if the UNet has a flash-length attention layer (the kernels
-take bf16/f16). On the CPU it runs in f32, as the JAX loop does off the TPU.
+log and the checkpoints; every rank restores.
+
+Precision. On CUDA the step runs under bf16 autocast when `training.dtype`
+is "bfloat16" (the flash-length attention layers through K1 and K3), and in
+f32 otherwise, as the JAX loop builds its UNet in f32 unless that dtype is
+bfloat16: the flash-length layers then take K1-f32 and K3-f32 (3xTF32 on the
+tensor cores, about 21 bits of each product), and a UNet with a flash-length
+head dim those kernels lack is refused by name before anything runs. An f32
+run keeps f32 arithmetic in the rest of the step too: it turns TF32 off for
+cuDNN's convolutions (`torch.backends.cudnn.allow_tf32`, which PyTorch
+leaves on, so f32 convolutions would otherwise keep 10 bits of mantissa)
+and keeps f32 matmuls at "highest" precision (PyTorch's default), for the
+run's length. A user who asks for f32 asks for the f32 result, which the
+CPU tests hold against JAX's; bf16 is the fast choice. On the CPU the step
+runs in f32, as the JAX loop does off the TPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from functools import partial
@@ -84,6 +96,25 @@ def _device(name: str) -> torch.device:
                                'set training.device="cpu" to train on the CPU')
         return torch.device("cuda")
     return torch.device(name)
+
+
+@contextlib.contextmanager
+def f32_arithmetic(device: torch.device, dtype: Optional[torch.dtype]):
+    """Inside the block, an f32 step on CUDA (`dtype` None) computes in f32:
+    cuDNN's convolutions without TF32 and matmuls at "highest" precision;
+    the settings are restored after it. Nothing changes for autocast
+    (`dtype` set) or the CPU."""
+    if device.type != "cuda" or dtype is not None:
+        yield
+        return
+    cudnn, prev = torch.backends.cudnn, torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def plan_mesh(tr, n_items: int, device: torch.device):
@@ -163,7 +194,7 @@ def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -
     flag_group = sharding.host_group(mesh)
 
     global_step = state.step
-    with PreemptionGuard() as guard:
+    with PreemptionGuard() as guard, f32_arithmetic(device, dtype):
         for epoch in range(state.epoch, tr.epochs):
             # the epoch's loss adds up on the device; one read per epoch
             epoch_loss, nb, t0 = torch.zeros((), device=device), 0, time.time()
