@@ -4,7 +4,9 @@
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
 Phases, each of which fails the run (exit code != 0, no result line):
-  1. build the hand-written CUDA kernels from csrc/ with nvcc;
+  1. build the hand-written CUDA kernels from csrc/ with nvcc (no spill or
+     serialized wgmma in the flash kernels, K2-f32 and the f32 quantizer
+     included);
   2. hold each kernel (the flash forwards K1 and K2, the flash backward K3)
      against its plain PyTorch version at the four attention shapes of the
      production UNet at batch 8, in bf16, and time both; beside them, the
@@ -29,7 +31,15 @@ Phases, each of which fails the run (exit code != 0, no result line):
      backward; one forward and backward of the
      256 px UNet in f32 (K1-f32 and K3-f32 at its twelve flash-length
      layers) and under bf16 (K1 and K3), and one forward of it with qk_int8
-     (K2 at all twelve, D = 192 included; in f32 refused by name);
+     in f32 (K2-f32 at all twelve) and under bf16 (K2 at all twelve, D = 192
+     included); K2-f32 (int8 Q K^T, P V in 3xTF32) and its quantizer on f32
+     q and k at the four path shapes, (1024, 16), (1024, 24) and (1024,
+     192), per tensor and per batch row: the quantizer equal to its plain
+     version, K2-f32 within 1e-5 of max |ref| of its f32 plain version, two
+     calls bit-equal, row 0 beside a x100 row 1 equal to row 0 alone, two
+     planted faults (V in bf16, P V in one TF32 pass) beyond the limit, each
+     timed beside its bound, sdpa's f32 forward, the plain version and
+     K1-f32;
   3. run guided translation at full width -- the production 128px UNet,
      DeepLabV3+/ResNet-101 at output stride 16 with 19 classes, a 2x
      Swift-SRGAN, batch 8, bf16 autocast over f32 parameters, random weights
@@ -79,27 +89,31 @@ Phases, each of which fails the run (exit code != 0, no result line):
  12. the int8 quality check (probes/int8_quality.py) at the fast samplers:
      K2 against K1 through the DPM chain at 20 steps and (when the run gets
      there within INT8_DDIM_BEFORE_S) the DDIM chain at 50, batch 8, against a
-     chaos floor of 5 perturbed runs, and two identical K1 runs; its verdict
-     is printed, not gated;
+     chaos floor of 3 perturbed runs, and two identical K1 runs; then DPM-20
+     in f32 (K2-f32 against K1-f32, the CLI's path) against its floor;
+     the verdicts are printed, not gated;
  13. the CLI (cli/main.py) in-process at the shipped configs/translation.yaml
      (the 128 px UNet, DeepLabV3+/ResNet-101 at OS16, the 4x SRGAN: 512 px
      out) and configs/diffusion.yaml, seeded random weights, a synthetic
-     2048 x 1024 image and labelIds map: translate with DPM-20 and DDIM-50 on
-     K2 (the inference default) and DPM-20 with --no-int8-attn on K1, sample
-     (DPM-20, batch 8), super-resolve, train-ddpm (4 steps, K1 and K3); each
-     must exit 0, write a PNG of its shape with finite values in range before
-     the uint8 cast, and launch the kernels 8 times a UNet forward; then one
-     translate in a fresh process; its wall time beside the library path's;
+     2048 x 1024 image and labelIds map, every inference command in f32 as
+     JAX's: translate with DPM-20 and DDIM-50 on K2-f32 (the inference
+     default) and DPM-20 with --no-int8-attn on K1-f32, sample (DPM-20,
+     batch 8, K2-f32), super-resolve, train-ddpm (4 steps, bf16: K1 and K3);
+     each must exit 0, write a PNG of its shape with finite values in range
+     before the uint8 cast, and launch the kernels 8 times a UNet forward,
+     K2 on f32 V only; then one translate in a fresh process; its wall time
+     beside the library path's;
  14. the server (serving/server.py) on the card at the same configuration,
      sampler dpm at 5 steps, batch 4: 8 concurrent /v1/translate requests
-     with labels of 3-19 classes and 2 /v1/sample requests, on K2 with one
-     int8 scale a request (the default) under lcg_present_k='auto' and under
-     the full sweep, and on K1 (--no-int8-attn) under the full sweep (latency
-     p50/p95, translations a minute, occupancy, batches, buckets, peak
-     memory, the kernels' launches); every response 200 with a PNG of its
-     shape, /stats counts that add up; after each full sweep one seed solo
-     and co-batched, within two solo runs' difference plus one uint8 level,
-     under K2 as under K1;
+     with labels of 3-19 classes and 2 /v1/sample requests, the chains in
+     f32, on K2-f32 with one int8 scale a request (the default) under
+     lcg_present_k='auto' and under the full sweep, and on K1-f32
+     (--no-int8-attn) under the full sweep (latency p50/p95, translations a
+     minute, occupancy, batches, buckets, peak memory, the kernels'
+     launches); every response 200 with a PNG of its shape, /stats counts
+     that add up; after each full sweep one seed solo and co-batched, within
+     two solo runs' difference plus one uint8 level, under K2-f32 as under
+     K1-f32; one chain of the per-row K2 service under bf16 autocast;
  15. segmentation at configs/segmentation.yaml (DeepLabV3+/ResNet-101 at
      OS16, 19 classes, batch 8, 270 x 480 images cropped to 256 x 256, SGD
      under PolyLR, bf16 autocast over f32 parameters, seeded random weights)
@@ -150,25 +164,29 @@ Phases, each of which fails the run (exit code != 0, no result line):
      before the uint8 cast). No kernel of ours;
  18. the legacy UNet (models/unet_legacy.py) at 128 px, seeded weights
      scaled to unit-variance eps, batch 8, 20 strided steps of
-     ddpm_sample_legacy, in f32 (K1-f32 at attn_down3 and attn_up2, no TF32:
-     what the CLI runs) and under bf16 with qk_int8 (K2 at attn_down3 and at
-     attn_up2, D = 24, its launches there counted): each timed, profiled, its launches a forward asserted, its
-     peak memory read; the precision check of probes/legacy_precision.py at
-     batch 2 (the bf16 and the f32 card chains against the f32 CPU chain and
-     its 5-run chaos floor; the f32 chain must pass, the bf16 chain's verdict
-     is printed, not gated: it fails by design); `sample --sampler legacy`
-     through the CLI (exit 0, the PNG's shape, K1-f32 twice a forward);
+     ddpm_sample_legacy, in f32 (K1-f32 at attn_down3 and attn_up2, no
+     TF32), in f32 with qk_int8 (K2-f32 at both: what the CLI runs, as JAX's
+     sample enables its int8 kernel) and under bf16 with qk_int8 (K2 at
+     attn_down3 and at attn_up2, D = 24, its launches there counted): each
+     timed, profiled, its launches a forward asserted, its peak memory read;
+     the precision check of probes/legacy_precision.py at batch 2 (the bf16,
+     f32 and f32 qk_int8 card chains against the f32 CPU chain and its 3-run
+     chaos floor; the f32 chain must pass, the others' verdicts are printed,
+     not gated: the bf16 one fails by design); `sample --sampler legacy`
+     through the CLI (exit 0, the PNG's shape, K2-f32 twice a forward);
  19. `quality --synthetic 8 --batch 8 --steps 20` through the CLI at
      configs/translation.yaml, with the seg backbone's FID and with
      InceptionV3 pool3 from a seeded torchvision-layout .pth written by
      compat/from_jax.export_inception_v3 (exit 0, the report's keys, finite
-     numbers, K2 and its quantizer 8 times a UNet forward), then
-     Inception's time for a 299 px batch of 8 and FID's eigh at D = 2048;
+     numbers, K1-f32 8 times a UNet forward and no K2: JAX's quality never
+     enables int8), then Inception's f32 time for a 299 px batch of 8 and
+     FID's eigh at D = 2048;
  20. `visualize` through the CLI at configs/diffusion.yaml (seeded weights,
      K1) on a synthetic 128 px image, a frame every 25 steps of the chain
      on a copy of the config with a 250-step schedule, at batch 1, and
      `translate --debug-dir` at
-     configs/translation.yaml (K2 per layer) at 10 steps, a dump every 5,
+     configs/translation.yaml (K2-f32 per layer) at 10 steps, a dump every 5,
+     both in f32 (visualize on K1-f32),
      beside a plain translate with the same seed: exit 0, the files and
      their shapes, K1/K2/quantizer launches as the UNets' attention_kernels
      predict, the debug run's output PNG byte-equal to the plain one's; each
@@ -176,14 +194,14 @@ Phases, each of which fails the run (exit code != 0, no result line):
      (device_memory_stats); a traced short run of each (core/profiling.trace,
      the trace written and not empty) for device time and idle share;
  21. `export-hlo --program translate --attn int8` through the CLI at
-     configs/translation.yaml, batch 2, 2 steps (K2 and its quantizer as
-     custom ops in the traced program), then the live program twice on the
-     card with seeded weights, input, labels and draws, and the archive run
-     by serving/hlo_runtime.load_exported in a fresh process that imports no
-     model code: K2 and its quantizer launched 8 times a UNet forward there
-     as live, no K1, bf16 casts in the loaded graph, the output bit-equal to
-     the live one; the trace, export, save, load and run seconds and the
-     archive's MiB;
+     configs/translation.yaml, batch 2, 2 steps, the program in f32 (K2-f32
+     and its quantizer as custom ops in the traced program), then the live
+     program twice on the card with seeded weights, input, labels and draws,
+     and the archive run by serving/hlo_runtime.load_exported in a fresh
+     process that imports no model code: K2-f32 and its quantizer launched 8
+     times a UNet forward there as live, no K1, no bf16 cast in the loaded
+     graph, the output bit-equal to the live one; the trace, export, save,
+     load and run seconds and the archive's MiB;
  22. data parallel on the card (training/ under `mesh=`, parallel/): two
      ranks, child processes that load phase 1's library and share the one
      H100 over gloo (NCCL refuses two ranks on one device; gloo all-reduces,
@@ -236,7 +254,13 @@ Phases, each of which fails the run (exit code != 0, no result line):
      losses, the epoch's checkpoint restored at step 4, K1-f32 and K3-f32
      8 launches a step each, K1 and K3 none; (c) the f32 step at batch 8 on
      one batch: wall ms a step, a profiled step's device ms, idle share and
-     launches, peak GiB.
+     launches, peak GiB;
+ 25. the f32 inference chain, card against CPU: make_translate_fn(dtype=None)
+     at configs/translation.yaml with seeded weights, the UNet built
+     qk_int8 (K2-f32 on the card, K2's plain version on the CPU), batch 1,
+     F32_CHAIN_STEPS steps of GSG in latent space, the same draws: within
+     F32_CHAIN_REL_TOL (relative L2), which the same card chain under bf16
+     autocast must break.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts, errors, times, bounds
 and library times.
@@ -269,8 +293,13 @@ D192_SHAPE = (BATCH, 4, 1024, 192)
 # beside the path shapes; and its two flash-length layers in f32, K1-f32's shapes on the legacy sampler's path
 D24_SHAPE = (BATCH, 4, 1024, 24)
 F32_SHAPES = [(BATCH, 4, 1024, 16), (BATCH, 4, 1024, 24)]
+# K2-f32 (and its quantizer on f32 q, k): the path shapes (the CLI's and the server's f32 UNet), the legacy UNet's two
+# flash-length layers and the 256 px UNet's D = 192, each per tensor and per batch row
+QK_I8_F32_SHAPES = PATH_SHAPES + F32_SHAPES + [D192_SHAPE]
 # K1-f32 against its plain version in f32: max |err| / max |ref| (the same products in another order, exp2 by
-# ex2.approx: 2 ulp); also at the path shapes in f32 (the f32 training path) and at D192_SHAPE
+# ex2.approx: 2 ulp); also at the path shapes in f32 (the f32 training path) and at D192_SHAPE; and K2-f32 against
+# its plain version in f32 at QK_I8_F32_SHAPES. H100 readings of K2-f32 (PERF.md section 6): 6.4e-7-3.2e-6; the
+# planted faults (V rounded to bf16, P V in one TF32 pass) 3.3e-4-6.0e-3
 F32_REL_TOL = 1e-5
 # K3-f32 against its plain version in f32: max |err| / max |ref| of dQ, dK and dV each. H100 readings (this phase
 # at the path shapes and D192_SHAPE): 1.2e-6-3.2e-6; the plain backward with TF32 matmuls (one TF32 pass, the
@@ -299,7 +328,8 @@ CHAIN_REL_TOL = 5e-2
 # one train step, bf16 on the card against f32 on the CPU: relative error of
 # the loss, and relative L2 error of the flattened UNet gradient
 TRAIN_LOSS_REL_TOL, TRAIN_GRAD_REL_TOL = 2e-2, 5e-2
-REPEATS = 2
+# phases 3 and 18 time each run once (twice until the inference phases ran in f32, for the time limit)
+REPEATS = 1
 # phase 10 times each sampler path once: its twelve timed runs took ~28 s of a run that passed its 1,200 s limit on
 # an H100 (its two rounds differed by 1.6-9.6 % there)
 SAMPLER_REPEATS = 1
@@ -313,7 +343,10 @@ TRAIN_STEPS, WINDOWS, WINDOW_STEPS = 24, 3, 20
 # (bench.py:403-412: GSG, lam 60, the default span; DDIM at eta 0); profiled runs take PROFILE_STEPS steps
 SAMPLE_STEPS, DDIM_STEPS, DPM_STEPS, PROFILE_STEPS = 20, 50, 20, 5
 FAST_GUIDED = dict(lam=60.0, num_classes=19, guidance_style="gsg")
-INT8_FLOOR_SEEDS = 5
+# the chaos floors' runs: phase 12's int8 checks, bf16 and f32, whose verdicts are printed (5 until the f32 check came;
+# 3 keep the script within its time), and phase 18's legacy precision check, whose f32 verdict gates (its floor's mean
+# - 2 sigma, ddof 1, stays on 5 runs: ~4 s each on the CPU)
+INT8_FLOOR_SEEDS, LEGACY_FLOOR_SEEDS = 3, 5
 # phase 15: the synthetic ACDC tree (train and val pairs per condition, (W, H) of its PNGs). One seg train
 # step at batch 2 on the card against the CPU (f32), on the seeded model with each residual block's last
 # BatchNorm scale x SEG_RESIDUAL_SCALE: on the fresh model the CPU's own f64 step is 16 % from its f32 one
@@ -349,7 +382,7 @@ SEG_FAMILY = (("deeplabv3plus_mobilenet", False), ("deeplabv3plus_xception", Fal
               ("deeplabv3plus_hrnetv2_32", False), ("deeplabv3plus_hrnetv2_48", False),
               ("deeplabv3plus_resnet101", True))
 SEG_GEOMETRIC = dict(scale_range=[0.5, 2.0], rotation_degrees=10.0, hue=0.1)
-FAMILY_STEPS, FAMILY_WINDOWS, FAMILY_WINDOW_STEPS, FAMILY_PROFILED = 3, 2, 5, 3
+FAMILY_STEPS, FAMILY_WINDOWS, FAMILY_WINDOW_STEPS, FAMILY_PROFILED = 3, 1, 5, 3
 FAMILY_EVAL_LIMITS = dict(rel=1e-4, agree=0.999)
 # phase 17: SRGAN training at the JAX defaults (G 64 channels, 16 blocks, 4x; the default D; 96 px HR
 # crops, batch 4) on a synthetic HR tree of SRGAN_IMAGES (W, H) PNGs; timed windows of both phases at
@@ -363,7 +396,7 @@ FAMILY_EVAL_LIMITS = dict(rel=1e-4, agree=0.999)
 # detached from G's update 0.34 on G's GAN-step moments
 SRGAN_IMAGES, SRGAN_SIZE, SRGAN_BATCHES = 16, (384, 216), (4, 16)
 # phase 18: the legacy UNet at 128 px, batch 8, LEGACY_STEPS strided steps; the precision check (bf16 card chain and
-# f32 card chain against the f32 CPU chain, a 5-run floor) at LEGACY_CHECK_BATCH
+# f32 card chain against the f32 CPU chain, a LEGACY_FLOOR_SEEDS-run floor) at LEGACY_CHECK_BATCH
 LEGACY_STEPS, LEGACY_CHECK_BATCH = 20, 2
 # phase 19: the quality command on configs/translation.yaml: --synthetic QUALITY_N --batch BATCH --steps
 QUALITY_N, QUALITY_STEPS = 8, 20
@@ -379,6 +412,15 @@ VIS_T, VIS_EVERY, VIS_TRACE_T, DEBUG_STEPS, DEBUG_EVERY, DEBUG_TRACE_STEPS = 100
 # DEBUG_STEPS, so that phase 23 fits: with 10 steps and 16 + 4 requests the whole script reached 1,242 s of its
 # 1,200 (PERF.md section 6). Three steps take each kind of step the server's warm-up takes: LCG, GSG, unguided
 SERVER_STEPS, SERVER_TRANSLATIONS, SERVER_SAMPLES = 3, 8, 2
+# phase 25: the f32 inference chain, card against CPU: configs/translation.yaml's models from the seed, batch 1,
+# F32_CHAIN_STEPS steps of GSG in latent space through make_translate_fn(dtype=None), the UNet built qk_int8 (K2-f32 on
+# the card, K2's plain version on the CPU), the same draws: relative L2 error of the images. An f32 last-bit difference
+# upstream can flip an int8 value at a .5 boundary (tests/test_torch_f32_inference.py), which latent-space guidance over
+# a few steps keeps local (phase 23's lesson). The limit is set from the card's reading, 3.2e-8 on an H100 (PERF.md
+# section 6), with 30x room; the planted fault, the same chain under bf16 autocast (what the CLI ran before
+# K2-f32), read 2.4e-4 there and must break it
+F32_CHAIN_STEPS = 4
+F32_CHAIN_REL_TOL = 1e-6
 # phase 21: export-hlo --attn int8 of the translate program at configs/translation.yaml: steps (the JAX default
 # schedule: GSG at i = 1, none at i = 0) and batch. At 3 steps (LCG at i = 2: five seg calls) the graph held 24,004
 # nodes and the phase took 143 s on an H100 (save 28 s, load 41 s); tests/test_torch_export.py runs 3 steps tiny
@@ -525,6 +567,115 @@ def _f32_kernel(torch, A, device, card, gen):
     return {name: dict(total, bound=add_rooflines(*bounds)) for name, (total, bounds) in sums.items()}
 
 
+def _tf32_pass(torch, fn, *args):
+    """fn(*args) with f32 matmuls in one TF32 pass (the planted fault of the
+    f32 kernels' gates), whatever the caller set."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def phase_qk_i8_f32(torch, A, device, card):
+    """K2-f32 (int8 Q K^T, P V in 3xTF32) and its quantizer on f32 q and k,
+    at QK_I8_F32_SHAPES, per tensor and per batch row: the quantizer equal
+    to its plain version bit for bit; K2-f32 whole (quantizer included) and
+    its forward alone within F32_REL_TOL of max |ref| of the f32 plain
+    version, two calls bit-equal; per row, row 0 of a batch whose row 1 is
+    x100 equal to row 0 alone (int8, scale, output); two planted faults that
+    must each break the limit: the plain version with V (and p) rounded to
+    bf16, what the port computed before K2-f32, and with P V in one TF32
+    pass. Each timed beside its bound, sdpa's f32 forward, the plain version
+    and K1-f32 at the same shape. Returns {name: dict(err, ms, plain_ms,
+    library_ms, bound)} for "flash_attention_qk_i8_f32",
+    "quantize_qk_i8_f32" and their "_per_item" lines, sums over the four
+    path shapes."""
+    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, peaks,
+                                                          quantizer_roofline, time_ms)
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    sums = {name: (dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0 if "flash" in name else None), [])
+            for name in ("flash_attention_qk_i8_f32", "quantize_qk_i8_f32", "flash_attention_qk_i8_f32_per_item",
+                         "quantize_qk_i8_f32_per_item")}
+
+    def add(name, shape, err, ms, plain_ms, bound, library_ms=None):
+        if shape in PATH_SHAPES:
+            total, bounds = sums[name]
+            bounds.append(bound)
+            total.update(err=max(total["err"], err), ms=total["ms"] + ms, plain_ms=total["plain_ms"] + plain_ms)
+            if library_ms is not None:
+                total["library_ms"] += library_ms
+
+    for shape in QK_I8_F32_SHAPES:
+        b, h, n, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
+        lib_ms = _sdpa_ms(torch, q, k, v)
+        k1_ms = time_ms(lambda: A.flash_attention_f32(q, k, v), reps=20)
+        for per_item in (False, True):
+            suffix = "_per_item" if per_item else ""
+            got = A.quantize_qk_i8(q, k, per_item=per_item)
+            torch.cuda.synchronize()
+            plain_q = A.quantize_qk_i8_plain(q, k, per_item=per_item)
+            if not all(g.is_contiguous() and torch.equal(g, r) for g, r in zip(got, plain_q)):
+                raise AssertionError(f"quantize_qk_i8 f32 {shape} per_item={per_item}: differs from its plain version")
+            out = A.flash_attention_qk_i8(q, k, v, per_item=per_item)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, A.flash_attention_qk_i8(q, k, v, per_item=per_item))
+                    and torch.equal(out, A.flash_qk_i8_forward(*got, v))):
+                raise AssertionError(f"flash_attention_qk_i8 f32 {shape}: two calls (or the forward alone) differ")
+            ref = A.qk_i8_attention_plain(*plain_q, v)
+            scale = ref.abs().max().item()
+            err = (out - ref).abs().max().item()
+            rel = err / scale
+            faults = {"bf16 V": (A.qk_i8_attention_plain(*plain_q, v.to(torch.bfloat16)).float() - ref),
+                      "one TF32 pass of P V": _tf32_pass(torch, A.qk_i8_attention_plain, *plain_q, v) - ref}
+            faults = {what: f.abs().max().item() / scale for what, f in faults.items()}
+            if not (rel <= F32_REL_TOL and out.dtype == torch.float32 and torch.isfinite(out).all().item()):
+                raise AssertionError(f"flash_attention_qk_i8 f32 {shape} per_item={per_item}: max|err|/max|ref| {rel} "
+                                     f"> {F32_REL_TOL}, or not f32 and finite")
+            if not min(faults.values()) > F32_REL_TOL:
+                raise AssertionError(f"flash_attention_qk_i8 f32 {shape}: a planted fault reads {faults}, within the "
+                                     f"limit {F32_REL_TOL}: the gate cannot tell K2-f32 from it")
+            if per_item:
+                big_q, big_k = q.clone(), k.clone()
+                big_q[1] *= 100
+                big_k[1] *= 100  # row 1's maxima 100x the others': row 0 must not see them
+                mixed, alone = A.quantize_qk_i8(big_q, big_k, per_item=True), A.quantize_qk_i8(big_q[:1], big_k[:1],
+                                                                                                per_item=True)
+                o_mixed = A.flash_attention_qk_i8(big_q, big_k, v, per_item=True)
+                o_alone = A.flash_attention_qk_i8(big_q[:1], big_k[:1], v[:1], per_item=True)
+                if not (all(torch.equal(m[:1], a) for m, a in zip(mixed, alone)) and torch.equal(o_mixed[:1], o_alone)):
+                    raise AssertionError(f"per-row int8 f32 {shape}: row 0 moved with row 1 (scaled 100x)")
+                del big_q, big_k, mixed, alone, o_mixed, o_alone
+            del out, ref
+            k_ms = time_ms(lambda: A.flash_attention_qk_i8(q, k, v, per_item=per_item), reps=20)
+            f_ms = time_ms(lambda: A.flash_qk_i8_forward(*got, v), reps=20)
+            p_ms = time_ms(lambda: A.flash_attention_qk_i8_plain(q, k, v, per_item=per_item), reps=5)
+            qz_ms = time_ms(lambda: A.quantize_qk_i8(q, k, per_item=per_item), reps=20)
+            qe_ms = time_ms(lambda: A.quantize_qk_i8_plain(q, k, per_item=per_item), reps=10)
+            bound = attention_roofline(peaks(card), shape, qk_int8=True, f32=True)
+            q_bound = quantizer_roofline(peaks(card), shape, scales=b if per_item else 1, elem_bytes=4)
+            where = ("the path's" if shape in PATH_SHAPES else "the legacy UNet's: not in the sums"
+                     if shape in F32_SHAPES else "the 256 px UNet's: not in the sums")
+            log(f"  flash_attention_qk_i8 in f32 (K2-f32){' per row' if per_item else ''} B*H={b * h} N={n} D={d} "
+                f"[{where}]: the quantizer equals its plain version on f32 q, k; max_abs_err {err:.3e}, "
+                f"max|err|/max|ref| {rel:.3e} (tol {F32_REL_TOL}), two calls bit-equal"
+                + (", row 0 beside a x100 row 1 equal to row 0 alone" if per_item else "")
+                + f"; planted faults {', '.join(f'{w} {x:.3e}' for w, x in faults.items())}: break it; K2-f32 whole "
+                f"{k_ms:.4f} ms ({4 * b * h * n * n * d / (k_ms * 1e-3) / 1e12:.2f} TOP/s of Q K^T + P V), its "
+                f"forward alone {f_ms:.4f} ms, quantizer {qz_ms:.4f} ms (eager {qe_ms:.4f} ms, "
+                f"{_bound_text(q_bound)}); plain {p_ms:.3f} ms; {_bound_text(bound)}; K1-f32 {k1_ms:.4f} ms; sdpa "
+                f"forward in f32 {lib_ms:.4f} ms (yardstick, never called by the port)")
+            add("flash_attention_qk_i8_f32" + suffix, shape, err, k_ms, p_ms, bound, lib_ms)
+            add("quantize_qk_i8_f32" + suffix, shape, 0.0, qz_ms, qe_ms, q_bound)
+            del got, plain_q
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {name: dict(total, bound=add_rooflines(*bounds)) for name, (total, bounds) in sums.items()}
+
+
 def phase_backward_kernel(torch, A, device, card):
     """K3 against its plain version at the path shapes, bf16, with its
     roofline bound and the library's backward alone; two calls must agree
@@ -596,12 +747,7 @@ def phase_backward_f32_kernel(torch, A, device, card):
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"flash_attention_bwd_f32 {shape}: two calls on the same inputs differ")
         ref = A.flash_attention_bwd_plain(*args)
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            fault = A.flash_attention_bwd_plain(*args)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev
+        fault = _tf32_pass(torch, A.flash_attention_bwd_plain, *args)
         rel, fault_rel, abs_err = [], [], 0.0
         for name, g, f, r in zip(("dq", "dk", "dv"), got, fault, ref):
             diff = (g - r).abs().max().item()
@@ -753,9 +899,10 @@ def phase_unet_256(torch, A, device):
     random weights from a seed) under bf16 autocast: its twelve flash-length
     layers, four of them at D = 192, go through K1 and K3; and in f32 (TF32
     off) through K1-f32 and K3-f32. With qk_int8 a forward takes K2 at all
-    twelve under bf16, and in f32 the entry refuses it by name (K2's V is
-    16-bit)."""
+    twelve under bf16, and in f32 K2-f32 at all twelve (the CLI's f32 UNet
+    at 256 px)."""
     from weatherconverter_tpu_torch.core.config import UnetModelConfig
+    from weatherconverter_tpu_torch.core.precision import f32_arithmetic
     from weatherconverter_tpu_torch.models.unet import Unet
 
     torch.manual_seed(0)
@@ -795,14 +942,19 @@ def phase_unet_256(torch, A, device):
     int8 = Unet(UnetModelConfig(im_size=256), qk_int8=True).to(device).eval()
     int8.load_state_dict(model.state_dict())
     kinds = [kind for _, _, kind in int8.attention_kernels(256)]
-    try:
-        with torch.no_grad():
-            int8(x, 5)
-    except ValueError as err:
-        if "K2" not in str(err) or "dtype=torch.bfloat16" not in str(err):
-            raise
-    else:
-        raise AssertionError("an f32 UNet with qk_int8 on CUDA was not refused at Unet.forward")
+    A.flash_attention_f32.launches = A.flash_attention_qk_i8.launches = 0
+    A.flash_attention_qk_i8.launches_by_dtype, A.flash_attention_qk_i8.launches_by_head_dim = {}, {}
+    with torch.no_grad(), f32_arithmetic(device):
+        out = int8(x, 5)
+    torch.cuda.synchronize()
+    by_d = dict(A.flash_attention_qk_i8.launches_by_head_dim)
+    if (A.flash_attention_f32.launches, A.flash_attention_qk_i8.launches_by_dtype) != (0, {"float32": 12}) \
+            or by_d.get(192) != 4 or not torch.isfinite(out).all().item():
+        raise AssertionError(f"256 px UNet with qk_int8 in f32: K1-f32 {A.flash_attention_f32.launches}, K2 by dtype "
+                             f"{A.flash_attention_qk_i8.launches_by_dtype} (12 in float32 expected), by head dim "
+                             f"{by_d} (4 at D = 192); or not finite")
+    log(f"  the same UNet with qk_int8 in f32 (TF32 off; the CLI's on the card): K2-f32 at all 12 flash-length layers, "
+        f"by head dim {by_d}; output finite")
     A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
     A.flash_attention_qk_i8.launches_by_head_dim = {}
     with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
@@ -814,9 +966,8 @@ def phase_unet_256(torch, A, device):
     if counts != expected or expected != (0, 12, 12) or by_d.get(192) != 4 or not torch.isfinite(out).all().item():
         raise AssertionError(f"256 px UNet with qk_int8: launches (K1, K2, quantizer) {counts}, expected {expected} "
                              f"= (0, 12, 12), K2 by head dim {by_d} (4 at D = 192); or not finite")
-    log(f"  the same UNet with qk_int8 (the CLI's default on the card): a forward takes K2 and its quantizer at all "
-        f"its {counts[1]} flash-length layers, by head dim {by_d} (4 at D = 192, K2's new instantiation); "
-        "output finite; in f32 Unet.forward refuses it by name")
+    log(f"  the same UNet with qk_int8 under bf16 autocast: a forward takes K2 and its quantizer at all its "
+        f"{counts[1]} flash-length layers, by head dim {by_d} (4 at D = 192); output finite")
     return by_d[192]
 
 
@@ -1153,7 +1304,7 @@ def _step_errors(l_card, g_card, l_cpu, g_cpu):
 def phase_train_f32(torch, A, device, card, tmp, reference, dcfg=None, steps=4, window_steps=3):
     """DDPM training with training.dtype float32 on the card: K1-f32 forward
     and K3-f32 backward at every flash-length layer, convolutions and
-    matmuls with TF32 off (loop_diffusion.f32_arithmetic).
+    matmuls with TF32 off (core/precision.f32_arithmetic).
     (a) One f32 train step at batch 2 held against phase 7's CPU f32 step
     (`reference`: the same weights, t, noise, crop and flip; its CPU result
     reused): the loss's relative error and the UNet gradient's relative L2
@@ -1174,6 +1325,7 @@ def phase_train_f32(torch, A, device, card, tmp, reference, dcfg=None, steps=4, 
 
     from weatherconverter_tpu_torch.cli.main import main as cli_main
     from weatherconverter_tpu_torch.core.config import load_diffusion_config
+    from weatherconverter_tpu_torch.core.precision import f32_arithmetic
     from weatherconverter_tpu_torch.data.transforms import diffusion_train_augment
     from weatherconverter_tpu_torch.diffusion.schedule import make_schedule
     from weatherconverter_tpu_torch.models.unet import Unet, unet_attention_shapes
@@ -1197,7 +1349,7 @@ def phase_train_f32(torch, A, device, card, tmp, reference, dcfg=None, steps=4, 
                                 flip=reference["flip"].to(device))
     flash = sum(A.is_flash_length(n) for n, _ in model.attention_shapes(128))
     zero()
-    with loop_diffusion.f32_arithmetic(device, None):
+    with f32_arithmetic(device):
         _, loss = train_step(state, x, make_schedule("linear", 1000, device=device), t=reference["t"].to(device),
                              noise=reference["noise"].to(device))
     grad = torch.cat([p.grad.float().flatten() for p in model.parameters()]).cpu()
@@ -1257,7 +1409,7 @@ def phase_train_f32(torch, A, device, card, tmp, reference, dcfg=None, steps=4, 
     step_fn = loop_diffusion.make_augmented_train_step(make_schedule("linear", 1000, device=device), model_cfg.im_size)
     batch = torch.stack([torch.from_numpy(SyntheticImages(BATCH, seed=1)[i]) for i in range(BATCH)]).to(device)
     gen = torch.Generator(device=device).manual_seed(2)
-    with loop_diffusion.f32_arithmetic(device, None):
+    with f32_arithmetic(device):
         step_fn(state, batch, gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1504,9 +1656,11 @@ def phase_fast_reference(torch, device, state):
 
 def phase_int8_quality(torch, state, card, ddim: bool = True):
     """probes/int8_quality at the fast samplers, on phase 10's models and
-    inputs: DPM at 20 steps, and DDIM at 50 when `ddim`. Fails on a
-    non-finite or misshapen output or a launch-count mismatch, never on the
-    verdict."""
+    inputs: DPM at 20 steps, and DDIM at 50 when `ddim`, under bf16 autocast
+    (K2 against K1); then DPM at 20 steps in f32 as the CLI runs it (K2-f32
+    against K1-f32, TF32 off) against a floor of INT8_FLOOR_SEEDS runs.
+    Fails on a non-finite or misshapen output or a launch-count mismatch,
+    never on the verdict."""
     from weatherconverter_tpu_torch.probes import int8_quality
 
     unet, unet_i8, seg, gen, sched, inp, gt = state
@@ -1520,6 +1674,12 @@ def phase_int8_quality(torch, state, card, ddim: bool = True):
         int8_quality.check_launches(outs, steps)
         int8_quality.report(artifact, log)
         log(f"  {len(outs)} chains in {time.perf_counter() - t0:.1f} s; wrote {int8_quality.save(artifact)}")
+    t0 = time.perf_counter()
+    artifact, outs = int8_quality.run((unet, unet_i8, seg, gen), sched, inp, gt, "dpm", DPM_STEPS,
+                                      INT8_FLOOR_SEEDS, None, card)
+    int8_quality.check_launches(outs, DPM_STEPS)
+    int8_quality.report(artifact, log)
+    log(f"  {len(outs)} f32 chains in {time.perf_counter() - t0:.1f} s; wrote {int8_quality.save(artifact)}")
 
 
 def _synthetic_pair(path_img, path_lbl, seed, classes=19, size=(2048, 1024)):
@@ -1564,12 +1724,15 @@ class _Recorder:
 def phase_cli(torch, A, device, card, tmp, tcfg=None, dcfg=None):
     """The port's CLI in-process (main([...])) at configs/translation.yaml and
     configs/diffusion.yaml, seeded random weights, a synthetic 2048 x 1024
-    image and labelIds map: translate (DPM-20 and DDIM-50 on K2, DPM-20 with
-    --no-int8-attn on K1), sample (DPM-20, batch 8), super-resolve (128 px to
-    512 px), train-ddpm (4 steps, K1 and K3); then one translate as a fresh
-    process. Gates: exit 0, the PNGs' shapes, finite values in [0, 1] before
-    the uint8 cast, the kernels' launch counts. Returns the CLI's and the
-    library path's seconds for one DPM-20 translation."""
+    image and labelIds map, every inference command in f32 as JAX's:
+    translate (DPM-20 and DDIM-50 on K2-f32, DPM-20 with --no-int8-attn on
+    K1-f32), sample (DPM-20, batch 8, K2-f32), super-resolve (128 px to 512
+    px), train-ddpm (4 steps at configs/diffusion.yaml's training.dtype,
+    bfloat16: K1 and K3); then one translate as a fresh process. Gates: exit
+    0, the PNGs' shapes, finite values in [0, 1] before the uint8 cast, the
+    kernels' launch counts, K2's and its quantizer's all on f32 inputs (no
+    bf16 K2, no bf16 autocast on those paths). Returns the K2-f32 launches of
+    the first translate (DPM-20)."""
     import subprocess
 
     import numpy as np
@@ -1600,40 +1763,48 @@ def phase_cli(torch, A, device, card, tmp, tcfg=None, dcfg=None):
     out = lambda name: os.path.join(tmp, name)  # noqa: E731
     translate = ["translate", "--config", tcfg, "--image", img, "--label", lbl]
     grid = (hr + 4, hr + 4, 3)  # one image in a grid's 2 px border
-    runs = [  # argv, output, its PNG shape, launches (K1, K2, quantizer, K3)
+    runs = [  # argv, output, its PNG shape, launches (K1, K2, quantizer, K3, K1-f32)
         (translate + ["--sampler", "dpm", "--out", out("dpm.png")], out("dpm.png"), grid,
-         (0, unet_calls(20), unet_calls(20), 0)),
+         (0, unet_calls(20), unet_calls(20), 0, 0)),
         (translate + ["--sampler", "ddim", "--steps", str(DDIM_STEPS), "--out", out("ddim.png")], out("ddim.png"),
-         grid, (0, unet_calls(DDIM_STEPS), unet_calls(DDIM_STEPS), 0)),
+         grid, (0, unet_calls(DDIM_STEPS), unet_calls(DDIM_STEPS), 0, 0)),
         (translate + ["--sampler", "dpm", "--no-int8-attn", "--out", out("dpm_k1.png")], out("dpm_k1.png"),
-         grid, (unet_calls(20), 0, 0, 0)),
+         grid, (0, 0, 0, 0, unet_calls(20))),
         (["sample", "--config", dcfg, "--sampler", "dpm", "--steps", "20", "--batch", str(BATCH), "--out",
           out("sample.png")], out("sample.png"), (2 + 2 * (ds + 2), 2 + 4 * (ds + 2), 3),
-         (0, unet_calls(20), unet_calls(20), 0)),
+         (0, unet_calls(20), unet_calls(20), 0, 0)),
         (["super-resolve", "--config", tcfg, "--image", small, "--out", out("sr.png")], out("sr.png"), (hr, hr, 3),
-         (0, 0, 0, 0)),
+         (0, 0, 0, 0, 0)),
         (["train-ddpm", "--config", dcfg, "--max-steps", "4", "--set", f"data.root_dir={os.path.join(tmp, 'data')}",
           "data.acdc_images=rgb_anon", 'data.weather=["fog"]', f"training.batch_size={BATCH}",
           "training.num_workers=0", "training.log_interval=1", f"folders.output={out('train')}"], None, None,
-         (unet_calls(4), 0, 0, unet_calls(4))),
+         (unet_calls(4), 0, 0, unet_calls(4), 0)),
     ]
     on_card = device.type == "cuda"  # the CLI's default; a CPU rehearsal passes --device cpu, and counts nothing
-    cli_s = None
+    counters = (A.flash_attention, A.flash_attention_qk_i8, A.quantize_qk_i8, A.flash_attention_bwd,
+                A.flash_attention_f32)
+    cli_s = k2_f32 = None
     for argv, path, shape, expected in runs:
         argv = argv if on_card else argv + ["--device", "cpu"]
-        expected = expected if on_card else (0, 0, 0, 0)
-        A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
-        A.flash_attention_bwd.launches = 0
+        expected = expected if on_card else (0, 0, 0, 0, 0)
+        for fn in counters:
+            fn.launches = 0
+        A.flash_attention_qk_i8.launches_by_dtype, A.quantize_qk_i8.launches_by_dtype = {}, {}
         t0 = time.perf_counter()
         with _Recorder(images) as rec:
             code = cli_main(argv)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches,
-                  A.flash_attention_bwd.launches)
-        if code != 0 or counts != expected:
-            raise AssertionError(f"cli {argv[0]} {argv[-2:]}: exit {code}, launches (K1, K2, quantizer, K3) {counts}, "
-                                 f"expected 0 and {expected}")
+        counts = tuple(fn.launches for fn in counters)
+        # K2 and its quantizer only on f32 inputs: the inference commands run no bf16 autocast
+        f32_only = all(set(fn.launches_by_dtype) <= {"float32"} for fn in (A.flash_attention_qk_i8, A.quantize_qk_i8))
+        if code != 0 or counts != expected or not f32_only:
+            raise AssertionError(f"cli {argv[0]} {argv[-2:]}: exit {code}, launches (K1, K2, quantizer, K3, K1-f32) "
+                                 f"{counts}, expected 0 and {expected}; K2 by V's dtype "
+                                 f"{A.flash_attention_qk_i8.launches_by_dtype}, the quantizer's "
+                                 f"{A.quantize_qk_i8.launches_by_dtype} (float32 only)")
+        if k2_f32 is None:
+            k2_f32 = counts[1]
         if path is not None:
             got = np.asarray(Image.open(path)).shape
             if got != shape or not rec.seen or not all(ok for _, ok in rec.seen):
@@ -1647,8 +1818,8 @@ def phase_cli(torch, A, device, card, tmp, tcfg=None, dcfg=None):
                  for i, a in enumerate(argv) if a.startswith("--") and a not in ("--config", "--image", "--label",
                                                                                   "--out", "--set")]
         log(f"  cli {argv[0]} {' '.join(flags)}: exit 0 in {secs:.1f} s (models built from the seed, first-shape "
-            f"autotuning included); launches K1/K2/quantizer/K3 {'/'.join(map(str, counts))}"
-            + (f"; PNG {shape}" if shape else ""))
+            f"autotuning included); launches K1/K2/quantizer/K3/K1-f32 {'/'.join(map(str, counts))}, K2 by V's dtype "
+            f"{A.flash_attention_qk_i8.launches_by_dtype}" + (f"; PNG {shape}" if shape else ""))
     # the library path of the first run: the same chain on models built once, timed alone
     unet, seg, sr, sched = commands.build_translation(cfg, device, None, None, None, on_card, 0)
     fn = commands.fast_translate_fn("dpm", unet, sched, seg, sr, device, lam=cfg.guidance.lambda_, num_steps=20,
@@ -1672,10 +1843,10 @@ def phase_cli(torch, A, device, card, tmp, tcfg=None, dcfg=None):
     fresh_s = time.perf_counter() - t0
     if proc.returncode != 0 or np.asarray(Image.open(out("fresh.png"))).shape != grid:
         raise AssertionError(f"cli translate in a fresh process: exit {proc.returncode}\n{proc.stderr[-2000:]}")
-    log(f"  one DPM-20 translation at batch 1 ({hr} px out, K2 on the card): the CLI in-process {cli_s:.2f} s, in a fresh process "
-        f"{fresh_s:.2f} s (interpreter, imports, kernel library load, models from the seed, autotuning), the library "
-        f"path's chain alone on built, warm models {lib_s:.2f} s [{card}]")
-    return cli_s, lib_s
+    log(f"  one DPM-20 translation at batch 1 ({hr} px out, f32, K2-f32 on the card): the CLI in-process {cli_s:.2f} "
+        f"s, in a fresh process {fresh_s:.2f} s (interpreter, imports, kernel library load, models from the seed, "
+        f"autotuning), the library path's chain alone on built, warm models {lib_s:.2f} s [{card}]")
+    return k2_f32
 
 
 def _gt(lbl_path, hr):
@@ -1697,15 +1868,21 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
     """The server on the card at configs/translation.yaml, sampler dpm at
     `steps` (its default, 20, when None), batch 4: SERVER_TRANSLATIONS concurrent
     /v1/translate requests (labels of 3-19 classes drawn from a seed) and
-    SERVER_SAMPLES /v1/sample requests, on K2 with one
-    int8 scale a request (the server's default) under lcg_present_k='auto'
-    and under the full sweep, and on K1 (--no-int8-attn) under the full
-    sweep; after each full sweep, one seed solo twice and co-batched with
-    three others. Gates: every response 200 with a PNG of the right shape,
-    /stats counts that add up, K2 and no K1 launched (K1 and no K2 with
+    SERVER_SAMPLES /v1/sample requests, the chains in f32 as the JAX
+    service's, on K2-f32 with one int8 scale a request (the server's
+    default) under lcg_present_k='auto' and under the full sweep, and on
+    K1-f32 (--no-int8-attn) under the full sweep; after each full sweep, one
+    seed solo twice and co-batched with three others. Gates: every response
+    200 with a PNG of the right shape, /stats counts that add up, K2-f32 (K2
+    on f32 V only) and no K1 or K1-f32 launched (K1-f32 and no K2 with
     --no-int8-attn), the co-batched image within (two solo runs' difference
-    + 1) uint8 levels of the solo one, under K2 as under K1. Returns K2's
-    launches in its full-sweep run."""
+    + 1) uint8 levels of the solo one, under K2-f32 as under K1-f32, with
+    the quantizer launched once for each K2 launch, on f32 q and k only. Then
+    one batched chain of the K2 service under bf16 autocast (the library's
+    bf16 path with one int8 scale a row: K2 on bf16 V and the quantizer on
+    bf16 q and k, each launched once a UNet layer a step and in no other
+    dtype). Returns K2-f32's launches in its full-sweep run, and K2's and
+    the quantizer's in that bf16 chain."""
     import base64
     import threading
     import urllib.request
@@ -1753,9 +1930,9 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
             t.join()
         return results, time.perf_counter() - t0
 
-    summary, k2_launches = {}, 0
-    for name, present_k, int8 in (("auto, K2", "auto", True), ("full sweep, K2", None, True),
-                                  ("full sweep, K1 (--no-int8-attn)", None, False)):
+    summary, k2_launches, k2_bf16, quant_bf16 = {}, 0, 0, 0
+    for name, present_k, int8 in (("auto, K2-f32", "auto", True), ("full sweep, K2-f32", None, True),
+                                  ("full sweep, K1-f32 (--no-int8-attn)", None, False)):
         t0 = time.perf_counter()
         service = TranslationService(cfg, batch=4, sampler="dpm", max_wait_ms=100.0, lcg_present_k=present_k,
                                      device=device, steps=steps, qk_int8=int8 and on_card)
@@ -1765,8 +1942,12 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
         try:
             torch.cuda.reset_peak_memory_stats()
             A.flash_attention_qk_i8.launches = A.flash_attention.launches = A.quantize_qk_i8.launches = 0
+            A.flash_attention_f32.launches, A.flash_attention_qk_i8.launches_by_dtype = 0, {}
+            A.quantize_qk_i8.launches_by_dtype = {}
             results, wall = traffic(base)
-            k1, k2 = A.flash_attention.launches, A.flash_attention_qk_i8.launches
+            k1, k2, k1_f32 = A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.flash_attention_f32.launches
+            k2_dtypes = dict(A.flash_attention_qk_i8.launches_by_dtype)
+            quant_dtypes = dict(A.quantize_qk_i8.launches_by_dtype)
             with urllib.request.urlopen(base + "/stats", timeout=60) as r:
                 stats = json.load(r)
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1774,14 +1955,16 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
                    if c != 200 or png.shape != ((hr, hr, 3) if k[0] == "t" else (size, size, 3))]
             tr = stats["translate"]
             buckets = stats.get("lcg_k_buckets", {})
-            kernels_ok = (not on_card and k1 == k2 == 0) or (
-                on_card and ((int8 and k2 > 0 and k1 == 0 and A.quantize_qk_i8.launches == k2) or
-                             (not int8 and k1 > 0 and k2 == 0)))
+            kernels_ok = (not on_card and k1 == k2 == k1_f32 == 0) or (
+                on_card and k1 == 0 and ((int8 and k2 > 0 and k2_dtypes == quant_dtypes == {"float32": k2}
+                                          and k1_f32 == 0 and A.quantize_qk_i8.launches == k2) or
+                                         (not int8 and k1_f32 > 0 and k2 == 0)))
             if bad or len(results) != SERVER_TRANSLATIONS + SERVER_SAMPLES or tr["requests"] != SERVER_TRANSLATIONS \
                     or stats["sample"]["requests"] != SERVER_SAMPLES or not kernels_ok or (
                     present_k == "auto" and sum(buckets.values()) != SERVER_TRANSLATIONS):
-                raise AssertionError(f"server ({name}): responses {bad}, stats {stats}, K1 / K2 / quantizer launches "
-                                     f"{k1} / {k2} / {A.quantize_qk_i8.launches}")
+                raise AssertionError(f"server ({name}): responses {bad}, stats {stats}, K1 / K2 / quantizer / K1-f32 "
+                                     f"launches {k1} / {k2} / {A.quantize_qk_i8.launches} / {k1_f32}, K2 by V's "
+                                     f"dtype {k2_dtypes}, the quantizer by q's {quant_dtypes}")
             if int8 and present_k is None:
                 k2_launches = k2
             lat = [results[("t", i)][2] for i in range(SERVER_TRANSLATIONS)]
@@ -1793,7 +1976,8 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
                 f"translations/min; translate batches {tr['batches']}, mean occupancy {tr['mean_occupancy']:.2f}; "
                 f"sample batches {stats['sample']['batches']}; buckets {buckets or 'none (one width, 19 classes)'}; "
                 f"labels' classes {classes}; peak device memory {peak:.2f} GiB; start-up with warm-up of "
-                f"{len(service.shapes())} translate shapes {warm_s:.1f} s; K1 / K2 launches {k1} / {k2} [{card}]")
+                f"{len(service.shapes())} translate shapes {warm_s:.1f} s; K1-f32 / K2 launches {k1_f32} / {k2}, K2 "
+                f"by V's dtype {k2_dtypes} [{card}]")
             if present_k is None:
                 # one seed solo twice, then co-batched with three other seeds: one width (the full sweep pads
                 # every batch to 4), so only the batch-mates change
@@ -1817,17 +2001,35 @@ def phase_server(torch, A, device, card, tmp, tcfg=None, steps=None):
                     f"differ by {int(np.abs(co[7] - co[8]).max())}")
                 if co_diff > self_diff + 1:
                     raise AssertionError(f"server: a co-batched seed moved {co_diff} levels, solo runs {self_diff}")
+            if int8 and present_k is None:
+                # the same per-row K2 service's chain under bf16 autocast: the library's bf16 path (K2 on bf16 V)
+                A.flash_attention_qk_i8.launches_by_dtype, A.quantize_qk_i8.launches_by_dtype = {}, {}
+                with torch.autocast(device.type, dtype=torch.bfloat16, enabled=on_card):
+                    out = service.translate_rows(np.zeros((4, size, size, 3), np.float32),
+                                                 np.zeros((4, hr, hr), np.int64), [0, 1, 2, 3])
+                torch.cuda.synchronize()
+                k2_bf16 = A.flash_attention_qk_i8.launches_by_dtype.get("bfloat16", 0)
+                quant_bf16 = A.quantize_qk_i8.launches_by_dtype.get("bfloat16", 0)
+                expected = {"bfloat16": FLASH_CALLS_PER_UNET * service.steps}
+                by_dtype = (A.flash_attention_qk_i8.launches_by_dtype, A.quantize_qk_i8.launches_by_dtype)
+                if (on_card and by_dtype != (expected, expected)) or not torch.isfinite(out).all():
+                    raise AssertionError(f"server's chain under bf16 autocast: K2 by V's dtype "
+                                         f"{A.flash_attention_qk_i8.launches_by_dtype}, the quantizer by q's "
+                                         f"{A.quantize_qk_i8.launches_by_dtype}, expected {expected} each; or not "
+                                         f"finite")
+                log(f"  the same service's batched chain under bf16 autocast (batch 4, {service.steps} steps): K2 on "
+                    f"bf16 V and its quantizer, one int8 scale a row, launched {k2_bf16} and {quant_bf16} times")
         finally:
             httpd.shutdown()
             httpd.server_close()
             service.close()
             del service
             torch.cuda.empty_cache()
-    for a, b in (("auto, K2", "full sweep, K2"), ("full sweep, K2", "full sweep, K1 (--no-int8-attn)")):
+    for a, b in (("auto, K2-f32", "full sweep, K2-f32"), ("full sweep, K2-f32", "full sweep, K1-f32 (--no-int8-attn)")):
         log(f"  {a} against {b}: p50 {summary[a]['p50']:.2f} / {summary[b]['p50']:.2f} s, p95 {summary[a]['p95']:.2f} "
             f"/ {summary[b]['p95']:.2f} s, {summary[a]['per_min']:.1f} / {summary[b]['per_min']:.1f} "
             f"translations/min [{card}]")
-    return k2_launches
+    return k2_launches, k2_bf16, quant_bf16
 
 
 def _synthetic_acdc(root, seed, pairs=SEG_PAIRS, size=SEG_SIZE, classes=19):
@@ -2375,21 +2577,24 @@ def phase_legacy(torch, A, device, card, tmp):
     """The legacy UNet (models/unet_legacy.py) at 128 px with seeded weights
     (probes/legacy_precision.build: eps at unit scale), batch 8,
     LEGACY_STEPS strided steps of ddpm_sample_legacy, in f32 (K1-f32 at
-    attn_down3 and attn_up2, no TF32: the CLI's precision) and under bf16
-    autocast with qk_int8 (K2 at attn_down3 and at attn_up2, D = 24): each timed
-    (REPEATS runs), profiled, its launches a forward asserted, its peak
-    memory read; then the precision check at LEGACY_CHECK_BATCH (the f32
-    chain's verdict gated, the bf16 chain's printed: it fails by design) and
-    `sample --sampler legacy` through the CLI. Returns the
-    f32 run's launches (K1-f32's count for the kernels line) and the bf16
-    run's K2 launches at D = 24."""
+    attn_down3 and attn_up2, no TF32), in f32 with qk_int8 (K2-f32 at both:
+    the CLI's default, as JAX's sample takes its int8 kernel there) and under
+    bf16 autocast with qk_int8 (K2 at attn_down3 and at attn_up2, D = 24):
+    each timed (REPEATS runs), profiled, its launches a forward asserted, its
+    peak memory read; then the precision check at LEGACY_CHECK_BATCH (the f32
+    chain's verdict gated; the f32 qk_int8 chain's and the bf16 chain's
+    printed: the bf16 one fails by design) and `sample --sampler legacy`
+    through the CLI (K2-f32 twice a forward). Returns the f32 run's launches
+    (K1-f32's count for the kernels line) and the bf16 run's K2 launches at
+    D = 24."""
     import numpy as np
     from PIL import Image
 
     from weatherconverter_tpu_torch.cli.main import main as cli_main
     from weatherconverter_tpu_torch.diffusion.sampling import ddpm_sample_legacy
     from weatherconverter_tpu_torch.diffusion.schedule import linear_schedule
-    from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet, full_f32
+    from weatherconverter_tpu_torch.core.precision import f32_arithmetic
+    from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet
     from weatherconverter_tpu_torch.probes import legacy_precision
 
     on_card = device.type == "cuda"  # a CPU rehearsal runs the plain versions and counts nothing
@@ -2398,7 +2603,8 @@ def phase_legacy(torch, A, device, card, tmp):
     shape = (BATCH, 128, 128, 3)
     counters = (A.flash_attention, A.flash_attention_qk_i8, A.quantize_qk_i8, A.flash_attention_f32)
     launches = {}
-    for name, dtype, qk_int8 in (("f32", None, False), ("bf16_qk_int8", torch.bfloat16, True)):
+    for name, dtype, qk_int8 in (("f32", None, False), ("f32_qk_int8", None, True),
+                                 ("bf16_qk_int8", torch.bfloat16, True)):
         model = LegacyUNet(128, qk_int8=qk_int8)
         model.load_state_dict(base.state_dict())
         model = model.to(device)
@@ -2406,7 +2612,8 @@ def phase_legacy(torch, A, device, card, tmp):
         per = (kinds.count("K1"), kinds.count("K2"))
         expected = [0, per[1], per[1], per[0]] if dtype is None else [per[0], per[1], per[1], 0]
         expected = expected if on_card else [0] * 4
-        ctx = (lambda: torch.autocast(device.type, dtype=dtype)) if dtype is not None else full_f32
+        ctx = (lambda: torch.autocast(device.type, dtype=dtype)) if dtype is not None else \
+            (lambda: f32_arithmetic(device))
 
         def run(seed, steps=LEGACY_STEPS):
             with ctx():
@@ -2418,7 +2625,7 @@ def phase_legacy(torch, A, device, card, tmp):
         for rep in range(REPEATS):
             for fn in counters:
                 fn.launches = 0
-            A.flash_attention_qk_i8.launches_by_head_dim = {}
+            A.flash_attention_qk_i8.launches_by_head_dim, A.flash_attention_qk_i8.launches_by_dtype = {}, {}
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2433,11 +2640,14 @@ def phase_legacy(torch, A, device, card, tmp):
                                      f"{[e * LEGACY_STEPS for e in expected]} ({expected} a forward); output "
                                      f"{tuple(out.shape)} or not finite")
             d24 = A.flash_attention_qk_i8.launches_by_head_dim.get(24, 0)
-            if on_card and qk_int8 and d24 != LEGACY_STEPS:
+            v_dtype = "bfloat16" if dtype is not None else "float32"
+            if on_card and qk_int8 and (d24 != LEGACY_STEPS or A.flash_attention_qk_i8.launches_by_dtype
+                                        != {v_dtype: counts[1]}):
                 raise AssertionError(f"legacy {name}: K2 launched {d24} times at D = 24 (attn_up2), expected "
-                                     f"{LEGACY_STEPS}")
+                                     f"{LEGACY_STEPS}; by V's dtype {A.flash_attention_qk_i8.launches_by_dtype} "
+                                     f"({v_dtype} only)")
         launches[name] = counts
-        if qk_int8:
+        if qk_int8 and dtype is not None:
             launches["k2_d24"] = d24
         wall, kernel, count = _device_profile(torch, lambda: run(70, PROFILE_STEPS), PROFILE_STEPS)
         log(f"  legacy {name} (layers {kinds}): {statistics.median(times):.2f} ms/step wall (median of {REPEATS} "
@@ -2448,20 +2658,22 @@ def phase_legacy(torch, A, device, card, tmp):
             + (f" (K2 at D = 24, attn_up2: {d24} launches)" if qk_int8 else "") + f"; peak {peak:.2f} GiB [{card}]")
         del model
     t0 = time.perf_counter()
-    artifact = legacy_precision.run(base, (LEGACY_CHECK_BATCH, 128, 128, 3), LEGACY_STEPS, INT8_FLOOR_SEEDS, device)
+    artifact = legacy_precision.run(base, (LEGACY_CHECK_BATCH, 128, 128, 3), LEGACY_STEPS, LEGACY_FLOOR_SEEDS, device)
     artifact["card"] = card
     if on_card:
         legacy_precision.check_launches(artifact)
     legacy_precision.report(artifact, card, log)
     log(f"  the check in {time.perf_counter() - t0:.1f} s; wrote {legacy_precision.save(artifact)}")
-    # the f32 chain (K1-f32) is what the CLI samples with: it must pass; the bf16 chain fails by design
+    # the f32 chain (K1-f32) is the f32 arithmetic's: it must pass; the f32 qk_int8 chain (K2-f32, the CLI's by
+    # JAX's default) is printed, as phase 12's int8 verdicts are; the bf16 chain fails by design
     if not artifact["runs"]["f32"]["passes"]:
         raise AssertionError(f"legacy precision: the f32 card chain fails the check: pearson "
                              f"{artifact['runs']['f32']['pearson']:.9f} < threshold {artifact['threshold']:.9f}")
-    # the CLI: the legacy UNet at configs/diffusion.yaml's im_size (128), f32, seeded weights
+    # the CLI: the legacy UNet at configs/diffusion.yaml's im_size (128), f32, seeded weights, K2-f32 (JAX's default)
     path = os.path.join(tmp, "legacy.png")
     for fn in counters:
         fn.launches = 0
+    A.flash_attention_qk_i8.launches_by_dtype = {}
     t0 = time.perf_counter()
     code = cli_main(["sample", "--config", os.path.join(REPO, "configs", "diffusion.yaml"), "--sampler", "legacy",
                      "--steps", str(LEGACY_STEPS), "--batch", str(BATCH), "--out", path]
@@ -2469,13 +2681,16 @@ def phase_legacy(torch, A, device, card, tmp):
     torch.cuda.synchronize()
     counts = [fn.launches for fn in counters]
     png = np.asarray(Image.open(path)).shape
-    expected = [0, 0, 0, 2 * LEGACY_STEPS] if on_card else [0] * 4
+    expected = [0, 2 * LEGACY_STEPS, 2 * LEGACY_STEPS, 0] if on_card else [0] * 4
     rows = -(-BATCH // 4)
-    if code != 0 or counts != expected or png != (2 + rows * 130, 2 + 4 * 130, 3):
+    if code != 0 or counts != expected or png != (2 + rows * 130, 2 + 4 * 130, 3) or (
+            on_card and A.flash_attention_qk_i8.launches_by_dtype != {"float32": counts[1]}):
         raise AssertionError(f"cli sample --sampler legacy: exit {code}, launches (K1, K2, quantizer, K1-f32) "
-                             f"{counts}, expected {expected}; PNG {png}")
+                             f"{counts}, expected {expected}, K2 by V's dtype "
+                             f"{A.flash_attention_qk_i8.launches_by_dtype}; PNG {png}")
     log(f"  cli sample --sampler legacy --steps {LEGACY_STEPS} --batch {BATCH}: exit 0 in "
-        f"{time.perf_counter() - t0:.1f} s (model from the seed, f32), K1-f32 launched {counts[3]} times; PNG {png}")
+        f"{time.perf_counter() - t0:.1f} s (model from the seed, f32), K2-f32 launched {counts[1]} times (two a "
+        f"forward), K2 by V's dtype {A.flash_attention_qk_i8.launches_by_dtype}; PNG {png}")
     return launches["f32"], launches["k2_d24"]
 
 
@@ -2521,13 +2736,14 @@ def phase_quality(torch, A, device, card, tmp, tcfg=None):
     weights, --synthetic QUALITY_N --batch BATCH --steps QUALITY_STEPS: once
     with the seg backbone's FID and once with InceptionV3 pool3 from a seeded
     torchvision-layout .pth. Gates: exit 0, the report's keys, finite
-    numbers, K2 and its quantizer 8 times a UNet forward (the CLI's qk_int8:
-    every layer of the production UNet has a head dim K2 takes), K1 never.
-    Then Inception's time for a 299 px batch and FID's eigh at D = 2048."""
+    numbers, K1-f32 8 times a UNet forward and no K2 (JAX's run_quality
+    never enables int8; the command computes in f32), no K1. Then
+    Inception's time in f32 for a 299 px batch and FID's eigh at D = 2048."""
     import json
 
     from weatherconverter_tpu_torch.cli.main import main as cli_main
     from weatherconverter_tpu_torch.cli.commands import load_inception
+    from weatherconverter_tpu_torch.core.precision import f32_arithmetic
     from weatherconverter_tpu_torch.metrics.fid import _psd_sqrt
     from weatherconverter_tpu_torch.models.inception import fid_input_resize
     from weatherconverter_tpu_torch.probes.common import time_ms
@@ -2542,34 +2758,36 @@ def phase_quality(torch, A, device, card, tmp, tcfg=None):
     for kind, extra in (("backbone", []), ("inception", ["--inception-checkpoint", pth])):
         out = os.path.join(tmp, f"quality_{kind}.json")
         A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
+        A.flash_attention_f32.launches = 0
         t0 = time.perf_counter()
         code = cli_main(["quality", "--config", tcfg, "--synthetic", str(QUALITY_N), "--batch", str(BATCH), "--steps",
                          str(QUALITY_STEPS), "--out", out] + extra + ([] if on_card else ["--device", "cpu"]))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
-        expected = (0, FLASH_CALLS_PER_UNET * forwards, FLASH_CALLS_PER_UNET * forwards) if on_card else (0, 0, 0)
+        counts = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches,
+                  A.flash_attention_f32.launches)
+        expected = (0, 0, 0, FLASH_CALLS_PER_UNET * forwards) if on_card else (0, 0, 0, 0)
         report = json.load(open(out))
         numbers = [report.get(k) for k in keys[5:]]
         if code != 0 or counts != expected or list(report) != keys or not all(
                 isinstance(v, float) and v == v and abs(v) != float("inf") for v in numbers):
-            raise AssertionError(f"cli quality ({kind}): exit {code}, launches (K1, K2, quantizer) {counts}, expected "
-                                 f"{expected}; report {report}")
+            raise AssertionError(f"cli quality ({kind}): exit {code}, launches (K1, K2, quantizer, K1-f32) {counts}, "
+                                 f"expected {expected}; report {report}")
         log(f"  cli quality --synthetic {QUALITY_N} --batch {BATCH} --steps {QUALITY_STEPS} ({report['fid_kind']}): "
             f"exit 0 in {secs:.1f} s (models from the seed, first-shape autotuning included); FID "
             f"{report['fid_original_vs_translated']}, mIoU original {report['miou_original']} / translated "
-            f"{report['miou_translated']}, gap {report['miou_consistency_gap']}; K1/K2/quantizer "
+            f"{report['miou_translated']}, gap {report['miou_consistency_gap']}; K1/K2/quantizer/K1-f32 "
             f"{'/'.join(map(str, counts))} [{card}]")
     inception = load_inception(pth).to(device)
     x = torch.rand((BATCH, 3, 512, 512), generator=torch.Generator(device=device).manual_seed(81), device=device)
-    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+    with torch.no_grad(), f32_arithmetic(device):  # as the command runs it
         feats = inception(fid_input_resize(x))
         inc_ms = time_ms(lambda: inception(fid_input_resize(x)), reps=5)
     f = feats.float()
     cov = (f.T @ f) / BATCH + torch.eye(2048, device=device)
     eigh_ms = time_ms(lambda: torch.linalg.eigh(cov), reps=3, warmup=1)
     psd_ms = time_ms(lambda: _psd_sqrt(cov), reps=3, warmup=1)
-    log(f"  InceptionV3 pool3 at batch {BATCH} (512 px resized to 299, bf16 autocast): {inc_ms:.2f} ms a batch; "
+    log(f"  InceptionV3 pool3 at batch {BATCH} (512 px resized to 299, f32, TF32 off): {inc_ms:.2f} ms a batch; "
         f"FID at D = 2048: torch.linalg.eigh {eigh_ms:.1f} ms, one PSD square root {psd_ms:.1f} ms (a distance "
         f"takes two) [{card}]")
 
@@ -2583,8 +2801,9 @@ def phase_visualize_debug(torch, A, device, card, tmp, tcfg=None, dcfg=None, vis
     copy of the config with a VIS_TRACE_T-step schedule; translate
     --debug-dir at DEBUG_STEPS steps, a dump every DEBUG_EVERY, a plain
     translate with the same seed, and a traced --debug-dir run at
-    DEBUG_TRACE_STEPS steps. Gates: exit 0, the files and their shapes, the
-    launches (K1, K2, quantizer) that the UNets' attention_kernels predict,
+    DEBUG_TRACE_STEPS steps; both commands in f32. Gates: exit 0, the files
+    and their shapes, the launches (K1-f32, K2-f32, quantizer on f32 q and k;
+    no K1, no K2 on bf16) that the UNets' attention_kernels predict,
     the --debug-dir output PNG byte-equal to the plain one, each trace
     written and not empty. Each run's wall time from
     core/profiling.StepTimer, its peak memory from device_memory_stats, the
@@ -2604,28 +2823,30 @@ def phase_visualize_debug(torch, A, device, card, tmp, tcfg=None, dcfg=None, vis
     dcfg = dcfg or os.path.join(REPO, "configs", "diffusion.yaml")
     on_card = device.type == "cuda"  # a CPU rehearsal passes --device cpu and counts nothing
     flag = [] if on_card else ["--device", "cpu"]
-    counters = (A.flash_attention, A.flash_attention_qk_i8, A.quantize_qk_i8)
+    # the commands compute in f32: the UNet's "K1" layers take K1-f32, its "K2" layers K2-f32; bf16 K1 never
+    counters = (A.flash_attention_f32, A.flash_attention_qk_i8, A.quantize_qk_i8, A.flash_attention)
 
     def per_forward(model_cfg, qk_int8):
         with torch.device("meta"):
             kinds = [k for _, _, k in Unet(model_cfg, qk_int8=qk_int8).attention_kernels(model_cfg.im_size)]
-        return (kinds.count("K1"), kinds.count("K2"), kinds.count("K2"))
+        return (kinds.count("K1"), kinds.count("K2"), kinds.count("K2"), 0)
 
     def run(argv, forwards, per, trace_dir=None):
         """One CLI run: (seconds, peak GiB, launches; with `trace_dir` also
         device ms and kernel launches from its trace)."""
         for fn in counters:
             fn.launches = 0
+        A.flash_attention_qk_i8.launches_by_dtype = {}
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         timer = profiling.StepTimer(warmup=0, device=device)
         with (profiling.trace(trace_dir) if trace_dir else contextlib.nullcontext()) as prof, timer:
             code = cli_main(argv + flag)
         counts = tuple(fn.launches for fn in counters)
-        expected = tuple(forwards * c for c in per) if on_card else (0, 0, 0)
-        if code != 0 or counts != expected:
-            raise AssertionError(f"cli {argv[0]}: exit {code}, launches (K1, K2, quantizer) {counts}, expected "
-                                 f"{expected}")
+        expected = tuple(forwards * c for c in per) if on_card else (0, 0, 0, 0)
+        if code != 0 or counts != expected or set(A.flash_attention_qk_i8.launches_by_dtype) - {"float32"}:
+            raise AssertionError(f"cli {argv[0]}: exit {code}, launches (K1-f32, K2, quantizer, K1) {counts}, expected "
+                                 f"{expected}; K2 by V's dtype {A.flash_attention_qk_i8.launches_by_dtype}")
         peak = profiling.device_memory_stats(device).get("peak_bytes_in_use", 0) / 2**30
         result = dict(s=timer.summary()["mean_s"], peak=peak, counts=counts)
         if trace_dir:
@@ -2638,15 +2859,16 @@ def phase_visualize_debug(torch, A, device, card, tmp, tcfg=None, dcfg=None, vis
         return result
 
     def line(what, r, steps):
-        text = (f"  cli {what}: exit 0, {r['s']:.1f} s wall (StepTimer, device synchronized); launches K1/K2/quantizer "
-                f"{'/'.join(map(str, r['counts']))}; peak {r['peak']:.2f} GiB (device_memory_stats)")
+        text = (f"  cli {what}: exit 0, {r['s']:.1f} s wall (StepTimer, device synchronized); launches "
+                f"K1-f32/K2-f32/quantizer/K1 {'/'.join(map(str, r['counts']))}; peak {r['peak']:.2f} GiB "
+                f"(device_memory_stats)")
         if "device_ms" in r:
             text += (f"; traced: device {r['device_ms'] / steps:.2f} ms/step, idle share ~"
                      f"{max(0.0, 1 - r['device_ms'] / (r['s'] * 1e3)):.2f}, {r['kernels'] / steps:.0f} kernels a "
                      f"step, trace {r['trace_mib']:.1f} MiB")
         log(text + f" [{card}]")
 
-    # visualize: a synthetic 128 px image; the UNet on K1 (visualize never takes K2)
+    # visualize: a synthetic 128 px image; the UNet on K1-f32 (visualize never takes K2)
     d = load_diffusion_config(dcfg)
     size, T = d.model.im_size, min(VIS_T, d.diffusion.num_timesteps)
     image = os.path.join(tmp, "vis.png")
@@ -2710,6 +2932,59 @@ def phase_visualize_debug(torch, A, device, card, tmp, tcfg=None, dcfg=None, vis
         f"translate's")
 
 
+def phase_f32_chain(torch, A, device, card, tcfg=None, steps=F32_CHAIN_STEPS):
+    """The f32 inference chain, card against CPU (see F32_CHAIN_REL_TOL):
+    make_translate_fn(dtype=None) over configs/translation.yaml's models
+    from the seed, the UNet with qk_int8, batch 1, `steps` steps of GSG in
+    latent space at the config's lam, the same input, labels and draws on
+    both sides; K2-f32 launched 8 times a UNet forward on f32 V only; the
+    same card chain under bf16 autocast, the planted fault, must break the
+    limit."""
+    import copy
+
+    from weatherconverter_tpu_torch.cli import commands
+    from weatherconverter_tpu_torch.core.config import load_translation_config
+    from weatherconverter_tpu_torch.guidance.translate import make_translate_fn
+
+    cfg = load_translation_config(tcfg or os.path.join(REPO, "configs", "translation.yaml"))
+    size, nc = cfg.diffusion.model.im_size, cfg.seg.model.num_classes
+    hr = size * cfg.srgan.upscale_factor
+    on_card = device.type == "cuda"
+    unet, seg, sr, sched = commands.build_translation(cfg, device, None, None, None, True, 0)
+    host = [copy.deepcopy(m).to("cpu") for m in (unet, seg, sr)]
+    g = torch.Generator().manual_seed(90)
+    x, gt = torch.randn((1, size, size, 3), generator=g) * 0.2, torch.randint(0, nc, (1, hr, hr), generator=g)
+    noise = (torch.randn((1, size, size, 3), generator=g), torch.randn((steps, 1, size, size, 3), generator=g))
+    kw = dict(lam=cfg.guidance.lambda_, num_steps=steps, start_t=steps - 1, mode="fixed", guidance_style="gsg",
+              guidance_every=1, guidance_space="latent", num_classes=nc)
+
+    def on(dev, models, schedule, dtype=None):
+        fn = make_translate_fn(*models[:1], schedule, *models[1:], dtype=dtype, **kw)
+        return fn(x.to(dev), gt.to(dev), noise=tuple(n.to(dev) for n in noise)).cpu()
+
+    A.flash_attention_qk_i8.launches_by_dtype, A.flash_attention_f32.launches = {}, 0
+    t0 = time.perf_counter()
+    card_out = on(device, (unet, seg, sr), sched)
+    card_s = time.perf_counter() - t0
+    by_dtype, k1_f32 = dict(A.flash_attention_qk_i8.launches_by_dtype), A.flash_attention_f32.launches
+    fault = on(device, (unet, seg, sr), sched, torch.bfloat16)
+    t0 = time.perf_counter()
+    host_out = on("cpu", host, commands.make_schedule_from(cfg.diffusion.diffusion, "cpu"))
+    host_s = time.perf_counter() - t0
+    rel, fault_rel = (((o - host_out).norm() / host_out.norm()).item() for o in (card_out, fault))
+    expected = {"float32": FLASH_CALLS_PER_UNET * steps} if on_card else {}
+    log(f"  f32 chain, card (K2-f32) against CPU (plain K2), {steps}-step GSG in latent space at batch 1, {hr} px out: "
+        f"relative L2 error {rel:.3e} (limit {F32_CHAIN_REL_TOL}), max abs {(card_out - host_out).abs().max().item():.3e}; "
+        f"the planted fault (the chain under bf16 autocast) {fault_rel:.3e}: breaks it; K2 by V's dtype {by_dtype}, "
+        f"K1-f32 {k1_f32}; card chain {card_s:.1f} s, CPU chain {host_s:.1f} s [{card}]")
+    if by_dtype != expected or k1_f32 or card_out.shape != (1, hr, hr, 3) or not torch.isfinite(card_out).all():
+        raise AssertionError(f"f32 chain: K2 by V's dtype {by_dtype}, expected {expected}; K1-f32 {k1_f32}; output "
+                             f"{tuple(card_out.shape)} or not finite")
+    if not rel <= F32_CHAIN_REL_TOL < fault_rel:
+        raise AssertionError(f"f32 chain: card against CPU {rel} (limit {F32_CHAIN_REL_TOL}), the bf16 fault "
+                             f"{fault_rel}: the limit must hold the f32 chain and break the fault")
+
+
 _EXPORT_CONSUMER = """
 import json, sys, time
 t0 = time.perf_counter()
@@ -2724,6 +2999,7 @@ t2 = time.perf_counter()
 args = torch.load(sys.argv[2], map_location=sys.argv[5])
 from weatherconverter_tpu_torch.ops import attention as A
 A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
+A.flash_attention_f32.launches, A.flash_attention_qk_i8.launches_by_dtype = 0, {}
 t3 = time.perf_counter()
 out = call(*args)
 if sys.argv[5] == "cuda":
@@ -2734,22 +3010,26 @@ casts = sum(1 for n in call.module.graph.nodes
 models = [m for m in sys.modules if m.startswith(("weatherconverter_tpu_torch.models", "weatherconverter_tpu.", "jax"))]
 torch.save(out.cpu(), sys.argv[3])
 json.dump(dict(import_s=t1 - t0, load_s=t2 - t1, run_s=t4 - t3, k1=A.flash_attention.launches,
-               k2=A.flash_attention_qk_i8.launches, quantizer=A.quantize_qk_i8.launches, bf16_casts=casts,
+               k2=A.flash_attention_qk_i8.launches, quantizer=A.quantize_qk_i8.launches,
+               k1_f32=A.flash_attention_f32.launches, k2_by_dtype=A.flash_attention_qk_i8.launches_by_dtype,
+               bf16_casts=casts,
                model_modules=models, dtype=str(out.dtype)), open(sys.argv[3] + ".json", "w"))
 """
 
 
 def phase_export(torch, A, device, card, tmp, tcfg=None, steps=None, batch=None):
     """`export-hlo --program translate --attn int8` through the CLI in-process
-    at configs/translation.yaml (the 128 px UNet with K2 and one int8 scale
-    per tensor, DeepLabV3+/ResNet-101, the 4x SRGAN), batch EXPORT_BATCH,
+    at configs/translation.yaml (the program in f32, as JAX exports it: the
+    128 px UNet with K2-f32 and one int8 scale per tensor,
+    DeepLabV3+/ResNet-101, the 4x SRGAN), batch EXPORT_BATCH,
     EXPORT_STEPS steps; the live program on the card (the same seeded weights,
     input, labels and draws, cudnn deterministic, no autotuning) twice; the
     archive loaded by serving/hlo_runtime.load_exported in a fresh process
     that imports no model code, counts its K1, K2 and quantizer launches and
-    runs it on those arguments. Gates: exit 0, the launches (K2 and its
-    quantizer 8 a UNet forward, no K1, live and loaded), bf16 casts in the
-    loaded graph, output dtypes equal, the loaded output equal to the live
+    runs it on those arguments. Gates: exit 0, the launches (K2-f32 and its
+    quantizer 8 a UNet forward, on f32 V only, no K1 or K1-f32, live and
+    loaded), no bf16 cast in the loaded graph, output dtypes equal, the
+    loaded output equal to the live
     one bit for bit, finite, in [0, 1], of (B, 512, 512, 3). Prints the
     trace, export, save, load and run seconds and the archive's MiB. Returns
     with the fresh process running: the call it returns waits for it, holds
@@ -2791,10 +3071,12 @@ def phase_export(torch, A, device, card, tmp, tcfg=None, steps=None, batch=None)
         lives = []
         for _ in range(2):
             A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
+            A.flash_attention_f32.launches, A.flash_attention_qk_i8.launches_by_dtype = 0, {}
             t0 = time.perf_counter()
             lives.append(fn(*args).cpu())
             live_s = time.perf_counter() - t0
-        live_counts = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
+        live_counts = (A.flash_attention.launches + A.flash_attention_f32.launches,
+                       A.flash_attention_qk_i8.launches_by_dtype.get("float32", 0), A.quantize_qk_i8.launches)
     torch.save(args, os.path.join(tmp, "export_args.pt"))
     del args, models, data
     torch.cuda.empty_cache()
@@ -2821,22 +3103,23 @@ def phase_export(torch, A, device, card, tmp, tcfg=None, steps=None, batch=None)
             fresh = json.load(fh)
         served = torch.load(os.path.join(tmp, "export_out.pt"))
         expect = (0, FLASH_CALLS_PER_UNET * steps, FLASH_CALLS_PER_UNET * steps) if on_card else (0, 0, 0)
-        loaded_counts = (fresh["k1"], fresh["k2"], fresh["quantizer"])
+        loaded_counts = (fresh["k1"] + fresh["k1_f32"], fresh["k2_by_dtype"].get("float32", 0), fresh["quantizer"])
         log(f"  export-hlo --attn {info['attn']} translate, {steps} steps, batch {batch}: exit 0 in "
             f"{export_wall:.1f} s (trace {info['export']['trace_s']:.1f} s, torch.export {info['export']['export_s']:.1f} s, save "
             f"{info['export']['save_s']:.1f} s), {info['export']['nodes']} nodes, {info['export']['mib']:.1f} MiB, "
-            f"{len(info['args'])} arguments; the live program {live_s:.2f} s, launches K1/K2/quantizer "
+            f"{len(info['args'])} arguments; the live program {live_s:.2f} s, launches K1 (any)/K2-f32/quantizer "
             f"{'/'.join(map(str, live_counts))}; two live runs {'bit-equal' if torch.equal(*lives) else 'DIFFER'}; "
             f"the fresh process {fresh_s:.1f} s (imports "
             f"{fresh['import_s']:.1f} s, load {fresh['load_s']:.1f} s, run {fresh['run_s']:.2f} s), launches "
-            f"K1/K2/quantizer {'/'.join(map(str, loaded_counts))}, {fresh['bf16_casts']} bf16 casts in the loaded "
+            f"K1 (any)/K2-f32/quantizer {'/'.join(map(str, loaded_counts))} (K2 by V's dtype "
+            f"{fresh['k2_by_dtype']}), {fresh['bf16_casts']} bf16 casts in the loaded "
             f"graph, model modules imported {fresh['model_modules'] or 'none'}; loaded against live: max |diff| "
             f"{(served - live).abs().max().item():.3e} [{card}]")
         if not (torch.equal(*lives) and torch.equal(served, live)):
             raise AssertionError(f"export: the loaded program differs from the live one (or two live runs differ: "
                                  f"{(lives[0] - lives[1]).abs().max().item()})")
-        if live_counts != expect or loaded_counts != expect or fresh["model_modules"] \
-                or fresh["dtype"] != str(live.dtype) or (on_card and not fresh["bf16_casts"]):
+        if live_counts != expect or loaded_counts != expect or fresh["model_modules"] or fresh["k2"] != expect[1] \
+                or fresh["dtype"] != str(live.dtype) or fresh["bf16_casts"]:
             raise AssertionError(f"export: launches live {live_counts} / loaded {loaded_counts}, expected {expect}; "
                                  f"model modules {fresh['model_modules']}; dtypes {fresh['dtype']} / {live.dtype}; "
                                  f"bf16 casts {fresh['bf16_casts']}")
@@ -3502,7 +3785,9 @@ def ptxas_summary(build_log: str) -> list[str]:
             mangled = ln.split("'")[1]
             name = next((k for k in PTXAS_KERNELS if k in mangled), mangled)
             args = (["f16"] if "6__half" in mangled else ["bf16"] if "13__nv_bfloat16" in mangled or "4Bf16E" in mangled
-                    else ["int8"] if "2I8E" in mangled else [])
+                    else ["int8"] if "2I8E" in mangled else ["f32"] if "IfLi" in mangled else [])
+            if "I8Scores" in mangled:  # K1-f32's kernels with int8 scores
+                args.append("K2-f32")
             dims = re.findall(r"Li(\d+)E", mangled)  # K1: <T, D, G>, G the head dim on D-wide tiles
             if "dkv" in name and len(dims) == 2:  # K3's and K3-f32's pass 2: <(T,) D, which gradients>
                 args.append(f"D={dims[0]}, {('dV', 'dK', 'dK and dV')[int(dims[1]) - 1]}")
@@ -3536,8 +3821,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
-    log("settings: cuda.matmul.allow_tf32=False cudnn.allow_tf32=False cudnn.benchmark=True; "
-        "translation and training run under bf16 autocast")
+    log("settings: cuda.matmul.allow_tf32=False cudnn.allow_tf32=False cudnn.benchmark=True; the library's "
+        "translation, sampler and training phases (3-12) run under bf16 autocast, the inference commands (13-21) and "
+        "phase 25 in f32")
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -3553,9 +3839,16 @@ def main() -> int:
     missing = [k for k in gated if not any(ln.startswith(k + "<") or ln.startswith(k + ":") for ln in wgmma)]
     if missing:
         raise AssertionError(f"the build log does not name {missing}: the spill and wgmma gates have nothing to read")
-    spilled = [ln for ln in wgmma if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    # K2-f32 at its six head dims (K1-f32's two kernels with int8 scores) and the quantizer's f32 kernels
+    k2_f32 = [ln for ln in wgmma if "K2-f32" in ln]
+    quant_f32 = [ln for ln in ptxas if ln.startswith(("absmax_qk_kernel<f32", "quantize_qk_kernel<f32"))]
+    if len(k2_f32) != 6 or len(quant_f32) != 4:
+        raise AssertionError(f"the build log names K2-f32 {len(k2_f32)} times (6 head dims) and the f32 quantizer's "
+                             f"kernels {len(quant_f32)} times (two passes, two group sizes): {k2_f32 + quant_f32}")
+    spilled = [ln for ln in wgmma + quant_f32 if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     if spilled:
-        raise AssertionError(f"ptxas reports register spills in K1-K4, K1-f32 or K3-f32: {spilled}")
+        raise AssertionError(f"ptxas reports register spills in K1-K4, K1-f32, K2-f32, K3-f32 or the f32 quantizer: "
+                             f"{spilled}")
     if "Potential Performance Loss" in cuda_build.build_log():
         raise AssertionError("ptxas serialized the wgmma instructions of a kernel (see the build log): "
                              + next(ln for ln in cuda_build.build_log().splitlines() if "Potential" in ln))
@@ -3565,6 +3858,7 @@ def main() -> int:
     kernel_results.update(phase_quantizer(torch, A, device, card))
     kernel_results["flash_attention_bwd"] = phase_backward_kernel(torch, A, device, card)
     kernel_results["flash_attention_bwd_f32"] = phase_backward_f32_kernel(torch, A, device, card)
+    kernel_results.update(phase_qk_i8_f32(torch, A, device, card))
     k2_d192_launches = phase_unet_256(torch, A, device)
     torch.cuda.empty_cache()
 
@@ -3615,11 +3909,12 @@ def main() -> int:
     # took ~96 s of phase 16's 120 before phase 16 ran without them (PERF.md section 6)
     with tempfile.TemporaryDirectory() as tmp, \
             torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
-        log(f"phase 13: the CLI on the card [{card}]")
-        phase_cli(torch, A, device, card, tmp)
+        log(f"phase 13: the CLI on the card, every inference command in f32 [{card}]")
+        cli_k2_f32_launches = phase_cli(torch, A, device, card, tmp)
         torch.cuda.empty_cache()
         log(f"phase 14: the server on the card [{card}]")
-        server_k2_launches = phase_server(torch, A, device, card, tmp, steps=SERVER_STEPS)
+        server_k2_launches, server_k2_bf16_launches, server_quant_bf16_launches = phase_server(
+            torch, A, device, card, tmp, steps=SERVER_STEPS)
         torch.cuda.empty_cache()
         log(f"phase 15: segmentation on the card [{card}]")
         phase_seg(torch, device, card, tmp)
@@ -3654,6 +3949,9 @@ def main() -> int:
         log(f"phase 24: DDPM training in f32 on the card [{card}]")
         f32_fwd_launches, f32_bwd_launches = phase_train_f32(torch, A, device, card, tmp, train_reference)
         del train_reference
+        torch.cuda.empty_cache()
+        log(f"phase 25: the f32 inference chain, card against CPU [{card}]")
+        phase_f32_chain(torch, A, device, card)
 
     csrc = "weatherconverter_tpu_torch/csrc/"
     kernels = []
@@ -3675,10 +3973,22 @@ def main() -> int:
          f32_bwd_launches),
         ("flash_attention_qk_i8_per_item", csrc + "flash_fwd_qk_i8.cu",
          "weatherconverter_tpu/ops/attention.py:125 under jax.vmap (weatherconverter_tpu/serving/server.py:191-226)",
-         server_k2_launches),
+         server_k2_bf16_launches),
         ("quantize_qk_i8_per_item", csrc + "quantize_i8.cu",
          "weatherconverter_tpu/ops/attention.py:173-189 under jax.vmap (weatherconverter_tpu/serving/server.py:191-226)",
-         server_k2_launches),
+         server_quant_bf16_launches),
+        ("flash_attention_qk_i8_f32", csrc + "flash_fwd_f32.cu",
+         "weatherconverter_tpu/ops/attention.py:125 (on an f32 V, as JAX's inference commands run it)",
+         cli_k2_f32_launches),
+        ("quantize_qk_i8_f32", csrc + "quantize_i8.cu",
+         "weatherconverter_tpu/ops/attention.py:173-189 on f32 q and k (plain jnp that XLA fused there)",
+         cli_k2_f32_launches),
+        ("flash_attention_qk_i8_f32_per_item", csrc + "flash_fwd_f32.cu",
+         "weatherconverter_tpu/ops/attention.py:125 under jax.vmap on an f32 V (weatherconverter_tpu/serving/server.py"
+         ":191-226)", server_k2_launches),
+        ("quantize_qk_i8_f32_per_item", csrc + "quantize_i8.cu",
+         "weatherconverter_tpu/ops/attention.py:173-189 under jax.vmap on f32 q and k "
+         "(weatherconverter_tpu/serving/server.py:191-226)", server_k2_launches),
         ("flash_attention_qk_i8_d24", csrc + "flash_fwd_qk_i8.cu", "weatherconverter_tpu/ops/attention.py:125",
          k2_d24_launches),
         ("flash_attention_qk_i8_d192", csrc + "flash_fwd_qk_i8.cu", "weatherconverter_tpu/ops/attention.py:125",
@@ -3712,7 +4022,10 @@ def main() -> int:
         "legacy run (K1-f32) and phase 24's train-ddpm run in f32 (K1-f32 with l, K3-f32); the *_per_item lines "
         "are K2 and its quantizer with one int8 scale a batch row (the "
         "server's), timed in phase 2 at the path shapes (K2's ms whole, quantizer included), launched in phase 14's "
-        "K2 full-sweep run; the *_d24 and *_d192 lines are K2 (quantizer included) at (1024, 24) and (1024, 192), "
+        "bf16 chain of the per-row service (bf16 V; the server itself runs in f32); the *_f32 lines are K2-f32 "
+        "(quantizer included, P V in 3xTF32) and the quantizer on f32 q and k, timed in phase 2 at the four path "
+        "shapes in f32 (library: sdpa's f32 forward), launched in phase 13's first translate (DPM-20, f32) and, "
+        "*_f32_per_item, in phase 14's K2-f32 full-sweep run; the *_d24 and *_d192 lines are K2 (quantizer included) at (1024, 24) and (1024, 192), "
         "B*H = 32, timed in phase 2, launched at those head dims in phase 18's bf16 qk_int8 legacy run (attn_up2) "
         "and the 256 px UNet's qk_int8 forward; for the probes K4-K7 "
         "they are from phase 9's probe runs (K4: sums over D=64 and D=16, library the same sdpa forward; "
@@ -3720,8 +4033,8 @@ def main() -> int:
         "torch.mm(out_dtype=torch.float32), null if this torch lacks the latter; dw3x3: library cuDNN's channels-last "
         "depthwise conv; null where no single PyTorch call computes the function). bound_ms is the larger of "
         "bytes over 3.35 TB/s and operations over the peak of their type (989 TFLOP/s bf16, 1979 TOP/s int8, "
-        "494.7 TFLOP/s TF32, three TF32 products a K1-f32 or K3-f32 product, 67 TFLOP/s f32, 3.86e12 "
-        "exponentials/s)")
+        "494.7 TFLOP/s TF32, three TF32 products a K1-f32 or K3-f32 product and a K2-f32 P V product, 67 TFLOP/s f32, "
+        "3.86e12 exponentials/s)")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -206,16 +206,24 @@ def _op_cases():
             ("flash_bwd_f32", A._k3_f32_op, (q, k, v, o, do, l)),
             ("quantize_qk_i8", A._quantize_op, (q.bfloat16(), k.bfloat16(), False)),
             ("quantize_qk_i8_per_item", A._quantize_op, (q.bfloat16(), k.bfloat16(), True)),
-            ("flash_fwd_qk_i8", A._k2_op, (q8, k8, scales, v.bfloat16()))]
+            ("flash_fwd_qk_i8", A._k2_op, (q8, k8, scales, v.bfloat16())),
+            # f32 inputs: the quantizer in front of K2-f32, and K2-f32 (an f32 V), as an f32 program holds them
+            ("quantize_qk_i8_f32", A._quantize_op, (q, k, False)),
+            ("quantize_qk_i8_f32_per_item", A._quantize_op, (q, k, True)),
+            ("flash_fwd_qk_i8_f32", A._k2_op, (q8, k8, scales, v))]
 
 
-@pytest.mark.parametrize("case", range(8), ids=[c[0] for c in _op_cases()])
+@pytest.mark.parametrize("case", range(11), ids=[c[0] for c in _op_cases()])
 def test_kernel_custom_ops_pass_opcheck(case):
     """Each kernel's op (ops/attention.OPS): its schema, its fake
     implementation against the CPU one, its dispatch under autograd and
-    under AOT tracing with dynamic shapes."""
+    under AOT tracing with dynamic shapes. K2 and its quantizer take f32 as
+    one op each: the `_f32` cases name their inputs, not another op."""
     name, op, args = _op_cases()[case]
-    assert str(op._qualname) == f"{A.OPS}::{name.removesuffix('_no_l').removesuffix('_per_item')}"
+    qualname = name.removesuffix("_no_l").removesuffix("_per_item")
+    if op in (A._quantize_op, A._k2_op):
+        qualname = qualname.removesuffix("_f32")
+    assert str(op._qualname) == f"{A.OPS}::{qualname}"
     torch.library.opcheck(op, args)
 
 

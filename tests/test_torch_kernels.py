@@ -232,7 +232,7 @@ def _quantizer_inputs(case, shape, dtype, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["random", "zero", "ties", "outlier", "misaligned"])
 @pytest.mark.parametrize("shape", [(1, 1, 64, 16), (2, 3, 128, 32), (1, 2, 192, 64), (8, 4, 1024, 128)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_quantize_qk_i8_kernel_equals_plain_bit_for_bit(cuda, case, shape, dtype):
     """Tolerance: none, for the int8 tensors and for the f32 scale."""
     q, k = _quantizer_inputs(case, shape, dtype, cuda)
@@ -254,7 +254,7 @@ def test_quantize_qk_i8_kernel_equals_plain_bit_for_bit(cuda, case, shape, dtype
 @pytest.mark.gpu
 @pytest.mark.parametrize("bad", [float("inf"), float("-inf"), float("nan")])
 @pytest.mark.parametrize("which", ["q", "k"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_quantize_qk_i8_kernel_surfaces_non_finite_input(cuda, bad, which, dtype):
     """One inf or NaN element reaches the scale, as in the plain version (inf
     for an infinity, NaN for a NaN), instead of being quantized silently; with
@@ -277,7 +277,7 @@ def test_quantize_qk_i8_kernel_surfaces_non_finite_input(cuda, bad, which, dtype
 @pytest.mark.parametrize("case", ["random", "zero", "ties", "outlier", "misaligned", "views", "row_x100"])
 @pytest.mark.parametrize("shape", [(2, 3, 128, 32), (3, 2, 192, 64), (8, 4, 1024, 128), (8, 4, 4096, 16),
                                    (2, 3, 192, 24), (2, 4, 1024, 192)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_quantize_qk_i8_kernel_per_item_equals_plain_bit_for_bit(cuda, case, shape, dtype):
     """One scale a batch row (`per_item`, the server's): the int8 tensors and
     the B scales equal the plain version's (tolerance: none), and each row's
@@ -356,7 +356,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     l = torch.ones((1, 1, 128, 1), device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         A.flash_attention_bwd(q, k, v, q, q, l)
-    # K2's quantizer takes 16-bit q and k of one dtype and one shape
+    # K2 takes q, k and v of one dtype; its quantizer q and k of one dtype (bf16, f16 or f32) and one shape
     with pytest.raises(ValueError, match="dtype"):
         A.flash_attention_qk_i8(q, k, v.to(torch.bfloat16))
     with pytest.raises(ValueError, match="dtype"):
@@ -480,6 +480,60 @@ def test_flash_f32_kernel_at_both_clamp_rails(cuda, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", F32_SHAPES)
+@pytest.mark.parametrize("per_item", [False, True])
+def test_flash_qk_i8_f32_kernel_matches_plain(cuda, shape, per_item):
+    """K2-f32: an f32 V takes K1-f32's kernels with int8 scores, within
+    F32_REL_TOL of the f32 plain version (the int32 scores are exact in
+    both; P V in 3xTF32), the same bits twice, counted under "float32";
+    per row, row 0 of a batch whose row 1 is x100 is row 0 alone."""
+    q, k, v = _qkv(shape, torch.float32, cuda, seed=37)
+    before = (A.flash_attention_qk_i8.launches_by_dtype.get("float32", 0),
+              A.quantize_qk_i8.launches_by_dtype.get("float32", 0))
+    o = A.flash_attention_qk_i8(q, k, v, per_item=per_item)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_qk_i8.launches_by_dtype["float32"],
+            A.quantize_qk_i8.launches_by_dtype["float32"]) == (before[0] + 1, before[1] + 1)
+    ref = A.flash_attention_qk_i8_plain(q, k, v, per_item=per_item)
+    assert o.dtype == torch.float32 and o.shape == q.shape and torch.isfinite(o).all()
+    assert _rel_err(o, ref) <= F32_REL_TOL
+    assert torch.equal(o, A.flash_attention_qk_i8(q, k, v, per_item=per_item))
+    if per_item and shape[0] > 1:
+        q[1], k[1] = q[1] * 100, k[1] * 100
+        o = A.flash_attention_qk_i8(q, k, v, per_item=True)
+        assert torch.equal(o[:1], A.flash_attention_qk_i8(q[:1], k[:1], v[:1], per_item=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 24, 32, 64, 128, 192])
+def test_flash_qk_i8_f32_kernel_at_both_clamp_rails(cuda, d):
+    """K2-f32 where the quantized scores pass +60 and -60, at every head
+    dim (f32 holds p = e^60)."""
+    q, k, v = _qkv((2, 2, 192, d), torch.float32, cuda, seed=d + 7)
+    gain = 2.0 * (60.0 / d**0.5) ** 0.5
+    q, k = q * gain, k * gain
+    q8, k8, qk_scale = A.quantize_qk_i8_plain(q, k)
+    s = torch.matmul(q8.float(), k8.float().transpose(-1, -2)) * qk_scale
+    assert (s > 60).any() and (s < -60).any()
+    o = A.flash_attention_qk_i8(q, k, v)
+    assert torch.isfinite(o).all() and _rel_err(o, A.flash_attention_qk_i8_plain(q, k, v)) <= F32_REL_TOL
+
+
+@pytest.mark.gpu
+def test_flash_qk_i8_f32_kernel_takes_head_split_views(cuda):
+    """f32 head-split views of one projection (row strides a multiple of 4
+    elements): the quantizer reads them in place, K2-f32 matches its plain
+    version."""
+    b, n, h, d = 2, 1024, 4, 24
+    qkv = _qkv((b, n, 3 * h * d), torch.float32, cuda, seed=38)[0]
+    q, k, v = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous() and A._row_strides(q) is not None
+    for got, want in zip(A.quantize_qk_i8(q, k), A.quantize_qk_i8_plain(q, k)):
+        assert got.is_contiguous() and torch.equal(got, want)
+    assert _rel_err(A.flash_attention_qk_i8(q, k, v), A.flash_attention_qk_i8_plain(q, k, v)) <= F32_REL_TOL
+
+
+@pytest.mark.gpu
 def test_flash_f32_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv((1, 1, 128, 48), torch.float32, cuda)
     with pytest.raises(ValueError, match="flash_attention_f32: head dim 48"):
@@ -586,20 +640,23 @@ def test_flash_attention_f32_autograd_matches_autograd_through_plain(cuda, shape
 def test_legacy_unet_on_the_card_in_bf16_and_f32(cuda):
     """The legacy UNet at 128 px, batch 2: under bf16 autocast with qk_int8
     a forward launches K2 and its quantizer twice (attn_down3, D = 16, and
-    attn_up2, D = 24); in f32 (full_f32) K1-f32 twice, and its output
-    is the CPU's f32 forward's to 1e-4 of max |ref|."""
-    from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet, full_f32
+    attn_up2, D = 24); in f32 (core/precision.f32_arithmetic) with qk_int8
+    K2-f32 twice; in f32 without it K1-f32 twice, and its output is the
+    CPU's f32 forward's to 1e-4 of max |ref|."""
+    from weatherconverter_tpu_torch.core.precision import f32_arithmetic
+    from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet
 
     torch.manual_seed(0)
     cpu = LegacyUNet(128)
     x, t = torch.randn(2, 3, 128, 128), torch.tensor([0.3, 0.9])
     counters = (A.flash_attention, A.flash_attention_qk_i8, A.quantize_qk_i8, A.flash_attention_f32)
-    for qk_int8, dtype, expected in ((True, torch.bfloat16, [0, 2, 2, 0]), (False, None, [0, 0, 0, 2])):
+    for qk_int8, dtype, expected in ((True, torch.bfloat16, [0, 2, 2, 0]), (True, None, [0, 2, 2, 0]),
+                                     (False, None, [0, 0, 0, 2])):
         model = LegacyUNet(128, qk_int8=qk_int8)
         model.load_state_dict(cpu.state_dict())
         model = model.to(cuda)
         before = [fn.launches for fn in counters]
-        ctx = torch.autocast("cuda", dtype=dtype) if dtype else full_f32()
+        ctx = torch.autocast("cuda", dtype=dtype) if dtype else f32_arithmetic(cuda)
         with torch.no_grad(), ctx:
             out = model(x.to(cuda), t.to(cuda))
         torch.cuda.synchronize()
@@ -720,8 +777,9 @@ def test_256px_default_unet_runs_forward_and_backward_on_the_card(cuda):
     """The default ladder at im_size 256 attends at (N, D) = (4096, 128),
     (1024, 192), (1024, 128), (1024, 64) and (4096, 32): under bf16 autocast
     every flash-length layer goes through K1 and, backwards, K3; in f32
-    through K1-f32 and K3-f32; in f32 with qk_int8 it is refused at the
-    entry, by name."""
+    through K1-f32 and K3-f32; in f32 with qk_int8 a forward takes K2-f32
+    at all twelve, and a forward that would need a gradient raises
+    (K2 is forward-only, as JAX's int8 path)."""
     from weatherconverter_tpu_torch.core.config import UnetModelConfig
     from weatherconverter_tpu_torch.models.unet import Unet
 
@@ -730,8 +788,13 @@ def test_256px_default_unet_runs_forward_and_backward_on_the_card(cuda):
     flash_layers = sum(A.is_flash_length(n) for n, _ in model.attention_shapes(256))
     assert flash_layers == 12
     x = torch.randn(1, 3, 256, 256, device=cuda)
-    with pytest.raises(ValueError, match="Unet.forward: .*qk_int8.*K2"):
-        Unet(UnetModelConfig(im_size=256), qk_int8=True).to(cuda)(x, 5)
+    int8 = Unet(UnetModelConfig(im_size=256), qk_int8=True).to(cuda)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        int8(x, 5)
+    before = A.flash_attention_qk_i8.launches_by_dtype.get("float32", 0)
+    with torch.no_grad(), _no_tf32():
+        assert torch.isfinite(int8(x, 5)).all()
+    assert A.flash_attention_qk_i8.launches_by_dtype["float32"] - before == 12
     counters = (A.flash_attention, A.flash_attention_bwd, A.flash_attention_f32, A.flash_attention_bwd_f32)
     for ctx, expected in ((torch.autocast("cuda", dtype=torch.bfloat16), [12, 12, 0, 0]),
                           (_no_tf32(), [0, 0, 12, 12])):

@@ -213,14 +213,19 @@ def test_reference_checkpoint_loader_drops_exactly_the_dead_keys(legacy_pair):
 def test_legacy_unet_takes_k2_only_at_head_dim_16_and_refuses_f32_on_cuda_by_name():
     """At 128 px, attn_down3 (1024, 16) and attn_up2 (1024, 24) reach the
     flash kernels: with qk_int8 both take K2 (K3 lacks D = 24, which only the
-    sampling legacy UNet has); the others run plain softmax. An f32
-    model is refused on CUDA at the entry, by name (checked without a card)."""
+    sampling legacy UNet has); the others run plain softmax. In f32 on CUDA
+    the entry admits the sampling model with qk_int8 (K2-f32 at D = 16 and
+    24, JAX's default for `sample`) and refuses by name a model that would
+    train at D = 24 (K3-f32 lacks it), checked without a card."""
     with torch.device("meta"):
         model = LegacyUNet(128, qk_int8=True)
     assert model.attention_kernels(128) == [(1024, 16, "K2"), (256, 24, "softmax"), (64, 64, "softmax"),
                                             (256, 32, "softmax"), (1024, 24, "K2")]
     assert [k for _, _, k in LegacyUNet(16).attention_kernels(128)] == ["K1", "softmax", "softmax", "softmax", "K1"]
-    with pytest.raises(ValueError, match=r"LegacyUNet.forward: .*\(1024, 16\), \(1024, 24\)"):
+    PA.check_flash_precision("cuda", torch.float32, model.attention_kernels(128), "LegacyUNet.forward",
+                             forward_only=True)
+    assert {16, 24} <= set(PA.QK_I8_F32_HEAD_DIMS)
+    with pytest.raises(ValueError, match=r"LegacyUNet.forward: .*\(1024, 16\), \(1024, 24\).*K3-f32"):
         PA.check_flash_precision("cuda", torch.float32, model.attention_shapes(128), "LegacyUNet.forward")
     assert 24 in PA.KERNEL_HEAD_DIMS and 24 not in PA.BWD_HEAD_DIMS and 24 in PA.QK_I8_HEAD_DIMS
     with pytest.raises(ValueError, match="flash_attention_bwd: head dim 24"):

@@ -1,7 +1,7 @@
 """Where the PyTorch port refuses a dtype or admits a shape before any kernel
 runs: on CUDA a UNet with a flash-length attention layer runs in bf16/f16,
-or in f32 where the f32 kernels (K1-f32 forward, K3-f32 backward) take each
-such layer's head dim and no layer takes K2; anything else is refused at the
+or in f32 where the f32 kernels (K1-f32 forward, K3-f32 backward, K2-f32 at
+a qk_int8 layer) take each such layer's head dim; anything else is refused at the
 three entry points a user picks the dtype at (`Unet.forward`,
 `make_translate_fn`, `training/loop_diffusion.train`). The attention shapes
 of the supported UNets are ones the flash kernels take.
@@ -75,15 +75,19 @@ def test_check_flash_precision(device_type, dtype, shapes, refused):
 @pytest.mark.parametrize("forward_only, qk_int8, shapes, refused", [
     (True, False, [(1024, 16), (1024, 24)], False),  # the legacy UNet samples in f32: K1-f32 alone
     (True, False, [(1024, 48)], True),
-    (False, True, [(1024, 16)], True),  # K2 takes 16-bit V
-    (True, True, [(1024, 16), (1024, 24)], True),
+    (False, True, [(1024, 16)], False),  # K2-f32 takes f32 V (a qk_int8 model only samples)
+    (True, True, [(1024, 16), (1024, 24)], False),  # the legacy UNet with qk_int8: K2-f32 at both
     (False, True, [(256, 16)], False),  # no flash-length layer: plain softmax attention
+    (False, True, [(1024, 48)], True),  # K2 lacks D = 48, so the layer takes K1-f32, which lacks it too
+    (True, True, [(4096, 64), (1024, 40)], True),
 ])
 def test_check_flash_precision_f32_rules(forward_only, qk_int8, shapes, refused):
     """f32 on CUDA: a forward-only model needs K1-f32's head dims, a model
-    that trains K3-f32's as well, and no K2; a refusal names the kernel and
-    the head dims it has."""
-    args = ("cuda", torch.float32, [(n, d, "K2" if qk_int8 else "K1") for n, d in shapes], "here", forward_only)
+    that trains K3-f32's as well; a qk_int8 layer takes K2-f32 where K2 has
+    the head dim (`qk_int8_takes`), else K1-f32. A refusal names the kernel
+    and the head dims it has."""
+    layers = [(n, d, "K2" if A.qk_int8_takes(d, qk_int8) else "K1") for n, d in shapes]
+    args = ("cuda", torch.float32, layers, "here", forward_only)
     if not refused:
         A.check_flash_precision(*args)
         return
@@ -91,7 +95,7 @@ def test_check_flash_precision_f32_rules(forward_only, qk_int8, shapes, refused)
         A.check_flash_precision(*args)
     msg = str(err.value)
     assert msg.startswith("here:") and 'training.dtype="bfloat16"' in msg
-    assert ("K2" in msg and "qk_int8=False" in msg) if qk_int8 else ("K1-f32" in msg and str(A.F32_HEAD_DIMS) in msg)
+    assert "K1-f32" in msg and str(A.F32_HEAD_DIMS) in msg
 
 
 def test_unet_forward_refuses_f32_on_cuda_by_name(monkeypatch):
@@ -107,9 +111,10 @@ def test_unet_forward_refuses_f32_on_cuda_by_name(monkeypatch):
     assert calls[-1][1] == torch.bfloat16
     with pytest.raises(ValueError, match=r"Unet.forward: .*\(1024, 24\).*K3-f32"):  # a model that trains
         Unet(UnetModelConfig(**FLASH_UNET_D24)).eval()(x, 3)
-    with pytest.raises(ValueError, match=r"Unet.forward: .*qk_int8.*K2"):
-        Unet(UnetModelConfig(**FLASH_UNET), qk_int8=True).eval()(x, 3)
     with torch.no_grad():
+        # qk_int8 at D = 16 and 24: K2-f32 takes both (forward only, as K2)
+        assert Unet(UnetModelConfig(**FLASH_UNET), qk_int8=True).eval()(x, 3).dtype == torch.float32
+        assert Unet(UnetModelConfig(**FLASH_UNET_D24), qk_int8=True).eval()(x, 3).dtype == torch.float32
         # D = 16: the f32 kernels take it, forward and backward
         assert Unet(UnetModelConfig(**FLASH_UNET)).eval()(x, 3).dtype == torch.float32
         # no flash-length layer: f32 stays allowed on CUDA (plain softmax attention)
@@ -131,8 +136,8 @@ def test_make_translate_fn_refuses_f32_on_cuda_by_name(monkeypatch):
     assert callable(PT.make_translate_fn(*models, dtype=torch.bfloat16))
     assert callable(PT.make_translate_fn(Unet(UnetModelConfig(**SHORT_UNET)), *models[1:]))
     assert callable(PT.make_translate_fn(Unet(UnetModelConfig(**FLASH_UNET)), *models[1:]))  # K1-f32 at D = 16
-    with pytest.raises(ValueError, match=r"make_translate_fn: .*K2"):
-        PT.make_translate_fn(Unet(UnetModelConfig(**FLASH_UNET), qk_int8=True), *models[1:])
+    # K2-f32 at D = 16: the CLI's translate on the card (JAX's f32 model with its int8 kernel)
+    assert callable(PT.make_translate_fn(Unet(UnetModelConfig(**FLASH_UNET), qk_int8=True), *models[1:]))
     monkeypatch.undo()
     assert callable(PT.make_translate_fn(*models))  # on the CPU f32 is fine
 
@@ -225,7 +230,8 @@ def test_qk_i8_refuses_head_dim_192_by_naming_k1():
     """K2 takes D = 192 and every head dim K1 takes; another (48) raises
     instead of falling back, naming K1 (the rule is checked before any
     kernel is built, so it shows without a card)."""
-    with pytest.raises(ValueError, match=r"head dim 48 .*use flash_attention \(qk_int8=False\)"):
+    with pytest.raises(ValueError, match=r"head dim 48 .*K2 on bf16/f16 V, K2-f32 on f32 V.*use flash_attention "
+                                         r"\(qk_int8=False\)"):
         A._check_qk_i8_head_dim(48)
     for d in A.KERNEL_HEAD_DIMS:
         A._check_qk_i8_head_dim(d)

@@ -14,15 +14,22 @@ run's best "Mean IoU" step taken; None gives
 random weights from the seed. An Orbax directory of the JAX package is
 refused by name: the port has no Orbax.
 
-int8 attention: on the card the inference commands build the UNet with
-`qk_int8=True`, as the JAX CLI defaults to its int8 kernel on the TPU;
-`--no-int8-attn` keeps K1. Such a model takes K2 (the int8 Q K^T flash
-forward, and its quantizer) in every flash-length layer, D = 24 of the
-legacy UNet and D = 192 of a 256 px UNet included, as JAX's int8 kernel
-takes any head dim. The quality check
-(`probes/int8_quality.py`) passed K2 at 20, 50 and 1000 steps on the H100
-(PERF.md section 6). The CPU has no int8 path, and training never takes K2
-(it has no backward).
+Precision: every inference command computes in f32, as JAX's build their
+models in flax's default f32, and on the card with TF32 off for cuDNN's
+convolutions and the matmuls (`core/precision.f32_arithmetic`), the f32 that
+the CPU tests hold against JAX's. Training (train-ddpm, train-seg,
+train-srgan) follows `training.dtype`, as in JAX.
+
+int8 attention: on the card `sample` (the legacy sampler too), `translate`
+and `serve` build the UNet with `qk_int8=True`, as the JAX CLI enables its
+int8 kernel there on the TPU; `--no-int8-attn` keeps K1-f32. In f32 such a
+model takes K2-f32 (the int8 Q K^T flash forward with P V in 3xTF32, and its
+quantizer on f32 Q and K) in every flash-length layer, D = 24 of the legacy
+UNet and D = 192 of a 256 px UNet included, as JAX's int8 kernel takes any
+head dim. `quality` and `visualize` never turn int8 on, as JAX's commands do
+not: they take K1-f32. `export-hlo --attn int8` traces K2-f32. The CPU runs
+the plain versions (with `qk_int8`, K2's), and training never takes K2 (it
+has no backward).
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ import os
 
 import numpy as np
 import torch
+
+from weatherconverter_tpu_torch.core.precision import f32_arithmetic
 
 TORCH_SUFFIXES = (".pt", ".pth", ".ckpt", ".tar")
 
@@ -46,15 +55,10 @@ def resolve_device(name: str) -> torch.device:
 
 
 def use_qk_int8(args, device: torch.device) -> bool:
-    """K2 for the inference commands on the card, unless --no-int8-attn."""
+    """K2 (K2-f32 in f32) for sample, translate and serve on the card, as
+    JAX's run_sample, run_translate and serve enable their int8 kernel on
+    the TPU, unless --no-int8-attn."""
     return device.type == "cuda" and not getattr(args, "no_int8_attn", False)
-
-
-def autocast(device: torch.device):
-    """bf16 autocast on the card (the flash kernels take bf16); f32 on the CPU."""
-    if device.type == "cuda":
-        return torch.autocast("cuda", dtype=torch.bfloat16)
-    return contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -163,15 +167,16 @@ def load_srgan(sr_cfg, checkpoint: str | None, seed: int):
                       "the SRGAN generator").eval()
 
 
-def load_legacy_unet(image_size: int, checkpoint: str | None, seed: int):
-    """The legacy UNet (the reference's old_modules.UNet): a reference torch
-    file (old_model/1000-checkpoint.ckpt) through
+def load_legacy_unet(image_size: int, checkpoint: str | None, seed: int, qk_int8: bool = False):
+    """The legacy UNet (the reference's old_modules.UNet), with K2 at its
+    flash-length layers when `qk_int8`: a reference torch file
+    (old_model/1000-checkpoint.ckpt) through
     `compat/from_jax.load_legacy_reference`, or seeded random weights."""
     from weatherconverter_tpu_torch.compat.from_jax import load_legacy_reference
     from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet
 
     with seeded(seed):
-        model = LegacyUNet(image_size=image_size)
+        model = LegacyUNet(image_size=image_size, qk_int8=qk_int8)
     if checkpoint is None:
         return model
     if not (checkpoint.endswith(TORCH_SUFFIXES) and os.path.isfile(checkpoint)):
@@ -217,9 +222,10 @@ def _resolve_lcg_present_k(spec, gt, num_classes: int):
 def run_sample(args) -> int:
     """Unconditional sampling (ddpm, ddim, dpm, and legacy: the legacy UNet
     at the config's im_size through `ddpm_sample_legacy`) into a PNG grid.
-    The legacy UNet runs in f32 on the card too, as in JAX (K1-f32 at its
-    flash-length layers, no TF32): its bf16 chain failed the precision
-    check of probes/legacy_precision.py on the H100 (PERF.md section 6)."""
+    Every sampler runs in f32, as in JAX, the UNet with K2-f32 at its
+    flash-length layers on the card (the legacy UNet's attn_down3 and
+    attn_up2 too: JAX's run_sample enables its int8 kernel before the legacy
+    branch), or K1-f32 with --no-int8-attn."""
     from weatherconverter_tpu_torch.core.config import load_diffusion_config
     from weatherconverter_tpu_torch.diffusion.sampling import (ddim_sample, ddpm_sample, ddpm_sample_legacy,
                                                                dpm_solver_pp_2m_sample)
@@ -231,14 +237,12 @@ def run_sample(args) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     shape = (args.batch, cfg.model.im_size, cfg.model.im_size, cfg.model.im_channels)
     if args.sampler == "legacy":
-        from weatherconverter_tpu_torch.models.unet_legacy import full_f32
-
-        unet = load_legacy_unet(cfg.model.im_size, args.checkpoint, args.seed).to(device)
-        with full_f32():
+        unet = load_legacy_unet(cfg.model.im_size, args.checkpoint, args.seed, use_qk_int8(args, device)).to(device)
+        with f32_arithmetic(device):
             out = ddpm_sample_legacy(unet, sched, shape, gen, num_steps=args.steps)
     else:
         unet = load_unet(cfg.model, args.checkpoint, args.seed, use_qk_int8(args, device)).to(device).eval()
-        with autocast(device):
+        with f32_arithmetic(device):
             if args.sampler == "ddim":
                 out = ddim_sample(unet, sched, shape, gen, num_steps=args.steps or 50)
             elif args.sampler == "dpm":
@@ -261,13 +265,13 @@ def build_translation(cfg, device, unet_ckpt, seg_ckpt, srgan_ckpt, qk_int8: boo
 
 
 def fast_translate_fn(sampler: str, unet, sched, seg, sr, device, **kw):
-    """translate(input_128, gt, generator) on the DDIM or DPM-Solver++(2M) chain, under `device`'s autocast."""
+    """translate(input_128, gt, generator) on the DDIM or DPM-Solver++(2M) chain, in f32."""
     from weatherconverter_tpu_torch.guidance.translate import sample_with_sgg_ddim, sample_with_sgg_dpm
 
     chain = sample_with_sgg_dpm if sampler == "dpm" else sample_with_sgg_ddim
 
     def translate(input_128, gt, generator=None, noise=None):
-        with autocast(device):
+        with f32_arithmetic(device):
             return chain(unet, sched, seg, sr, input_128, gt, generator, noise=noise, **kw)
 
     return translate
@@ -314,8 +318,7 @@ def run_translate(args) -> int:
         extra = dict(eta=args.eta) if sampler == "ddim" else {}
         translate = fast_translate_fn(sampler, unet, sched, seg, sr, device, span_t=span_t, **extra, **common)
     else:
-        translate = make_translate_fn(unet, sched, seg, sr, dtype=torch.bfloat16 if device.type == "cuda" else None,
-                                      **common)
+        translate = make_translate_fn(unet, sched, seg, sr, **common)
     x = torch.from_numpy(img)[None].to(device)
     g = torch.from_numpy(gt.astype(np.int64))[None].to(device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -351,7 +354,7 @@ def _run_translate_debug(args, translate, sched, seg, sr, device, x, g, generato
         # xt_{lo}.png: the latent after step lo, the original code's naming
         debug_tensor(xt, os.path.join(d, f"xt_{lo}.png"), f"xt after step {lo}")
         prev = lo
-    with torch.no_grad(), autocast(device):
+    with torch.no_grad(), f32_arithmetic(device):
         sr_out = nhwc(sr(nchw(xt)))
         pred = seg(nchw(sr_out)).argmax(dim=1).to(torch.uint8)
     debug_tensor(sr_out.float(), os.path.join(d, "sr_x0.png"), "sr_x0", from_range="unit")
@@ -371,8 +374,8 @@ def inference_models(cfg, program: str, attn: str, device=None, seed: int = 0) -
     makes it), or with `device=None` on the meta device, shapes only (the
     exported program takes the weights as arguments). `attn` "bf16" is JAX's
     fused=False UNet (plain softmax attention, no kernel); "int8" its fused
-    UNet with K2 and one int8 scale per tensor, as JAX traces its kernel
-    over the batch."""
+    UNet with K2 (K2-f32 in the f32 program) and one int8 scale per tensor,
+    as JAX traces its kernel over the batch."""
     if attn not in EXPORT_ATTN:
         raise ValueError(f"attn must be one of {EXPORT_ATTN}, got {attn!r}")
     int8 = attn == "int8"
@@ -419,8 +422,10 @@ def inference_program(cfg, program: str, steps: int, models: dict, device):
     arguments. `sample`: ddpm_sample over `steps` strided steps, (B, s, s,
     3) in [-1, 1]; `translate`: sample_with_sgg at the config's lambda and
     mode, the JAX defaults otherwise (the alternate schedule on the SRGAN
-    upscale every step), start_t = steps - 1, (B, hr, hr, 3) in [0, 1]. On
-    CUDA under bf16 autocast, as every inference command runs there."""
+    upscale every step), start_t = steps - 1, (B, hr, hr, 3) in [0, 1]. In
+    f32, as JAX exports it and as every inference command runs (on CUDA
+    without TF32, which the loaded program's caller sets:
+    `serving/hlo_runtime.load_exported` does)."""
     from torch.func import functional_call
 
     from weatherconverter_tpu_torch.diffusion.sampling import ddpm_sample
@@ -435,7 +440,7 @@ def inference_program(cfg, program: str, steps: int, models: dict, device):
         state = {k: {n: next(it) for n in ns} for k, ns in names.items()}
         call = {k: (lambda *x, k=k: functional_call(models[k], state[k], x)) for k in models}
         data = list(it)
-        with autocast(device):
+        with f32_arithmetic(device):
             if program == "sample":
                 x_init, z_steps = data
                 return ddpm_sample(call["unet"], sched, tuple(x_init.shape), None, num_steps=steps,
@@ -491,9 +496,10 @@ def run_export_hlo(args) -> int:
     `sample` (the unconditional chain), `--steps` steps at `--batch`, on
     `--device`. Weights and the chain's draws are arguments
     (`program_arguments`); `serving/hlo_runtime.load_exported` runs the
-    file with no model code. `--attn bf16` is JAX's portable form, plain
-    softmax attention with no kernel: any PyTorch runtime loads it. `--attn
-    int8` holds K2 and its quantizer as custom ops (`ops/attention.OPS`), so
+    file with no model code. The program computes in f32, as JAX's does.
+    `--attn bf16` is JAX's portable form (fused=False), plain softmax
+    attention with no kernel: any PyTorch runtime loads it. `--attn int8`
+    holds K2-f32 and its quantizer as custom ops (`ops/attention.OPS`), so
     it is traced on CUDA only (JAX refuses its int8 export off its
     accelerator), and its runtime imports `ops/attention`."""
     from weatherconverter_tpu_torch.core.config import load_translation_config
@@ -521,8 +527,9 @@ def run_visualize(args) -> int:
     galleries of one image (reference: visualizer.py:39-109, 160-191) into
     `--out`: forward.png (q(x_t | x_0) every --every steps), backward.png (a
     batch-1 ddpm_sample over the config's full T, a frame every --every
-    steps), aug_photometric.png and aug_geometric.png. The UNet takes K1 on
-    the card (no int8: as in JAX, this command never turns it on)."""
+    steps), aug_photometric.png and aug_geometric.png, in f32. The UNet
+    takes K1-f32 on the card (no int8: as in JAX, this command never turns
+    it on)."""
     from weatherconverter_tpu_torch.core.config import load_diffusion_config
     from weatherconverter_tpu_torch.diffusion.sampling import ddpm_sample
     from weatherconverter_tpu_torch.utils.images import (augmentation_galleries, backward_process_strip,
@@ -537,7 +544,7 @@ def run_visualize(args) -> int:
     save_strip(forward_process_strip(sched, x0, generator, every=args.every), os.path.join(args.out, "forward.png"))
 
     unet = load_unet(cfg.model, args.checkpoint, 0).to(device).eval()
-    with autocast(device):
+    with f32_arithmetic(device):
         _, traj = ddpm_sample(unet, sched, (1, size, size, cfg.model.im_channels), generator,
                               return_trajectory_every=args.every)
     save_strip(backward_process_strip(traj), os.path.join(args.out, "backward.png"))
@@ -550,7 +557,7 @@ def run_visualize(args) -> int:
 
 
 def run_super_resolve(args) -> int:
-    """The SRGAN's upscale of one image (reference: srgan_model/inference.py:35-53)."""
+    """The SRGAN's upscale of one image (reference: srgan_model/inference.py:35-53), in f32."""
     from PIL import Image
 
     from weatherconverter_tpu_torch.core.config import load_translation_config
@@ -560,7 +567,7 @@ def run_super_resolve(args) -> int:
     cfg = load_translation_config(args.config)
     sr = load_srgan(cfg.srgan, args.checkpoint, 0).to(device)
     img = np.asarray(Image.open(args.image).convert("RGB"), dtype=np.float32) / 255.0
-    with torch.no_grad():
+    with torch.no_grad(), f32_arithmetic(device):
         out = sr(torch.from_numpy(img).permute(2, 0, 1)[None].to(device)).permute(0, 2, 3, 1)
     arr = to_uint8_image(out, "unit")[0]
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -615,7 +622,7 @@ def run_infer_seg(args) -> int:
     map, the input-gradient probe (`gradient_magnitude.png`) and the six-panel
     strip `panels.png`: the image, the denormalized input, the colorized
     prediction, the gradient magnitude, the train-id plane and the colorized
-    ground truth (reference: seg_model/inference.py:118-200)."""
+    ground truth (reference: seg_model/inference.py:118-200), in f32."""
     from PIL import Image
 
     from weatherconverter_tpu_torch.core.config import load_seg_config
@@ -633,7 +640,7 @@ def run_infer_seg(args) -> int:
     img = Image.open(args.image).convert("RGB").resize((hw[1], hw[0]), Image.BILINEAR)
     x = torch.from_numpy(np.asarray(img, np.float32) / 255.0)[None]
     xn = normalize(x, tuple(t.mean), tuple(t.std)).to(device).permute(0, 3, 1, 2)
-    with torch.no_grad(), autocast(device):
+    with torch.no_grad(), f32_arithmetic(device):
         pred = model(xn).argmax(dim=1)[0].cpu().numpy().astype(np.int32)
     os.makedirs(args.out, exist_ok=True)
     pred_color = decode_target(pred).astype(np.uint8)
@@ -643,7 +650,7 @@ def run_infer_seg(args) -> int:
         lbl = Image.open(args.label).resize((hw[1], hw[0]), Image.NEAREST)
         enc = encode_target(np.asarray(lbl, np.uint8))
         gt = torch.from_numpy(enc.astype(np.int64))[None].to(device)
-        with autocast(device):
+        with f32_arithmetic(device):
             grads = seg_input_gradients(model, xn, gt)
         m = gradient_magnitude(grads)[0, 0].cpu().numpy()
         m = (m - m.min()) / max(m.max() - m.min(), 1e-12)
@@ -744,7 +751,8 @@ def run_quality(args) -> int:
     between the original and the translated images (metrics/fid), on
     InceptionV3 pool3 features with --inception-checkpoint, else on the seg
     backbone's pooled features ("relative tracking only": not comparable to
-    published FIDs). The SRGAN has seeded random weights, as in JAX."""
+    published FIDs). The SRGAN has seeded random weights, as in JAX. In f32,
+    with K1-f32 on the card: JAX's run_quality never enables int8."""
     import json
 
     from weatherconverter_tpu_torch.core.config import load_translation_config
@@ -761,11 +769,10 @@ def run_quality(args) -> int:
     hr = size * cfg.srgan.upscale_factor
     num_classes = cfg.seg.model.num_classes
     inputs, gts, synthetic = quality_inputs(args, size, hr, num_classes)
-    unet, seg, sr, sched = build_translation(cfg, device, args.ddpm_checkpoint, args.seg_checkpoint, None,
-                                             use_qk_int8(args, device), args.seed)
-    translate = make_translate_fn(unet, sched, seg, sr, dtype=torch.bfloat16 if device.type == "cuda" else None,
-                                  lam=args.lam, num_steps=args.steps, num_classes=num_classes, mode="fixed",
-                                  guidance_style=args.guidance)
+    unet, seg, sr, sched = build_translation(cfg, device, args.ddpm_checkpoint, args.seg_checkpoint, None, False,
+                                             args.seed)
+    translate = make_translate_fn(unet, sched, seg, sr, lam=args.lam, num_steps=args.steps, num_classes=num_classes,
+                                  mode="fixed", guidance_style=args.guidance)
     originals_hr, translated, gt_batches = [], [], []
     for i in range(0, inputs.shape[0], args.batch):
         xb, gb = inputs[i:i + args.batch].to(device), gts[i:i + args.batch].to(device)
@@ -774,7 +781,7 @@ def run_quality(args) -> int:
         gt_batches.append(gb)
 
     def seg_fn(x):
-        with autocast(device):
+        with f32_arithmetic(device):
             return seg(nchw(x))
 
     gap = consistency_gap(seg_fn, list(zip(originals_hr, gt_batches)), list(zip(translated, gt_batches)), num_classes)
@@ -782,13 +789,13 @@ def run_quality(args) -> int:
         inception = load_inception(args.inception_checkpoint).to(device)
 
         def feature_fn(x):
-            with autocast(device):
+            with f32_arithmetic(device):
                 return inception(fid_input_resize(nchw(x)))
 
         fid_kind = "inception_v3_pool3"
     else:
         def feature_fn(x):
-            with autocast(device):
+            with f32_arithmetic(device):
                 return seg.backbone(nchw(x))["out"].float().mean(dim=(2, 3))
 
         fid_kind = "seg_backbone_pooled (relative tracking only)"

@@ -22,11 +22,10 @@ import argparse
 import json
 import sys
 
-INT8_HELP = ("keep K1, the exact bf16 flash attention. On the card inference defaults to K2 (int8 Q K^T and its "
-             "quantizer, one int8 scale for the batch, as JAX's CLI runs its kernel over the batch; the server "
-             "takes one a request) in every flash-length attention layer (head dims 16-192), which "
-             "passed the int8 quality check at 20, 50 and 1000 steps; the gain is small, 0.1-0.3 ms of a 14-25 ms "
-             "device step, and no wall-time change while the host binds (PERF.md)")
+INT8_HELP = ("keep K1-f32, the exact f32 flash attention. Inference computes in f32 as JAX's does, and on the card "
+             "defaults to K2-f32 (int8 Q K^T with its quantizer, one int8 scale for the batch, as JAX's CLI runs its "
+             "int8 kernel over the batch, and P V in f32) in every flash-length attention layer (head dims 16-192), "
+             "the legacy sampler's included (PERF.md)")
 
 
 def _device_flag(p: argparse.ArgumentParser) -> None:
@@ -61,8 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "torch file (old_model/1000-checkpoint.ckpt)")
     sa.add_argument("--sampler", default="ddpm", choices=["ddpm", "ddim", "dpm", "legacy"],
                     help="dpm = DPM-Solver++(2M), 10-25 steps; legacy = the reference's legacy UNet (its shipped "
-                         "checkpoint's architecture) and its beta-variance loop, conditioned on 1 - alpha_bar, in f32 "
-                         "(--no-int8-attn changes nothing there)")
+                         "checkpoint's architecture) and its beta-variance loop, conditioned on 1 - alpha_bar; every "
+                         "sampler in f32, on K2-f32 at the flash-length layers unless --no-int8-attn")
     sa.add_argument("--steps", type=int, default=None)
     sa.add_argument("--batch", type=int, default=8)
     sa.add_argument("--out", default="outputs/samples/sample.png")
@@ -142,9 +141,9 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--seg-checkpoint", default=None)
     sv.add_argument("--srgan-checkpoint", default=None)
     sv.add_argument("--no-int8-attn", action="store_true",
-                    help="keep K1, the exact bf16 flash attention. On the card the server defaults to K2 (int8 Q K^T) "
-                         "with one int8 scale per request, as the JAX service's vmap takes it, so a request's image "
-                         "does not depend on its batch-mates (PERF.md)")
+                    help="keep K1-f32, the exact f32 flash attention. The server computes in f32 and on the card "
+                         "defaults to K2-f32 (int8 Q K^T, P V in f32) with one int8 scale per request, as the JAX "
+                         "service's vmap takes it, so a request's image does not depend on its batch-mates (PERF.md)")
     _device_flag(sv)
 
     eh = sub.add_parser("export-hlo", help="export the inference program with torch.export (deployment artifact)")
@@ -156,9 +155,10 @@ def build_parser() -> argparse.ArgumentParser:
     eh.add_argument("--out", default="outputs/translate.pt2",
                     help="the archive (torch.export.save); its argument list goes beside it, <out>.json")
     eh.add_argument("--attn", default="bf16", choices=["bf16", "int8"],
-                    help="attention traced into the program: 'bf16' is plain softmax attention (JAX's fused=False), "
-                         "loadable by any PyTorch runtime; 'int8' holds K2 and its quantizer as custom ops, traced "
-                         "on CUDA only, loaded where weatherconverter_tpu_torch.ops.attention imports")
+                    help="attention traced into the f32 program: 'bf16' is plain softmax attention (JAX's "
+                         "fused=False; the name is JAX's), loadable by any PyTorch runtime; 'int8' holds K2-f32 and "
+                         "its quantizer as custom ops, traced on CUDA only, loaded where "
+                         "weatherconverter_tpu_torch.ops.attention imports")
     _device_flag(eh)
 
     vz = sub.add_parser("visualize", help="forward/backward process strips and augmentation galleries")
@@ -209,7 +209,8 @@ def run_serve(args) -> int:
         lcg_k_buckets=buckets, device=device, qk_int8=use_qk_int8(args, device),
     )
     print(f"serving on :{args.port} (batch={args.batch}, steps={service.steps}, sampler={args.sampler}, "
-          f"device={device}, attention={'K2, one int8 scale a request' if service.qk_int8 else 'K1'})", flush=True)
+          f"device={device}, f32, attention={'K2, one int8 scale a request' if service.qk_int8 else 'K1'})",
+          flush=True)
     serve(service, args.port)
     return 0
 

@@ -6,7 +6,8 @@
 //   s = int32(Q8 K8^T) * (qs * ks * D^-1/2);  O = (exp(clip(s, -60, 60)) V) / l,
 // Q and K quantized before the kernel (quantize_i8.cu), per tensor or per
 // batch row (JAX's function under jax.vmap over requests), V and the PV
-// product in bf16/f16, l and O accumulated in f32. Head bh reads
+// product in bf16/f16, l and O accumulated in f32. An f32 V goes to K2-f32
+// (flash_fwd_f32.cu) through this file's entry point. Head bh reads
 // qk_scale[bh / heads_per_scale]: heads_per_scale is B*H for one scale, H for
 // one a row.
 //
@@ -146,18 +147,25 @@ cudaError_t dispatch_i8(const int8_t* q8, const int8_t* k8, const void* v, const
 
 }  // namespace wcflash
 
-// q8, k8: contiguous int8 (bh, n, d); v, o: contiguous (bh, n, d) in bf16
-// (is_f16 = 0) or f16 (is_f16 = 1); qk_scale: bh / heads_per_scale f32 on the
-// device, qs * ks * d^-1/2 each (heads_per_scale = bh: one scale; = h: one a
-// batch row). Returns the cudaError_t of the launch.
+extern "C" int wc_flash_fwd_qk_i8_f32(const void* q8, const void* k8, const float* v, const float* qk_scale,
+                                      float* o, int bh, int n, int d, int heads_per_scale, void* stream);
+
+// q8, k8: contiguous int8 (bh, n, d); v, o: contiguous (bh, n, d) in V's
+// dtype, `dtype` 0 bf16, 1 f16 (this kernel) or 2 f32 (K2-f32,
+// flash_fwd_f32.cu); qk_scale: bh / heads_per_scale f32 on the device, qs *
+// ks * d^-1/2 each (heads_per_scale = bh: one scale; = h: one a batch row).
+// Returns the cudaError_t of the launch.
 extern "C" int wc_flash_fwd_qk_i8(const void* q8, const void* k8, const void* v, const float* qk_scale,
-                                  void* o, int bh, int n, int d, int is_f16, int heads_per_scale, void* stream) {
+                                  void* o, int bh, int n, int d, int dtype, int heads_per_scale, void* stream) {
+  if (dtype == 2)
+    return wc_flash_fwd_qk_i8_f32(q8, k8, static_cast<const float*>(v), qk_scale, static_cast<float*>(o), bh, n, d,
+                                  heads_per_scale, stream);
   if (bh <= 0 || bh > 65535 || n <= 0 || n % wcflash::kTileRows != 0 || heads_per_scale <= 0 ||
-      bh % heads_per_scale != 0)
+      bh % heads_per_scale != 0 || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* q = static_cast<const int8_t*>(q8);
   const int8_t* k = static_cast<const int8_t*>(k8);
-  return is_f16 ? wcflash::dispatch_i8<__half>(q, k, v, qk_scale, o, bh, n, d, heads_per_scale, s)
-                : wcflash::dispatch_i8<__nv_bfloat16>(q, k, v, qk_scale, o, bh, n, d, heads_per_scale, s);
+  return dtype == 1 ? wcflash::dispatch_i8<__half>(q, k, v, qk_scale, o, bh, n, d, heads_per_scale, s)
+                    : wcflash::dispatch_i8<__nv_bfloat16>(q, k, v, qk_scale, o, bh, n, d, heads_per_scale, s);
 }

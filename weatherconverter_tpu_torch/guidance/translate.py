@@ -18,12 +18,12 @@ NHWC images, (B, HR, HR) labels; the models run NCHW inside.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Optional
 
 import torch
 from torch import nn
 
+from weatherconverter_tpu_torch.core.precision import f32_arithmetic
 from weatherconverter_tpu_torch.diffusion.sampling import (
     Generators,
     acp_prev,
@@ -369,9 +369,11 @@ def make_translate_fn(
     (requires_grad False), so the guidance gradient is taken with respect to
     the image alone. `dtype` (e.g. torch.bfloat16) runs the models under
     autocast: parameters stay f32 and are cast at use; None runs them in
-    their own dtype. A CUDA UNet with a flash-length attention layer that
-    would so run in a dtype or at a head dim the kernels do not take (f32
-    with K2, or at a head dim the f32 kernels lack) is refused here, by name.
+    their own dtype, f32 as JAX's inference commands do, and on CUDA in f32
+    arithmetic (`core/precision.f32_arithmetic`: no TF32), where a `qk_int8`
+    UNet takes K2-f32 and another K1-f32. A CUDA UNet with a flash-length
+    attention layer that would so run in a dtype or at a head dim the
+    kernels do not take is refused here, by name.
     """
     for m in (diff_model, seg_model, sr_model):
         m.eval()
@@ -383,7 +385,7 @@ def make_translate_fn(
 
     def translate(input_128, gt, generator=None, noise=None, **segment):
         ctx = (torch.autocast(input_128.device.type, dtype=dtype) if dtype is not None
-               else contextlib.nullcontext())
+               else f32_arithmetic(input_128.device))
         with ctx:
             return sample_with_sgg(
                 diff_model, sched, seg_model, sr_model, input_128, gt, generator, noise=noise,

@@ -5,7 +5,7 @@ conv_out, attention where `config.im_size // 2**i` is in `attn_resolutions`.
 Parameter names are those of compat/torch_export.export_unet, e.g.
 `downs.{i}.resnet_conv_first.{j}.0` and `mids.{i}.attentions.{j}.in_proj_weight`.
 `qk_int8` routes the flash-length attention layers through the int8-QK^T
-kernel K2 (forward only; `attention_kernels` lists the choice per layer); `qk_int8_per_item` gives
+kernel K2 (K2-f32 in f32; forward only; `attention_kernels` lists the choice per layer); `qk_int8_per_item` gives
 K2 one scale a batch row. `fused=False` is JAX's portable form: plain
 softmax attention at every length, no kernel.
 """
@@ -144,8 +144,9 @@ class Unet(nn.Module):
         """x (B, C, H, W), t (B,) or scalar int timesteps -> eps (B, C, H, W) f32.
         On CUDA a fused model with a flash-length attention layer computes in
         bf16/f16 (autocast, or 16-bit parameters), or in f32 where the f32
-        kernels take each such layer's head dim (forward and backward) and
-        none takes K2: another dtype or head dim is refused here by name."""
+        kernels take each such layer's head dim (K1-f32 forward and K3-f32
+        backward; K2-f32 at a qk_int8 layer, forward only): another dtype or
+        head dim is refused here by name."""
         dev = x.device.type
         dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else self.conv_in.weight.dtype
         if self.fused:

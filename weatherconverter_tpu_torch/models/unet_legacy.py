@@ -28,14 +28,12 @@ is the exact erf form. `qk_int8` takes K2 in both flash-length layers
 (`attn_down3`, D = 16, and `attn_up2`, D = 24).
 
 On the card the model runs in bf16 (under autocast: K1 and K2) or in f32
-(K1-f32 at both flash-length layers, forward only), the latter inside
-`full_f32()`, which keeps cuDNN's convolutions and the matmuls out of TF32
-as the CPU's f32 is.
+(K1-f32 at both flash-length layers, or K2-f32 with `qk_int8`, forward
+only), the latter inside `core/precision.f32_arithmetic`, which keeps cuDNN's
+convolutions and the matmuls out of TF32 as the CPU's f32 is.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 from torch import nn
@@ -48,21 +46,6 @@ from weatherconverter_tpu_torch.ops.time_embed import alpha_plane_embedding
 
 LN_EPS = 1e-6  # flax's LayerNorm default (the reference's torch LayerNorm: 1e-5)
 NUM_HEADS = 4
-
-
-@contextlib.contextmanager
-def full_f32():
-    """f32 convolutions and matmuls without TF32 inside the block, whatever
-    the caller set (torch's default runs cuDNN's f32 convolutions in TF32)."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
-                                        benchmark=torch.backends.cudnn.benchmark,
-                                        deterministic=torch.backends.cudnn.deterministic, allow_tf32=False):
-            yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 class LegacySelfAttention(nn.Module):

@@ -8,17 +8,20 @@ hand-written CUDA kernels for Hopper (csrc/, built by ops/cuda_build.py):
   K1-f32 `flash_attention_f32` <- `_flash_kernel` and `_flash_kernel_stream_fwd`
                                 in f32 (csrc/flash_fwd_f32.cu)
   K2 `flash_attention_qk_i8` <- `_flash_kernel_qk_i8` (pv_int8=False; D = 24
-                                on zero-filled D = 32 tiles as K1)
+                                on zero-filled D = 32 tiles as K1); with f32
+                                V K2-f32 (csrc/flash_fwd_f32.cu: K1-f32's
+                                kernels with int8 scores), JAX's f32 inference
   K3 `flash_attention_bwd`   <- `_flash_bwd_kernel`, `_flash_bwd_kernel_v2`,
                                 `_flash_bwd_dq_kernel_stream` and
                                 `_flash_bwd_dkv_kernel_stream`
   K3-f32 `flash_attention_bwd_f32` <- the same four in f32 (csrc/flash_bwd_f32.cu)
 
 and the quantization of Q and K in front of K2, which XLA fused on the TPU,
-another: `quantize_qk_i8` (csrc/quantize_i8.cu). K2 and its quantizer take
-one scale per tensor (JAX's function called once on a batch, the CLI's
-one-request commands) or, with `per_item`, one a batch row (JAX's function
-under jax.vmap over requests, as the JAX server runs it).
+another: `quantize_qk_i8` (csrc/quantize_i8.cu, bf16, f16 or f32 inputs). K2
+and its quantizer take one scale per tensor (JAX's function called once on
+a batch, the CLI's one-request commands) or, with `per_item`, one a batch
+row (JAX's function under jax.vmap over requests, as the JAX server runs
+it).
 
 Each kernel is a custom op of the namespace `OPS` ("wc"): a fake
 implementation for tracing, the plain version on the CPU, the ctypes launch
@@ -42,8 +45,8 @@ require grad, on every device.
 The kernels take fixed head dims: K1 `KERNEL_HEAD_DIMS`, K1-f32
 `F32_HEAD_DIMS`, K3 `BWD_HEAD_DIMS` and K3-f32 `F32_BWD_HEAD_DIMS` (no 24:
 the one model at D = 24, the legacy UNet, only samples), K2
-`QK_I8_HEAD_DIMS`, every head dim a model of the repo has, as JAX's int8
-kernel takes any. Each refuses another by name.
+`QK_I8_HEAD_DIMS` and K2-f32 `QK_I8_F32_HEAD_DIMS`, every head dim a model of
+the repo has, as JAX's int8 kernel takes any. Each refuses another by name.
 A model with `qk_int8` set takes K2 in every flash-length layer
 (`qk_int8_takes`, read by the attention layers).
 """
@@ -66,10 +69,13 @@ FLASH_MIN_SEQ = 1024
 KERNEL_HEAD_DIMS = (16, 24, 32, 64, 128, 192)  # K1
 BWD_HEAD_DIMS = (16, 32, 64, 128, 192)  # K3
 QK_I8_HEAD_DIMS = (16, 24, 32, 64, 128, 192)  # K2
+QK_I8_F32_HEAD_DIMS = QK_I8_HEAD_DIMS  # K2-f32, K2 with f32 V: every head dim K2 has
 F32_HEAD_DIMS = (16, 24, 32, 64, 128, 192)  # K1-f32
 F32_BWD_HEAD_DIMS = (16, 32, 64, 128, 192)  # K3-f32
 KERNEL_BLOCK = 64  # N must be a multiple of the kernels' query/key tile
 KERNEL_DTYPES = (torch.bfloat16, torch.float16)
+# V's dtype code at K2's and the quantizer's entry points (csrc/flash_fwd_qk_i8.cu, csrc/quantize_i8.cu)
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def is_flash_length(n: int) -> bool:
@@ -100,29 +106,27 @@ def check_flash_precision(device_type: str, dtype: torch.dtype, layers, where: s
     not take. `layers` is the model's `attention_kernels` list, (N, D, "K1",
     "K2" or "softmax"), or its (N, D) list where no layer takes K2; `dtype`
     is what its attention layers compute in (the autocast dtype, else the
-    parameters'). bf16/f16 run K1 and K3, or K2. f32 runs
-    K1-f32 (F32_HEAD_DIMS) and, unless the model is `forward_only` (the
-    legacy UNet, which only samples), K3-f32 (F32_BWD_HEAD_DIMS), but not K2,
-    whose V is 16-bit. Nothing is cast silently: the caller picks the dtype.
-    The CPU runs any dtype (plain versions), and so does a CUDA model with no
-    flash-length layer (plain softmax attention)."""
+    parameters'). bf16/f16 run K1 and K3, or K2. f32 runs K1-f32
+    (F32_HEAD_DIMS) and, unless the model is `forward_only` (the legacy
+    UNet, which only samples), K3-f32 (F32_BWD_HEAD_DIMS), or at a K2 layer
+    K2-f32 (QK_I8_F32_HEAD_DIMS; forward only, as K2). Nothing is cast
+    silently: the caller picks the dtype. The CPU runs any dtype (plain
+    versions), and so does a CUDA model with no flash-length layer (plain
+    softmax attention)."""
     if device_type != "cuda" or dtype in KERNEL_DTYPES:
         return
     flash = sorted({(n, d) for n, d, *kind in layers if is_flash_length(n) and kind != ["softmax"]})
     if not flash:
         return
-    qk_int8 = any(kind == ["K2"] for _, _, *kind in layers)
     remedy = (f'Run it under autocast: make_translate_fn(..., dtype=torch.bfloat16), training.dtype="bfloat16", or '
               f'torch.autocast("cuda", dtype=torch.bfloat16) around the call; {dtype} runs on the CPU')
     if dtype != torch.float32:
         raise ValueError(f"{where}: this model attends at flash length, (N, D) = {flash}, and on CUDA the "
                          f"flash-attention kernels take bfloat16/float16 or float32, not {dtype}. {remedy}")
-    if qk_int8:
-        raise ValueError(f"{where}: this model attends at flash length, (N, D) = {flash}, with qk_int8, and on CUDA "
-                         f"the int8 forward (K2, flash_attention_qk_i8) takes bfloat16/float16 V, not {dtype}. Build "
-                         f"it with qk_int8=False to run it in {dtype} (K1-f32), or: {remedy}")
+    # a K2 layer (qk_int8_takes: a head dim K2 has) runs K2-f32, which has the same head dims
+    k2 = {(n, d) for n, d, *kind in layers if is_flash_length(n) and kind == ["K2"]}
     dims = F32_HEAD_DIMS if forward_only else set(F32_HEAD_DIMS) & set(F32_BWD_HEAD_DIMS)
-    if all(d in dims for _, d in flash):
+    if all(d in dims for n, d in flash if (n, d) not in k2):
         return
     kernels = (f"the f32 forward (K1-f32, flash_attention_f32) takes head dims {F32_HEAD_DIMS}"
                + ("" if forward_only else f" and the f32 backward (K3-f32, flash_attention_bwd_f32) "
@@ -178,10 +182,12 @@ def quantize_qk_i8_plain(q: torch.Tensor, k: torch.Tensor, per_item: bool = Fals
 
 
 def qk_i8_attention_plain(q8: torch.Tensor, k8: torch.Tensor, qk_scale: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """K2's forward on quantized inputs, plain: int32-exact scores (an f32
-    product of int8 values: every partial sum is an integer below
-    127*127*128 < 2^24) times the score scale of each batch row (one for all
-    when qk_scale has one entry), then K1's softmax and bf16 PV."""
+    """K2's and K2-f32's forward on quantized inputs, plain: int32-exact
+    scores (an f32 product of int8 values: every partial sum is an integer
+    below 127*127*192 < 2^24) times the score scale of each batch row (one
+    for all when qk_scale has one entry), then K1's softmax, p cast to V's
+    dtype and P V in f32 (bf16 p and V for K2, f32 for K2-f32), O in V's
+    dtype."""
     s = torch.matmul(q8.float(), k8.float().transpose(-1, -2)) * qk_scale.reshape(-1, 1, 1, 1)
     p = torch.exp(s.clamp(-_CLAMP, _CLAMP))
     l = p.sum(dim=-1, keepdim=True)
@@ -196,7 +202,8 @@ def flash_attention_qk_i8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 
 
 def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        head_dims: tuple[int, ...] = KERNEL_HEAD_DIMS) -> None:
+                        head_dims: tuple[int, ...] = KERNEL_HEAD_DIMS,
+                        dtypes: tuple[torch.dtype, ...] = KERNEL_DTYPES) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel runs on CUDA tensors, got {q.device}")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
@@ -205,8 +212,8 @@ def check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Te
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"{name}: q, k, v must be on one device")
     check_kernel_shape(name, *q.shape, head_dims=head_dims)
-    if v.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"{name}: dtype {v.dtype} not in {KERNEL_DTYPES}")
+    if v.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {v.dtype} not in {dtypes}")
 
 
 def check_kernel_shape(name: str, b: int, h: int, n: int, d: int,
@@ -406,12 +413,15 @@ def _(q, k, v, o, do, l):
 
 
 _QUANTIZE_GROUP = 8  # D must be a multiple: the smaller of the quantizer's groups (csrc/quantize_i8.cu G)
+QK_I8_DTYPES = KERNEL_DTYPES + (torch.float32,)  # V of K2 / K2-f32, q and k of the quantizer
 
 
 def _row_strides(t: torch.Tensor):
     """The (B, H, N) element strides of `t` if the quantizer can read it in
-    place (rows of D contiguous, every row 16-byte aligned), else None."""
-    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+    place (rows of D contiguous, every row 16-byte aligned: strides a
+    multiple of 8 elements of a 16-bit type, 4 of f32), else None."""
+    per_16_bytes = 16 // t.element_size()
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % per_16_bytes for s in t.stride()[:3]):
         return None
     return (ctypes.c_longlong * 3)(*t.stride()[:3])
 
@@ -446,8 +456,8 @@ def _(q, k, per_item):
     if q.dim() != 4 or q.shape != k.shape:
         raise ValueError(f"quantize_qk_i8: q and k must share one (B, H, N, D) shape, got {tuple(q.shape)} "
                          f"and {tuple(k.shape)}")
-    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype:
-        raise ValueError(f"quantize_qk_i8: q and k must share one dtype of {KERNEL_DTYPES}, got {q.dtype} "
+    if q.dtype not in QK_I8_DTYPES or k.dtype != q.dtype:
+        raise ValueError(f"quantize_qk_i8: q and k must share one dtype of {QK_I8_DTYPES}, got {q.dtype} "
                          f"and {k.dtype}")
     b, h, n, d = q.shape
     if d % _QUANTIZE_GROUP != 0:
@@ -461,12 +471,12 @@ def _(q, k, per_item):
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
         err = lib.wc_quantize_qk_i8(
-            q.data_ptr(), k.data_ptr(), q_strides, k_strides, b, h, n, d, int(q.dtype == torch.float16), scales,
+            q.data_ptr(), k.data_ptr(), q_strides, k_strides, b, h, n, d, _DTYPE_CODES[q.dtype], scales,
             amax.data_ptr(), q8.data_ptr(), k8.data_ptr(), qk_scale.data_ptr(), d**0.5,
             cuda_build.stream(q.device),
         )
     cuda_build.check_launch("quantize_qk_i8", err)
-    quantize_qk_i8.launches += 1
+    _count(quantize_qk_i8, q.dtype)
     return q8, k8, qk_scale
 
 
@@ -482,7 +492,7 @@ def _(q8, k8, qk_scale, v):
 
 @_k2_op.register_kernel("cuda")
 def _(q8, k8, qk_scale, v):
-    check_kernel_inputs("flash_qk_i8_forward", v, v, v)
+    check_kernel_inputs("flash_qk_i8_forward", v, v, v, QK_I8_HEAD_DIMS, QK_I8_DTYPES)
     b, h, n, d = v.shape
     _check_qk_i8_head_dim(d)
     if not (q8.is_contiguous() and k8.is_contiguous() and q8.dtype == k8.dtype == torch.int8
@@ -499,12 +509,21 @@ def _(q8, k8, qk_scale, v):
     with torch.cuda.device(v.device):
         err = lib.wc_flash_fwd_qk_i8(
             q8.data_ptr(), k8.data_ptr(), v.data_ptr(), qk_scale.data_ptr(), o.data_ptr(), b * h, n, d,
-            int(v.dtype == torch.float16), b * h // qk_scale.numel(), cuda_build.stream(v.device),
+            _DTYPE_CODES[v.dtype], b * h // qk_scale.numel(), cuda_build.stream(v.device),
         )
     cuda_build.check_launch("flash_attention_qk_i8", err)
-    flash_attention_qk_i8.launches += 1
+    _count(flash_attention_qk_i8, v.dtype)
     flash_attention_qk_i8.launches_by_head_dim[d] = flash_attention_qk_i8.launches_by_head_dim.get(d, 0) + 1
     return o
+
+
+def _count(wrapper, dtype: torch.dtype) -> None:
+    """One launch of `wrapper`'s kernel on inputs of `dtype`: its `.launches`
+    and `.launches_by_dtype` ("bfloat16", "float16", "float32"; K2 by V's
+    dtype, so "float32" counts K2-f32)."""
+    wrapper.launches += 1
+    key = str(dtype).removeprefix("torch.")
+    wrapper.launches_by_dtype[key] = wrapper.launches_by_dtype.get(key, 0) + 1
 
 
 # --- the public functions ---
@@ -652,10 +671,11 @@ def quantize_qk_i8(q: torch.Tensor, k: torch.Tensor, *, per_item: bool = False):
     qs * ks / sqrt(D), one for the tensors, shape (1,), or with `per_item`
     one a batch row, shape (B,), as JAX's function computes them under
     jax.vmap over requests. A CPU tensor takes `quantize_qk_i8_plain`; a
-    CUDA tensor (bf16/f16, D a multiple of 8) launches the kernel's two
-    passes (the maxima, then the division) or raises, and the result equals
-    the plain version's bit for bit. Head-split views of one projection are
-    read in place. One count in `.launches` for the two passes. Nothing here
+    CUDA tensor (bf16, f16 or f32, D a multiple of 8) launches the kernel's
+    two passes (the maxima, then the division) or raises, and the result
+    equals the plain version's bit for bit. Head-split views of one
+    projection are read in place. One count in `.launches` (and in
+    `.launches_by_dtype` under q's dtype) for the two passes. Nothing here
     synchronises with the host."""
     if _wants_grad(q, k):
         raise NotImplementedError("quantize_qk_i8 is forward-only: rounding has no useful gradient")
@@ -663,6 +683,7 @@ def quantize_qk_i8(q: torch.Tensor, k: torch.Tensor, *, per_item: bool = False):
 
 
 quantize_qk_i8.launches = 0
+quantize_qk_i8.launches_by_dtype = {}  # the same launches by q's dtype name
 
 
 def flash_attention_qk_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -670,9 +691,11 @@ def flash_attention_qk_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """K2, forward only, (B, H, N, D) -> O in v's dtype. Q and K go through
     `quantize_qk_i8` (one scale per tensor, or with `per_item` one a batch
     row, so that a row's output does not depend on the others'); the kernel
-    takes the int8 tensors, V and the f32 score scales on the device. A CPU
-    tensor takes `flash_attention_qk_i8_plain`; a CUDA tensor launches the
-    kernels or raises. A call queues a fill of the maxima, the quantizer's
+    takes the int8 tensors, V and the f32 score scales on the device: K2 for
+    a bf16/f16 V, K2-f32 (P V in 3xTF32, as K1-f32) for an f32 V, as JAX's
+    int8 kernel computes P V in V's dtype. A CPU tensor takes
+    `flash_attention_qk_i8_plain`; a CUDA tensor launches the kernels or
+    raises (an f32 CUDA tensor never reaches a plain version). A call queues a fill of the maxima, the quantizer's
     two passes and the forward (and a copy of V if it is a view), and never
     synchronises with the host. Inputs that require grad (under grad mode)
     raise on every device: JAX has no VJP for this path, and autograd through
@@ -682,15 +705,19 @@ def flash_attention_qk_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention_qk_i8 is forward-only, as in JAX (no VJP through the int8 quantization); "
             "train with qk_int8=False")
     if q.device.type != "cpu":
-        check_kernel_inputs("flash_attention_qk_i8", q, k, v)
+        check_kernel_inputs("flash_attention_qk_i8", q, k, v, QK_I8_HEAD_DIMS, QK_I8_DTYPES)
+        if not q.dtype == k.dtype == v.dtype:
+            raise ValueError(f"flash_attention_qk_i8: q, k, v must share one dtype, got {q.dtype}, {k.dtype}, "
+                             f"{v.dtype}")
         _check_qk_i8_head_dim(q.shape[-1])
     return flash_qk_i8_forward(*quantize_qk_i8(q, k, per_item=per_item), v)
 
 
 def _check_qk_i8_head_dim(d: int) -> None:
     if d not in QK_I8_HEAD_DIMS:
-        raise ValueError(f"flash_attention_qk_i8: head dim {d} not in {QK_I8_HEAD_DIMS}: the int8 forward has no "
-                         f"such instantiation; use flash_attention (qk_int8=False), which takes {KERNEL_HEAD_DIMS}")
+        raise ValueError(f"flash_attention_qk_i8: head dim {d} not in {QK_I8_HEAD_DIMS}: the int8 forward (K2 on "
+                         f"bf16/f16 V, K2-f32 on f32 V) has no such instantiation; use flash_attention "
+                         f"(qk_int8=False), which takes {KERNEL_HEAD_DIMS}")
 
 
 def flash_qk_i8_forward(q8: torch.Tensor, k8: torch.Tensor, qk_scale: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -703,6 +730,7 @@ def flash_qk_i8_forward(q8: torch.Tensor, k8: torch.Tensor, qk_scale: torch.Tens
 
 flash_attention_qk_i8.launches = 0
 flash_attention_qk_i8.launches_by_head_dim = {}  # the same launches by head dim
+flash_attention_qk_i8.launches_by_dtype = {}  # and by V's dtype name: "float32" counts K2-f32
 
 
 def multi_head_attention(

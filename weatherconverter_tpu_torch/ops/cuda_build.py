@@ -27,9 +27,11 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("flash_fwd.cu", "flash_fwd_f32.cu", "flash_fwd_qk_i8.cu", "quantize_i8.cu", "flash_bwd.cu",
            "flash_bwd_f32.cu", "probe_exp2_attn.cu", "probe_qk_dot.cu", "probe_dw3x3.cu", "probe_dw9x9.cu")
 HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_fwd_loop.cuh", "flash_tf32.cuh")
-# Sources compiled more than once, each time with other flags into an object of its own: K3-f32 once a head dim
-# (its kernels) and once for its entry point, so that nvcc compiles the head dims in parallel
-VARIANTS = {"flash_bwd_f32.cu": [()] + [(f"-DWC_BWD_F32_D={d}",) for d in (16, 32, 64, 128, 192)]}
+# Sources compiled more than once, each time with other flags into an object of its own: K3-f32, and K1-f32 with
+# K2-f32, once a head dim (their kernels) and once for their entry points, so that nvcc compiles the head dims in
+# parallel
+VARIANTS = {"flash_bwd_f32.cu": [()] + [(f"-DWC_BWD_F32_D={d}",) for d in (16, 32, 64, 128, 192)],
+            "flash_fwd_f32.cu": [()] + [(f"-DWC_FWD_F32_D={d}",) for d in (16, 24, 32, 64, 128, 192)]}
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

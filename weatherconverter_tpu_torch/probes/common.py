@@ -107,7 +107,9 @@ def attention_roofline(peak: dict | None, shape, backward: bool = False, qk_int8
     written; a two-pass backward spends seven products and 2 N^2
     exponentials against this bound. With `f32` the backward's inputs and
     outputs are f32 and each of its five products is three TF32 products
-    (K3-f32's design)."""
+    (K3-f32's design). With `qk_int8` and `f32` (K2-f32, quantizer included:
+    f32 Q, K, V read and O written), Q K^T at the int8 rate and P V in
+    3xTF32, the two tensor times added."""
     if peak is None:
         return roofline(None, 0)
     b, h, n, d = shape
@@ -119,6 +121,9 @@ def attention_roofline(peak: dict | None, shape, backward: bool = False, qk_int8
                        "ex2": ex2})
     if backward:
         return _bound({"hbm": bh * n * (8 * d * 2 + 4) / peak["hbm"], "bf16": 5 * product / peak["bf16"], "ex2": ex2})
+    if f32 and qk_int8:
+        return _bound({"hbm": bh * n * 4 * d * 4 / peak["hbm"],
+                       "int8+tf32x3": product / peak["int8"] + 3 * product / peak["tf32"], "ex2": ex2})
     if f32:
         return _bound({"hbm": bh * n * 4 * d * 4 / peak["hbm"], "tf32x3": 3 * 2 * product / peak["tf32"], "ex2": ex2})
     if qk_int8:
@@ -138,12 +143,13 @@ def f32_fma_ms(peak: dict | None, shape) -> float | None:
     return 4 * b * h * n * n * d / peak["f32"] * 1e3
 
 
-def quantizer_roofline(peak: dict | None, shape, scales: int = 1) -> dict:
-    """`roofline` of quantizing 16-bit (B, H, N, D) q and k to int8 with
-    `scales` f32 score scales (1 per tensor, B per batch row): each read once
-    and written once as int8, and the scales. Bytes bind."""
+def quantizer_roofline(peak: dict | None, shape, scales: int = 1, elem_bytes: int = 2) -> dict:
+    """`roofline` of quantizing (B, H, N, D) q and k of `elem_bytes` bytes an
+    element (2: bf16/f16; 4: f32) to int8 with `scales` f32 score scales (1
+    per tensor, B per batch row): each read once and written once as int8,
+    and the scales. Bytes bind."""
     b, h, n, d = shape
-    return roofline(peak, 2 * b * h * n * d * (2 + 1) + 4 * scales)
+    return roofline(peak, 2 * b * h * n * d * (elem_bytes + 1) + 4 * scales)
 
 
 def add_rooflines(*parts: dict) -> dict:

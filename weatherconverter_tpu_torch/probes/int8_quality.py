@@ -24,7 +24,10 @@ algorithms); it is reported, not part of the verdict.
 Settings are the script's: GSG, lam 60, mode 'fixed', batch 8, the
 production 128 px UNet, DeepLabV3+/ResNet-101 (19 classes, output stride
 16) and a 2x Swift-SRGAN with random weights from seeds, random labels;
-`sample_with_sgg` starts at t = K - 1. Under bf16 autocast on the card;
+`sample_with_sgg` starts at t = K - 1. Under bf16 autocast on the card (K1
+against K2), or with `--dtype float32` in f32 as the CLI's inference runs
+(K1-f32 against K2-f32, TF32 off; the runs keep their names, "bf16" standing
+for the exact kernel, and the file's name ends in _f32);
 without a card it exits with code 2. The result goes to
 chiprun_out/int8_quality_<sampler>_<steps>.json under the repository root.
 """
@@ -38,6 +41,7 @@ import sys
 
 import torch
 
+from weatherconverter_tpu_torch.core.precision import f32_arithmetic
 from weatherconverter_tpu_torch.diffusion.sampling import nchw
 from weatherconverter_tpu_torch.guidance.translate import sample_with_sgg, sample_with_sgg_ddim, sample_with_sgg_dpm
 from weatherconverter_tpu_torch.ops import attention as A
@@ -66,7 +70,8 @@ def run_chains(models, sched, inp: torch.Tensor, gt: torch.Tensor, sampler: str,
     quantizer))} for the runs 'bf16', 'bf16-repeat' and 'int8' on `inp`, and 'bf16-pert1'..'bf16-pert<n_floor>'
     on `inp` plus PERT_SCALE * N(0, 1) from seed (seed, s). Every chain draws from a generator seeded with
     `seed`, so all take the same draws. `models` = (unet, unet_qk_int8, seg, sr); `dtype` runs them under
-    autocast; `lam` is the guidance weight."""
+    autocast, None in f32 (`f32_arithmetic`); `lam` is the guidance weight. Launches: the exact kernel's (K1,
+    K1-f32 in f32), and K2's and its quantizer's on inputs of the chain's dtype."""
     unet, unet_i8, seg, sr = models
     chain = SAMPLERS[sampler][0]
     device = inp.device
@@ -78,13 +83,17 @@ def run_chains(models, sched, inp: torch.Tensor, gt: torch.Tensor, sampler: str,
         if pert:
             g = torch.Generator(device=device).manual_seed(seed * 1000 + pert)
             x = inp + PERT_SCALE * torch.randn(inp.shape, generator=g, device=device)
-        A.flash_attention.launches = A.flash_attention_qk_i8.launches = A.quantize_qk_i8.launches = 0
-        with torch.autocast(device.type, dtype=dtype, enabled=dtype is not None):
+        exact = A.flash_attention if dtype is not None else A.flash_attention_f32
+        exact.launches = 0
+        A.flash_attention_qk_i8.launches_by_dtype, A.quantize_qk_i8.launches_by_dtype = {}, {}
+        with torch.autocast(device.type, dtype=dtype) if dtype is not None else f32_arithmetic(device):
             out = chain(model, sched, seg, sr, x, gt, torch.Generator(device=device).manual_seed(seed),
                         **chain_kwargs(sampler, steps, lam))
             with torch.no_grad():
                 pred = seg(nchw(out)).argmax(1)
-        launches = (A.flash_attention.launches, A.flash_attention_qk_i8.launches, A.quantize_qk_i8.launches)
+        name_of = str(dtype or torch.float32).removeprefix("torch.")
+        launches = (exact.launches, A.flash_attention_qk_i8.launches_by_dtype.get(name_of, 0),
+                    A.quantize_qk_i8.launches_by_dtype.get(name_of, 0))
         out = out.float().cpu()
         if out.shape != (inp.shape[0], *gt.shape[1:], 3) or not torch.isfinite(out).all():
             raise AssertionError(f"int8_quality {sampler} {name}: output {tuple(out.shape)} or not finite")
@@ -93,8 +102,8 @@ def run_chains(models, sched, inp: torch.Tensor, gt: torch.Tensor, sampler: str,
 
 
 def check_launches(outs: dict, steps: int) -> None:
-    """On the card: K1 8 times a UNet forward in every bf16 run, the quantizer and K2 8 times a forward (and K1
-    never) in the int8 run."""
+    """On the card: the exact kernel (K1, or K1-f32) 8 times a UNet forward in every exact run, the quantizer
+    and K2 (K2-f32) 8 times a forward (and the exact kernel never) in the int8 run."""
     calls = FLASH_CALLS_PER_UNET * steps
     for name, (_, _, launches) in outs.items():
         expected = (0, calls, calls) if name == "int8" else (calls, 0, 0)
@@ -127,14 +136,15 @@ def statistics(outs: dict, n_floor: int) -> dict:
 
 def report(artifact: dict, log=common.log) -> None:
     i8, rep, fl = artifact["int8"], artifact["bf16_repeat"], artifact["chaos_floor"]
-    head = f"{artifact['sampler']} {artifact['steps']} steps, batch {artifact['batch']}"
-    log(f"  int8 vs bf16 ({head}): pearson {i8['pearson']:.6f}, seg-agree {i8['seg_agree']:.5f}, max|diff| "
+    f32 = artifact.get("dtype") == "float32"
+    head = f"{artifact['sampler']} {artifact['steps']} steps, batch {artifact['batch']}" + (", f32" if f32 else "")
+    log(f"  int8 vs {'f32 (K2-f32 against K1-f32)' if f32 else 'bf16'} ({head}): pearson {i8['pearson']:.6f}, seg-agree {i8['seg_agree']:.5f}, max|diff| "
         f"{i8['max_abs_diff']:.5f}, mean|diff| {i8['mean_abs_diff']:.6f}")
     log(f"  chaos floor over {len(fl['pearson']['values'])} perturbations ({PERT_SCALE} N(0,1) on the input): pearson "
         f"{fl['pearson']['mean']:.6f} +- {fl['pearson']['std']:.6f}, seg-agree {fl['seg_agree']['mean']:.5f} +- "
         f"{fl['seg_agree']['std']:.5f}, mean|diff| {fl['mean_abs_diff']['mean']:.6f}; values {[round(v, 6) for v in fl['pearson']['values']]} / "
         f"{[round(v, 5) for v in fl['seg_agree']['values']]}")
-    log(f"  two identical bf16 runs: pearson {rep['pearson']:.6f}, seg-agree {rep['seg_agree']:.5f}, max|diff| "
+    log(f"  two identical {'f32' if f32 else 'bf16'} runs: pearson {rep['pearson']:.6f}, seg-agree {rep['seg_agree']:.5f}, max|diff| "
         f"{rep['max_abs_diff']:.3e}, mean|diff| {rep['mean_abs_diff']:.6f}")
     log(f"  verdict ({head}): {'PASS' if artifact['pass'] else 'FAIL'} (seg-agree > {AGREE_MIN}: "
         f"{i8['seg_agree'] > AGREE_MIN}; both within {N_SIGMA:g} sigma of the floor: "
@@ -147,6 +157,7 @@ def run(models, sched, inp, gt, sampler: str, steps: int, n_floor: int, dtype=No
     chains' outputs)."""
     outs = run_chains(models, sched, inp, gt, sampler, steps, n_floor, dtype, lam=lam)
     artifact = dict(sampler=sampler, steps=steps, batch=inp.shape[0], n_floor_seeds=n_floor, lam=lam, card=card,
+                    dtype=str(dtype or torch.float32).removeprefix("torch."),
                     launches={name: list(o[2]) for name, o in outs.items()}, **statistics(outs, n_floor))
     return artifact, outs
 
@@ -176,7 +187,10 @@ def full_width(batch: int, device, seed: int = 0):
 
 
 def save(artifact: dict, path: str | None = None) -> str:
+    default = path is None
     path = path or os.path.join(REPO, "chiprun_out", f"int8_quality_{artifact['sampler']}_{artifact['steps']}.json")
+    if default and artifact.get("dtype") == "float32":  # beside the bf16 check of the same sampler and steps
+        path = path.removesuffix(".json") + "_f32.json"
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(artifact, f, indent=2)
@@ -189,6 +203,8 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=None, help="default: 1000 (ddpm), 50 (ddim), 20 (dpm)")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--floor", type=int, default=5, help="perturbation runs of the chaos floor (at least 2)")
+    p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16",
+                   help="bfloat16: the chains under autocast (K1, K2); float32: in f32 as the CLI (K1-f32, K2-f32)")
     p.add_argument("--out", default=None, help="default: chiprun_out/int8_quality_<sampler>_<steps>.json")
     args = p.parse_args(argv)
     if args.floor < 2:
@@ -197,10 +213,11 @@ def main(argv=None) -> int:
         return 2
     card = common.card_line()
     common.log(card)
-    common.log(common.setup() + "; the chains run under bf16 autocast")
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
+    common.log(common.setup() + f"; the chains run {'under bf16 autocast' if dtype else 'in f32, TF32 off'}")
     steps = args.steps or SAMPLERS[args.sampler][1]
     models, sched, inp, gt = full_width(args.batch, torch.device("cuda"))
-    artifact, outs = run(models, sched, inp, gt, args.sampler, steps, args.floor, torch.bfloat16, card)
+    artifact, outs = run(models, sched, inp, gt, args.sampler, steps, args.floor, dtype, card)
     check_launches(outs, steps)
     report(artifact)
     common.log(f"wrote {save(artifact, args.out)}")

@@ -1,9 +1,11 @@
 """The legacy UNet's precision check: does its chain on the card sample as
 its f32 chain does?
 
-JAX builds the legacy UNet in f32 (weatherconverter_tpu/models/unet_legacy.py:151).
-On the card the port can run it in bf16 (under autocast: K2 at attn_down3,
-D = 16, and K1 at attn_up2, D = 24) or in f32 (K1-f32 at both, no TF32).
+JAX builds the legacy UNet in f32 (weatherconverter_tpu/models/unet_legacy.py:151)
+and its `sample` enables the int8 kernel before the legacy branch. On the
+card the port can run it in bf16 (under autocast with qk_int8: K2 at
+attn_down3, D = 16, and attn_up2, D = 24), in f32 (K1-f32 at both, no TF32)
+or in f32 with qk_int8 (K2-f32 at both: JAX's default).
 Each card chain is held against an f32 chain of the same weights and the
 same draws, run on the CPU (the plain versions), by the method of
 probes/int8_quality.py: a chain this long amplifies any change of the size
@@ -12,7 +14,8 @@ default) whose initial draw gets PERT_SCALE * N(0, 1) added, each compared
 with the unperturbed f32 run by the Pearson correlation of the outputs. A
 card chain passes if its correlation with the unperturbed f32 run is at
 least the floor's mean - 2 sigma (ddof 1). The CLI's `sample --sampler
-legacy` runs the precision that passes (cli/commands.py).
+legacy` follows JAX's default, f32 with K2-f32 (cli/commands.py), whatever
+the verdicts; the f32 chain's is the one the f32 arithmetic must pass.
 
 Weights: LegacyUNet(128) from a seed, its output conv scaled so that eps has
 unit standard deviation on N(0, 1) input at t = T / 2, as a trained model's
@@ -39,7 +42,8 @@ import torch
 
 from weatherconverter_tpu_torch.diffusion.sampling import ddpm_sample_legacy
 from weatherconverter_tpu_torch.diffusion.schedule import linear_schedule
-from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet, full_f32
+from weatherconverter_tpu_torch.core.precision import f32_arithmetic
+from weatherconverter_tpu_torch.models.unet_legacy import LegacyUNet
 from weatherconverter_tpu_torch.ops import attention as A
 from weatherconverter_tpu_torch.probes import common
 
@@ -69,26 +73,29 @@ def draws(shape, steps: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 # the device chains: (name, autocast dtype or None for f32, qk_int8)
-RUNS = (("bf16", torch.bfloat16, True), ("f32", None, False))
+RUNS = (("bf16", torch.bfloat16, True), ("f32", None, False), ("f32_qk_int8", None, True))
 
 
 def device_chain(model: LegacyUNet, shape, steps: int, device, dtype, qk_int8: bool, noise) -> dict:
     """One chain on `device`: under `dtype` autocast (the model built with
-    `qk_int8`), or in f32 inside `full_f32()` (dtype None). Returns its
-    output on the CPU, launches (K1, K2, quantizer, K1-f32), the model's
-    per-layer kernels and its seconds."""
+    `qk_int8`), or in f32 inside `f32_arithmetic` (dtype None; K2-f32 with
+    `qk_int8`). Returns its output on the CPU, launches (K1, K2, quantizer,
+    K1-f32) and K2's by V's dtype, the model's per-layer kernels and its
+    seconds."""
     card_model = LegacyUNet(model.image_size, qk_int8=qk_int8)
     card_model.load_state_dict(model.state_dict())
     card_model = card_model.to(device)
     counters = (A.flash_attention, A.flash_attention_qk_i8, A.quantize_qk_i8, A.flash_attention_f32)
     for fn in counters:
         fn.launches = 0
+    A.flash_attention_qk_i8.launches_by_dtype = {}
     t0 = time.perf_counter()
-    ctx = torch.autocast(device.type, dtype=dtype) if dtype is not None else full_f32()
+    ctx = torch.autocast(device.type, dtype=dtype) if dtype is not None else f32_arithmetic(device)
     with ctx:
         out = ddpm_sample_legacy(card_model, linear_schedule(1000, device=device), shape,
                                  num_steps=None if steps == 1000 else steps, noise=noise).float().cpu()
     return dict(out=out, launches=[fn.launches for fn in counters], seconds=time.perf_counter() - t0,
+                k2_by_dtype=dict(A.flash_attention_qk_i8.launches_by_dtype),
                 kernels=card_model.attention_kernels(shape[1], shape[2]), dtype=str(dtype or torch.float32),
                 qk_int8=qk_int8)
 
@@ -131,16 +138,18 @@ def run(model: LegacyUNet, shape, steps: int, n_floor: int, device) -> dict:
 
 def check_launches(artifact: dict) -> None:
     """On the card, per forward of each run: K1 at each layer its `kernels`
-    list as "K1" (K1-f32 instead in an f32 run), K2 and its quantizer at each "K2"."""
+    list as "K1" (K1-f32 instead in an f32 run), K2 and its quantizer at each
+    "K2" (K2-f32, on an f32 V, in an f32 run)."""
     for name, r in artifact["runs"].items():
         kinds = [k for _, _, k in r["kernels"]]
         k1 = kinds.count("K1") * artifact["steps"]
         k2 = kinds.count("K2") * artifact["steps"]
         f32 = r["dtype"] == str(torch.float32)
         expected = [0 if f32 else k1, k2, k2, k1 if f32 else 0]
-        if r["launches"] != expected:
+        by_dtype = {"float32" if f32 else "bfloat16": k2} if k2 else {}
+        if r["launches"] != expected or r.get("k2_by_dtype", by_dtype) != by_dtype:
             raise AssertionError(f"legacy_precision {name}: launches (K1, K2, quantizer, K1-f32) {r['launches']}, "
-                                 f"expected {expected}")
+                                 f"K2 by V's dtype {r.get('k2_by_dtype')}, expected {expected}, {by_dtype}")
 
 
 def report(artifact: dict, card: str, log=common.log) -> None:
@@ -179,7 +188,8 @@ def main(argv=None) -> int:
         return 2
     card = common.card_line()
     common.log(card)
-    common.log(common.setup() + "; the card chain runs under bf16 autocast, the f32 chains on the CPU")
+    common.log(common.setup() + "; the card chains run under bf16 autocast and in f32, the reference chains on "
+               "the CPU")
     artifact = run(build(), (args.batch, 128, 128, 3), args.steps, args.floor, torch.device("cuda"))
     artifact["card"] = card
     check_launches(artifact)

@@ -14,8 +14,12 @@ checkout alone: K2 apart (the quantizer, the eager quantization it replaces,
 the forward on quantized inputs). Last, K1-f32 `flash_attention_f32` at
 F32_SHAPES (the default UNet's (4096, 16) and the legacy UNet's two, f32,
 TF32 off) in the same turns, each checkout's max|err|/max|ref| against the
-plain version printed beside its time. Without OTHER_ROOT only this checkout
-is timed.
+plain version printed beside its time. Last, K2-f32's forward
+(`flash_qk_i8_forward` on an f32 V: K1-f32's kernels with int8 scores) at
+QK_I8_F32_SHAPES in the same turns (the other checkout must have K2-f32),
+each with its max|err|/max|ref| against the f32 plain version, and this
+checkout's K2-f32 whole, its quantizer on f32 q and k, and K1-f32 beside.
+Without OTHER_ROOT only this checkout is timed.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from weatherconverter_tpu_torch.probes import common, micro_attn
 PACKAGE = A.__name__.split(".")[0]
 SHAPES = [(8, 4, 4096, 64), (8, 4, 1024, 128), (8, 4, 1024, 32), (8, 4, 4096, 16)]
 F32_SHAPES = [(8, 4, 4096, 16), (8, 4, 1024, 16), (8, 4, 1024, 24)]
+QK_I8_F32_SHAPES = SHAPES + [(8, 4, 1024, 16), (8, 4, 1024, 24), (8, 4, 1024, 192)]
 THIS = types.SimpleNamespace(attention=A, micro_attn=micro_attn)
 
 
@@ -107,6 +112,31 @@ def run_f32(device, card: str, other=None) -> None:
         common.log(f"{line} [{card}]")
 
 
+def run_qk_i8_f32(device, card: str, other=None) -> None:
+    gen = torch.Generator(device=device).manual_seed(2)
+    turns = [("this", THIS)] if other is None else [("other", other), ("this", THIS), ("this", THIS), ("other", other)]
+    for shape in QK_I8_F32_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
+        q8, k8, qk_scale = A.quantize_qk_i8(q, k)
+        ref = A.qk_i8_attention_plain(q8, k8, qk_scale, v)
+        ms = {"this": [], "other": []}
+        for who, checkout in turns:  # the forward alone, on this checkout's quantized inputs
+            ms[who].append(common.time_ms(lambda: checkout.attention.flash_qk_i8_forward(q8, k8, qk_scale, v),
+                                          reps=20))
+        errs = {who: ((checkout.attention.flash_qk_i8_forward(q8, k8, qk_scale, v) - ref).abs().max()
+                      / ref.abs().max()).item() for who, checkout in dict(turns).items()}
+        whole = common.time_ms(lambda: A.flash_attention_qk_i8(q, k, v), reps=20)
+        quant = common.time_ms(lambda: A.quantize_qk_i8(q, k), reps=20)
+        k1 = common.time_ms(lambda: A.flash_attention_f32(q, k, v), reps=20)
+        line = (f"K2-f32 flash_qk_i8_forward f32 {shape}: this {sum(ms['this']) / len(ms['this']):.4f} ms "
+                f"(runs {_runs(ms['this'])}), max|err|/max|ref| {errs['this']:.2e}")
+        if other is not None:
+            line += (f", other {sum(ms['other']) / 2:.4f} ms (runs {_runs(ms['other'])}), other/this "
+                     f"{sum(ms['other']) / sum(ms['this']):.3f}x, max|err|/max|ref| {errs['other']:.2e}")
+        common.log(f"{line}; this checkout's K2-f32 whole {whole:.4f} ms, quantize_qk_i8 on f32 {quant:.4f} ms, "
+                   f"K1-f32 {k1:.4f} ms [{card}]")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not common.require_cuda("time_flash"):
@@ -117,6 +147,7 @@ def main(argv=None) -> int:
     other = load_checkout(argv[0]) if argv else None
     run(torch.device("cuda"), card, other)
     run_f32(torch.device("cuda"), card, other)
+    run_qk_i8_f32(torch.device("cuda"), card, other)
     return 0
 
 

@@ -10,7 +10,9 @@ SRGAN definitions. The program takes its flat arguments in the order
 JAX draws from a key: a traced program takes no torch.Generator). A
 `--attn int8` archive holds K2 and its quantizer as custom ops; loading it
 imports their registrations (`ops/attention`, which builds the kernels at
-their first launch), and nothing else of the package. Bit-exactness against
+their first launch), and `core/precision` (the program computes in f32,
+and on CUDA runs without TF32, as the live program does), and nothing else
+of the package. Bit-exactness against
 the live program is pinned by tests/test_torch_export.py (a fresh process,
 CPU) and chip_smoke.py phase 21 (the card).
 """
@@ -21,6 +23,8 @@ import json
 from typing import Callable, Optional
 
 import torch
+
+from weatherconverter_tpu_torch.core.precision import f32_arithmetic
 
 
 def load_exported(path: str, *, device: Optional[str] = None) -> Callable:
@@ -48,7 +52,7 @@ def load_exported(path: str, *, device: Optional[str] = None) -> Callable:
         if len(args) != len(info["args"]):
             raise ValueError(f"{path}: the program takes {len(info['args'])} arguments ({info['program']}: weights, "
                              f"then {', '.join(a[0] for a in info['args'][-4:])}), got {len(args)}")
-        with torch.no_grad():
+        with torch.no_grad(), f32_arithmetic(target):
             return module(*(torch.as_tensor(a).to(target) for a in args))
 
     call.info, call.module = info, module

@@ -23,18 +23,22 @@ seg model's BatchNorm, the per-image CE whose input gradient guides), so a
 request's image does not depend on what shares its batch: bit for bit at
 one batch width, on the CPU and (phase 14 of chip_smoke.py) on the card.
 
-Attention: on the card the service runs K2, the int8 Q K^T kernel, as the
-JAX service runs its int8 kernel on its accelerator, with one int8 scale
-per request: the JAX service vmaps each request through the kernel, so its
+Precision: the chains compute in f32, as the JAX service's models do, and
+on the card without TF32 (`core/precision.f32_arithmetic`, entered where a
+chain runs: on the micro-batchers' worker threads).
+
+Attention: on the card the service runs K2 (K2-f32 in f32), the int8 Q K^T
+kernel, as the JAX service runs its int8 kernel on its accelerator, with one
+int8 scale per request: the JAX service vmaps each request through the kernel, so its
 quantizer takes one scale per request, and so does the port's here
 (`Unet(qk_int8_per_item=True)`, `ops/attention.quantize_qk_i8(per_item=
 True)`). A request's image therefore does not move with its batch-mates
 under K2 either. (With one scale for the micro-batch, as the CLI's
 one-request commands take it, it moved by one uint8 level on the H100;
-PERF.md section 6.) K2 takes the layers whose head dim it has, K1 the
-others (none in the production UNet). `qk_int8=False` (`serve
---no-int8-attn`) keeps K1, the exact flash attention, everywhere; the CPU
-runs the plain versions, K2's when `qk_int8=True` is asked for.
+PERF.md section 6, measured in bf16.) K2 takes every flash-length layer:
+it has every head dim of the repo's models. `qk_int8=False` (`serve
+--no-int8-attn`) keeps K1-f32, the exact f32 flash attention, everywhere;
+the CPU runs the plain versions, K2's when `qk_int8=True` is asked for.
 
 What the JAX service's "compile once per variant" becomes: there is no jit,
 and the cost of a new shape is cuDNN's autotuner (`cudnn.benchmark`, when the
@@ -61,6 +65,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from weatherconverter_tpu_torch.core.precision import f32_arithmetic
 from weatherconverter_tpu_torch.serving.batcher import MicroBatcher
 
 
@@ -131,8 +136,8 @@ class TranslationService:
         batch mixing 6- and 14-class scenes does not pay the largest K for
         every image, and every image is bit-exact against the full sweep.
         `device`: the CUDA card by default (raises without one), or "cpu".
-        `qk_int8`: K2 with one int8 scale per request (None: on the card
-        only); False keeps K1."""
+        `qk_int8`: K2-f32 with one int8 scale per request (None: on the card
+        only); False keeps K1-f32."""
         from weatherconverter_tpu_torch.cli.commands import build_translation
         from weatherconverter_tpu_torch.data.labels import encode_target
 
@@ -173,11 +178,6 @@ class TranslationService:
 
     # ---- the batched chains ----
 
-    def _autocast(self):
-        from weatherconverter_tpu_torch.cli.commands import autocast
-
-        return autocast(self.device)
-
     def _generators(self, seeds) -> list:
         return [torch.Generator(device=self.device).manual_seed(int(s)) for s in seeds]
 
@@ -198,7 +198,7 @@ class TranslationService:
         x = torch.from_numpy(np.ascontiguousarray(imgs, dtype=np.float32)).to(self.device)
         gt = torch.from_numpy(np.asarray(gts, dtype=np.int64)).to(self.device)
         gens = None if noise is not None else self._generators(seeds)
-        with self._autocast():
+        with f32_arithmetic(self.device):
             return chain(self.unet, self.sched, self.seg, self.sr, x, gt, gens, noise=noise, **kw)
 
     def _run_group(self, members, present_k, width):
@@ -231,7 +231,7 @@ class TranslationService:
         """One batched ddpm_sample, row i from seed i -> (W, size, size, 3) in [0, 1]."""
         from weatherconverter_tpu_torch.diffusion.sampling import ddpm_sample
 
-        with self._autocast():
+        with f32_arithmetic(self.device):
             out = ddpm_sample(self.unet, self.sched, (len(seeds), self.size, self.size, 3), self._generators(seeds),
                               num_steps=steps)
         return (out + 1.0) / 2.0

@@ -30,7 +30,8 @@ run keeps f32 arithmetic in the rest of the step too: it turns TF32 off for
 cuDNN's convolutions (`torch.backends.cudnn.allow_tf32`, which PyTorch
 leaves on, so f32 convolutions would otherwise keep 10 bits of mantissa)
 and keeps f32 matmuls at "highest" precision (PyTorch's default), for the
-run's length. A user who asks for f32 asks for the f32 result, which the
+run's length (`core/precision.f32_arithmetic`, which the inference commands
+share). A user who asks for f32 asks for the f32 result, which the
 CPU tests hold against JAX's; bf16 is the fast choice. On the CPU the step
 runs in f32, as the JAX loop does off the TPU.
 """
@@ -49,6 +50,7 @@ from weatherconverter_tpu_torch.core.checkpoint import CheckpointManager, create
 from weatherconverter_tpu_torch.core.config import DiffusionConfig
 from weatherconverter_tpu_torch.core.logging import MetricsLogger
 from weatherconverter_tpu_torch.core.preempt import PreemptionGuard, preempt_save_index
+from weatherconverter_tpu_torch.core.precision import f32_arithmetic
 from weatherconverter_tpu_torch.core.rng import run_key, split_named
 from weatherconverter_tpu_torch.data.transforms import diffusion_train_augment
 from weatherconverter_tpu_torch.diffusion.schedule import make_schedule
@@ -96,25 +98,6 @@ def _device(name: str) -> torch.device:
                                'set training.device="cpu" to train on the CPU')
         return torch.device("cuda")
     return torch.device(name)
-
-
-@contextlib.contextmanager
-def f32_arithmetic(device: torch.device, dtype: Optional[torch.dtype]):
-    """Inside the block, an f32 step on CUDA (`dtype` None) computes in f32:
-    cuDNN's convolutions without TF32 and matmuls at "highest" precision;
-    the settings are restored after it. Nothing changes for autocast
-    (`dtype` set) or the CPU."""
-    if device.type != "cuda" or dtype is not None:
-        yield
-        return
-    cudnn, prev = torch.backends.cudnn, torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
-                         allow_tf32=False):
-            yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 def plan_mesh(tr, n_items: int, device: torch.device):
@@ -194,7 +177,8 @@ def train(cfg: DiffusionConfig, max_steps: Optional[int] = None, dataset=None) -
     flag_group = sharding.host_group(mesh)
 
     global_step = state.step
-    with PreemptionGuard() as guard, f32_arithmetic(device, dtype):
+    # an f32 run keeps f32 arithmetic in the whole step (core/precision.py); autocast (bf16) sets nothing
+    with PreemptionGuard() as guard, f32_arithmetic(device) if dtype is None else contextlib.nullcontext():
         for epoch in range(state.epoch, tr.epochs):
             # the epoch's loss adds up on the device; one read per epoch
             epoch_loss, nb, t0 = torch.zeros((), device=device), 0, time.time()
