@@ -442,29 +442,6 @@ def log(*args):
     print(*args, flush=True)
 
 
-def _bound_text(bound) -> str:
-    if bound["bound_ms"] is None:
-        return "bound not known for this card"
-    return f"bound {bound['bound_ms']:.4f} ms ({bound['binds']} binds)"
-
-
-def _sdpa_ms(torch, q, k, v, do=None):
-    """torch's scaled_dot_product_attention on the kernels' inputs: the
-    forward, or with `do` the backward alone (autograd on a retained graph,
-    the forward's time left out). It equals the clamped softmax where no
-    |score| passes 60, which holds for these N(0,1) inputs. A yardstick:
-    the port never calls it."""
-    import torch.nn.functional as F
-
-    from weatherconverter_tpu_torch.probes.common import time_ms
-
-    if do is None:
-        return time_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=20)
-    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves)
-    return time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps=20)
-
-
 def _forward_gate(torch, name, shape, out, ref):
     """max abs error of a forward kernel against its plain version; raises
     above KERNEL_TOL, above KERNEL_REL_TOL of max |ref|, or if not finite."""
@@ -480,7 +457,8 @@ def phase_kernels(torch, A, device, card):
     """Each forward kernel against its plain version at the path shapes, with
     its roofline bound and the library call's time; returns {name:
     dict(err, ms, plain_ms, library_ms, bound)} with sums over the shapes."""
-    from weatherconverter_tpu_torch.probes.common import add_rooflines, attention_roofline, peaks, time_ms
+    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, bound_text, peaks,
+                                                          sdpa_ms, time_ms)
 
     gen = torch.Generator(device=device).manual_seed(0)
     results = {}
@@ -497,14 +475,14 @@ def phase_kernels(torch, A, device, card):
             err, rel = _forward_gate(torch, name, shape, out, ref)
             k_ms = time_ms(lambda: kernel(q, k, v), reps=20)
             p_ms = time_ms(lambda: plain(q, k, v), reps=5)
-            lib_ms = _sdpa_ms(torch, q, k, v)
+            lib_ms = sdpa_ms(q, k, v)
             bound = attention_roofline(peaks(card), shape, qk_int8=kernel is A.flash_attention_qk_i8)
             b, h, n, d = shape
             tflops = 4 * b * h * n * n * d / (k_ms * 1e-3) / 1e12
             log(f"  {name} B*H={b * h} N={n} D={d}: max_abs_err {err:.3e} (tol {KERNEL_TOL}), max|err|/max|ref| "
                 f"{rel:.3e} (tol {KERNEL_REL_TOL}); "
                 f"kernel {k_ms:.4f} ms ({tflops:.1f} TFLOP/s of QK^T+PV), plain {p_ms:.3f} ms, "
-                f"{_bound_text(bound)}, sdpa forward {lib_ms:.4f} ms (yardstick, never called by the port)"
+                f"{bound_text(bound, k_ms)}, sdpa forward {lib_ms:.4f} ms (yardstick, never called by the port)"
                 + (" [the 256 px UNet's shape: not in the sums]" if shape == D192_SHAPE else "")
                 + (" [the legacy UNet's attn_up2, D = 24 on zero-filled 32-wide tiles: not in the sums]"
                    if shape == D24_SHAPE else ""))
@@ -530,8 +508,8 @@ def _f32_kernel(torch, A, device, card, gen):
     scaled_dot_product_attention's f32 time. Returns {"flash_attention_f32":
     sums over the legacy shapes, "flash_attention_f32_train": sums over the
     path shapes}."""
-    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, f32_fma_ms, peaks,
-                                                          time_ms)
+    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, bound_text,
+                                                          f32_fma_ms, peaks, sdpa_ms, time_ms)
 
     sums = {name: (dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0), []) for name in
             ("flash_attention_f32", "flash_attention_f32_train")}
@@ -547,7 +525,7 @@ def _f32_kernel(torch, A, device, card, gen):
         del out, ref
         k_ms = time_ms(lambda: A.flash_attention_f32(q, k, v), reps=20)
         p_ms = time_ms(lambda: A.flash_attention_plain(q, k, v), reps=5)
-        lib_ms = _sdpa_ms(torch, q, k, v)
+        lib_ms = sdpa_ms(q, k, v)
         bound = attention_roofline(peaks(card), shape, f32=True)
         b, h, n, d = shape
         fma = f32_fma_ms(peaks(card), shape)
@@ -555,7 +533,7 @@ def _f32_kernel(torch, A, device, card, gen):
                  if shape == D192_SHAPE else "the f32 training path's")
         log(f"  flash_attention_f32 B*H={b * h} N={n} D={d} [{where}]: max_abs_err {err:.3e}, max|err|/max|ref| "
             f"{rel:.3e} (tol {F32_REL_TOL}); kernel {k_ms:.4f} ms ({4 * b * h * n * n * d / (k_ms * 1e-3) / 1e12:.2f} "
-            f"TFLOP/s of f32 products in 3xTF32), plain {p_ms:.3f} ms, {_bound_text(bound)}, f32 FMA bound "
+            f"TFLOP/s of f32 products in 3xTF32), plain {p_ms:.3f} ms, {bound_text(bound, k_ms)}, f32 FMA bound "
             f"{'not known' if fma is None else f'{fma:.4f} ms'}, sdpa forward in f32 {lib_ms:.4f} ms (yardstick)")
         if shape != D192_SHAPE:
             total, bounds = sums["flash_attention_f32" if shape in F32_SHAPES else "flash_attention_f32_train"]
@@ -592,8 +570,8 @@ def phase_qk_i8_f32(torch, A, device, card):
     library_ms, bound)} for "flash_attention_qk_i8_f32",
     "quantize_qk_i8_f32" and their "_per_item" lines, sums over the four
     path shapes."""
-    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, peaks,
-                                                          quantizer_roofline, time_ms)
+    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, bound_text, peaks,
+                                                          quantizer_roofline, sdpa_ms, time_ms)
 
     gen = torch.Generator(device=device).manual_seed(21)
     sums = {name: (dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0 if "flash" in name else None), [])
@@ -611,7 +589,7 @@ def phase_qk_i8_f32(torch, A, device, card):
     for shape in QK_I8_F32_SHAPES:
         b, h, n, d = shape
         q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
-        lib_ms = _sdpa_ms(torch, q, k, v)
+        lib_ms = sdpa_ms(q, k, v)
         k1_ms = time_ms(lambda: A.flash_attention_f32(q, k, v), reps=20)
         for per_item in (False, True):
             suffix = "_per_item" if per_item else ""
@@ -666,7 +644,8 @@ def phase_qk_i8_f32(torch, A, device, card):
                 + f"; planted faults {', '.join(f'{w} {x:.3e}' for w, x in faults.items())}: break it; K2-f32 whole "
                 f"{k_ms:.4f} ms ({4 * b * h * n * n * d / (k_ms * 1e-3) / 1e12:.2f} TOP/s of Q K^T + P V), its "
                 f"forward alone {f_ms:.4f} ms, quantizer {qz_ms:.4f} ms (eager {qe_ms:.4f} ms, "
-                f"{_bound_text(q_bound)}); plain {p_ms:.3f} ms; {_bound_text(bound)}; K1-f32 {k1_ms:.4f} ms; sdpa "
+                f"{bound_text(q_bound, qz_ms)}); plain {p_ms:.3f} ms; {bound_text(bound, k_ms)}; K1-f32 "
+                f"{k1_ms:.4f} ms; sdpa "
                 f"forward in f32 {lib_ms:.4f} ms (yardstick, never called by the port)")
             add("flash_attention_qk_i8_f32" + suffix, shape, err, k_ms, p_ms, bound, lib_ms)
             add("quantize_qk_i8_f32" + suffix, shape, 0.0, qz_ms, qe_ms, q_bound)
@@ -681,7 +660,8 @@ def phase_backward_kernel(torch, A, device, card):
     roofline bound and the library's backward alone; two calls must agree
     bit for bit. Returns dict(err, ms, plain_ms, library_ms, bound), sums
     over the shapes (err: the largest max abs error)."""
-    from weatherconverter_tpu_torch.probes.common import add_rooflines, attention_roofline, peaks, time_ms
+    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, bound_text, peaks,
+                                                          sdpa_ms, time_ms)
 
     gen = torch.Generator(device=device).manual_seed(10)
     total, bounds = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0), []
@@ -706,14 +686,14 @@ def phase_backward_kernel(torch, A, device, card):
         del got, again, ref
         k_ms = time_ms(lambda: A.flash_attention_bwd(*args), reps=20)
         p_ms = time_ms(lambda: A.flash_attention_bwd_plain(*args), reps=3, warmup=1)
-        lib_ms = _sdpa_ms(torch, q, k, v, do)
+        lib_ms = sdpa_ms(q, k, v, do)
         bound = attention_roofline(peaks(card), shape, backward=True)
         b, h, n, d = shape
         tflops = 10 * b * h * n * n * d / (k_ms * 1e-3) / 1e12
         log(f"  flash_attention_bwd B*H={b * h} N={n} D={d}: max|err|/max|ref| dq {rel[0]:.3e} dk {rel[1]:.3e} "
             f"dv {rel[2]:.3e} (tol {BWD_REL_TOL}), max abs err {abs_err:.3e}, two calls bit-equal; kernel "
             f"{k_ms:.4f} ms ({tflops:.1f} TFLOP/s of the five products a backward needs), plain {p_ms:.3f} ms, "
-            f"{_bound_text(bound)}, sdpa backward alone {lib_ms:.4f} ms (yardstick, never called by the port)"
+            f"{bound_text(bound, k_ms)}, sdpa backward alone {lib_ms:.4f} ms (yardstick, never called by the port)"
             + (" [the 256 px UNet's shape: not in the sums]" if shape == D192_SHAPE else ""))
         if shape != D192_SHAPE:
             bounds.append(bound)
@@ -733,7 +713,8 @@ def phase_backward_f32_kernel(torch, A, device, card):
     kernel time beside its bound (five products in 3xTF32), sdpa's f32
     backward alone and the plain version's time. Returns dict(err, ms,
     plain_ms, library_ms, bound), sums over the path shapes."""
-    from weatherconverter_tpu_torch.probes.common import add_rooflines, attention_roofline, peaks, time_ms
+    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, bound_text, peaks,
+                                                          sdpa_ms, time_ms)
 
     gen = torch.Generator(device=device).manual_seed(12)
     total, bounds = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0), []
@@ -765,7 +746,7 @@ def phase_backward_f32_kernel(torch, A, device, card):
         del got, again, ref, fault
         k_ms = time_ms(lambda: A.flash_attention_bwd_f32(*args), reps=20)
         p_ms = time_ms(lambda: A.flash_attention_bwd_plain(*args), reps=3, warmup=1)
-        lib_ms = _sdpa_ms(torch, q, k, v, do)
+        lib_ms = sdpa_ms(q, k, v, do)
         bound = attention_roofline(peaks(card), shape, backward=True, f32=True)
         b, h, n, d = shape
         tflops = 10 * b * h * n * n * d / (k_ms * 1e-3) / 1e12
@@ -773,7 +754,7 @@ def phase_backward_f32_kernel(torch, A, device, card):
             f"dv {rel[2]:.3e} (tol {F32_BWD_REL_TOL}), max abs err {abs_err:.3e}, two calls bit-equal; the planted "
             f"fault (plain backward, one TF32 pass) dq {fault_rel[0]:.3e} dk {fault_rel[1]:.3e} dv {fault_rel[2]:.3e}: "
             f"breaks it; kernel {k_ms:.4f} ms ({tflops:.2f} TFLOP/s of the five f32 products a backward needs, in "
-            f"3xTF32), plain {p_ms:.3f} ms, {_bound_text(bound)}, sdpa backward alone in f32 {lib_ms:.4f} ms "
+            f"3xTF32), plain {p_ms:.3f} ms, {bound_text(bound, k_ms)}, sdpa backward alone in f32 {lib_ms:.4f} ms "
             f"(yardstick, never called by the port)"
             + (" [the 256 px UNet's shape: not in the sums]" if shape == D192_SHAPE else ""))
         if shape != D192_SHAPE:
@@ -801,8 +782,8 @@ def phase_quantizer(torch, A, device, card):
     scale), "quantize_qk_i8_per_item" and "flash_attention_qk_i8_per_item",
     sums over the shapes in the UNet's layout (err: the largest difference of
     an int8 value or of a scale, which must be 0, and K2's max abs error)."""
-    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, peaks,
-                                                          quantizer_roofline, time_ms)
+    from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, bound_text, peaks,
+                                                          quantizer_roofline, sdpa_ms, time_ms)
 
     gen = torch.Generator(device=device).manual_seed(20)
     zero = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=None)
@@ -846,7 +827,7 @@ def phase_quantizer(torch, A, device, card):
             f"views of one projection (the UNet's layout, read in place) and on contiguous tensors; K2 on the views "
             f"max_abs_err {k2_err:.3e} (tol {KERNEL_TOL}), two calls bit-equal; kernel {k_ms:.4f} ms on the views, "
             f"{kc_ms:.4f} ms contiguous (two launches and a two-float fill), its eager version {p_ms:.4f} / "
-            f"{pc_ms:.4f} ms, {_bound_text(bound)}; K2's forward alone {f_ms:.4f} ms")
+            f"{pc_ms:.4f} ms, {bound_text(bound, k_ms)}; K2's forward alone {f_ms:.4f} ms")
         total = dict(total, err=max(total["err"], err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms)
 
         # one scale a batch row
@@ -874,7 +855,7 @@ def phase_quantizer(torch, A, device, card):
         k2r_ms = time_ms(lambda: A.flash_attention_qk_i8(q, k, v, per_item=True), reps=20)
         k2rp_ms = time_ms(lambda: A.flash_attention_qk_i8_plain(q, k, v, per_item=True), reps=5)
         fr_ms = time_ms(lambda: A.flash_qk_i8_forward(*got, vc), reps=20)
-        lib_ms = _sdpa_ms(torch, q, k, v)
+        lib_ms = sdpa_ms(q, k, v)
         r_bound, k2_bound = quantizer_roofline(peaks(card), shape, scales=b), attention_roofline(peaks(card), shape,
                                                                                                   qk_int8=True)
         row_bounds.append(r_bound)
@@ -882,8 +863,9 @@ def phase_quantizer(torch, A, device, card):
         log(f"  per row (one int8 scale a batch row) B*H={b * h} N={n} D={d}: the quantizer equals its plain version "
             f"on the views, row 0 of a batch whose row 1 is x100 equals row 0 alone (int8, scale, K2's output); K2 "
             f"max_abs_err {k2r_err:.3e} (tol {KERNEL_TOL}), two calls bit-equal; quantizer {r_ms:.4f} ms (one scale "
-            f"{k_ms:.4f}), eager {rp_ms:.4f} ms, {_bound_text(r_bound)}; K2 whole {k2r_ms:.4f} ms, its forward alone "
-            f"{fr_ms:.4f} ms (one scale {f_ms:.4f}), plain {k2rp_ms:.3f} ms, {_bound_text(k2_bound)}, sdpa forward "
+            f"{k_ms:.4f}), eager {rp_ms:.4f} ms, {bound_text(r_bound, r_ms)}; K2 whole {k2r_ms:.4f} ms, its forward "
+            f"alone {fr_ms:.4f} ms (one scale {f_ms:.4f}), plain {k2rp_ms:.3f} ms, {bound_text(k2_bound, k2r_ms)}, "
+            f"sdpa forward "
             f"{lib_ms:.4f} ms (yardstick)")
         rows = dict(rows, err=max(rows["err"], err), ms=rows["ms"] + r_ms, plain_ms=rows["plain_ms"] + rp_ms)
         k2_rows = dict(err=max(k2_rows["err"], k2r_err), ms=k2_rows["ms"] + k2r_ms,
@@ -1424,13 +1406,18 @@ def phase_train_f32(torch, A, device, card, tmp, reference, dcfg=None, steps=4, 
         if not (loss.item() == loss.item() and abs(loss.item()) < float("inf")):
             raise AssertionError(f"f32 train step: loss {loss.item()}")
         if on_card:
-            prof_wall, dev_ms, launches = _device_profile(torch, lambda: step_fn(state, batch, gen), 1)
+            prof_wall, dev_ms, launches, ranked = _device_profile(torch, lambda: step_fn(state, batch, gen), 1,
+                                                                  top=10**6)
+            # the f32 flash kernels' device ms in that step: K1-f32's forwards, K3-f32's two passes
+            fwd_ms, bwd_ms = (sum(ms for name, ms, _ in ranked if kernel in name)
+                              for kernel in ("flash_fwd_f32", "flash_bwd_f32"))
     if on_card and got != (0, 0, flash * window_steps, flash * window_steps):
         raise AssertionError(f"f32 train window: launches (K1, K3, K1-f32, K3-f32) {got}")
     log(f"  (c) f32 train step (augment + fwd + bwd + Adam + EMA) at batch {BATCH}: {wall:.1f} ms/step wall over "
         f"{window_steps} steps, {1e3 * BATCH / wall:.1f} images/s [{card}]; "
         + (f"a profiled step: wall {prof_wall:.1f} ms, device {dev_ms:.1f} ms, idle share "
-           f"{max(0.0, 1 - dev_ms / prof_wall):.2f}, {launches} kernel launches; " if on_card else "")
+           f"{max(0.0, 1 - dev_ms / prof_wall):.2f}, {launches} kernel launches, K1-f32 {fwd_ms:.2f} ms and K3-f32 "
+           f"{bwd_ms:.2f} ms of device time (flash share {(fwd_ms + bwd_ms) / dev_ms:.1%}); " if on_card else "")
         + f"peak {peak:.2f} GiB; launches a step K1-f32 {got[2] // window_steps}, K3-f32 {got[3] // window_steps}")
     return cli_got[2], cli_got[3]
 
@@ -3772,7 +3759,9 @@ def _round(x):
 
 PTXAS_KERNELS = ("flash_fwd_qk_i8_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                  "flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
-                 "flash_bwd_f32_dq_kernel", "flash_bwd_f32_dkv_kernel", "absmax_qk_kernel", "quantize_qk_kernel",
+                 "flash_fwd_f32_wgmma_kernel", "flash_bwd_f32_dq_kernel", "flash_bwd_f32_dkv_kernel",
+                 "flash_bwd_f32_dq_wgmma_kernel", "flash_bwd_f32_dkv_wgmma_kernel", "absmax_qk_kernel",
+                 "quantize_qk_kernel",
                  "probe_exp2_attn_wgmma_kernel", "probe_qk_kernel", "probe_dw3x3_kernel",
                  "probe_dw_fma81_kernel")
 

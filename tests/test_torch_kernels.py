@@ -533,6 +533,60 @@ def test_flash_qk_i8_f32_kernel_takes_head_split_views(cuda):
     assert _rel_err(A.flash_attention_qk_i8(q, k, v), A.flash_attention_qk_i8_plain(q, k, v)) <= F32_REL_TOL
 
 
+# One tile and an odd multiple of 64 at every head dim of the f32 wgmma
+# kernels: their staged tiles are 64 keys (32 at D = 192) for K1-f32 and
+# K2-f32, 64 rows (32 at D = 128) for K3-f32, which keeps its mma.sync passes
+# at D = 192
+F32_WGMMA_EDGE_SHAPES = [(1, 2, n, d) for n in (64, 1088) for d in (32, 64, 128, 192)]
+F32_BWD_EDGE_SHAPES = [(1, 2, n, d) for n in (64, 1088) for d in (16, 32, 64, 128, 192)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", F32_WGMMA_EDGE_SHAPES)
+def test_flash_f32_kernels_at_one_tile_and_an_odd_tile_count(cuda, shape):
+    """K1-f32 (O and l) and K2-f32 within F32_REL_TOL of their plain
+    versions, the same bits twice."""
+    q, k, v = _qkv(shape, torch.float32, cuda, seed=shape[2] + shape[3])
+    o, l = A.flash_attention(q, k, v, return_l=True)
+    torch.cuda.synchronize()
+    ref_o, ref_l = A.flash_attention_plain(q, k, v, return_l=True)
+    assert torch.isfinite(o).all() and _rel_err(o, ref_o) <= F32_REL_TOL
+    torch.testing.assert_close(l, ref_l, rtol=1e-5, atol=0)
+    assert torch.equal(o, A.flash_attention_f32(q, k, v))
+    o8 = A.flash_attention_qk_i8(q, k, v)
+    assert torch.isfinite(o8).all() and _rel_err(o8, A.flash_attention_qk_i8_plain(q, k, v)) <= F32_REL_TOL
+    assert torch.equal(o8, A.flash_attention_qk_i8(q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", F32_BWD_EDGE_SHAPES)
+def test_flash_bwd_f32_kernel_at_one_tile_and_an_odd_tile_count(cuda, shape):
+    args = _f32_bwd_args(shape, cuda, seed=shape[2] + shape[3] + 1)
+    got = A.flash_attention_bwd_f32(*args)
+    torch.cuda.synchronize()
+    for name, g, r, again in zip(("dq", "dk", "dv"), got, A.flash_attention_bwd_plain(*args),
+                                 A.flash_attention_bwd_f32(*args)):
+        assert torch.isfinite(g).all() and _rel_err(g, r) <= F32_BWD_REL_TOL, (name, _rel_err(g, r))
+        assert torch.equal(g, again), name
+
+
+@pytest.mark.gpu
+def test_flash_f32_kernels_at_both_clamp_rails_at_d192(cuda):
+    """Scores past +60 and -60 at D = 192 over 17 tiles: K1-f32 and K2-f32
+    (their wgmma kernel's 32-key tiles) and K3-f32."""
+    shape = (1, 2, 1088, 192)
+    args = _f32_bwd_args(shape, cuda, seed=192, gain=2.0 * (60.0 / 192**0.5) ** 0.5)
+    q, k, v = args[:3]
+    s = torch.matmul(q, k.transpose(-1, -2)) / 192**0.5
+    assert (s > 60).any() and (s < -60).any()
+    o = A.flash_attention_f32(q, k, v)
+    assert torch.isfinite(o).all() and _rel_err(o, A.flash_attention_plain(q, k, v)) <= 1e-4
+    o8 = A.flash_attention_qk_i8(q, k, v)
+    assert torch.isfinite(o8).all() and _rel_err(o8, A.flash_attention_qk_i8_plain(q, k, v)) <= F32_REL_TOL
+    for name, g, r in zip(("dq", "dk", "dv"), A.flash_attention_bwd_f32(*args), A.flash_attention_bwd_plain(*args)):
+        assert torch.isfinite(g).all() and _rel_err(g, r) <= 1e-3, (name, _rel_err(g, r))
+
+
 @pytest.mark.gpu
 def test_flash_f32_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv((1, 1, 128, 48), torch.float32, cuda)
@@ -1062,6 +1116,19 @@ def test_attention_roofline_counts_what_the_function_needs(shape, kw, ms, binds)
     assert bound["binds"] == binds and bound["bound_by"] == "operations"
     assert bound["bound_ms"] == pytest.approx(ms, rel=1e-5)
     assert probe_common.attention_roofline(None, shape, **kw)["bound_ms"] is None
+
+
+def test_kernel_lines_give_the_share_of_the_bound():
+    """chip_smoke.py's phase 2 and probes/time_flash.py print each kernel's
+    time beside its bound and the share of it the kernel reaches."""
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    bound = probe_common.attention_roofline(probe_common.peaks(card), (8, 4, 4096, 64), backward=True, f32=True)
+    assert probe_common.bound_text(bound, 4 * bound["bound_ms"]) == (
+        f"bound {bound['bound_ms']:.4f} ms (tf32x3 binds; the kernel at 25% of it)")
+    assert probe_common.bound_text(probe_common.attention_roofline(None, (8, 4, 4096, 64)), 1.0) == (
+        "bound not known for this card")
+    line = time_flash._bound_line(card, (8, 4, 1024, 128), 2 * 0.1042 / 0.9)
+    assert line.startswith("bound 0.1042 ms (tf32x3 binds;") and line.endswith("at 45% of it)")
 
 
 @pytest.mark.parametrize("shape, ms", [((8, 4, 4096, 64), 0.015024374), ((8, 4, 1024, 32), 0.001878048)])

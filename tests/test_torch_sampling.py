@@ -1,56 +1,34 @@
-"""The PyTorch port's samplers (diffusion/sampling.py, schedule.ddpm_step),
-its fast guided translations (guidance/translate.sample_with_sgg_ddim and
-sample_with_sgg_dpm) and the int8 quality check (probes/int8_quality.py)
+"""The PyTorch port's samplers (diffusion/sampling.py, schedule.ddpm_step)
 against the JAX package, on the CPU, in f32.
 
-jax.random's stream cannot be drawn in torch, so each test draws it in JAX,
-in the split order of the JAX function, and replays it into the port through
-`noise=`. The unconditional samplers are held against JAX with an analytic
-eps-model (the same function on both sides: the sampler's arithmetic is what
-is compared) and once with the tiny UNet of tests/torch_parity.py (its 32x32
-layers attend at N = 1024 through the flash path). The guided translations
-run the tiny UNet, DeepLabV3+/ResNet-18 and a 2x Swift-SRGAN with the same
-perturbed weights on both sides. The SRGAN's output saturates to exactly 1.0
-over parts of the image, where the seg model's max-pool sees ties that XLA
-and ATen break differently, so both sides' seg function adds one fixed
-low-amplitude pattern to its input (tests/test_torch_lcg.py does the same for
-LCG's blacked-out regions).
+Each test draws jax.random's stream in JAX, in the split order of the JAX
+function, and replays it into the port through `noise=`
+(tests/sampling_parity.py). The unconditional samplers are held against JAX
+with an analytic eps-model (the same function on both sides: the sampler's
+arithmetic is what is compared) and once with the tiny UNet of
+tests/torch_parity.py (its 32x32 layers attend at N = 1024 through the flash
+path). The fast guided translations are tests/test_torch_fast_translate.py,
+the int8 quality check tests/test_torch_int8_quality.py.
 
 Tolerances: the sampler arithmetic agrees to 2e-5 (f32 scalars in JAX's order
 of operations; XLA may fuse a multiply-add); chains through the tiny models
 take tests/test_torch_translate.py's 1e-4.
 """
 
-import inspect
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import TINY_UNET, generator_pair, jax_fns, nhwc_to_nchw, seg_pair, tiny_unet_pair
+from sampling_parity import (B, CHAIN_ATOL, CHAIN_RTOL, LATENT, SAMPLER_ATOL, SAMPLER_RTOL, SCHED_ARGS, SHAPE, STEPS,
+                             build_models)
+from sampling_parity import jax_draws as _jax_draws
+from torch_parity import nhwc_to_nchw
 
 from weatherconverter_tpu.diffusion import sampling as JSa
 from weatherconverter_tpu.diffusion import schedule as JS
-from weatherconverter_tpu.guidance import translate as JT
-from weatherconverter_tpu_torch.core.config import UnetModelConfig
 from weatherconverter_tpu_torch.diffusion import sampling as PSa
 from weatherconverter_tpu_torch.diffusion import schedule as PS
-from weatherconverter_tpu_torch.guidance import translate as PT
-from weatherconverter_tpu_torch.models.unet import Unet
-from weatherconverter_tpu_torch.probes import int8_quality as IQ
-
-SHAPE = (2, 8, 8, 3)
-B, LATENT, HR, STEPS = 2, 32, 64, 4
-SCHED_ARGS = (20, 1e-3, 0.2)  # a short schedule whose steps carry real noise
-LAM = 0.5
-# under 'alternate': in some of LCG's masked copies a ReLU sits within rounding of 0 and opens in one framework
-# only (tests/test_torch_lcg.py, SWEEP_REL_TOL), which a chain at LAM carries into the output; at this weight the
-# chains agree to CHAIN_ATOL and LCG still moves the output by over 100 times it
-LCG_LAM = 0.02
-DITHER = 1e-2
-SAMPLER_RTOL, SAMPLER_ATOL = 2e-5, 2e-5
-CHAIN_RTOL, CHAIN_ATOL = 1e-4, 1e-4
 
 
 def analytic_eps(xt, t):
@@ -58,21 +36,6 @@ def analytic_eps(xt, t):
     lib = jnp if isinstance(xt, jax.Array) else torch
     tt = t.reshape(-1, 1, 1, 1).astype(jnp.float32) if lib is jnp else t.reshape(-1, 1, 1, 1).float()
     return 0.3 * lib.tanh(xt) + 0.002 * tt
-
-
-def _jax_draws(key, shape, n_steps, split3=False):
-    """(x_init, z_steps) as a JAX sampler draws them: `key, init = split(key)` (or the translation's 3-way split),
-    then `key, z = split(key)` a step."""
-    if split3:
-        key, _tkey, ikey = jax.random.split(key, 3)
-    else:
-        key, ikey = jax.random.split(key)
-    x_init = jax.random.normal(ikey, shape)
-    zs = []
-    for _ in range(n_steps):
-        key, zkey = jax.random.split(key)
-        zs.append(np.asarray(jax.random.normal(zkey, shape)))
-    return torch.from_numpy(np.array(x_init)), torch.from_numpy(np.stack(zs) if zs else np.zeros((0, *shape)))
 
 
 # --- schedule.ddpm_step ---
@@ -223,21 +186,11 @@ def test_dpm_solver_pp_2m_beats_ddim_at_equal_steps():
     assert err_dpm < 0.7 * err_ddim, (err_dpm, err_ddim)
 
 
-# --- the slice: ddpm_sample with the tiny UNet, and the fast guided translations ---
+# --- the slice: ddpm_sample with the tiny UNet ---
 
 @pytest.fixture(scope="module")
 def models():
-    junet, uparams, port_unet = tiny_unet_pair()
-    port_unet_i8 = Unet(UnetModelConfig(**TINY_UNET), qk_int8=True).eval()
-    port_unet_i8.load_state_dict(port_unet.state_dict())
-    jseg, seg_vars, port_seg = seg_pair("deeplabv3plus_resnet18", HR)
-    jgen, gen_vars, port_gen = generator_pair(2, hw=LATENT)
-    port_seg.requires_grad_(False)
-    diff_fn, seg_fn, sr_fn = jax_fns(junet, uparams, jseg, seg_vars, jgen, gen_vars)
-    dither = (DITHER * np.random.default_rng(HR).standard_normal((1, HR, HR, 3))).astype(np.float32)
-    port_dither = nhwc_to_nchw(dither)
-    return dict(jax_fns=(diff_fn, lambda x: seg_fn(x + dither), sr_fn),
-                port=(port_unet, lambda x: port_seg(x + port_dither), port_gen), port_unet_i8=port_unet_i8)
+    return build_models()
 
 
 def test_ddpm_sample_with_the_unet_matches_jax(models):
@@ -249,129 +202,3 @@ def test_ddpm_sample_with_the_unet_matches_jax(models):
     out = PSa.ddpm_sample(models["port"][0], PS.linear_schedule(*SCHED_ARGS), shape, num_steps=STEPS,
                           noise=_jax_draws(key, shape, STEPS))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=CHAIN_RTOL, atol=CHAIN_ATOL)
-
-
-def _blocky_gt(rng, classes, block=8):
-    small = rng.choice(np.asarray(classes), size=(B, HR // block, HR // block))
-    return small.repeat(block, 1).repeat(block, 2).astype(np.int32)
-
-
-def _translation_inputs(seed):
-    rng = np.random.default_rng(seed)
-    x = (rng.standard_normal((B, LATENT, LATENT, 3)) * 0.2).astype(np.float32)
-    gt = _blocky_gt(rng, [0, 3, 8, 12, 17])
-    gt[:, :8, :8] = 255  # an ignored patch
-    return x, gt
-
-
-FAST = {"ddim": (JT.sample_with_sgg_ddim, PT.sample_with_sgg_ddim), "dpm": (JT.sample_with_sgg_dpm, PT.sample_with_sgg_dpm)}
-
-
-def _fast_chain(models, sampler, seed=0, eta=0.0, **kw):
-    """(JAX output, the port's output, the port's unguided output), NHWC."""
-    jfn, pfn = FAST[sampler]
-    x, gt = _translation_inputs(seed)
-    key = jax.random.PRNGKey(seed)
-    kw = dict(lam=LCG_LAM if kw.get("guidance_style") == "alternate" else LAM, num_steps=STEPS, num_classes=19,
-              lcg_class_chunk=4, **kw)
-    if sampler == "ddim":
-        kw["eta"] = eta
-    ref = jfn(*models["jax_fns"][:1], JS.linear_schedule(*SCHED_ARGS), *models["jax_fns"][1:], jnp.asarray(x),
-              jnp.asarray(gt), key, **kw)
-    x_init, zs = _jax_draws(key, (B, LATENT, LATENT, 3), STEPS)
-    noise = (x_init, zs) if sampler == "ddim" else x_init
-    args = (models["port"][0], PS.linear_schedule(*SCHED_ARGS), *models["port"][1:], torch.from_numpy(x),
-            torch.from_numpy(gt).long())
-    out = pfn(*args, noise=noise, **kw)
-    unguided = pfn(*args, noise=noise, **dict(kw, guidance_style="none"))
-    return np.asarray(ref), out.numpy(), unguided.numpy()
-
-
-@pytest.mark.parametrize("sampler, style", [(sampler, style) for sampler in ("ddim", "dpm") for style in
-                                            ("gsg", "alternate" if sampler == "ddim" else "alternate-present-k",
-                                             "none", "reference")])
-def test_fast_guided_translation_matches_jax(models, sampler, style):
-    """Four steps over the default span (min(500, T) = 20): steps i = 3..1 guided (under 'alternate' i = 2 takes
-    LCG: over all 19 classes for DDIM, over 3 packed slots an image for DPM), i = 0 not; 'none' and mode
-    'reference' are the unguided chain."""
-    kw = dict(guidance_style=style.split("-")[0])
-    if style == "reference":
-        kw = dict(guidance_style="gsg", mode="reference")
-    if style == "alternate-present-k":
-        kw["lcg_present_k"] = 3
-    ref, out, unguided = _fast_chain(models, sampler, **kw)
-    assert out.shape == (B, HR, HR, 3) and np.isfinite(out).all() and 0.0 <= out.min() and out.max() <= 1.0
-    np.testing.assert_allclose(out, ref, rtol=CHAIN_RTOL, atol=CHAIN_ATOL)
-    if style in ("none", "reference"):
-        np.testing.assert_array_equal(out, unguided)
-    else:  # the guidance term is what is compared: it moves the output
-        assert np.abs(out - unguided).max() > 100 * CHAIN_ATOL
-
-
-def test_ddim_translation_with_noise_matches_jax(models):
-    """eta = 1: sigma_ddim * z is the added noise, the posterior sigma stays the guidance scale."""
-    ref, out, _ = _fast_chain(models, "ddim", seed=1, eta=1.0, guidance_style="gsg")
-    np.testing.assert_allclose(out, ref, rtol=CHAIN_RTOL, atol=CHAIN_ATOL)
-
-
-@pytest.mark.parametrize("sampler", ["ddim", "dpm"])
-def test_fast_translation_takes_the_jax_signature(sampler):
-    """Every keyword but `key` (a torch.Generator, or replayed `noise`, stands for it), with JAX's defaults;
-    DEFAULT_TRANSLATE_SPAN is JAX's."""
-    jfn, pfn = FAST[sampler]
-    jax_params, port_params = inspect.signature(jfn).parameters, inspect.signature(pfn).parameters
-    for name, p in jax_params.items():
-        if name == "key":
-            assert name not in port_params
-            continue
-        assert name in port_params and port_params[name].default == p.default, name
-    assert set(port_params) - set(jax_params) == {"generator", "noise"}
-    assert PT.DEFAULT_TRANSLATE_SPAN == JT.DEFAULT_TRANSLATE_SPAN
-    with pytest.raises(ValueError, match="unknown guidance_style"):
-        pfn(None, PS.linear_schedule(4), None, None, torch.zeros(1, 8, 8, 3), torch.zeros(1, 16, 16),
-            guidance_style="both")
-
-
-# --- probes/int8_quality, tiny, on the CPU (plain K1 and K2) ---
-
-def _numpy_statistics(outs, n_floor):
-    """scripts/int8_quality_check.py:131-161, transcribed."""
-    a, pa = outs["bf16"][0].numpy(), outs["bf16"][1].numpy()
-
-    def against_bf16(name):
-        b, pb = outs[name][0].numpy(), outs[name][1].numpy()
-        return float(np.corrcoef(a.ravel(), b.ravel())[0, 1]), float((pa == pb).mean())
-
-    corr_i8, agree_i8 = against_bf16("int8")
-    floor = [against_bf16(f"bf16-pert{s}") for s in range(1, n_floor + 1)]
-    floor_corr, floor_agree = np.asarray([c for c, _ in floor]), np.asarray([g for _, g in floor])
-    cm, cs = float(floor_corr.mean()), float(floor_corr.std(ddof=1))
-    gm, gs = float(floor_agree.mean()), float(floor_agree.std(ddof=1))
-    ok = agree_i8 > 0.97 and corr_i8 >= cm - 2.0 * cs and agree_i8 >= gm - 2.0 * gs
-    return corr_i8, agree_i8, (cm, cs), (gm, gs), ok
-
-
-@pytest.mark.parametrize("sampler", ["ddim", "dpm"])
-def test_int8_quality_probe_statistics_and_verdict(models, sampler):
-    x, gt = _translation_inputs(9)
-    port = models["port"]
-    run_models = (port[0], models["port_unet_i8"], port[1], port[2])
-    n_floor = 3
-    # lam 60 drives every x0-pred of the tiny models to the clip at +-1, and all chains end alike
-    artifact, outs = IQ.run(run_models, PS.linear_schedule(*SCHED_ARGS), torch.from_numpy(x),
-                            torch.from_numpy(gt).long(), sampler, STEPS, n_floor, lam=LAM)
-    assert set(outs) == {"bf16", "bf16-repeat", "int8", "bf16-pert1", "bf16-pert2", "bf16-pert3"}
-    for out, pred, launches in outs.values():
-        assert out.shape == (B, HR, HR, 3) and pred.shape == (B, HR, HR) and launches == (0, 0, 0)  # CPU: plain
-    corr, agree, (cm, cs), (gm, gs), ok = _numpy_statistics(outs, n_floor)
-    np.testing.assert_allclose(artifact["int8"]["pearson"], corr, rtol=0, atol=1e-9)
-    assert artifact["int8"]["seg_agree"] == agree
-    np.testing.assert_allclose([artifact["chaos_floor"]["pearson"]["mean"], artifact["chaos_floor"]["pearson"]["std"],
-                                artifact["chaos_floor"]["seg_agree"]["mean"],
-                                artifact["chaos_floor"]["seg_agree"]["std"]], [cm, cs, gm, gs], rtol=1e-9, atol=1e-12)
-    assert artifact["pass"] == ok
-    # the plain K2 path differs from K1 (int8 rounding), and an identical rerun does not
-    assert artifact["int8"]["max_abs_diff"] > 0 and artifact["bf16_repeat"]["max_abs_diff"] == 0
-    # the verdict rule itself, on made-up statistics
-    fake = dict(outs, int8=(1.0 - outs["bf16"][0], outs["bf16"][1], (0, 0, 0)))  # anti-correlated
-    assert IQ.statistics(fake, n_floor)["pass"] is False and _numpy_statistics(fake, n_floor)[-1] is False

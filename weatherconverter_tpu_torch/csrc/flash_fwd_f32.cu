@@ -3,9 +3,9 @@
 // the repo's models: 16 and 24 (the legacy UNet) and 32, 64, 128 and 192 (the
 // UNet: its default ladder attends at flash length at D = 64, 128, 32 and
 // 16, the 256 px ladder also at 192). The two differ in their score product
-// alone, a policy of the two kernels below: K1-f32 forms S = Q K^T * D^-1/2
-// in 3xTF32 from f32 Q and K (`F32Narrow`, `F32Wide`), K2-f32 from int8 Q8
-// and K8 (`I8Scores`, after the note on K2-f32 further down).
+// alone, a policy of the kernels below: K1-f32 forms S = Q K^T * D^-1/2 in
+// 3xTF32 from f32 Q and K (`F32Narrow`, `WgF32Scores`), K2-f32 from int8 Q8
+// and K8 (`I8Scores`, `WgI8Scores`, after the note on K2-f32 further down).
 //
 // Replaces weatherconverter_tpu/ops/attention.py `_flash_kernel` (:78, via
 // `_flash_attention_fwd_impl`) and `_flash_kernel_stream_fwd` (:456, which
@@ -24,58 +24,53 @@
 // serial chain of D dependent FMAs a score, and ~250 threads an SM, could
 // not hide latency).
 //
-// Two designs, one a head-dim range. The wide kernel also compiles and
-// passes at D = 16 and 24 (108 and 179 registers, no spill), but at B*H = 32
-// it took 0.7823 / 0.0577 / 0.0760 ms at (N, D) = (4096, 16) / (1024, 16) /
-// (1024, 24) where the narrow kernel took 0.7364 / 0.0548 / 0.0760 in the
-// same runs (probes/time_flash.py, H100 80GB HBM3 at 700 W; PERF.md
-// section 6): 5-6 % slower at D = 16, where the narrow kernel splits each
-// tile once for the block and not in every warp.
-// Both: a block is 4 warps, each owning 16 query rows, and walks the keys in
-// tiles staged by cp.async, double buffered (tile t+1 is in flight while
-// tile t is used), into rows padded to D + 4 floats, so every fragment load
-// is free of bank conflicts. No running max: as in K1, O and l add up
-// unscaled. P's fragment comes straight from S's accumulators
-// (flash_tf32.cuh).
+// Three kernels, by head dim. No running max in any: as in K1, O and l add
+// up unscaled.
 //
-// The narrow kernel (D = 16, 24): 64-key tiles. Once a tile has landed, the
+// The wgmma kernel (D = 32-192; K2-f32 from 32): flash_tf32.cuh's Hopper
+// design. A producer warpgroup loads Q's rows once and the K and V tiles,
+// splits each element once for the block into TF32 hi and lo planes in the
+// 128-byte-swizzled K-major layout wgmma reads (V transposed: P V's B operand
+// reduces along the keys), two plane groups (K; V^T) each behind its own
+// FULL / EMPTY named barriers. Consumer warpgroups of 64 query rows form S =
+// Q K^T with wgmma m64nNk8 .tf32 (three a k-step, both operands from shared
+// memory), p = exp2(clamp(S)) in registers, and O += P V with P straight from
+// S's accumulators as the register A operand; every sum in chains of four
+// k-steps joined by FADD. Two consumers up to D = 128 (one's exponentials and
+// FADD joins overlap the other's MMAs; setmaxnreg gives them 188 registers a
+// thread of the 384-thread block's 168 and the producer 128), one at 192;
+// 64-key tiles to D = 64, 32 from 128 (for shared memory). Shared memory
+// (alignment included) 65, 129, 193 and 193 KB at D = 32, 64, 128, 192.
+// Measured (probes/time_flash.py beside a checkout with the mma.sync wide
+// kernel below in its place, H100 80GB HBM3 at 700 W; PERF.md section 6) it
+// is 1.54-1.71x that kernel's speed at (4096, 64), (1024, 128), (1024, 32)
+// and (1024, 192), at 35-50 % of its bound; what binds it is each consumer's
+// serial chain of MMA waits, exponentials, splits and FADD joins, which two
+// consumers only partly overlap.
+//
+// The narrow kernel (D = 16, 24; the first tensor-core design, kept): 4
+// warps each owning 16 query rows, 64-key tiles staged by cp.async, double
+// buffered, into rows padded to D + 4 floats. Once a tile has landed, the
 // block splits it once: hi over the staged value in place, lo into a second
-// buffer. Each warp keeps its Q fragments, scaled by D^-1/2 * log2(e) and
-// split, in registers for the whole walk. Per tile a warp forms S = Q K^T
-// (16 x 64: eight n-tiles of mma.sync.m16n8k8.tf32, D/8 k-steps each, three
-// products a step), takes p = exp2(clamp(S)) in registers, splits p there,
-// and adds P V (eight k-steps, D/8 n-tiles) into two sets of accumulators
-// (even and odd key steps, two independent chains an n-tile), which join
-// the running sum by FADD at the end of the tile. That last step is for
-// precision: the tensor cores' f32 accumulation does not round to nearest,
-// and one chain of MMAs over all N keys left O 3-7e-6 of max|O| from the
-// plain version (f32) at N = 1024, where a tile's chain of eight k-steps
-// leaves 1-2e-6 (ablations timed once on the H100, PERF.md section 6; fresh
-// accumulators for each k-step of S left the error as it was and cost
-// 2-13 %). __launch_bounds__ asks for 4 blocks an SM (at most 128
-// registers): the legacy UNet's batch 8 makes 512 blocks, one wave of 528;
-// ptxas's own choice at D = 24, 133 registers and 3 blocks, took 30 % longer.
+// buffer. Each warp keeps
+// its Q fragments, scaled by D^-1/2 * log2(e) and split, in registers for the
+// whole walk. Per tile a warp forms S = Q K^T (16 x 64: eight n-tiles of
+// mma.sync.m16n8k8.tf32, D/8 k-steps each, three products a step), takes p =
+// exp2(clamp(S)) in registers, splits p there, and adds P V (eight k-steps,
+// D/8 n-tiles) into two sets of accumulators (even and odd key steps, two
+// independent chains an n-tile), which join the running sum by FADD at the
+// end of the tile (one chain of MMAs over all N keys left O 3-7e-6 of max|O|
+// from the plain version at N = 1024, a tile's chain of eight k-steps 1-2e-6;
+// ablations timed once on the H100, PERF.md section 6; fresh accumulators
+// for each k-step of S left the error as it was and cost 2-13 %).
+// __launch_bounds__ asks for 4 blocks an SM (at most 128 registers): the
+// legacy UNet's batch 8 makes 512 blocks, one wave of 528; ptxas's own choice
+// at D = 24, 133 registers and 3 blocks, took 30 % longer.
 //
-// The wide kernel (D = 32-192). Carried over, that design would not fit: Q's
-// split fragments (D registers a thread) beside the two O chains (another D)
-// and S (32) pass the 255 registers a thread may have from D = 128 on, and
-// two staged (K, V) tile sets plus a lo buffer, 64 keys x (D + 4) floats
-// each, take 203 KB at D = 128 and 301 KB at 192 of a block's 227. So:
-//   * Q stays in shared memory (64 rows x (D + 4), raw f32) and each A
-//     fragment is scaled and split as it is loaded, once a k-step for all of
-//     a tile's key n-tiles; the K and V fragments are split as they are
-//     loaded too, so no lo buffer is staged (each warp splits the tile
-//     anew: 5 operations an element, about as many instructions as the
-//     MMAs it feeds);
-//   * tiles of 64 keys at D <= 64 and 32 at D >= 128; shared memory 46, 87,
-//     101 and 150 KB at D = 32, 64, 128, 192;
-//   * O's n-tiles are formed one at a time: all of a tile's P fragments
-//     (split, one register a key) stay in registers, and each n-tile's sum
-//     over the tile runs in chains of four k-steps joined to the running O
-//     by FADD, as the narrow kernel's two chains do; S's sum over D runs in
-//     chains of four k-steps joined by FADD as well (24 k-steps at D = 192);
-//   * __launch_bounds__ asks for 2 blocks an SM (at most 255 registers):
-//     running O (D/2 registers) and P (one a key) dominate.
+// The mma.sync wide kernel (K1-f32's at D >= 32 before the wgmma kernel;
+// now K2-f32's at D = 24 alone): Q8 in registers, K8 and V staged raw in
+// 32-key tiles, V split as its fragments load, O's n-tiles one at a time; 2
+// blocks an SM.
 //
 // K2-f32 replaces weatherconverter_tpu/ops/attention.py `_flash_kernel_qk_i8`
 // (:125, via `_flash_attention_fwd_i8_impl` :167, pv_int8=False) where JAX
@@ -91,41 +86,40 @@
 // the f32 plain version by 5e-4-2e-3 of max |O| (K3-f32's planted fault in
 // chip_smoke.py phase 2), where this kernel's 3xTF32 P V keeps 1-3e-6. So
 // the score product is the only change from K1-f32:
-//   * S from m16n8k32 s8 x s8 -> s32 mma.sync: Q8 and K8 are K-major as they
-//     lie, so nothing is transposed. Each warp holds its 16 rows of Q8 as A
-//     fragments in registers for the whole walk (D/8 registers a thread);
-//     K8 tiles are staged by cp.async (16-byte pieces, 8-byte at D = 24)
-//     into rows padded to a stride of 4 (mod 8) words, so every B fragment
-//     load is free of bank conflicts. At D = 16 the k32 step has a zero
-//     half, at D = 24 a zero fourth 8-byte piece: Q8's A fragment is zero
-//     there (in registers), so whatever the padding of K8 holds adds 0.
-//   * The s32 accumulators have the f32 m16n8 layout, so a score goes, as in
-//     K1-f32, through p = exp2(clamp) straight into the split A fragments of
-//     P V. The score is converted exactly: |s| <= 127 * 127 * 192 < 2^22,
-//     so int_as_float(s + 0x4B400000) - 1.5 * 2^23 = s (an integer add and
-//     a subtraction), then scaled by one multiply. K2's magic-bias FMA, which
+//   * S from m16n8k32 s8 x s8 -> s32 mma.sync, each warp's 16 rows of Q8 as
+//     A fragments in registers for the whole walk (D/8 registers a thread);
+//     K8 tiles staged into rows padded to a stride of 4 (mod 8) words, so
+//     every B fragment load is free of bank conflicts (by cp.async in the
+//     mma.sync kernels, by the producer's 16-byte copies in the wgmma
+//     kernel). At D = 16 the k32 step has a zero half, at D = 24 a zero
+//     fourth 8-byte piece: Q8's A fragment is zero there (in registers), so
+//     whatever the padding of K8 holds adds 0.
+//   * The s32 accumulators have the f32 m16n8 layout, which is also a warp's
+//     share of wgmma's m64 accumulator, so a score goes, as in K1-f32,
+//     through p = exp2(clamp) straight into the split A fragments of P V.
+//     The score is converted exactly: |s| <= 127 * 127 * 192 < 2^22, so
+//     int_as_float(s + 0x4B400000) - 1.5 * 2^23 = s (an integer add and a
+//     subtraction), then scaled by one multiply. K2's magic-bias FMA, which
 //     folds the subtraction into the scaling, rounds its constant: every
 //     score moves alike, a common factor of p and l that cancels in O, but
 //     not where the clamp fires, and at the clamp rails it missed the f32
 //     plain version by 7e-4-1.4e-3 of max |O| (tests/test_torch_kernels.py).
 //     cvt.rn.f32.s32 and a multiply, as exact, spilled 4 bytes at D = 24,
 //     where the narrow kernel holds 128 registers for its 4 blocks an SM (as
-//     did this exact form, so K2-f32 takes the wide kernel there);
+//     did this exact form, so K2-f32 takes the mma.sync wide kernel there);
 //     timed once against the FMA on an H100 (700 W, the forward alone, B*H =
 //     32, probes/time_flash.py beside a copy of this file) it took
 //     0.984-1.003x the FMA's time at the seven shapes of chip_smoke.py's
 //     phase 2.
+//   * Its kernel by head dim: the narrow kernel at D = 16, the mma.sync wide
+//     kernel at 24, the wgmma kernel from 32 on, with two consumers at D = 32
+//     only (at 64 two took 1.18x one's time, each beside the mma.sync wide
+//     kernel in its own call: the int8 scores leave the consumers little to
+//     overlap).
 // What bounds it: the int8 products are 1/12 of the 3xTF32 ones (2 N^2 D a
 // head at 1,979 TOP/s against 3 x 2 N^2 D at 494.7 TFLOP/s), so the bound is
 // about half K1-f32's: at (4096, 64), B*H = 32, 0.035 + 0.417 ms of tensor
-// work against 0.139 ms of exponentials. Both kernels keep their K1-f32
-// tiling: the narrow kernel (K2-f32 at D = 16) splits each staged V tile
-// once for the block, the wide kernel (D = 24-192) splits V as it loads it
-// and needs no Q staging (Q8 lives in registers).
-// Measured on an H100 (700 W, B*H = 32, chip_smoke.py phase 2; PERF.md
-// section 6), K2-f32 whole (its quantizer included) is 1.0-2.0x faster than
-// K1-f32 at the UNet's four shapes and (1024, 192), at 18-26 % of its bound
-// (equal to K1-f32 at (4096, 16), where the exponentials and the split bind).
+// work against 0.139 ms of exponentials.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -144,8 +138,15 @@ using wcflash::ld32;
 using wcflash::mma_s8;
 using wcflash::smem_u32;
 using wctf32::c_to_a;
+using wctf32::Cols;
 using wctf32::ex2;
+using wctf32::Fill;
+using wctf32::kEmptyA;
+using wctf32::kEmptyB;
+using wctf32::kFullA;
+using wctf32::kFullB;
 using wctf32::mma_3xtf32;
+using wctf32::Plane;
 using wctf32::split;
 
 constexpr int kWarps = 4;
@@ -204,36 +205,7 @@ struct F32Narrow {
   }
 };
 
-// K1-f32 wide: Q's 64 rows staged raw in shared memory (the copies join the first tile's group), each A
-// fragment scaled and split as it is loaded, as are K's B fragments (wctf32::product_nt).
-template <int D>
-struct F32Wide {
-  using T = float;
-  static constexpr int kStride = D + 4;
-  static constexpr int kQFloats = kRows * kStride;
-  template <int kTileKeys>
-  static constexpr int tile_floats() { return kTileKeys * kStride; }
-  const float* qw;  // this warp's 16 rows
-  const float* k_head;
-  float scale_log2;
-
-  __device__ __forceinline__ F32Wide(const float* k, float scale_log2_, const float*, int, int bh, int n)
-      : qw(nullptr), k_head(k + (size_t)bh * n * D), scale_log2(scale_log2_) {}
-  __device__ __forceinline__ void load_q(const float* __restrict__ q, int bh, int n, int row0, int warp, int, int,
-                                         float* smem, int tid) {
-    qw = smem + warp * 16 * kStride;
-    wctf32::stage_rows<D>(smem, q + (size_t)bh * n * D + (size_t)row0 * D, kRows, kStride, tid, kThreads);
-  }
-  __device__ __forceinline__ void stage_k(float* dst, int key0, int rows, int tid) const {
-    wctf32::stage_rows<D>(dst, k_head + (size_t)key0 * D, rows, kStride, tid, kThreads);
-  }
-  template <int kNt>
-  __device__ __forceinline__ void scores(float (&sc)[kNt][4], const float* ks, const float*, int g, int t) const {
-    wctf32::product_nt<D, kNt>(sc, qw, scale_log2, ks, kStride, g, t);
-  }
-};
-
-// K2-f32, in both kernels: S = int32(Q8 K8^T) * qk_scale on m16n8k32 s8 mma.sync (see the note above).
+// K2-f32 in the mma.sync kernels: S = int32(Q8 K8^T) * qk_scale on m16n8k32 s8 mma.sync (see the note above).
 template <int D>
 struct I8Scores {
   using T = int8_t;
@@ -498,6 +470,243 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma kernel (D = 32-192; see the note at the top): a producer and one
+// or two consumer warpgroups, every plane split once for the block.
+
+// The wgmma kernel's shape at head dim D: kC consumer warpgroups of 64 query rows, tiles of kKeys keys, kNg of
+// P V's n-chunks in flight (Cols).
+template <int D, int kC_, int kKeys_, int kNg_>
+struct WgShape {
+  static constexpr int kC = kC_, kKeys = kKeys_, kNg = kNg_;
+  using Vt = Plane<D, kKeys>;  // a V tile, transposed
+};
+
+// K1-f32's score product in the wgmma kernel: Q's 64 rows, times D^-1/2 log2(e), split into planes once (the
+// consumer's own rows, A of S = Q K^T from shared memory), each K tile split into planes as it lies.
+// Two consumers up to D = 128 (32-key tiles at 128, for shared memory; one n-chunk of P V in flight there, in their
+// 188 registers a thread); one at D = 192.
+template <int D>
+using WgF32Shape = WgShape<D, D <= 128 ? 2 : 1, D <= 64 ? 64 : 32, 1>;
+
+template <int D>
+struct WgF32Scores : WgF32Shape<D> {
+  using T = float;
+  using Sh = WgF32Shape<D>;
+  using Sh::kC;
+  using Sh::kKeys;
+  using Own = Plane<kRows, D>;
+  using Keys = Plane<kKeys, D>;
+  static constexpr int kOwnBytes = 2 * Own::kBytes;
+  static constexpr int kTileBytes = 2 * Keys::kBytes;
+
+  static __device__ __forceinline__ void fill_own(const float* __restrict__ q, size_t head, int row0, uint32_t own,
+                                                  float scale_log2, int ptid) {
+    wctf32::fill_own<D>(q + head + (size_t)row0 * D, own, own + Own::kBytes, scale_log2, ptid);
+  }
+  struct Producer {
+    Fill<kKeys, D, false> kx;
+    __device__ __forceinline__ void load(const float* __restrict__ k, size_t head, int key0, int ptid) {
+      kx.load(k + head + (size_t)key0 * D, ptid);
+    }
+    __device__ __forceinline__ void store(uint32_t tile, int ptid) const {
+      kx.store(tile, tile + Keys::kBytes, 1.f, ptid);
+    }
+  };
+  struct Consumer {
+    __device__ __forceinline__ Consumer(const float*, size_t, int, int, int, int, const float*, int, int) {}
+    __device__ __forceinline__ void scores(float (&s)[1][kKeys / 2], uint32_t own, uint32_t tile,
+                                           const unsigned char*) const {
+      wctf32::scores<D, kKeys, 1>(s, {{own, own + Own::kBytes}}, {{tile, tile + Keys::kBytes}});
+    }
+  };
+};
+
+// K2-f32's score product in the wgmma kernel: I8Scores' (above) on m16n8k32 s8 mma.sync, each warp's 16 rows of
+// Q8 in registers, the K8 tile copied by the producer into rows padded as I8Scores pads them.
+// Two consumers at D = 32 only: at D = 64 they took 1.18x one's time (see the note at the top).
+template <int D>
+using WgI8Shape = WgShape<D, D <= 32 ? 2 : 1, D <= 128 ? 64 : 32, D <= 128 ? Cols<D>::kNc : 1>;
+
+template <int D>
+struct WgI8Scores : WgI8Shape<D> {
+  using T = int8_t;
+  using Sh = WgI8Shape<D>;
+  using Sh::kC;
+  using Sh::kKeys;
+  static constexpr int kSteps = I8Scores<D>::kSteps;
+  static constexpr int kRowBytes = I8Scores<D>::kRowWords * 4;
+  static constexpr int kOwnBytes = 0;
+  static constexpr int kTileBytes = (kKeys * kRowBytes + 1023) / 1024 * 1024;
+  static_assert(D % 16 == 0 && kRowBytes % 16 == 0, "16-byte pieces");
+
+  static __device__ __forceinline__ void fill_own(const int8_t*, size_t, int, uint32_t, float, int) {}
+  struct Producer {
+    static constexpr int kPieces = D / 16;  // a row's
+    static constexpr int kPer = kKeys * kPieces / 128;
+    static_assert(kKeys * kPieces % 128 == 0, "whole rounds of the producer's threads");
+    uint4 x[kPer];
+    __device__ __forceinline__ void load(const int8_t* __restrict__ k8, size_t head, int key0, int ptid) {
+#pragma unroll
+      for (int it = 0; it < kPer; ++it)
+        x[it] = __ldg(reinterpret_cast<const uint4*>(k8 + head + (size_t)key0 * D) + ptid + 128 * it);
+    }
+    __device__ __forceinline__ void store(uint32_t tile, int ptid) const {
+#pragma unroll
+      for (int it = 0; it < kPer; ++it) {
+        const int i = ptid + 128 * it;
+        wctf32::st_shared4(tile + i / kPieces * kRowBytes + i % kPieces * 16, x[it].x, x[it].y, x[it].z, x[it].w);
+      }
+    }
+  };
+  struct Consumer {
+    float scale_log2;  // qk_scale * log2 e
+    int g, t;
+    uint32_t qa[kSteps][4];
+    __device__ __forceinline__ Consumer(const int8_t* __restrict__ q8, size_t head, int row0, int warp, int g_,
+                                        int t_, const float* __restrict__ qk_scale, int heads_per_scale, int bh)
+        : scale_log2(qk_scale[bh / heads_per_scale] * kLog2e), g(g_), t(t_) {
+      const int8_t* qr = q8 + head + (size_t)(row0 + warp * 16) * D;
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) {
+        const int c0 = 32 * s + 4 * t, c1 = c0 + 16;  // c1 < D: D is a multiple of 32 or 16 with c1 past it
+        qa[s][0] = ld32(qr + g * D + c0);
+        qa[s][1] = ld32(qr + (g + 8) * D + c0);
+        qa[s][2] = c1 < D ? ld32(qr + g * D + c1) : 0u;
+        qa[s][3] = c1 < D ? ld32(qr + (g + 8) * D + c1) : 0u;
+      }
+    }
+    __device__ __forceinline__ void scores(float (&s)[1][kKeys / 2], uint32_t, uint32_t,
+                                           const unsigned char* tile) const {
+      const uint32_t* kw = reinterpret_cast<const uint32_t*>(tile);
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        int c[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int st = 0; st < kSteps; ++st) {
+          const uint32_t* r = kw + (8 * j + g) * (kRowBytes / 4) + 8 * st + t;
+          const uint32_t b[2] = {r[0], 32 * st + 16 < D ? r[4] : 0u};
+          mma_s8(c, qa[st], b);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[0][4 * j + e] = (__int_as_float(c[e] + 0x4B400000) - 12582912.f) * scale_log2;
+      }
+    }
+  };
+};
+
+template <int D, class Score>
+__global__ void __launch_bounds__(wctf32::Team<Score::kC>::kThreads, 1)
+    flash_fwd_f32_wgmma_kernel(const typename Score::T* __restrict__ q, const typename Score::T* __restrict__ k,
+                               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ l_out, int n,
+                               float scale_log2, const float* __restrict__ qk_scale, int heads_per_scale) {
+  using Team = wctf32::Team<Score::kC>;
+  using Vt = typename Score::Vt;
+  constexpr int kKeys = Score::kKeys, kC = Score::kC, kNw = Cols<D>::kNw, kNc = Cols<D>::kNc;
+  extern __shared__ unsigned char smem_raw[];
+  const wctf32::SmemBase sm(smem_raw);
+  const uint32_t own = sm.addr;  // [consumer] Score's own planes
+  const uint32_t ktile = own + kC * Score::kOwnBytes;
+  const uint32_t vth = ktile + Score::kTileBytes, vtl = vth + Vt::kBytes;
+  const unsigned char* ktile_ptr = sm.ptr + kC * Score::kOwnBytes;
+
+  const int bh = blockIdx.y, row0 = blockIdx.x * kC * kRows, tiles = n / kKeys;
+  const size_t head = (size_t)bh * n * D;
+  if (Team::producer()) {
+    Team::producer_regs();
+    const int ptid = threadIdx.x - kC * 128;
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+      if (row0 + c * kRows < n)
+        Score::fill_own(q, head, row0 + c * kRows, own + c * Score::kOwnBytes, scale_log2, ptid);
+    for (int t = 0; t < tiles; ++t) {
+      {
+        typename Score::Producer kp;
+        kp.load(k, head, t * kKeys, ptid);
+        if (t > 0) Team::sync(kEmptyA);
+        kp.store(ktile, ptid);
+        wcflash::fence_async_proxy();
+        Team::arrive(kFullA);
+      }
+      Fill<kKeys, D, true> vx;
+      vx.load(v + head + (size_t)t * kKeys * D, ptid);
+      if (t > 0) Team::sync(kEmptyB);
+      vx.store(vth, vtl, 1.f, ptid);
+      wcflash::fence_async_proxy();
+      Team::arrive(kFullB);
+    }
+    return;
+  }
+
+  // consumer c: warp w owns query rows 16w..16w+15 of its 64; this thread rows g and g + 8. A consumer past the
+  // last row (n an odd multiple of 64) runs on whatever its planes hold and stores nothing.
+  Team::consumer_regs();
+  const int c = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  const int crow0 = row0 + c * kRows;
+  const bool active = crow0 < n;
+  const uint32_t mine = own + c * Score::kOwnBytes;
+  const typename Score::Consumer score(q, head, active ? crow0 : row0, warp, g, t4, qk_scale, heads_per_scale, bh);
+  float tot[kNc][kNw / 2] = {};  // O's n-chunks, summed over the tiles
+  float l_g = 0.f, l_g8 = 0.f;   // rows g and g + 8: this thread's columns
+  for (int t = 0; t < tiles; ++t) {
+    Team::sync(kFullA);
+    float s[1][kKeys / 2];  // S (exp2 domain): columns 8j..8j+7 hold keys 8j..8j+7
+    score.scores(s, mine, ktile, ktile_ptr);
+    if (t + 1 < tiles) Team::arrive(kEmptyA);
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[0][4 * j + e] = ex2(fminf(fmaxf(s[0][4 * j + e], -kClampLog2), kClampLog2));
+      l_g += s[0][4 * j] + s[0][4 * j + 1];
+      l_g8 += s[0][4 * j + 2] + s[0][4 * j + 3];
+    }
+    Team::sync(kFullB);
+    wctf32::accumulate<D, kKeys / 8, Score::kNg>(tot, vth, vtl, [&](int j, uint32_t(&ah)[4], uint32_t(&al)[4]) {
+      const float cf[4] = {s[0][4 * j], s[0][4 * j + 1], s[0][4 * j + 2], s[0][4 * j + 3]};
+      c_to_a(cf, ah, al);
+    });
+    if (t + 1 < tiles) Team::arrive(kEmptyB);
+  }
+  if (!active) return;
+
+  l_g += __shfl_xor_sync(0xffffffffu, l_g, 1);
+  l_g += __shfl_xor_sync(0xffffffffu, l_g, 2);
+  l_g8 += __shfl_xor_sync(0xffffffffu, l_g8, 1);
+  l_g8 += __shfl_xor_sync(0xffffffffu, l_g8, 2);
+  const int r0 = crow0 + warp * 16;
+  if (l_out != nullptr && t4 == 0) {
+    l_out[(size_t)bh * n + r0 + g] = l_g;
+    l_out[(size_t)bh * n + r0 + g + 8] = l_g8;
+  }
+  const float inv_g = 1.f / l_g, inv_g8 = 1.f / l_g8;
+  float* og = o + head + (size_t)r0 * D;
+#pragma unroll
+  for (int h = 0; h < kNc; ++h)
+#pragma unroll
+    for (int j = 0; j < kNw / 8; ++j) {
+      const int col = h * kNw + 8 * j + 2 * t4;
+      const float* cf = &tot[h][4 * j];
+      *reinterpret_cast<float2*>(og + g * D + col) = make_float2(cf[0] * inv_g, cf[1] * inv_g);
+      *reinterpret_cast<float2*>(og + (g + 8) * D + col) = make_float2(cf[2] * inv_g8, cf[3] * inv_g8);
+    }
+}
+
+template <int D, class Score>
+cudaError_t launch_wgmma(const typename Score::T* q, const typename Score::T* k, const float* v, float* o, float* l,
+                         int bh, int n, float scale_log2, const float* qk_scale, int heads_per_scale,
+                         cudaStream_t stream) {
+  constexpr int smem = 1024 + Score::kC * Score::kOwnBytes + Score::kTileBytes + 2 * Score::Vt::kBytes;
+  static_assert(smem <= 232448, "a block's shared memory");
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_wgmma_kernel<D, Score>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int row_blocks = n / kRows;
+  flash_fwd_f32_wgmma_kernel<D, Score><<<dim3((row_blocks + Score::kC - 1) / Score::kC, bh),
+                                         wctf32::Team<Score::kC>::kThreads, smem, stream>>>(
+      q, k, v, o, l, n, scale_log2, qk_scale, heads_per_scale);
+  return cudaGetLastError();
+}
+
 // One launch at head dim D with score product Score: the narrow kernel if kNarrow, else the wide one.
 template <int D, class Score, bool kNarrow>
 cudaError_t launch(const typename Score::T* q, const typename Score::T* k, const float* v, float* o, float* l,
@@ -522,8 +731,10 @@ cudaError_t launch(const typename Score::T* q, const typename Score::T* k, const
 template <int D>
 cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o, float* l, int bh, int n,
                        float scale, cudaStream_t stream) {
-  using Score = std::conditional_t<(D < 32), F32Narrow<D>, F32Wide<D>>;
-  return launch<D, Score, (D < 32)>(q, k, v, o, l, bh, n, scale * kLog2e, nullptr, 1, stream);
+  if constexpr (D < 32)
+    return launch<D, F32Narrow<D>, true>(q, k, v, o, l, bh, n, scale * kLog2e, nullptr, 1, stream);
+  else
+    return launch_wgmma<D, WgF32Scores<D>>(q, k, v, o, l, bh, n, scale * kLog2e, nullptr, 1, stream);
 }
 
 // K2-f32 at head dim D: the narrow kernel at D = 16 only. At D = 24 it spilled 4 bytes in the narrow kernel's 128
@@ -531,7 +742,10 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
 template <int D>
 cudaError_t launch_i8(const int8_t* q8, const int8_t* k8, const float* v, const float* qk_scale, float* o, int bh,
                       int n, int heads_per_scale, cudaStream_t stream) {
-  return launch<D, I8Scores<D>, (D == 16)>(q8, k8, v, o, nullptr, bh, n, 0.f, qk_scale, heads_per_scale, stream);
+  if constexpr (D < 32)
+    return launch<D, I8Scores<D>, (D == 16)>(q8, k8, v, o, nullptr, bh, n, 0.f, qk_scale, heads_per_scale, stream);
+  else
+    return launch_wgmma<D, WgI8Scores<D>>(q8, k8, v, o, nullptr, bh, n, 0.f, qk_scale, heads_per_scale, stream);
 }
 
 // The build (ops/cuda_build.VARIANTS) compiles this file once for each head

@@ -133,6 +133,29 @@ def attention_roofline(peak: dict | None, shape, backward: bool = False, qk_int8
     return _bound({"hbm": bh * n * 4 * d * 2 / peak["hbm"], **tensor, "ex2": ex2})
 
 
+def bound_text(bound: dict, ms: float) -> str:
+    """A bound, what binds it, and the share of it that a kernel taking `ms` reaches."""
+    if bound["bound_ms"] is None:
+        return "bound not known for this card"
+    share = bound["bound_ms"] / ms
+    return f"bound {bound['bound_ms']:.4f} ms ({bound['binds']} binds; the kernel at {share:.0%} of it)"
+
+
+def sdpa_ms(q, k, v, do=None) -> float:
+    """torch's scaled_dot_product_attention on a kernel's inputs: the
+    forward, or with `do` the backward alone (autograd on a retained graph,
+    the forward's time left out). It equals the clamped softmax where no
+    |score| passes 60, which holds for N(0,1) inputs. A yardstick: the port
+    never calls it."""
+    import torch.nn.functional as F
+
+    if do is None:
+        return time_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=20)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    return time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps=20)
+
+
 def f32_fma_ms(peak: dict | None, shape) -> float | None:
     """The time the f32 forward's two products (4 N^2 D FLOPs a head) take
     as f32 FMAs outside the tensor cores: K1-f32's first design's bound,

@@ -13,8 +13,14 @@ attention shapes, bf16, each kernel (K1 `flash_attention`, K3
 checkout alone: K2 apart (the quantizer, the eager quantization it replaces,
 the forward on quantized inputs). Last, K1-f32 `flash_attention_f32` at
 F32_SHAPES (the default UNet's (4096, 16) and the legacy UNet's two, f32,
-TF32 off) in the same turns, each checkout's max|err|/max|ref| against the
-plain version printed beside its time. Last, K2-f32's forward
+TF32 off) and at the f32 training path's wide head dims F32_WIDE_SHAPES
+(K1-f32's wgmma kernel) in the same turns, each checkout's max|err|/max|ref|
+against the plain version printed beside its time, with the shape's bound
+and scaled_dot_product_attention's f32 forward. Then K3-f32
+`flash_attention_bwd_f32` at F32_BWD_SHAPES (the path shapes and the 256 px
+UNet's (1024, 192)) in the same turns, each checkout's largest
+max|err|/max|ref| of dQ, dK and dV, the bound and sdpa's f32 backward alone
+beside it. Last, K2-f32's forward
 (`flash_qk_i8_forward` on an f32 V: K1-f32's kernels with int8 scores) at
 QK_I8_F32_SHAPES in the same turns (the other checkout must have K2-f32),
 each with its max|err|/max|ref| against the f32 plain version, and this
@@ -36,6 +42,8 @@ from weatherconverter_tpu_torch.probes import common, micro_attn
 PACKAGE = A.__name__.split(".")[0]
 SHAPES = [(8, 4, 4096, 64), (8, 4, 1024, 128), (8, 4, 1024, 32), (8, 4, 4096, 16)]
 F32_SHAPES = [(8, 4, 4096, 16), (8, 4, 1024, 16), (8, 4, 1024, 24)]
+F32_WIDE_SHAPES = [(8, 4, 4096, 64), (8, 4, 1024, 128), (8, 4, 1024, 32), (8, 4, 1024, 192)]
+F32_BWD_SHAPES = SHAPES + [(8, 4, 1024, 192)]
 QK_I8_F32_SHAPES = SHAPES + [(8, 4, 1024, 16), (8, 4, 1024, 24), (8, 4, 1024, 192)]
 THIS = types.SimpleNamespace(attention=A, micro_attn=micro_attn)
 
@@ -93,10 +101,27 @@ def run(device, card: str, other=None) -> None:
                    f"({eager / quant:.1f}x), the forward alone {sum(fwd) / 2:.4f} ms (runs {_runs(fwd)}) [{card}]")
 
 
+def _turns(other):
+    return [("this", THIS)] if other is None else [("other", other), ("this", THIS), ("this", THIS), ("other", other)]
+
+
+def _bound_line(card: str, shape, ms: float, **kind) -> str:
+    return common.bound_text(common.attention_roofline(common.peaks(card), shape, f32=True, **kind), ms)
+
+
+def _compare(name, shape, ms, errs, other, card, tail="") -> None:
+    line = (f"{name} {shape}: this {sum(ms['this']) / len(ms['this']):.4f} ms (runs {_runs(ms['this'])}), "
+            f"max|err|/max|ref| {errs['this']:.2e}")
+    if other is not None:
+        line += (f", other {sum(ms['other']) / 2:.4f} ms (runs {_runs(ms['other'])}), other/this "
+                 f"{sum(ms['other']) / sum(ms['this']):.3f}x, max|err|/max|ref| {errs['other']:.2e}")
+    common.log(f"{line}{tail} [{card}]")
+
+
 def run_f32(device, card: str, other=None) -> None:
     gen = torch.Generator(device=device).manual_seed(1)
-    turns = [("this", THIS)] if other is None else [("other", other), ("this", THIS), ("this", THIS), ("other", other)]
-    for shape in F32_SHAPES:
+    turns = _turns(other)
+    for shape in F32_SHAPES + F32_WIDE_SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
         ref = A.flash_attention_plain(q, k, v)
         ms = {"this": [], "other": []}
@@ -104,17 +129,36 @@ def run_f32(device, card: str, other=None) -> None:
             ms[who].append(common.time_ms(lambda: checkout.attention.flash_attention_f32(q, k, v), reps=20))
         errs = {who: ((checkout.attention.flash_attention_f32(q, k, v) - ref).abs().max() / ref.abs().max()).item()
                 for who, checkout in dict(turns).items()}
-        line = (f"K1-f32 flash_attention_f32 {shape}: this {sum(ms['this']) / len(ms['this']):.4f} ms "
-                f"(runs {_runs(ms['this'])}), max|err|/max|ref| {errs['this']:.2e}")
-        if other is not None:
-            line += (f", other {sum(ms['other']) / 2:.4f} ms (runs {_runs(ms['other'])}), other/this "
-                     f"{sum(ms['other']) / sum(ms['this']):.2f}x, max|err|/max|ref| {errs['other']:.2e}")
-        common.log(f"{line} [{card}]")
+        mine = sum(ms["this"]) / len(ms["this"])
+        _compare("K1-f32 flash_attention_f32", shape, ms, errs, other, card,
+                 f"; {_bound_line(card, shape, mine)}, sdpa forward in f32 {common.sdpa_ms(q, k, v):.4f} ms")
+
+
+def run_bwd_f32(device, card: str, other=None) -> None:
+    gen = torch.Generator(device=device).manual_seed(3)
+    turns = _turns(other)
+    for shape in F32_BWD_SHAPES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=device) for _ in range(4))
+        o, l = A.flash_attention_plain(q, k, v, return_l=True)
+        args = (q, k, v, o, do, l)
+        ref = A.flash_attention_bwd_plain(*args)
+        ms = {"this": [], "other": []}
+        for who, checkout in turns:
+            ms[who].append(common.time_ms(lambda: checkout.attention.flash_attention_bwd_f32(*args), reps=20))
+        errs = {who: max(((g - r).abs().max() / r.abs().max()).item()
+                         for g, r in zip(checkout.attention.flash_attention_bwd_f32(*args), ref))
+                for who, checkout in dict(turns).items()}
+        mine = sum(ms["this"]) / len(ms["this"])
+        _compare("K3-f32 flash_attention_bwd_f32", shape, ms, errs, other, card,
+                 f"; {_bound_line(card, shape, mine, backward=True)}, sdpa backward alone in f32 "
+                 f"{common.sdpa_ms(q, k, v, do):.4f} ms")
+        del q, k, v, do, o, l, args, ref
+        torch.cuda.empty_cache()
 
 
 def run_qk_i8_f32(device, card: str, other=None) -> None:
     gen = torch.Generator(device=device).manual_seed(2)
-    turns = [("this", THIS)] if other is None else [("other", other), ("this", THIS), ("this", THIS), ("other", other)]
+    turns = _turns(other)
     for shape in QK_I8_F32_SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
         q8, k8, qk_scale = A.quantize_qk_i8(q, k)
@@ -128,13 +172,9 @@ def run_qk_i8_f32(device, card: str, other=None) -> None:
         whole = common.time_ms(lambda: A.flash_attention_qk_i8(q, k, v), reps=20)
         quant = common.time_ms(lambda: A.quantize_qk_i8(q, k), reps=20)
         k1 = common.time_ms(lambda: A.flash_attention_f32(q, k, v), reps=20)
-        line = (f"K2-f32 flash_qk_i8_forward f32 {shape}: this {sum(ms['this']) / len(ms['this']):.4f} ms "
-                f"(runs {_runs(ms['this'])}), max|err|/max|ref| {errs['this']:.2e}")
-        if other is not None:
-            line += (f", other {sum(ms['other']) / 2:.4f} ms (runs {_runs(ms['other'])}), other/this "
-                     f"{sum(ms['other']) / sum(ms['this']):.3f}x, max|err|/max|ref| {errs['other']:.2e}")
-        common.log(f"{line}; this checkout's K2-f32 whole {whole:.4f} ms, quantize_qk_i8 on f32 {quant:.4f} ms, "
-                   f"K1-f32 {k1:.4f} ms [{card}]")
+        _compare("K2-f32 flash_qk_i8_forward f32", shape, ms, errs, other, card,
+                 f"; this checkout's K2-f32 whole {whole:.4f} ms ({_bound_line(card, shape, whole, qk_int8=True)}), "
+                 f"quantize_qk_i8 on f32 {quant:.4f} ms, K1-f32 {k1:.4f} ms")
 
 
 def main(argv=None) -> int:
@@ -147,6 +187,7 @@ def main(argv=None) -> int:
     other = load_checkout(argv[0]) if argv else None
     run(torch.device("cuda"), card, other)
     run_f32(torch.device("cuda"), card, other)
+    run_bwd_f32(torch.device("cuda"), card, other)
     run_qk_i8_f32(torch.device("cuda"), card, other)
     return 0
 
