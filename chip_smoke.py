@@ -30,7 +30,9 @@ Phases, each of which fails the run (exit code != 0, no result line):
      planted fault) beyond the limit, beside its bound and sdpa's f32
      backward; one forward and backward of the
      256 px UNet in f32 (K1-f32 and K3-f32 at its twelve flash-length
-     layers) and under bf16 (K1 and K3), and one forward of it with qk_int8
+     layers; then a warm one at batch 2 under the profiler: device ms, idle
+     share, launches, K3-f32's share) and under bf16 (K1 and K3), and one
+     forward of it with qk_int8
      in f32 (K2-f32 at all twelve) and under bf16 (K2 at all twelve, D = 192
      included); K2-f32 (int8 Q K^T, P V in 3xTF32) and its quantizer on f32
      q and k at the four path shapes, (1024, 16), (1024, 24) and (1024,
@@ -880,7 +882,8 @@ def phase_unet_256(torch, A, device):
     """One forward and backward of the default ladder at im_size 256 (batch 1,
     random weights from a seed) under bf16 autocast: its twelve flash-length
     layers, four of them at D = 192, go through K1 and K3; and in f32 (TF32
-    off) through K1-f32 and K3-f32. With qk_int8 a forward takes K2 at all
+    off) through K1-f32 and K3-f32, then a warm, profiled f32 step at batch 2
+    (unet_256_f32_profile). With qk_int8 a forward takes K2 at all
     twelve under bf16, and in f32 K2-f32 at all twelve (the CLI's f32 UNet
     at 256 px)."""
     from weatherconverter_tpu_torch.core.config import UnetModelConfig
@@ -903,6 +906,7 @@ def phase_unet_256(torch, A, device):
                              "or not finite")
     log(f"  the default UNet at im_size 256, batch 1, f32 (TF32 off): forward and backward in "
         f"{(time.perf_counter() - t0) * 1e3:.0f} ms (first call), K1-f32 and K3-f32 launched {counts[0]} times each")
+    unet_256_f32_profile(torch, A, device, model, len(shapes))
     model.zero_grad(set_to_none=True)
     A.flash_attention.launches = A.flash_attention_bwd.launches = 0
     t0 = time.perf_counter()
@@ -951,6 +955,37 @@ def phase_unet_256(torch, A, device):
     log(f"  the same UNet with qk_int8 under bf16 autocast: a forward takes K2 and its quantizer at all its "
         f"{counts[1]} flash-length layers, by head dim {by_d} (4 at D = 192); output finite")
     return by_d[192]
+
+
+def unet_256_f32_profile(torch, A, device, model, flash_layers, batch=2):
+    """One warm f32 forward and backward (TF32 off) of the 256 px UNet `model` at `batch`, under the profiler
+    (device activity only): its device ms, idle share and launches, and the device ms of K3-f32 (all its launches,
+    and those at D = 192) and K1-f32. The first of two such steps takes batch's first shapes, the second is
+    profiled; each flash-length layer must launch K1-f32 and K3-f32 once. Returns (device ms, K3-f32 ms, K3-f32 ms
+    at D = 192)."""
+    x = torch.randn((batch, 3, 256, 256), generator=torch.Generator(device=device).manual_seed(8), device=device)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        model(x, 5).square().mean().backward()
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False):
+        step()
+        torch.cuda.synchronize()
+        A.flash_attention_f32.launches = A.flash_attention_bwd_f32.launches = 0
+        wall, dev_ms, launches, ranked = _device_profile(torch, step, 1, top=10**6)
+    counts = (A.flash_attention_f32.launches, A.flash_attention_bwd_f32.launches)
+    if counts != (flash_layers, flash_layers):
+        raise AssertionError(f"256 px UNet in f32 at batch {batch}: launches (K1-f32, K3-f32) {counts}, expected "
+                             f"{flash_layers} each")
+    k3 = sum(ms for name, ms, _ in ranked if "flash_bwd_f32" in name)
+    k3_192 = sum(ms for name, ms, _ in ranked if "flash_bwd_f32" in name and "<192" in name)
+    k1 = sum(ms for name, ms, _ in ranked if "flash_fwd_f32" in name)
+    log(f"  the same UNet in f32 at batch {batch}, warm, one profiled forward and backward: wall {wall:.1f} ms, "
+        f"device {dev_ms:.2f} ms, idle share {max(0.0, 1 - dev_ms / wall):.2f}, {launches} kernel launches; K3-f32 "
+        f"{k3:.3f} ms ({k3 / dev_ms:.1%} of device time; at D = 192, 4 of its {counts[1]} launches, {k3_192:.3f} ms, "
+        f"{k3_192 / dev_ms:.1%}), K1-f32 {k1:.3f} ms ({k1 / dev_ms:.1%})")
+    return dev_ms, k3, k3_192
 
 
 def build_models(torch):
@@ -3759,7 +3794,7 @@ def _round(x):
 
 PTXAS_KERNELS = ("flash_fwd_qk_i8_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                  "flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
-                 "flash_fwd_f32_wgmma_kernel", "flash_bwd_f32_dq_kernel", "flash_bwd_f32_dkv_kernel",
+                 "flash_fwd_f32_wgmma_kernel", "flash_bwd_f32_dq_pair_kernel", "flash_bwd_f32_dkv_pair_kernel",
                  "flash_bwd_f32_dq_wgmma_kernel", "flash_bwd_f32_dkv_wgmma_kernel", "absmax_qk_kernel",
                  "quantize_qk_kernel",
                  "probe_exp2_attn_wgmma_kernel", "probe_qk_kernel", "probe_dw3x3_kernel",

@@ -535,10 +535,11 @@ def test_flash_qk_i8_f32_kernel_takes_head_split_views(cuda):
 
 # One tile and an odd multiple of 64 at every head dim of the f32 wgmma
 # kernels: their staged tiles are 64 keys (32 at D = 192) for K1-f32 and
-# K2-f32, 64 rows (32 at D = 128) for K3-f32, which keeps its mma.sync passes
-# at D = 192
+# K2-f32, 64 rows (32 from D = 64) for K3-f32. K3-f32's pair passes at D =
+# 192 (a block of 64 rows shared by two consumers, 32-row walked tiles, dK
+# and dV in one launch) also at an odd B*H over several blocks.
 F32_WGMMA_EDGE_SHAPES = [(1, 2, n, d) for n in (64, 1088) for d in (32, 64, 128, 192)]
-F32_BWD_EDGE_SHAPES = [(1, 2, n, d) for n in (64, 1088) for d in (16, 32, 64, 128, 192)]
+F32_BWD_EDGE_SHAPES = [(1, 2, n, d) for n in (64, 1088) for d in (16, 32, 64, 128, 192)] + [(3, 5, 256, 192)]
 
 
 @pytest.mark.gpu
@@ -568,6 +569,25 @@ def test_flash_bwd_f32_kernel_at_one_tile_and_an_odd_tile_count(cuda, shape):
                                  A.flash_attention_bwd_f32(*args)):
         assert torch.isfinite(g).all() and _rel_err(g, r) <= F32_BWD_REL_TOL, (name, _rel_err(g, r))
         assert torch.equal(g, again), name
+
+
+@pytest.mark.gpu
+def test_flash_bwd_f32_limit_refuses_one_tf32_pass_at_d192(cuda):
+    """The planted fault of chip_smoke.py's K3-f32 gate at D = 192: the plain
+    backward with f32 matmuls in one TF32 pass breaks F32_BWD_REL_TOL, which
+    the kernel (three TF32 passes a product) keeps."""
+    args = _f32_bwd_args((2, 4, 1024, 192), cuda, seed=19)
+    with _no_tf32():
+        ref = A.flash_attention_bwd_plain(*args)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        fault = A.flash_attention_bwd_plain(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    got = A.flash_attention_bwd_f32(*args)
+    assert max(_rel_err(f, r) for f, r in zip(fault, ref)) > F32_BWD_REL_TOL
+    assert max(_rel_err(g, r) for g, r in zip(got, ref)) <= F32_BWD_REL_TOL
 
 
 @pytest.mark.gpu

@@ -265,8 +265,9 @@ def test_quantize_qk_i8_refuses_gradients():
 # f32 against f32, as tests/test_ops.py:519-527 holds the JAX backwards to
 # each other: the same sums in another order
 BWD_TOL = 3e-4
-# (the last two: the default UNet's wide head dims, which the f32 flash backward, K3-f32, serves on the card)
-BWD_SHAPES = [(1, 2, 1024, 32), (1, 2, 256, 16), (1, 1, 1024, 64), (1, 1, 1024, 128)]
+# (the last three: the wide head dims of the default UNet and of its 256 px ladder's 768-channel blocks, which the
+# f32 flash backward, K3-f32, serves on the card)
+BWD_SHAPES = [(1, 2, 1024, 32), (1, 2, 256, 16), (1, 1, 1024, 64), (1, 1, 1024, 128), (1, 1, 256, 192)]
 
 
 def _bwd_case(shape, seed, qk_scale):

@@ -17,15 +17,14 @@
 //
 // Two designs share these pieces:
 //   * mma.sync.m16n8k8.tf32, a warp's 16 rows at a time (the first half of
-//     this file): K1-f32's narrow kernel (D = 16, 24), K2-f32's at D = 16 and
-//     24, and K3-f32 at D = 192. Operands lie in shared memory as f32 rows
-//     padded to D + 4 floats, so every fragment load is free of bank
-//     conflicts; the narrow kernel splits each staged tile once for the
-//     block, K3-f32 at D = 192 as each fragment is loaded (5 integer/float
-//     operations an element).
+//     this file): K1-f32's narrow kernel (D = 16, 24) and K2-f32's at D = 16
+//     and 24. Operands lie in shared memory as f32 rows padded to D + 4
+//     floats, so every fragment load is free of bank conflicts; the narrow
+//     kernel splits each staged tile once for the block.
 //   * wgmma.mma_async m64nNk8 .tf32 on planes split once a block (the second
 //     half, after the note there): K1-f32 and K2-f32 at D = 32-192, K3-f32
-//     at D = 16-128.
+//     at every head dim (at D = 192 its own rows raw, split as each register
+//     fragment loads: flash_bwd_f32.cu's pair design).
 //
 // mma.sync.m16n8k8 with .tf32 (PTX ISA), lane = 4*g + t:
 //   A (16x8):  a0 (row g, col t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
@@ -77,25 +76,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4
   mma_tf32(d, ah, bh0, bh1);
 }
 
-// A fragment of columns c0..c0+7 of a warp's 16 rows (row-major, `stride`), times `mul`, split.
-__device__ __forceinline__ void load_a(uint32_t (&ah)[4], uint32_t (&al)[4], const float* rows, int stride, int c0,
-                                       int g, int t, float mul) {
-  const float* r = rows + g * stride + c0 + t;
-  split(r[0] * mul, ah[0], al[0]);
-  split(r[8 * stride] * mul, ah[1], al[1]);
-  split(r[4] * mul, ah[2], al[2]);
-  split(r[8 * stride + 4] * mul, ah[3], al[3]);
-}
-
-// B fragment of a product whose reduction runs along the staged rows' columns
-// (Q K^T: B[k][n] = tile[n0 + n][c0 + k]), split.
-__device__ __forceinline__ void load_b_cols(uint32_t (&bh)[2], uint32_t (&bl)[2], const float* tile, int stride,
-                                            int n0, int c0, int g, int t) {
-  const float* r = tile + (n0 + g) * stride + c0 + t;
-  split(r[0], bh[0], bl[0]);
-  split(r[4], bh[1], bl[1]);
-}
-
 // B fragment of a product whose reduction runs along the staged rows (P V:
 // B[k][n] = tile[r0 + key(k)][c0 + n], k = t <- row 2t, k = t + 4 <- row
 // 2t + 1), each row times its multiplier, split.
@@ -112,34 +92,6 @@ __device__ __forceinline__ void c_to_a(const float (&c)[4], uint32_t (&ah)[4], u
   split(c[2], ah[1], al[1]);
   split(c[1], ah[2], al[2]);
   split(c[3], ah[3], al[3]);
-}
-
-// out = (a_rows * mul) tile^T for a warp's 16 rows against kNt * 8 staged
-// rows, both D wide: kNt C fragments. The D-long sums run in chains of
-// kChain k-steps joined by FADD.
-template <int D, int kNt>
-__device__ __forceinline__ void product_nt(float (&out)[kNt][4], const float* a_rows, float mul, const float* tile,
-                                           int stride, int g, int t) {
-  constexpr int kSteps = D / 8;
-#pragma unroll
-  for (int c0 = 0; c0 < kSteps; c0 += kChain) {
-    float part[kNt][4] = {};
-#pragma unroll
-    for (int s = c0; s < c0 + kChain && s < kSteps; ++s) {
-      uint32_t ah[4], al[4];
-      load_a(ah, al, a_rows, stride, 8 * s, g, t, mul);
-#pragma unroll
-      for (int j = 0; j < kNt; ++j) {
-        uint32_t bh[2], bl[2];
-        load_b_cols(bh, bl, tile, stride, 8 * j, 8 * s, g, t);
-        mma_3xtf32(part[j], ah, al, bh[0], bh[1], bl[0], bl[1]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kNt; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out[j][e] = c0 == 0 ? part[j][e] : out[j][e] + part[j][e];
-  }
 }
 
 // tot += a tile for a warp's 16 rows: a is kNt split A fragments (16 x kNt*8,

@@ -618,8 +618,11 @@ def flash_attention_bwd_f32(q, k, v, o, do, l):
     and l (B, H, N, 1) f32 from the forward -> (dq, dk, dv) f32, every sum in
     f32 and every product in 3xTF32, as K1-f32. A CPU tensor takes
     `flash_attention_bwd_plain`; a CUDA tensor launches the kernel's passes
-    (dQ, then dK/dV, dV and dK apart at D >= 128) or raises. Head dims
-    F32_BWD_HEAD_DIMS."""
+    (dQ, then dK/dV, dV and dK apart at D = 128) or raises. Head dims
+    F32_BWD_HEAD_DIMS; N a multiple of 64 (each pass's blocks own 64 rows; at
+    D = 192 two consumers share them) and B*H at most 65535 (the grid's
+    second dimension), refused by name before a launch
+    (`check_kernel_shape`)."""
     return _k3_f32_op(q, k, v, o, do, l)
 
 
