@@ -19,8 +19,11 @@ Phases, each of which fails the run (exit code != 0, no result line):
      batch row (the server's): the quantizer equal to its plain version, K2
      within the forward gate, row 0 of a batch whose row 1 is scaled 100x
      equal to row 0 alone, each timed beside its bound, the eager and sdpa
-     times; K1 and K3 also at the 256 px UNet's (N, D) =
-     (1024, 192), K1 at the legacy UNet's (1024, 24) (D = 32 tiles with
+     times; K1, K2 and K3 also at the 256 px UNet's (N, D) =
+     (1024, 192) (K1 and K2 there on csrc/flash_fwd_wide.cuh's block of two
+     consumer warpgroups; K2's time split into its forward alone and the
+     quantizer, beside the quantizer's bytes bound), K1 at the legacy
+     UNet's (1024, 24) (D = 32 tiles with
      zero-filled tails), K1-f32 (3xTF32 on the tensor cores) at the legacy
      UNet's (1024, 16) and (1024, 24), at the four path shapes and at
      (1024, 192) in f32, within 1e-5 of max |ref| (beside its f32 FMA bound
@@ -460,7 +463,7 @@ def phase_kernels(torch, A, device, card):
     its roofline bound and the library call's time; returns {name:
     dict(err, ms, plain_ms, library_ms, bound)} with sums over the shapes."""
     from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, bound_text, peaks,
-                                                          sdpa_ms, time_ms)
+                                                          quantizer_roofline, sdpa_ms, time_ms)
 
     gen = torch.Generator(device=device).manual_seed(0)
     results = {}
@@ -488,8 +491,16 @@ def phase_kernels(torch, A, device, card):
                 + (" [the 256 px UNet's shape: not in the sums]" if shape == D192_SHAPE else "")
                 + (" [the legacy UNet's attn_up2, D = 24 on zero-filled 32-wide tiles: not in the sums]"
                    if shape == D24_SHAPE else ""))
+            if kernel is A.flash_attention_qk_i8 and shape == D192_SHAPE:  # K2 whole, split
+                q8, k8, qk_scale = A.quantize_qk_i8(q, k)
+                quant_ms = time_ms(lambda: A.quantize_qk_i8(q, k), reps=20)
+                fwd_ms = time_ms(lambda: A.flash_qk_i8_forward(q8, k8, qk_scale, v), reps=20)
+                log(f"    K2 at D = 192 apart: the forward alone {fwd_ms:.4f} ms, quantize_qk_i8 {quant_ms:.4f} ms "
+                    f"({bound_text(quantizer_roofline(peaks(card), shape), quant_ms)}), K2 whole {k_ms:.4f} ms, "
+                    f"sdpa forward {lib_ms:.4f} ms")
+                del q8, k8, qk_scale
             if shape in (D192_SHAPE, D24_SHAPE):
-                if kernel is A.flash_attention_qk_i8:  # K2's own lines in the kernels line
+                if kernel is A.flash_attention_qk_i8 or shape == D192_SHAPE:  # own lines in the kernels line
                     results[f"{name}_d{shape[-1]}"] = dict(err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                                                           bound=bound)
                 continue
@@ -909,6 +920,7 @@ def phase_unet_256(torch, A, device):
     unet_256_f32_profile(torch, A, device, model, len(shapes))
     model.zero_grad(set_to_none=True)
     A.flash_attention.launches = A.flash_attention_bwd.launches = 0
+    A.flash_attention.launches_by_head_dim = {}
     t0 = time.perf_counter()
     # no autotuning here: this model's conv shapes are run once (it would take half a minute)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False), \
@@ -917,10 +929,12 @@ def phase_unet_256(torch, A, device):
         out.square().mean().backward()
     torch.cuda.synchronize()
     counts = (A.flash_attention.launches, A.flash_attention_bwd.launches)
+    k1_192 = A.flash_attention.launches_by_head_dim.get(192, 0)
     grads_finite = all(p.grad is not None and torch.isfinite(p.grad).all().item() for p in model.parameters())
-    if counts != (len(shapes),) * 2 or not (torch.isfinite(out).all().item() and grads_finite):
-        raise AssertionError(f"256 px UNet: launches (K1, K3) {counts}, expected {len(shapes)} each; or a value "
-                             "is not finite")
+    if counts != (len(shapes),) * 2 or k1_192 != [d for _, d in shapes].count(192) or k1_192 == 0 \
+            or not (torch.isfinite(out).all().item() and grads_finite):
+        raise AssertionError(f"256 px UNet: launches (K1, K3) {counts}, expected {len(shapes)} each; K1 at D = 192 "
+                             f"{k1_192}; or a value is not finite")
     log(f"  the default UNet at im_size 256, batch 1, bf16 autocast: forward and backward in "
         f"{(time.perf_counter() - t0) * 1e3:.0f} ms (first call), K1 and K3 launched {counts[0]} times each at "
         f"(N, D) = {sorted(set(shapes))}")
@@ -954,7 +968,7 @@ def phase_unet_256(torch, A, device):
                              f"= (0, 12, 12), K2 by head dim {by_d} (4 at D = 192); or not finite")
     log(f"  the same UNet with qk_int8 under bf16 autocast: a forward takes K2 and its quantizer at all its "
         f"{counts[1]} flash-length layers, by head dim {by_d} (4 at D = 192); output finite")
-    return by_d[192]
+    return k1_192, by_d[192]
 
 
 def unet_256_f32_profile(torch, A, device, model, flash_layers, batch=2):
@@ -3793,7 +3807,8 @@ def _round(x):
 
 
 PTXAS_KERNELS = ("flash_fwd_qk_i8_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
-                 "flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
+                 "flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel", "flash_fwd_qk_i8_wide_kernel",
+                 "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
                  "flash_fwd_f32_wgmma_kernel", "flash_bwd_f32_dq_pair_kernel", "flash_bwd_f32_dkv_pair_kernel",
                  "flash_bwd_f32_dq_wgmma_kernel", "flash_bwd_f32_dkv_wgmma_kernel", "absmax_qk_kernel",
                  "quantize_qk_kernel",
@@ -3813,7 +3828,9 @@ def ptxas_summary(build_log: str) -> list[str]:
             if "I8Scores" in mangled:  # K1-f32's kernels with int8 scores
                 args.append("K2-f32")
             dims = re.findall(r"Li(\d+)E", mangled)  # K1: <T, D, G>, G the head dim on D-wide tiles
-            if "dkv" in name and len(dims) == 2:  # K3's and K3-f32's pass 2: <(T,) D, which gradients>
+            if name in ("flash_fwd_wide_kernel", "flash_fwd_qk_i8_wide_kernel"):  # D = 192 alone
+                args.append("D=192, two consumers and a producer")
+            elif "dkv" in name and len(dims) == 2:  # K3's and K3-f32's pass 2: <(T,) D, which gradients>
                 args.append(f"D={dims[0]}, {('dV', 'dK', 'dK and dV')[int(dims[1]) - 1]}")
             elif dims:
                 args.append(f"D={dims[-1]}" + (f" on {dims[0]}-wide tiles" if dims[0] != dims[-1] else ""))
@@ -3858,7 +3875,7 @@ def main() -> int:
         log(f"    {ln}")
     # K1-K4, the wgmma kernels, and the f32 flash kernels K1-f32 and K3-f32 must not spill; the log is that of the
     # loaded library, also when an earlier run built it
-    gated = [k for k in PTXAS_KERNELS if "wgmma_kernel" in k or "_f32_" in k]
+    gated = [k for k in PTXAS_KERNELS if "wgmma_kernel" in k or "_f32_" in k or "_wide_kernel" in k]
     wgmma = [ln for ln in ptxas if any(ln.startswith(k + "<") or ln.startswith(k + ":") for k in gated)]
     missing = [k for k in gated if not any(ln.startswith(k + "<") or ln.startswith(k + ":") for ln in wgmma)]
     if missing:
@@ -3883,7 +3900,7 @@ def main() -> int:
     kernel_results["flash_attention_bwd"] = phase_backward_kernel(torch, A, device, card)
     kernel_results["flash_attention_bwd_f32"] = phase_backward_f32_kernel(torch, A, device, card)
     kernel_results.update(phase_qk_i8_f32(torch, A, device, card))
-    k2_d192_launches = phase_unet_256(torch, A, device)
+    k1_d192_launches, k2_d192_launches = phase_unet_256(torch, A, device)
     torch.cuda.empty_cache()
 
     log(f"phase 3: guided translation at full width [{card}]")
@@ -4017,6 +4034,7 @@ def main() -> int:
          k2_d24_launches),
         ("flash_attention_qk_i8_d192", csrc + "flash_fwd_qk_i8.cu", "weatherconverter_tpu/ops/attention.py:125",
          k2_d192_launches),
+        ("flash_attention_d192", csrc + "flash_fwd.cu", "weatherconverter_tpu/ops/attention.py:78", k1_d192_launches),
     ):
         r = kernel_results[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4051,7 +4069,8 @@ def main() -> int:
         "shapes in f32 (library: sdpa's f32 forward), launched in phase 13's first translate (DPM-20, f32) and, "
         "*_f32_per_item, in phase 14's K2-f32 full-sweep run; the *_d24 and *_d192 lines are K2 (quantizer included) at (1024, 24) and (1024, 192), "
         "B*H = 32, timed in phase 2, launched at those head dims in phase 18's bf16 qk_int8 legacy run (attn_up2) "
-        "and the 256 px UNet's qk_int8 forward; for the probes K4-K7 "
+        "and the 256 px UNet's qk_int8 forward; flash_attention_d192 is K1 at (1024, 192) (csrc/flash_fwd_wide.cuh's "
+        "block), timed in phase 2, launched in the 256 px UNet's bf16 forward and backward; for the probes K4-K7 "
         "they are from phase 9's probe runs (K4: sums over D=64 and D=16, library the same sdpa forward; "
         "qk_dot: int8 plus bf16, k_bf16 at scripts/probe_int8_dot.py:34, library torch._int_mm plus "
         "torch.mm(out_dtype=torch.float32), null if this torch lacks the latter; dw3x3: library cuDNN's channels-last "

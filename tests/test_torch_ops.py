@@ -141,15 +141,17 @@ FLASH_RTOL, FLASH_ATOL = 1e-5, 2e-6
 
 
 @pytest.mark.parametrize("n,d,scale", [(256, 16, 1.0), (256, 64, 1.0), (1024, 16, 1.0), (1024, 64, 1.0),
-                                       (256, 64, 6.0)])
+                                       (256, 64, 6.0), (256, 192, 1.0)])
 def test_flash_plain_matches_jax_flash_attention(n, d, scale):
     """scale 6 puts most scores past +-60, so the clamp fires on both sides."""
     (jq, jk, jv), (tq, tk, tv) = _qkv((1, 2, n, d), seed=n + d, scale=scale)
     _close(PA.flash_attention(tq, tk, tv), JA.flash_attention(jq, jk, jv), rtol=FLASH_RTOL, atol=FLASH_ATOL)
 
 
-def test_flash_plain_o_and_l_match_jax_streaming_forward():
-    (jq, jk, jv), (tq, tk, tv) = _qkv((1, 2, 1024, 32), seed=3)
+@pytest.mark.parametrize("n,d", [(1024, 32), (256, 192)])
+def test_flash_plain_o_and_l_match_jax_streaming_forward(n, d):
+    """K1 returns (O, l) at every head dim, D = 192 (the 256 px UNet) included."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv((1, 2, n, d), seed=3)
     ref_o, ref_l = JA._flash_stream_fwd_impl(jq, jk, jv, interpret=True)
     o, l = PA.flash_attention(tq, tk, tv, return_l=True)
     _close(o, ref_o, rtol=FLASH_RTOL, atol=FLASH_ATOL)

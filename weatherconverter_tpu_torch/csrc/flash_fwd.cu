@@ -27,17 +27,25 @@
 //   * The exponentials of tile j+1 overlap the P V product of tile j (see
 //     the schedule in flash_fwd_loop.cuh); O leaves through shared memory
 //     with 16-byte stores.
-//   * One warpgroup (64 query rows) a block: two warpgroups sharing a ring
-//     measured no faster at any head dim and slower at D = 128 and in K3,
-//     and three or four independent blocks an SM hide each other's waits.
+//   * One warpgroup (64 query rows) a block up to D = 128: two warpgroups
+//     sharing a ring measured no faster there and slower at D = 128 and in
+//     K3, and three or four independent blocks an SM hide each other's
+//     waits. At D = 192 one block fills an SM, and two consumers win (below).
 // Departures from a textbook Hopper kernel, and why: the loads are cp.async
 // by the MMA warps, not TMA by a producer warp (a tensor map holds the
 // tensor's address, so it would be encoded on the host at every call of an
 // already host-bound path); and S_{j+1} is not kept in flight across
 // iterations (ptxas then serializes every wgmma, see flash_fwd_loop.cuh).
-// D = 192 (the 256 px UNet's 768-channel layers) is the same kernel on tiles
-// of three 64-column panels: 96 O accumulators a thread and 169 KB of shared
-// memory, so one block an SM; right first, its time is written down.
+// D = 192 (the 256 px UNet's 768-channel layers) runs another block,
+// flash_fwd_wide.cuh's: two consumer warpgroups on 128 query rows and a
+// producer warpgroup filling three-deep K and V rings behind mbarriers, the
+// same policy and per-row arithmetic (O and l bit-equal to the one-warpgroup
+// kernel's), P V one m64n192k16 MMA a 16-key chunk. On tiles of three
+// 64-column panels, one warpgroup a block took 169 KB of shared memory and
+// filled an SM alone. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (probes/time_flash.py beside the one-warpgroup kernel, in one process;
+// PERF.md section 6): 0.0518 against 0.0858 ms at (8, 4, 1024, 192), under
+// scaled_dot_product_attention's 0.0553.
 // D = 24 (the legacy UNet's attn_up2, 96 channels over 4 heads) runs the
 // D = 32 schedule on rows of 24 (G below): each Q, K and V row is staged
 // with its last 16 of 64 bytes zero-filled by cp.async (src-size 0, chosen by
@@ -53,6 +61,7 @@
 // a scale folded into q: a gain at D = 64, a loss at D = 128), and strided
 // inputs (the wrapper makes them contiguous).
 #include "flash_fwd_loop.cuh"
+#include "flash_fwd_wide.cuh"
 
 namespace wcflash {
 
@@ -62,10 +71,11 @@ namespace wcflash {
 template <typename T, int D, int G = D>
 struct FwdPolicy {
   using Score = float;
+  using Elem = T;  // of Q and K
   static constexpr int kQBytes = Tile<D>::kBytes;
   static constexpr int kKTileBytes = Tile<D>::kBytes;
 
-  const T* q_rows;  // the block's 64 rows of Q
+  const T* q_rows;  // the block's rows of Q
   const T* k_head;
   float scale_log2;  // D^-1/2 * log2 e
 
@@ -105,6 +115,34 @@ __global__ void __launch_bounds__(kWgThreads)
                                                   l_out == nullptr ? nullptr : l_out + (size_t)blockIdx.y * n + row0, n);
 }
 
+// D = 192: flash_fwd_wide.cuh's block of two consumer warpgroups (128 query rows) and a producer.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                          T* __restrict__ o, float* __restrict__ l_out, int n, float scale_log2) {
+  constexpr int D = 192;
+  const size_t head = (size_t)blockIdx.y * n * D;
+  const int row0 = blockIdx.x * kWideRows;
+  FwdPolicy<T, D> policy{q + head + (size_t)row0 * D, k + head, scale_log2};
+  flash_forward_wide<T, D>(policy, v + head, o + head + (size_t)row0 * D,
+                           l_out == nullptr ? nullptr : l_out + (size_t)blockIdx.y * n + row0, n,
+                           min(kWideRows, n - row0));
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, float* l, int bh, int n, float scale,
+                        cudaStream_t stream) {
+  constexpr int smem = wide_smem_bytes<192, FwdPolicy<T, 192>>();
+  static_assert(smem <= 232448, "a block's shared memory");
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kWideRows - 1) / kWideRows, bh);
+  flash_fwd_wide_kernel<T><<<grid, kWideThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), l, n,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, int G = D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* l, int bh, int n,
                    float scale, cudaStream_t stream) {
@@ -128,7 +166,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, flo
     case 32: return launch<T, 32>(q, k, v, o, l, bh, n, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, l, bh, n, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, l, bh, n, scale, stream);
-    case 192: return launch<T, 192>(q, k, v, o, l, bh, n, scale, stream);
+    case 192: return launch_wide<T>(q, k, v, o, l, bh, n, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -5,6 +5,9 @@
 // scales by a factor read from the device; K4 holds a pre-scaled Q in
 // registers and clamps from above only.
 //
+// (At D = 192 K1 and K2 run flash_fwd_wide.cuh's block of two warpgroups
+// and a producer instead, on the same policies.)
+//
 // One warpgroup a block owns 64 query rows and walks a three-deep ring of
 // 64-key K tiles and one of V tiles, filled by cp.async two tiles ahead.
 // Iteration j copies K_{j+3} and V_{j+2} (one cp.async group), starts

@@ -50,18 +50,26 @@
 // the one k32 step of S adds exactly 0 past d = 24; V and O run K1's D = 24
 // path (zero-filled 16-byte tails, columns 24-31 never stored). At D = 192
 // the int8 tiles are three 64-byte panels (six k32 steps), V and O K1's three
-// 64-column panels: 121 KB of shared memory, one block an SM, 96 O
-// accumulators a thread, as in K1. Both take one scale a tensor or a row.
-// Departures: as K1's (cp.async by the MMA warps, not TMA; one warpgroup a
-// block; S_{j+1} not in flight across iterations). The ring keeps K1's depth
-// of three although K8 tiles are half the bytes: at three the block already
-// fits three or four times an SM at D <= 64.
+// 64-column panels, on K1's D = 192 block (flash_fwd_wide.cuh: two consumer
+// warpgroups on 128 rows, a producer, 157 KB of shared memory). Both take one
+// scale a tensor or a row. Departures up to D = 128: as K1's (cp.async by the
+// MMA warps, not TMA; one warpgroup a block; S_{j+1} not in flight across
+// iterations). The ring keeps K1's depth of three although K8 tiles are half
+// the bytes: at three the block already fits three or four times an SM at
+// D <= 64.
+// At D = 192, measured on an NVIDIA H100 80GB HBM3 at 700 W (B*H = 32,
+// probes/time_flash.py beside the one-warpgroup kernel, outputs bit-equal;
+// PERF.md section 6): the forward alone 0.0444 against 0.0705 ms, K2 whole
+// 0.0776 against 0.1032 (the quantizer 0.0315 of it; scaled_dot_product_
+// attention 0.0553). The one-warpgroup block with two-deep rings (85 KB, two
+// blocks an SM), tried beside it, took 0.0534 (probes/fwd_wide_ablations.py).
 // Measured on an H100 (700 W, bf16, B*H = 32, chip_smoke.py phase 2), the
 // forward alone beside K1: 0.2914 against 0.3279 ms at (4096, 64), 0.0398
 // against 0.0461 at (1024, 128), 0.0217 against 0.0217 at (1024, 32), 0.2192
 // against 0.2041 at (4096, 16): ahead where the tensor cores weigh, behind
 // where only the per-score instructions do (the conversion is one more).
 #include "flash_fwd_loop.cuh"
+#include "flash_fwd_wide.cuh"
 
 namespace wcflash {
 
@@ -69,11 +77,12 @@ namespace wcflash {
 template <typename T, int D, int G = D>
 struct QkI8Policy {
   using Score = int;
+  using Elem = int8_t;  // of Q8 and K8
   using L8 = Tile<D, 1>;
   static constexpr int kQBytes = L8::kBytes;
   static constexpr int kKTileBytes = L8::kBytes;
 
-  const int8_t* q_rows;  // the block's 64 rows of Q8
+  const int8_t* q_rows;  // the block's rows of Q8
   const int8_t* k_head;
   float scale_log2;  // qs * ks * D^-1/2 * log2 e
   float magic_bias;  // -1.5 * 2^23 * scale_log2
@@ -89,6 +98,7 @@ struct QkI8Policy {
   __device__ __forceinline__ void start(int (&s)[kTileRows / 2], uint32_t q_s, uint32_t k_tile) const {
     mma_rows_rows_t_s8<D>(s, q_s, k_tile);
   }
+
   __device__ __forceinline__ float to_exp(int s) const {
     const float x = fmaf(__int_as_float(s + 0x4B400000), scale_log2, magic_bias);
     return ex2_ftz(fminf(fmaxf(x, -kClampLog2), kClampLog2));
@@ -118,6 +128,33 @@ __global__ void __launch_bounds__(kWgThreads)
   flash_forward_loop<T, D, QkI8Policy<T, D, G>, G>(policy, v + head, o + head + row0, nullptr, n);
 }
 
+// D = 192: flash_fwd_wide.cuh's block of two consumer warpgroups (128 query rows) and a producer.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_fwd_qk_i8_wide_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
+                                const T* __restrict__ v, const float* __restrict__ qk_scale, T* __restrict__ o,
+                                int n, int heads_per_scale) {
+  constexpr int D = 192;
+  const size_t head = (size_t)blockIdx.y * n * D;
+  const int row0 = blockIdx.x * kWideRows;
+  const float scale_log2 = qk_scale[blockIdx.y / heads_per_scale] * kLog2e;
+  QkI8Policy<T, D> policy{q8 + head + (size_t)row0 * D, k8 + head, scale_log2, -12582912.f * scale_log2};
+  flash_forward_wide<T, D>(policy, v + head, o + head + (size_t)row0 * D, nullptr, n, min(kWideRows, n - row0));
+}
+
+template <typename T>
+cudaError_t launch_i8_wide(const int8_t* q8, const int8_t* k8, const void* v, const float* qk_scale, void* o,
+                           int bh, int n, int heads_per_scale, cudaStream_t stream) {
+  constexpr int smem = wide_smem_bytes<192, QkI8Policy<T, 192>>();
+  static_assert(smem <= 232448, "a block's shared memory");
+  auto kernel = flash_fwd_qk_i8_wide_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((n + kWideRows - 1) / kWideRows, bh), kWideThreads, smem, stream>>>(
+      q8, k8, static_cast<const T*>(v), qk_scale, static_cast<T*>(o), n, heads_per_scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, int G = D>
 cudaError_t launch_i8(const int8_t* q8, const int8_t* k8, const void* v, const float* qk_scale, void* o,
                       int bh, int n, int heads_per_scale, cudaStream_t stream) {
@@ -140,7 +177,7 @@ cudaError_t dispatch_i8(const int8_t* q8, const int8_t* k8, const void* v, const
     case 32: return launch_i8<T, 32>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
     case 64: return launch_i8<T, 64>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
     case 128: return launch_i8<T, 128>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
-    case 192: return launch_i8<T, 192>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
+    case 192: return launch_i8_wide<T>(q8, k8, v, qk_scale, o, bh, n, hps, stream);
     default: return cudaErrorInvalidValue;
   }
 }

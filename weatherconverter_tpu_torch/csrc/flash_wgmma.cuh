@@ -299,6 +299,27 @@ WC_DEFINE_WGMMA(bf16, "bf16")
 WC_DEFINE_WGMMA(f16, "f16")
 #undef WC_DEFINE_WGMMA
 
+// acc (64 x 192, three panels of 64 columns) += A (64 x 16, this warp's A fragment) . B (16 x 192), B MN-major
+// over three swizzled panels whose distance is the descriptor's leading offset (desc_mnmajor at panel 0): one MMA
+// where mma_regs_tile issues one a panel.
+#define WC_R96                                                  \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"  \
+  "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"  \
+  "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,"  \
+  "%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95}"
+#define WC_DEFINE_WGMMA192(SUFFIX, TYPE)                                                                       \
+  __device__ __forceinline__ void wgmma_rs192_##SUFFIX(float (&d)[3][32], const uint32_t* a, uint64_t b,       \
+                                                       int accumulate) {                                       \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"                                                \
+                 "wgmma.mma_async.sync.aligned.m64n192k16.f32." TYPE "." TYPE " " WC_R96                       \
+                 ", {%96,%97,%98,%99}, %100, p, 1, 1, 1;\n}\n"                                                 \
+                 : WC_D32(d[0], 0), WC_D32(d[1], 0), WC_D32(d[2], 0)                                           \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));                       \
+  }
+WC_DEFINE_WGMMA192(bf16, "bf16")
+WC_DEFINE_WGMMA192(f16, "f16")
+#undef WC_DEFINE_WGMMA192
+
 // d (64 x 64, s32) = or += A (64 x 32, int8) . B (32 x 64, int8), both from
 // shared memory. Integer wgmma takes K-major operands only and has neither
 // transpose nor negate immediates, so its operand list ends at the predicate.
@@ -323,6 +344,9 @@ struct Wgmma<__nv_bfloat16> {
   static __device__ __forceinline__ void rs(float (&d)[kRegs], const uint32_t* a, uint64_t b, int accumulate) {
     wgmma_rs_bf16<kTransB>(d, a, b, accumulate);
   }
+  static __device__ __forceinline__ void rs192(float (&d)[3][32], const uint32_t* a, uint64_t b, int accumulate) {
+    wgmma_rs192_bf16(d, a, b, accumulate);
+  }
 };
 template <>
 struct Wgmma<__half> {
@@ -333,6 +357,9 @@ struct Wgmma<__half> {
   template <int kTransB, int kRegs>
   static __device__ __forceinline__ void rs(float (&d)[kRegs], const uint32_t* a, uint64_t b, int accumulate) {
     wgmma_rs_f16<kTransB>(d, a, b, accumulate);
+  }
+  static __device__ __forceinline__ void rs192(float (&d)[3][32], const uint32_t* a, uint64_t b, int accumulate) {
+    wgmma_rs192_f16(d, a, b, accumulate);
   }
 };
 

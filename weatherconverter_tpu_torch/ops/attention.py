@@ -300,6 +300,7 @@ def _(q, k, v, return_l):
         )
     cuda_build.check_launch("flash_attention", err)
     flash_attention.launches += 1
+    flash_attention.launches_by_head_dim[d] = flash_attention.launches_by_head_dim.get(d, 0) + 1
     return o, l
 
 
@@ -556,6 +557,7 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_head_dim = {}  # the same launches by head dim (D = 192: flash_fwd_wide.cuh's block)
 
 
 def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, return_l: bool = False):

@@ -26,7 +26,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("flash_fwd.cu", "flash_fwd_f32.cu", "flash_fwd_qk_i8.cu", "quantize_i8.cu", "flash_bwd.cu",
            "flash_bwd_f32.cu", "probe_exp2_attn.cu", "probe_qk_dot.cu", "probe_dw3x3.cu", "probe_dw9x9.cu")
-HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_fwd_loop.cuh", "flash_tf32.cuh")
+HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_fwd_loop.cuh", "flash_fwd_wide.cuh", "flash_tf32.cuh")
 # Sources compiled more than once, each time with other flags into an object of its own: K3-f32, and K1-f32 with
 # K2-f32, once a head dim (their kernels) and once for their entry points, so that nvcc compiles the head dims in
 # parallel

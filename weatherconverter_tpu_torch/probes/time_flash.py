@@ -9,10 +9,13 @@ beside this one's and build their own kernels. At the production UNet's four
 attention shapes, bf16, each kernel (K1 `flash_attention`, K3
 `flash_attention_bwd`, K2 `flash_attention_qk_i8` with its quantization, K4
 `exp2_attention`) is timed in turns (other, this, this, other) with
-`common.time_ms`, and the two checkouts' outputs are compared. Then, for this
-checkout alone: K2 apart (the quantizer, the eager quantization it replaces,
-the forward on quantized inputs). Last, K1-f32 `flash_attention_f32` at
-F32_SHAPES (the default UNet's (4096, 16) and the legacy UNet's two, f32,
+`common.time_ms`, and the two checkouts' outputs are compared; the same for
+K1, K3 and K2 at the 256 px UNet's (1024, 192) (K4 has no D = 192). Then K2
+apart in the same turns: the quantizer, the forward on quantized inputs
+alone (this checkout's quantization feeds both), and, for this checkout, the
+eager quantization the quantizer replaces; with each shape's bounds (K1, K2
+whole, the quantizer's bytes) and scaled_dot_product_attention's forward.
+Then K1-f32 `flash_attention_f32` at F32_SHAPES (the default UNet's (4096, 16) and the legacy UNet's two, f32,
 TF32 off) and at the f32 training path's wide head dims F32_WIDE_SHAPES
 (K1-f32's wgmma kernel) in the same turns, each checkout's max|err|/max|ref|
 against the plain version printed beside its time, with the shape's bound
@@ -25,6 +28,7 @@ beside it. Last, K2-f32's forward
 QK_I8_F32_SHAPES in the same turns (the other checkout must have K2-f32),
 each with its max|err|/max|ref| against the f32 plain version, and this
 checkout's K2-f32 whole, its quantizer on f32 q and k, and K1-f32 beside.
+Each f32 line also says whether the two checkouts' outputs are bit-equal.
 Without OTHER_ROOT only this checkout is timed.
 """
 
@@ -41,6 +45,7 @@ from weatherconverter_tpu_torch.probes import common, micro_attn
 
 PACKAGE = A.__name__.split(".")[0]
 SHAPES = [(8, 4, 4096, 64), (8, 4, 1024, 128), (8, 4, 1024, 32), (8, 4, 4096, 16)]
+WIDE_SHAPES = [(8, 4, 1024, 192)]  # the 256 px UNet's 768-channel layers: K1, K2, K3 (not K4)
 F32_SHAPES = [(8, 4, 4096, 16), (8, 4, 1024, 16), (8, 4, 1024, 24)]
 F32_WIDE_SHAPES = [(8, 4, 4096, 64), (8, 4, 1024, 128), (8, 4, 1024, 32), (8, 4, 1024, 192)]
 F32_BWD_SHAPES = SHAPES + [(8, 4, 1024, 192)]
@@ -72,14 +77,15 @@ def _runs(ms) -> str:
 
 def run(device, card: str, other=None) -> None:
     gen = torch.Generator(device=device).manual_seed(0)
-    turns = [("this", THIS)] if other is None else [("other", other), ("this", THIS), ("this", THIS), ("other", other)]
-    for shape in SHAPES:
+    turns = _turns(other)
+    for shape in SHAPES + WIDE_SHAPES:
         q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
         o, l = A.flash_attention_plain(q, k, v, return_l=True)
         calls = {"K1 flash_attention": lambda m: m.attention.flash_attention(q, k, v),
                  "K3 flash_attention_bwd": lambda m: m.attention.flash_attention_bwd(q, k, v, o, do, l),
-                 "K2 flash_attention_qk_i8": lambda m: m.attention.flash_attention_qk_i8(q, k, v),
-                 "K4 exp2_attention": lambda m: m.micro_attn.exp2_attention(q, k, v)}
+                 "K2 flash_attention_qk_i8": lambda m: m.attention.flash_attention_qk_i8(q, k, v)}
+        if shape[-1] in micro_attn.HEAD_DIMS:
+            calls["K4 exp2_attention"] = lambda m: m.micro_attn.exp2_attention(q, k, v)
         for name, call in calls.items():
             ms = {"this": [], "other": []}
             for who, checkout in turns:
@@ -90,15 +96,30 @@ def run(device, card: str, other=None) -> None:
                 pairs = zip(mine, theirs) if isinstance(mine, tuple) else [(mine, theirs)]
                 diff = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
                 line += (f", other {sum(ms['other']) / 2:.4f} ms (runs {_runs(ms['other'])}), other/this "
-                         f"{sum(ms['other']) / sum(ms['this']):.2f}x, max |this - other| {diff:.3e}")
+                         f"{sum(ms['other']) / sum(ms['this']):.3f}x, max |this - other| {diff:.3e}")
             common.log(f"{line} [{card}]")
-        # K2 apart, this checkout alone
+        # K2 apart: the quantizer and the forward alone, in the same turns, on this checkout's quantization
         q8, k8, qk_scale = A.quantize_qk_i8(q, k)
-        quant = common.time_ms(lambda: A.quantize_qk_i8(q, k), reps=20)
+        parts = {"quantize_qk_i8": lambda m: m.attention.quantize_qk_i8(q, k),
+                 "the forward alone": lambda m: m.attention.flash_qk_i8_forward(q8, k8, qk_scale, v)}
+        texts = []
+        for name, call in parts.items():
+            ms = {"this": [], "other": []}
+            for who, checkout in turns:
+                ms[who].append(common.time_ms(lambda: call(checkout), reps=20))
+            text = f"{name} {sum(ms['this']) / len(ms['this']):.4f} ms (runs {_runs(ms['this'])})"
+            if other is not None:
+                text += (f", other {sum(ms['other']) / 2:.4f} ms (runs {_runs(ms['other'])}), other/this "
+                         f"{sum(ms['other']) / sum(ms['this']):.3f}x")
+            texts.append(text)
         eager = common.time_ms(lambda: A.quantize_qk_i8_plain(q, k), reps=20)
-        fwd = [common.time_ms(lambda: A.flash_qk_i8_forward(q8, k8, qk_scale, v), reps=20) for _ in range(2)]
-        common.log(f"K2 apart {shape}: quantize_qk_i8 {quant:.4f} ms, its eager version {eager:.4f} ms "
-                   f"({eager / quant:.1f}x), the forward alone {sum(fwd) / 2:.4f} ms (runs {_runs(fwd)}) [{card}]")
+        peak = common.peaks(card)
+        bounds = {"quantizer": common.quantizer_roofline(peak, shape), "K2 whole":
+                  common.attention_roofline(peak, shape, qk_int8=True), "K1": common.attention_roofline(peak, shape)}
+        bounds = ", ".join(f"{name} not known" if b["bound_ms"] is None else
+                           f"{name} {b['bound_ms']:.4f} ms ({b['binds']})" for name, b in bounds.items())
+        common.log(f"K2 apart {shape}: {'; '.join(texts)}; this checkout's eager quantization {eager:.4f} ms; "
+                   f"bounds: {bounds}; sdpa forward {common.sdpa_ms(q, k, v):.4f} ms [{card}]")
 
 
 def _turns(other):
@@ -109,12 +130,20 @@ def _bound_line(card: str, shape, ms: float, **kind) -> str:
     return common.bound_text(common.attention_roofline(common.peaks(card), shape, f32=True, **kind), ms)
 
 
-def _compare(name, shape, ms, errs, other, card, tail="") -> None:
+def _outputs(call, turns) -> dict:
+    """Each checkout's output of `call` (a tensor or a tuple of them), keyed "this" / "other"."""
+    return {who: call(checkout) for who, checkout in dict(turns).items()}
+
+
+def _compare(name, shape, ms, errs, other, card, tail="", outs=None) -> None:
     line = (f"{name} {shape}: this {sum(ms['this']) / len(ms['this']):.4f} ms (runs {_runs(ms['this'])}), "
             f"max|err|/max|ref| {errs['this']:.2e}")
     if other is not None:
         line += (f", other {sum(ms['other']) / 2:.4f} ms (runs {_runs(ms['other'])}), other/this "
                  f"{sum(ms['other']) / sum(ms['this']):.3f}x, max|err|/max|ref| {errs['other']:.2e}")
+        if outs is not None:
+            pairs = zip(outs["this"], outs["other"]) if isinstance(outs["this"], tuple) else [tuple(outs.values())]
+            line += f", bit-equal to other {all(torch.equal(a, b) for a, b in pairs)}"
     common.log(f"{line}{tail} [{card}]")
 
 
@@ -127,11 +156,11 @@ def run_f32(device, card: str, other=None) -> None:
         ms = {"this": [], "other": []}
         for who, checkout in turns:
             ms[who].append(common.time_ms(lambda: checkout.attention.flash_attention_f32(q, k, v), reps=20))
-        errs = {who: ((checkout.attention.flash_attention_f32(q, k, v) - ref).abs().max() / ref.abs().max()).item()
-                for who, checkout in dict(turns).items()}
+        outs = _outputs(lambda m: m.attention.flash_attention_f32(q, k, v), turns)
+        errs = {who: ((out - ref).abs().max() / ref.abs().max()).item() for who, out in outs.items()}
         mine = sum(ms["this"]) / len(ms["this"])
         _compare("K1-f32 flash_attention_f32", shape, ms, errs, other, card,
-                 f"; {_bound_line(card, shape, mine)}, sdpa forward in f32 {common.sdpa_ms(q, k, v):.4f} ms")
+                 f"; {_bound_line(card, shape, mine)}, sdpa forward in f32 {common.sdpa_ms(q, k, v):.4f} ms", outs)
 
 
 def run_bwd_f32(device, card: str, other=None) -> None:
@@ -145,13 +174,14 @@ def run_bwd_f32(device, card: str, other=None) -> None:
         ms = {"this": [], "other": []}
         for who, checkout in turns:
             ms[who].append(common.time_ms(lambda: checkout.attention.flash_attention_bwd_f32(*args), reps=20))
-        errs = {who: max(((g - r).abs().max() / r.abs().max()).item()
-                         for g, r in zip(checkout.attention.flash_attention_bwd_f32(*args), ref))
-                for who, checkout in dict(turns).items()}
+        outs = _outputs(lambda m: tuple(m.attention.flash_attention_bwd_f32(*args)), turns)
+        errs = {who: max(((g - r).abs().max() / r.abs().max()).item() for g, r in zip(out, ref))
+                for who, out in outs.items()}
         mine = sum(ms["this"]) / len(ms["this"])
         _compare("K3-f32 flash_attention_bwd_f32", shape, ms, errs, other, card,
                  f"; {_bound_line(card, shape, mine, backward=True)}, sdpa backward alone in f32 "
-                 f"{common.sdpa_ms(q, k, v, do):.4f} ms")
+                 f"{common.sdpa_ms(q, k, v, do):.4f} ms", outs)
+        del outs
         del q, k, v, do, o, l, args, ref
         torch.cuda.empty_cache()
 
@@ -167,14 +197,14 @@ def run_qk_i8_f32(device, card: str, other=None) -> None:
         for who, checkout in turns:  # the forward alone, on this checkout's quantized inputs
             ms[who].append(common.time_ms(lambda: checkout.attention.flash_qk_i8_forward(q8, k8, qk_scale, v),
                                           reps=20))
-        errs = {who: ((checkout.attention.flash_qk_i8_forward(q8, k8, qk_scale, v) - ref).abs().max()
-                      / ref.abs().max()).item() for who, checkout in dict(turns).items()}
+        outs = _outputs(lambda m: m.attention.flash_qk_i8_forward(q8, k8, qk_scale, v), turns)
+        errs = {who: ((out - ref).abs().max() / ref.abs().max()).item() for who, out in outs.items()}
         whole = common.time_ms(lambda: A.flash_attention_qk_i8(q, k, v), reps=20)
         quant = common.time_ms(lambda: A.quantize_qk_i8(q, k), reps=20)
         k1 = common.time_ms(lambda: A.flash_attention_f32(q, k, v), reps=20)
         _compare("K2-f32 flash_qk_i8_forward f32", shape, ms, errs, other, card,
                  f"; this checkout's K2-f32 whole {whole:.4f} ms ({_bound_line(card, shape, whole, qk_int8=True)}), "
-                 f"quantize_qk_i8 on f32 {quant:.4f} ms, K1-f32 {k1:.4f} ms")
+                 f"quantize_qk_i8 on f32 {quant:.4f} ms, K1-f32 {k1:.4f} ms", outs)
 
 
 def main(argv=None) -> int:
