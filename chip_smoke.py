@@ -19,10 +19,12 @@ Phases, each of which fails the run (exit code != 0, no result line):
      batch row (the server's): the quantizer equal to its plain version, K2
      within the forward gate, row 0 of a batch whose row 1 is scaled 100x
      equal to row 0 alone, each timed beside its bound, the eager and sdpa
-     times; K1, K2 and K3 also at the 256 px UNet's (N, D) =
-     (1024, 192) (K1 and K2 there on csrc/flash_fwd_wide.cuh's block of two
-     consumer warpgroups; K2's time split into its forward alone and the
-     quantizer, beside the quantizer's bytes bound), K1 at the legacy
+     times (the quantizer one cooperative launch of two passes); K1, K2 and
+     K3 also at the 256 px UNet's (N, D) = (1024, 192) (K1 and K2 there on
+     csrc/flash_fwd_wide.cuh's block of two consumer warpgroups, K3's two
+     passes on such blocks too, each pass timed apart by the profiler; K2's
+     time split into its forward alone and the quantizer, beside the
+     quantizer's bytes bound), K1 at the legacy
      UNet's (1024, 24) (D = 32 tiles with
      zero-filled tails), K1-f32 (3xTF32 on the tensor cores) at the legacy
      UNet's (1024, 16) and (1024, 24), at the four path shapes and at
@@ -34,7 +36,8 @@ Phases, each of which fails the run (exit code != 0, no result line):
      backward; one forward and backward of the
      256 px UNet in f32 (K1-f32 and K3-f32 at its twelve flash-length
      layers; then a warm one at batch 2 under the profiler: device ms, idle
-     share, launches, K3-f32's share) and under bf16 (K1 and K3), and one
+     share, launches, K3-f32's share) and under bf16 (K1 and K3, 4 of
+     each at D = 192), and one
      forward of it with qk_int8
      in f32 (K2-f32 at all twelve) and under bf16 (K2 at all twelve, D = 192
      included); K2-f32 (int8 Q K^T, P V in 3xTF32) and its quantizer on f32
@@ -572,7 +575,8 @@ def _tf32_pass(torch, fn, *args):
 def phase_qk_i8_f32(torch, A, device, card):
     """K2-f32 (int8 Q K^T, P V in 3xTF32) and its quantizer on f32 q and k,
     at QK_I8_F32_SHAPES, per tensor and per batch row: the quantizer equal
-    to its plain version bit for bit; K2-f32 whole (quantizer included) and
+    to its plain version bit for bit, on contiguous tensors and on head-split
+    views of one projection; K2-f32 whole (quantizer included) and
     its forward alone within F32_REL_TOL of max |ref| of the f32 plain
     version, two calls bit-equal; per row, row 0 of a batch whose row 1 is
     x100 equal to row 0 alone (int8, scale, output); two planted faults that
@@ -601,6 +605,14 @@ def phase_qk_i8_f32(torch, A, device, card):
 
     for shape in QK_I8_F32_SHAPES:
         b, h, n, d = shape
+        qkv = torch.randn((b, n, 3 * h * d), generator=gen, device=device)  # the UNet's layout: head-split views
+        qv, kv = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1)[:2])
+        for per_item in (False, True):
+            if not all(g.is_contiguous() and torch.equal(g, r) for g, r in zip(
+                    A.quantize_qk_i8(qv, kv, per_item=per_item), A.quantize_qk_i8_plain(qv, kv, per_item=per_item))):
+                raise AssertionError(f"quantize_qk_i8 f32 {shape} per_item={per_item}: differs from its plain version "
+                                     "on head-split views")
+        del qkv, qv, kv
         q, k, v = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
         lib_ms = sdpa_ms(q, k, v)
         k1_ms = time_ms(lambda: A.flash_attention_f32(q, k, v), reps=20)
@@ -651,7 +663,8 @@ def phase_qk_i8_f32(torch, A, device, card):
             where = ("the path's" if shape in PATH_SHAPES else "the legacy UNet's: not in the sums"
                      if shape in F32_SHAPES else "the 256 px UNet's: not in the sums")
             log(f"  flash_attention_qk_i8 in f32 (K2-f32){' per row' if per_item else ''} B*H={b * h} N={n} D={d} "
-                f"[{where}]: the quantizer equals its plain version on f32 q, k; max_abs_err {err:.3e}, "
+                f"[{where}]: the quantizer equals its plain version on f32 q, k (contiguous and head-split views); "
+                f"max_abs_err {err:.3e}, "
                 f"max|err|/max|ref| {rel:.3e} (tol {F32_REL_TOL}), two calls bit-equal"
                 + (", row 0 beside a x100 row 1 equal to row 0 alone" if per_item else "")
                 + f"; planted faults {', '.join(f'{w} {x:.3e}' for w, x in faults.items())}: break it; K2-f32 whole "
@@ -669,12 +682,16 @@ def phase_qk_i8_f32(torch, A, device, card):
 
 
 def phase_backward_kernel(torch, A, device, card):
-    """K3 against its plain version at the path shapes, bf16, with its
-    roofline bound and the library's backward alone; two calls must agree
-    bit for bit. Returns dict(err, ms, plain_ms, library_ms, bound), sums
-    over the shapes (err: the largest max abs error)."""
+    """K3 against its plain version at the path shapes and D192_SHAPE, bf16,
+    with its roofline bound and the library's backward alone; two calls must
+    agree bit for bit; at D192_SHAPE (two consumer warpgroups a pass) each
+    pass's device time from the profiler too. Returns {"flash_attention_bwd":
+    dict(err, ms, plain_ms, library_ms, bound), sums over the path shapes
+    (err: the largest max abs error), "flash_attention_bwd_d192": the same at
+    D192_SHAPE}."""
     from weatherconverter_tpu_torch.probes.common import (add_rooflines, attention_roofline, bound_text, peaks,
                                                           sdpa_ms, time_ms)
+    from weatherconverter_tpu_torch.probes.time_flash import k3_pass_text, device_ms_by_kernel
 
     gen = torch.Generator(device=device).manual_seed(10)
     total, bounds = dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0), []
@@ -703,18 +720,22 @@ def phase_backward_kernel(torch, A, device, card):
         bound = attention_roofline(peaks(card), shape, backward=True)
         b, h, n, d = shape
         tflops = 10 * b * h * n * n * d / (k_ms * 1e-3) / 1e12
+        passes = (f"; {k3_pass_text(device_ms_by_kernel(lambda: A.flash_attention_bwd(*args)))} (profiler)"
+                  if shape == D192_SHAPE else "")
         log(f"  flash_attention_bwd B*H={b * h} N={n} D={d}: max|err|/max|ref| dq {rel[0]:.3e} dk {rel[1]:.3e} "
             f"dv {rel[2]:.3e} (tol {BWD_REL_TOL}), max abs err {abs_err:.3e}, two calls bit-equal; kernel "
-            f"{k_ms:.4f} ms ({tflops:.1f} TFLOP/s of the five products a backward needs), plain {p_ms:.3f} ms, "
+            f"{k_ms:.4f} ms ({tflops:.1f} TFLOP/s of the five products a backward needs){passes}, plain {p_ms:.3f} ms, "
             f"{bound_text(bound, k_ms)}, sdpa backward alone {lib_ms:.4f} ms (yardstick, never called by the port)"
             + (" [the 256 px UNet's shape: not in the sums]" if shape == D192_SHAPE else ""))
-        if shape != D192_SHAPE:
+        if shape == D192_SHAPE:
+            wide = dict(err=abs_err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound=bound)
+        else:
             bounds.append(bound)
             total = dict(err=max(total["err"], abs_err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms,
                          library_ms=total["library_ms"] + lib_ms)
         del q, k, v, do, o, l, args
         torch.cuda.empty_cache()
-    return dict(total, bound=add_rooflines(*bounds))
+    return {"flash_attention_bwd": dict(total, bound=add_rooflines(*bounds)), "flash_attention_bwd_d192": wide}
 
 
 def phase_backward_f32_kernel(torch, A, device, card):
@@ -839,7 +860,7 @@ def phase_quantizer(torch, A, device, card):
         log(f"  quantize_qk_i8 B*H={b * h} N={n} D={d}: q8, k8 and the scale equal the plain version's on head-split "
             f"views of one projection (the UNet's layout, read in place) and on contiguous tensors; K2 on the views "
             f"max_abs_err {k2_err:.3e} (tol {KERNEL_TOL}), two calls bit-equal; kernel {k_ms:.4f} ms on the views, "
-            f"{kc_ms:.4f} ms contiguous (two launches and a two-float fill), its eager version {p_ms:.4f} / "
+            f"{kc_ms:.4f} ms contiguous (one cooperative launch), its eager version {p_ms:.4f} / "
             f"{pc_ms:.4f} ms, {bound_text(bound, k_ms)}; K2's forward alone {f_ms:.4f} ms")
         total = dict(total, err=max(total["err"], err), ms=total["ms"] + k_ms, plain_ms=total["plain_ms"] + p_ms)
 
@@ -920,7 +941,7 @@ def phase_unet_256(torch, A, device):
     unet_256_f32_profile(torch, A, device, model, len(shapes))
     model.zero_grad(set_to_none=True)
     A.flash_attention.launches = A.flash_attention_bwd.launches = 0
-    A.flash_attention.launches_by_head_dim = {}
+    A.flash_attention.launches_by_head_dim, A.flash_attention_bwd.launches_by_head_dim = {}, {}
     t0 = time.perf_counter()
     # no autotuning here: this model's conv shapes are run once (it would take half a minute)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=False), \
@@ -930,14 +951,15 @@ def phase_unet_256(torch, A, device):
     torch.cuda.synchronize()
     counts = (A.flash_attention.launches, A.flash_attention_bwd.launches)
     k1_192 = A.flash_attention.launches_by_head_dim.get(192, 0)
+    k3_192 = A.flash_attention_bwd.launches_by_head_dim.get(192, 0)
     grads_finite = all(p.grad is not None and torch.isfinite(p.grad).all().item() for p in model.parameters())
     if counts != (len(shapes),) * 2 or k1_192 != [d for _, d in shapes].count(192) or k1_192 == 0 \
-            or not (torch.isfinite(out).all().item() and grads_finite):
+            or k3_192 != k1_192 or not (torch.isfinite(out).all().item() and grads_finite):
         raise AssertionError(f"256 px UNet: launches (K1, K3) {counts}, expected {len(shapes)} each; K1 at D = 192 "
-                             f"{k1_192}; or a value is not finite")
+                             f"{k1_192}, K3 {k3_192}; or a value is not finite")
     log(f"  the default UNet at im_size 256, batch 1, bf16 autocast: forward and backward in "
         f"{(time.perf_counter() - t0) * 1e3:.0f} ms (first call), K1 and K3 launched {counts[0]} times each at "
-        f"(N, D) = {sorted(set(shapes))}")
+        f"(N, D) = {sorted(set(shapes))}, {k1_192} and {k3_192} of them at D = 192 (K3 there: two consumers a pass)")
     # what the CLI builds on the card: qk_int8, which takes K2 in every flash-length layer, D = 192 included
     int8 = Unet(UnetModelConfig(im_size=256), qk_int8=True).to(device).eval()
     int8.load_state_dict(model.state_dict())
@@ -968,7 +990,7 @@ def phase_unet_256(torch, A, device):
                              f"= (0, 12, 12), K2 by head dim {by_d} (4 at D = 192); or not finite")
     log(f"  the same UNet with qk_int8 under bf16 autocast: a forward takes K2 and its quantizer at all its "
         f"{counts[1]} flash-length layers, by head dim {by_d} (4 at D = 192); output finite")
-    return k1_192, by_d[192]
+    return k1_192, by_d[192], k3_192
 
 
 def unet_256_f32_profile(torch, A, device, model, flash_layers, batch=2):
@@ -1083,7 +1105,7 @@ def phase_slice(torch, A, device, models, card):
             f"{', '.join(f'{t:.2f}' for t in times)}) at batch {BATCH}, style {style}, guidance every "
             f"{kw['guidance_every']} in space {kw['guidance_space']}, lam {kw['lam']}; extrapolated to 1000 "
             f"steps {60.0 * BATCH / ms_step:.3f} translations/min [{card}]; launches per run "
-            f"K1={launches[name][0]} K2={launches[name][1]} quantizer={launches[name][2]} (two kernels each), "
+            f"K1={launches[name][0]} K2={launches[name][1]} quantizer={launches[name][2]} (one launch each), "
             f"that is {' / '.join(str(c // steps) for c in launches[name])} a step; peak device memory "
             f"{peaks_gib[name]:.2f} GiB")
     return launches, (unet, unet_i8, seg, gen, sched, inp, gt, gt8)
@@ -1161,7 +1183,7 @@ def phase_profile(torch, device, slice_state):
             + ")")
         rows = sorted(events, key=lambda e: -e.device_time_total)
         # the headline's and the alternate schedule's largest kernels; of the int8 variant, K2's own (forward
-        # and the quantizer's two passes)
+        # and the quantizer)
         shown = {"headline": rows[:12], "headline_qk_int8": [e for e in rows if "qk" in e.key],
                  "alternate": rows[:8]}.get(name, [])
         for e in shown:
@@ -3810,8 +3832,8 @@ PTXAS_KERNELS = ("flash_fwd_qk_i8_wgmma_kernel", "flash_bwd_dq_wgmma_kernel", "f
                  "flash_fwd_wgmma_kernel", "flash_fwd_wide_kernel", "flash_fwd_qk_i8_wide_kernel",
                  "flash_fwd_f32_kernel", "flash_fwd_f32_wide_kernel",
                  "flash_fwd_f32_wgmma_kernel", "flash_bwd_f32_dq_pair_kernel", "flash_bwd_f32_dkv_pair_kernel",
-                 "flash_bwd_f32_dq_wgmma_kernel", "flash_bwd_f32_dkv_wgmma_kernel", "absmax_qk_kernel",
-                 "quantize_qk_kernel",
+                 "flash_bwd_f32_dq_wgmma_kernel", "flash_bwd_f32_dkv_wgmma_kernel", "flash_bwd_dq_wide_kernel",
+                 "flash_bwd_dkv_wide_kernel", "quantize_qk_kernel",
                  "probe_exp2_attn_wgmma_kernel", "probe_qk_kernel", "probe_dw3x3_kernel",
                  "probe_dw_fma81_kernel")
 
@@ -3824,11 +3846,11 @@ def ptxas_summary(build_log: str) -> list[str]:
             mangled = ln.split("'")[1]
             name = next((k for k in PTXAS_KERNELS if k in mangled), mangled)
             args = (["f16"] if "6__half" in mangled else ["bf16"] if "13__nv_bfloat16" in mangled or "4Bf16E" in mangled
-                    else ["int8"] if "2I8E" in mangled else ["f32"] if "IfLi" in mangled else [])
+                    else ["int8"] if "2I8E" in mangled else ["f32"] if "IfLi" in mangled or "IfE" in mangled else [])
             if "I8Scores" in mangled:  # K1-f32's kernels with int8 scores
                 args.append("K2-f32")
             dims = re.findall(r"Li(\d+)E", mangled)  # K1: <T, D, G>, G the head dim on D-wide tiles
-            if name in ("flash_fwd_wide_kernel", "flash_fwd_qk_i8_wide_kernel"):  # D = 192 alone
+            if name.endswith("_wide_kernel") and "f32" not in name:  # K1's, K2's and K3's D = 192 alone
                 args.append("D=192, two consumers and a producer")
             elif "dkv" in name and len(dims) == 2:  # K3's and K3-f32's pass 2: <(T,) D, which gradients>
                 args.append(f"D={dims[0]}, {('dV', 'dK', 'dK and dV')[int(dims[1]) - 1]}")
@@ -3880,15 +3902,15 @@ def main() -> int:
     missing = [k for k in gated if not any(ln.startswith(k + "<") or ln.startswith(k + ":") for ln in wgmma)]
     if missing:
         raise AssertionError(f"the build log does not name {missing}: the spill and wgmma gates have nothing to read")
-    # K2-f32 at its six head dims (K1-f32's two kernels with int8 scores) and the quantizer's f32 kernels
+    # K2-f32 at its six head dims (K1-f32's two kernels with int8 scores) and the quantizer's one kernel a dtype
     k2_f32 = [ln for ln in wgmma if "K2-f32" in ln]
-    quant_f32 = [ln for ln in ptxas if ln.startswith(("absmax_qk_kernel<f32", "quantize_qk_kernel<f32"))]
-    if len(k2_f32) != 6 or len(quant_f32) != 4:
-        raise AssertionError(f"the build log names K2-f32 {len(k2_f32)} times (6 head dims) and the f32 quantizer's "
-                             f"kernels {len(quant_f32)} times (two passes, two group sizes): {k2_f32 + quant_f32}")
-    spilled = [ln for ln in wgmma + quant_f32 if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    quant = [ln for ln in ptxas if ln.startswith("quantize_qk_kernel<")]
+    if len(k2_f32) != 6 or len(quant) != 3:
+        raise AssertionError(f"the build log names K2-f32 {len(k2_f32)} times (6 head dims) and the quantizer's "
+                             f"kernel {len(quant)} times (bf16, f16, f32): {k2_f32 + quant}")
+    spilled = [ln for ln in wgmma + quant if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     if spilled:
-        raise AssertionError(f"ptxas reports register spills in K1-K4, K1-f32, K2-f32, K3-f32 or the f32 quantizer: "
+        raise AssertionError(f"ptxas reports register spills in K1-K4, K1-f32, K2-f32, K3-f32 or the quantizer: "
                              f"{spilled}")
     if "Potential Performance Loss" in cuda_build.build_log():
         raise AssertionError("ptxas serialized the wgmma instructions of a kernel (see the build log): "
@@ -3897,10 +3919,10 @@ def main() -> int:
     log(f"phase 2: kernels against their plain versions, bf16 and f32 [{card}]")
     kernel_results = phase_kernels(torch, A, device, card)
     kernel_results.update(phase_quantizer(torch, A, device, card))
-    kernel_results["flash_attention_bwd"] = phase_backward_kernel(torch, A, device, card)
+    kernel_results.update(phase_backward_kernel(torch, A, device, card))
     kernel_results["flash_attention_bwd_f32"] = phase_backward_f32_kernel(torch, A, device, card)
     kernel_results.update(phase_qk_i8_f32(torch, A, device, card))
-    k1_d192_launches, k2_d192_launches = phase_unet_256(torch, A, device)
+    k1_d192_launches, k2_d192_launches, k3_d192_launches = phase_unet_256(torch, A, device)
     torch.cuda.empty_cache()
 
     log(f"phase 3: guided translation at full width [{card}]")
@@ -4035,6 +4057,8 @@ def main() -> int:
         ("flash_attention_qk_i8_d192", csrc + "flash_fwd_qk_i8.cu", "weatherconverter_tpu/ops/attention.py:125",
          k2_d192_launches),
         ("flash_attention_d192", csrc + "flash_fwd.cu", "weatherconverter_tpu/ops/attention.py:78", k1_d192_launches),
+        ("flash_attention_bwd_d192", csrc + "flash_bwd.cu", "weatherconverter_tpu/ops/attention.py:305",
+         k3_d192_launches),
     ):
         r = kernel_results[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4054,7 +4078,7 @@ def main() -> int:
                         "bound_by": timing["bound_by"], "library_ms": _round(timing["library_ms"])})
     log("kernels: for K1-K3 and K2's quantizer, ms, plain_ms, bound_ms and library_ms (scaled_dot_product_attention: "
         "its forward for K1 and K2, its backward alone for K3; none for the quantizer, whose plain_ms is the eager "
-        "quantization it replaces and whose launches count calls of two kernels each) are sums over the four "
+        "quantization it replaces and whose launches count its calls, one cooperative launch each) are sums over the four "
         "path shapes (K1's and K3's lines at (1024, 192) and K1's at (1024, 24) stand beside them in phase 2, not in "
         "the sums); K2's ms includes its quantizer's; K1-f32's are sums over the legacy UNet's (1024, 16) and "
         "(1024, 24) in f32, its library sdpa's f32 forward; flash_attention_f32_train (K1-f32 with l) and "
@@ -4070,7 +4094,8 @@ def main() -> int:
         "*_f32_per_item, in phase 14's K2-f32 full-sweep run; the *_d24 and *_d192 lines are K2 (quantizer included) at (1024, 24) and (1024, 192), "
         "B*H = 32, timed in phase 2, launched at those head dims in phase 18's bf16 qk_int8 legacy run (attn_up2) "
         "and the 256 px UNet's qk_int8 forward; flash_attention_d192 is K1 at (1024, 192) (csrc/flash_fwd_wide.cuh's "
-        "block), timed in phase 2, launched in the 256 px UNet's bf16 forward and backward; for the probes K4-K7 "
+        "block), timed in phase 2, launched in the 256 px UNet's bf16 forward and backward; flash_attention_bwd_d192 is K3 "
+        "at (1024, 192) (two consumer warpgroups a pass), timed in phase 2, launched in that backward; for the probes K4-K7 "
         "they are from phase 9's probe runs (K4: sums over D=64 and D=16, library the same sdpa forward; "
         "qk_dot: int8 plus bf16, k_bf16 at scripts/probe_int8_dot.py:34, library torch._int_mm plus "
         "torch.mm(out_dtype=torch.float32), null if this torch lacks the latter; dw3x3: library cuDNN's channels-last "

@@ -330,6 +330,55 @@ def test_flash_qk_i8_kernel_per_item_matches_plain_and_keeps_rows_apart(cuda, sh
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [24, 32, 128, 192])
+@pytest.mark.parametrize("per_item", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_quantize_qk_i8_kernel_on_head_split_views_at_every_width(cuda, d, per_item, dtype):
+    """q and k as head-split views of one (B, N, 3C) projection, read in
+    place, at the UNets' head dims D = 24 to 192: equal to the plain version
+    (tolerance: none), two calls equal."""
+    b, h, n = 2, 4, 1024
+    qkv = _qkv((b, n, 3 * h * d), dtype, cuda, seed=37 + d)[0]
+    q, k = (t.reshape(b, n, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1)[:2])
+    assert not q.is_contiguous() and A._row_strides(q) is not None
+    got = A.quantize_qk_i8(q, k, per_item=per_item)
+    for name, g, w, again in zip(("q8", "k8", "qk_scale"), got, A.quantize_qk_i8_plain(q, k, per_item=per_item),
+                                 A.quantize_qk_i8(q, k, per_item=per_item)):
+        assert torch.equal(g, w) and torch.equal(g, again), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_item", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_quantize_qk_i8_kernel_after_a_larger_call(cuda, per_item, dtype):
+    """The quantizer's scratch slots are written in full by every call and
+    never filled: a small call right after a large one (whose maxima are
+    100x larger) and a large one right after a small one each equal the
+    plain version (tolerance: none)."""
+    big = [t * 100 for t in _qkv((8, 4, 4096, 64), dtype, cuda, seed=38)[:2]]
+    small = _qkv((2, 1, 64, 16), dtype, cuda, seed=39)[:2]
+    for q, k in (big, small, big):
+        got = A.quantize_qk_i8(q, k, per_item=per_item)
+        for name, g, w in zip(("q8", "k8", "qk_scale"), got, A.quantize_qk_i8_plain(q, k, per_item=per_item)):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_item", [False, True])
+def test_quantize_qk_i8_is_one_launch(cuda, per_item):
+    """A quantizer call runs one kernel on the card: no fill of the maxima
+    before it, no second pass after it (torch.profiler's device events)."""
+    q, k = _qkv((8, 4, 1024, 128), torch.bfloat16, cuda, seed=40)[:2]
+    A.quantize_qk_i8(q, k, per_item=per_item)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        A.quantize_qk_i8(q, k, per_item=per_item)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "quantize_qk_kernel" in kernels[0], kernels
+
+
+@pytest.mark.gpu
 def test_flash_qk_i8_forward_takes_one_scale_or_one_a_row(cuda):
     q, k, v = _qkv((3, 2, 128, 64), torch.bfloat16, cuda, seed=36)
     q8, k8, scales = A.quantize_qk_i8(q, k, per_item=True)
@@ -836,6 +885,38 @@ def test_flash_bwd_kernel_takes_strided_inputs(cuda):
         assert _rel_err(g, r) <= BWD_REL_TOL
 
 
+@pytest.fixture(scope="module")
+def one_warpgroup_k3(tmp_path_factory):
+    """The backward at D = 192 as the one-warpgroup design built it (pass 1 on
+    64 query rows a block, pass 2 as a dV launch and a dK launch), a library of
+    its own (probes/bwd_wide_ablations.py's `one_warpgroup`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return bwd_wide_ablations.build(["one_warpgroup"], str(tmp_path_factory.mktemp("k3")))["one_warpgroup"][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [64, 192, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_bwd_d192_two_consumers_equal_the_one_warpgroup_design(cuda, one_warpgroup_k3, n, dtype):
+    """K3 at D = 192 on a producer and two consumer warpgroups a pass (one
+    tile; three, where pass 1's last block has one consumer's rows; sixteen):
+    within BWD_REL_TOL of the plain version, two calls bit-equal, and dQ, dK
+    and dV bit-equal to the one-warpgroup design's, whose sums it keeps in
+    their order."""
+    args = _bwd_inputs((2, 4, n, 192), dtype, cuda, seed=n)
+    before = A.flash_attention_bwd.launches
+    got = A.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert A.flash_attention_bwd.launches == before + 1
+    for name, g, r in zip(("dq", "dk", "dv"), got, A.flash_attention_bwd_plain(*args)):
+        assert torch.isfinite(g.float()).all() and _rel_err(g, r) <= BWD_REL_TOL, (name, _rel_err(g, r))
+    for name, g, again, old in zip(("dq", "dk", "dv"), got, A.flash_attention_bwd(*args),
+                                   bwd_wide_ablations.k3_call(one_warpgroup_k3, args)):
+        assert torch.equal(g, again), name
+        assert torch.equal(g, old), name
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 2, 1024, 64), (1, 4, 1024, 128), (2, 2, 4096, 16), (1, 4, 1024, 192)])
 def test_flash_attention_autograd_matches_autograd_through_plain(cuda, shape):
@@ -979,7 +1060,7 @@ from weatherconverter_tpu_torch.probes import probe_dw3x3 as K6  # noqa: E402
 from weatherconverter_tpu_torch.probes import probe_dw9x9_floor as K5  # noqa: E402
 from weatherconverter_tpu_torch.probes import probe_int8_dot as K7  # noqa: E402
 from weatherconverter_tpu_torch.probes import common as probe_common, dispatch_cost, time_flash  # noqa: E402
-from weatherconverter_tpu_torch.probes import fwd_wide_ablations  # noqa: E402
+from weatherconverter_tpu_torch.probes import bwd_wide_ablations, fwd_wide_ablations  # noqa: E402
 
 PROBE_MODULES = [K4, K7, K6, K5]
 
@@ -1116,7 +1197,8 @@ def test_probe_kernels_refuse_what_they_do_not_take(cuda):
         K5.dw_fma81(_qkv((16,), torch.bfloat16, cuda)[0], K5.taps()[:80])
 
 
-@pytest.mark.parametrize("probe", PROBE_MODULES + [time_flash, dispatch_cost, fwd_wide_ablations],
+@pytest.mark.parametrize("probe", PROBE_MODULES + [time_flash, dispatch_cost, fwd_wide_ablations,
+                                                   bwd_wide_ablations],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_probe_main_exits_2_without_cuda(probe, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -32,6 +32,7 @@ from weatherconverter_tpu.training import segmentation as JS
 from weatherconverter_tpu_torch.cli import commands as PC
 from weatherconverter_tpu_torch.compat import from_jax
 from weatherconverter_tpu_torch.core.checkpoint import CheckpointManager, restore_auto
+from weatherconverter_tpu_torch.core import precision
 from weatherconverter_tpu_torch.core.config import SegConfig, load_translation_config
 from weatherconverter_tpu_torch.metrics import stream as PM
 from weatherconverter_tpu_torch.models import factory as PF
@@ -311,6 +312,35 @@ def test_loop_max_steps_validates_and_saves_the_epoch_it_stops_in(tmp_path):
     assert (state.step, state.epoch) == (3, 2)
     ck = CheckpointManager(str(tmp_path / "0" / "checkpoints"), best_metric_name="Mean IoU")
     assert ck.all_steps() == [1, 2] and ck.best_step() in (1, 2)
+
+
+def test_loop_f32_run_on_cuda_trains_without_tf32(tmp_path, monkeypatch):
+    """An f32 run as on the card (`dtype` None, the loop's `f32_arithmetic`
+    called with "cuda") takes its steps with cuDNN's TF32 off and matmuls at
+    "highest", as loop_diffusion does, and the settings come back after."""
+    real = precision.f32_arithmetic
+    monkeypatch.setattr(loop_segmentation, "f32_arithmetic", lambda device: real("cuda"))
+    seen, make = [], loop_segmentation.make_augmented_seg_train_step
+
+    def spy_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def spy(*step_args):
+            seen.append((torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()))
+            return step(*step_args)
+        return spy
+
+    monkeypatch.setattr(loop_segmentation, "make_augmented_seg_train_step", spy_make)
+    saved = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True  # torch's default, which an f32 run must turn off
+    torch.set_float32_matmul_precision("high")
+    try:
+        loop_segmentation.train(_loop_cfg(tmp_path), max_steps=1, datasets=(Pairs(2, 0), Pairs(2, 1)))
+        assert seen == [(False, "highest")]
+        assert (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()) == (True, "high")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
 
 
 def test_loop_refuses_fsdp_and_an_absent_pretrained_backbone(tmp_path, monkeypatch):

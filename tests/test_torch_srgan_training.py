@@ -36,6 +36,7 @@ from weatherconverter_tpu.training import srgan as JT
 from weatherconverter_tpu_torch.cli import commands as PC
 from weatherconverter_tpu_torch.cli import main as PM
 from weatherconverter_tpu_torch.compat import from_jax
+from weatherconverter_tpu_torch.core import precision
 from weatherconverter_tpu_torch.core.checkpoint import CheckpointManager
 from weatherconverter_tpu_torch.core.config import SRGANTrainConfig, load_translation_config
 from weatherconverter_tpu_torch.models import srgan as PMod
@@ -377,6 +378,34 @@ def test_loop_cut_short_in_an_epoch_resumes_that_epoch(tmp_path):
     assert (gs2.step, ds2.step, gs2.epoch) == (5, 2, 2)
     recs = [r for r in _records(tmp_path / "1") if "train/g_loss" in r]
     assert [r["phase"] for r in recs] == ["pretrain"] * 2 + ["gan"] * 2
+
+
+def test_loop_f32_run_on_cuda_trains_without_tf32(tmp_path, monkeypatch):
+    """An f32 run as on the card (`dtype` None, the loop's `f32_arithmetic`
+    called with "cuda") takes its steps with cuDNN's TF32 off and matmuls at
+    "highest", as loop_diffusion does, and the settings come back after."""
+    real = precision.f32_arithmetic
+    monkeypatch.setattr(loop_srgan, "f32_arithmetic", lambda device: real("cuda"))
+    seen = []
+    for name in ("make_pretrain_step", "make_gan_step"):
+        def spy_make(*args, _make=getattr(loop_srgan, name), **kwargs):
+            step = _make(*args, **kwargs)
+
+            def spy(*step_args):
+                seen.append((torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()))
+                return step(*step_args)
+            return spy
+        monkeypatch.setattr(loop_srgan, name, spy_make)
+    saved = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True  # torch's default, which an f32 run must turn off
+    torch.set_float32_matmul_precision("high")
+    try:
+        loop_srgan.train(_cfg(tmp_path), max_steps=1, dataset=FakeImages())
+        assert seen == [(False, "highest")]
+        assert (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()) == (True, "high")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
 
 
 def test_train_srgan_cli_on_the_cpu_into_super_resolve_and_translate(tmp_path):

@@ -38,23 +38,49 @@
 //     p / l <= 1, so f16 cannot overflow where the clamp lets p reach e^60.
 //   * At D = 128 pass 2 forms its scores 32 queries at a time, so the f32 dK
 //     and dV (128 registers a thread) fit without spilling.
-//   * At D = 192 (three 64-column panels a tile) dK and dV together would be
-//     192 accumulator registers a thread, before S and dP: they cannot share
-//     a thread's 255. Pass 2 is launched twice there, once for dV (S^T and
-//     p^T dO: three products' worth of work) and once for dK (S^T, dP^T and
-//     m^T Q), each with 96 accumulators; S^T is formed twice, so the backward
-//     spends eight products where the other head dims spend seven. Pass 1
-//     forms its scores 32 keys at a time there (96 + 16 + 16 registers of
-//     accumulators). A simple design that is right; two warpgroups sharing
-//     one block's tiles, one for dK and one for dV, would save the second
-//     S^T and half the tile traffic.
-//   * One warpgroup a block: two sharing a ring measured 7 % slower at
-//     D = 64 and no faster elsewhere.
+//   * One warpgroup a block up to D = 128: two sharing a ring measured 7 %
+//     slower at D = 64 and no faster elsewhere.
+// At D = 192 (three 64-column panels a tile) one warpgroup cannot hold the
+// pass-2 sums: dK and dV together are 192 accumulator registers a thread
+// before S^T and dP^T. Its tiles are 24 KB, so one block fills an SM, nothing
+// hides a warpgroup's waits, exponentials and copies, and each walked tile it
+// reads from L2 serves 64 rows. Both passes run on flash_fwd_wide.cuh's
+// block there instead: a producer warpgroup and two consumer warpgroups
+// (384 threads; setmaxnreg 24 / 240 / 240, the block's own 3 x 168).
+//   * Pass 2, one launch (flash_bwd_dkv_wide_kernel): a block owns 64 keys,
+//     its K and V tiles in shared memory. The producer walks the 64-query
+//     tiles of Q and dO, with their 1/l and Dv, into a two-deep mbarrier ring
+//     (16-byte cp.async, cp.async.mbarrier.arrive.noinc: it never waits for
+//     a copy; a slot is refilled once both consumers have released it).
+//     Consumer 0 forms S^T = K Q^T and p^T / l and sums dV += (p^T / l) dO;
+//     consumer 1 forms dP^T = V dO^T, takes p^T / l from consumer 0 through
+//     shared memory (a 64 x 64 f32 tile, two buffers behind FULL / EMPTY
+//     mbarriers; the two threads of one tid hold the same elements, and the
+//     sign bit of each value says where the clamp fired), forms
+//     m^T scale / l and sums dK += m^T Q. Seven products in all, not eight,
+//     96 accumulators a consumer, every walked tile read once for both
+//     gradients (178 KB of shared memory).
+//   * Pass 1, one launch (flash_bwd_dq_wide_kernel): a block owns 128 query
+//     rows, two consumers of 64, each with its own Q and dO tiles; the
+//     producer walks one two-deep ring of K and V tiles for both, so each
+//     tile read from L2 serves 128 rows (193 KB). With 240 registers a
+//     consumer takes 64-key score tiles (S and dP: 64 accumulators) beside
+//     its 96 of dQ. A block past the last 64 rows of a head (N an odd
+//     multiple of 64) has one consumer's worth of rows: its second consumer
+//     computes the first one's rows again and stores nothing.
+//   * Each consumer's MMAs are drained at the end of every step, which keeps
+//     ptxas from serializing the wgmma; the two consumers are not held in
+//     step, so one's exponentials and waits run under the other's products.
+//   * The sums keep the one-warpgroup kernels' order: the same key or query
+//     order, the same 16-deep k-steps, the same arithmetic on p and m, so
+//     dQ, dK and dV equal theirs bit for bit.
+// What the design bought, beside pass 1 left on one warpgroup
+// (probes/bwd_wide_ablations.py): PERF.md section 6.
 // Left for later: overlapping the exp/mask work with the MMAs inside a
 // warpgroup (splitting S and dO V^T into two MMA groups measured no gain and
 // cost registers), TMA, and strided inputs (the wrapper makes them
 // contiguous).
-#include "flash_wgmma.cuh"
+#include "flash_fwd_wide.cuh"
 
 namespace wcflash {
 
@@ -71,20 +97,89 @@ template <int D>
 struct BwdConfig {
   // D = 128: two stages, so two blocks fit an SM, and 32-query sub-tiles in
   // pass 2, so the f32 dK and dV (128 registers a thread) do not spill.
-  // D = 192: the same, 32-key sub-tiles in pass 1 as well, and pass 2 split
-  // into a dV launch and a dK launch (96 accumulator registers each).
+  // kSubDq: keys a score tile of pass 1 (32 at D = 192, where the one-warpgroup pass 1 runs only as an ablation:
+  // 96 + 16 + 16 accumulators).
   static constexpr int kStages = D >= 128 ? 2 : 3;
   static constexpr int kSub = D >= 128 ? 32 : 64;
   static constexpr int kSubDq = D > 128 ? 32 : 64;
-  static constexpr bool kSplitDkv = D > 128;
   static constexpr int kDqSmemBytes = 1024 + (2 + kStages * 2) * Tile<D>::kBytes;
   static constexpr int kDkvSmemBytes = kDqSmemBytes + kStages * 2 * kTileRows * 4;
 };
+
+// D = 192's block (flash_fwd_wide.cuh's producer and two consumers): the depth of the walked-tile rings (pass 1 has
+// no room for a third stage) and the p^T / l exchange buffers of pass 2.
+constexpr int kWideDqStages = 2;
+constexpr int kWideDkvStages = 2;
+constexpr int kWideExchange = 2;
+constexpr int kVecBytes = kTileRows * 4;                  // 64 f32 values: 1/l or Dv of a tile
+constexpr int kExchangeBytes = kTileRows * kTileRows * 4;  // p^T / l of a 64 x 64 tile, f32
+constexpr int kWideDqSmemBytes =
+    1024 + (2 * kWideConsumers + 2 * kWideDqStages) * Tile<192>::kBytes + 16 * kWideDqStages;
+constexpr int kWideDkvSmemBytes = 1024 + (2 + 2 * kWideDkvStages) * Tile<192>::kBytes +
+                                  2 * kWideDkvStages * kVecBytes + kWideExchange * kExchangeBytes +
+                                  16 * (kWideDkvStages + kWideExchange);
+static_assert(kWideDqSmemBytes <= 232448 && kWideDkvSmemBytes <= 232448, "a block's shared memory");
 
 // exp2-domain score y -> p = exp2(clip(y)), and whether the clamp left it alone
 __device__ __forceinline__ float clamped_exp2(float y, bool& inside) {
   inside = fabsf(y) <= kClampLog2;
   return ex2_ftz(fminf(fmaxf(y, -kClampLog2), kClampLog2));
+}
+
+// Dv = rowsum(dO o O) and 1/l of this thread's rows g and g + 8 of its warp's 16 (from `warp_row0` on in the
+// head at `head`, whose rows start at `head_rows` in l), read from global memory; written to the f32 scratch
+// when `store`.
+template <typename T, int D>
+__device__ __forceinline__ void row_terms(const T* __restrict__ o, const T* __restrict__ d_o,
+                                          const float* __restrict__ l, float* __restrict__ dvec,
+                                          float* __restrict__ linv_out, size_t head, size_t head_rows, int warp_row0,
+                                          int g, int t, bool store, float dvr[2], float linv[2]) {
+  const size_t rows = head_rows + warp_row0;
+  dvr[0] = dvr[1] = 0.f;
+  {
+    const T* do_rows = d_o + head + (size_t)warp_row0 * D;
+    const T* o_rows = o + head + (size_t)warp_row0 * D;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t da[4], oa[4];
+      load_a(da, do_rows, D, kc, g, t);
+      load_a(oa, o_rows, D, kc, g, t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // r = 0, 2: row g; r = 1, 3: row g + 8
+        const float2 x = Mma<T>::unpack(da[r]), y = Mma<T>::unpack(oa[r]);
+        dvr[r & 1] += x.x * y.x + x.y * y.y;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dvr[r] += __shfl_xor_sync(0xffffffffu, dvr[r], 1);
+    dvr[r] += __shfl_xor_sync(0xffffffffu, dvr[r], 2);
+  }
+  linv[0] = 1.f / l[rows + g];
+  linv[1] = 1.f / l[rows + g + 8];
+  if (store && t == 0) {
+    dvec[rows + g] = dvr[0];
+    dvec[rows + g + 8] = dvr[1];
+    linv_out[rows + g] = linv[0];
+    linv_out[rows + g + 8] = linv[1];
+  }
+}
+
+// m = p o (dP - Dv) / l for this thread's 64-key strip of scores s and dP (pairs i: row g + 8 (i & 1)), packed as
+// the A fragments of m K; zero where the clamp fired.
+template <typename T, int kRegs>
+__device__ __forceinline__ void dq_m(const float (&s)[kRegs], const float (&dp)[kRegs], const float dvr[2],
+                                     const float linv[2], float scale_log2, uint32_t (&ma)[kRegs / 2]) {
+#pragma unroll
+  for (int i = 0; i < kRegs / 2; ++i) {
+    bool in0, in1;
+    const float p0 = clamped_exp2(s[2 * i] * scale_log2, in0);
+    const float p1 = clamped_exp2(s[2 * i + 1] * scale_log2, in1);
+    const float m0 = in0 ? p0 * (dp[2 * i] - dvr[i & 1]) * linv[i & 1] : 0.f;
+    const float m1 = in1 ? p1 * (dp[2 * i + 1] - dvr[i & 1]) * linv[i & 1] : 0.f;
+    ma[i] = Mma<T>::pack(m0, m1);
+  }
 }
 
 // Pass 1: dQ for 64 query rows a block (one warpgroup), walking 64-key K/V tiles; also
@@ -123,37 +218,8 @@ __global__ void __launch_bounds__(kWgThreads)
     cp_async_commit();
   }
 
-  // Dv and 1/l of this thread's rows g and g + 8 of its warp's 16
-  const int warp_row0 = row0 + warp * 16;
-  const size_t rows = (size_t)blockIdx.y * n + warp_row0;
-  float dvr[2] = {0.f, 0.f};
-  {
-    const T* do_rows = d_o + head + (size_t)warp_row0 * D;
-    const T* o_rows = o + head + (size_t)warp_row0 * D;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      uint32_t da[4], oa[4];
-      load_a(da, do_rows, D, kc, g, t);
-      load_a(oa, o_rows, D, kc, g, t);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {  // r = 0, 2: row g; r = 1, 3: row g + 8
-        const float2 x = Mma<T>::unpack(da[r]), y = Mma<T>::unpack(oa[r]);
-        dvr[r & 1] += x.x * y.x + x.y * y.y;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    dvr[r] += __shfl_xor_sync(0xffffffffu, dvr[r], 1);
-    dvr[r] += __shfl_xor_sync(0xffffffffu, dvr[r], 2);
-  }
-  const float linv[2] = {1.f / l[rows + g], 1.f / l[rows + g + 8]};
-  if (t == 0) {
-    dvec[rows + g] = dvr[0];
-    dvec[rows + g + 8] = dvr[1];
-    linv_out[rows + g] = linv[0];
-    linv_out[rows + g + 8] = linv[1];
-  }
+  float dvr[2], linv[2];
+  row_terms<T, D>(o, d_o, l, dvec, linv_out, head, (size_t)blockIdx.y * n, row0 + warp * 16, g, t, true, dvr, linv);
 
   float acc[L::kPanels][L::kAccRegs];
 #pragma unroll
@@ -189,15 +255,7 @@ __global__ void __launch_bounds__(kWgThreads)
       fence_regs(dp);
 
       uint32_t ma[kSub / 4];
-#pragma unroll
-      for (int i = 0; i < kSub / 4; ++i) {  // pair i: row g + 8 * (i & 1)
-        bool in0, in1;
-        const float p0 = clamped_exp2(s[2 * i] * scale_log2, in0);
-        const float p1 = clamped_exp2(s[2 * i + 1] * scale_log2, in1);
-        const float m0 = in0 ? p0 * (dp[2 * i] - dvr[i & 1]) * linv[i & 1] : 0.f;
-        const float m1 = in1 ? p1 * (dp[2 * i + 1] - dvr[i & 1]) * linv[i & 1] : 0.f;
-        ma[i] = Mma<T>::pack(m0, m1);
-      }
+      dq_m<T>(s, dp, dvr, linv, scale_log2, ma);
 
       fence_regs(acc);
       wgmma_fence();
@@ -222,7 +280,8 @@ __global__ void __launch_bounds__(kWgThreads)
 // dP^T = V dO^T), so p^T and m^T come out with keys as rows and feed
 // dV += p^T dO and dK += m^T Q from registers, with the dO and Q tiles as loaded.
 // kOut says which gradients this launch owns: 3 both, 1 dV alone, 2 dK alone
-// (the two launches of D = 192; the dV one needs neither dP^T nor Dv).
+// (1 and 2: D = 192's two launches on one warpgroup, which only the ablations
+// and the one-warpgroup reference of probes/bwd_wide_ablations.py build).
 template <typename T, int D, int kOut>
 __global__ void __launch_bounds__(kWgThreads)
     flash_bwd_dkv_wgmma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -342,6 +401,243 @@ __global__ void __launch_bounds__(kWgThreads)
   if constexpr (kDoDv) store_rows<T, D>(dv_acc, by_one, v_own, dv + out, warp, lane);
 }
 
+// Pass 1 at D = 192 (see the note at the top): dQ for 128 query rows a block, two consumer warpgroups of 64 and a
+// producer that walks the K/V tiles for both; Dv and 1/l of the rows to the f32 scratch, as the one-warpgroup pass.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                             const T* __restrict__ o, const T* __restrict__ d_o, const float* __restrict__ l,
+                             T* __restrict__ dq, float* __restrict__ dvec, float* __restrict__ linv_out, int n,
+                             float scale, float scale_log2) {
+  constexpr int D = 192;
+  using L = Tile<D>;
+  constexpr int kS = kWideDqStages;
+  constexpr int kTB = L::kBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t own0 = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [consumer]: its Q tile, then its dO tile
+  const uint32_t ring = own0 + kWideConsumers * 2 * kTB;          // kS x (K tile, V tile)
+  const uint32_t full = ring + kS * 2 * kTB, empty = full + 8 * kS;
+
+  const int tid = threadIdx.x;
+  const size_t head = (size_t)blockIdx.y * n * D;
+  const int row0 = blockIdx.x * kWideRows;
+  const int rows = min(kWideRows, n - row0);
+  const int tiles = n / kTileRows;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full + 8 * s, kWgThreads);
+      mbar_init(empty + 8 * s, kWideConsumers * kWgThreads);
+    }
+  }
+  __syncthreads();
+
+  if (tid >= kWideConsumers * kWgThreads) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWideProducerRegs));
+    const int ptid = tid - kWideConsumers * kWgThreads;
+#pragma unroll 1
+    for (int c = 0; c < kWideConsumers; ++c) {  // a half block's second consumer takes the first one's rows
+      const size_t at = head + (size_t)(row0 + (c * kTileRows < rows ? c * kTileRows : 0)) * D;
+      copy_tile<T, D>(own0 + c * 2 * kTB, q + at, ptid);
+      copy_tile<T, D>(own0 + c * 2 * kTB + kTB, d_o + at, ptid);
+    }
+#pragma unroll 1
+    for (int j = 0; j < tiles; ++j) {  // the own tiles land before the first tile's arrival
+      const int s = j % kS;
+      if (j >= kS) mbar_wait(empty + 8 * s, (j / kS + 1) & 1);
+      const size_t at = head + (size_t)j * kTileRows * D;
+      copy_tile<T, D>(ring + s * 2 * kTB, k + at, ptid);
+      copy_tile<T, D>(ring + s * 2 * kTB + kTB, v + at, ptid);
+      mbar_arrive_copies(full + 8 * s);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");  // no copy outlives its thread
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWideConsumerRegs));
+  const int c = tid / kWgThreads, warp = (tid % kWgThreads) / 32, lane = tid % 32;
+  const bool owns = c * kTileRows < rows;  // else a half block's second consumer: stores nothing
+  const int my_row0 = row0 + (owns ? c * kTileRows : 0);
+  const uint32_t q_s = own0 + c * 2 * kTB, do_s = q_s + kTB;
+  float dvr[2], linv[2];
+  row_terms<T, D>(o, d_o, l, dvec, linv_out, head, (size_t)blockIdx.y * n, my_row0 + warp * 16, lane >> 2, lane & 3,
+                  owns, dvr, linv);
+
+  float acc[L::kPanels][L::kAccRegs];
+#pragma unroll
+  for (int pn = 0; pn < L::kPanels; ++pn) {
+#pragma unroll
+    for (int i = 0; i < L::kAccRegs; ++i) acc[pn][i] = 0.f;
+  }
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % kS;
+    mbar_wait(full + 8 * s, (j / kS) & 1);
+    fence_async_proxy();  // the copies landed through the generic proxy; wgmma reads through the async one
+    const uint32_t k_s = ring + s * 2 * kTB, v_s = k_s + kTB;
+    float sc[kTileRows / 2], dp[kTileRows / 2];
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    mma_rows_rows_t<T, D>(sc, q_s, k_s, 0);
+    mma_rows_rows_t<T, D>(dp, do_s, v_s, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    uint32_t ma[kTileRows / 4];
+    dq_m<T>(sc, dp, dvr, linv, scale_log2, ma);
+    fence_regs(acc);
+    wgmma_fence();
+    mma_regs_tile<T, D, kTileRows / 16>(acc, ma, k_s, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * s);
+  }
+  if (!owns) return;
+  const float mul[2] = {scale, scale};
+  store_rows<T, D>(acc, mul, q_s, dq + head + (size_t)my_row0 * D, warp, lane);  // the own Q tile as the stage
+}
+
+// Pass 2 at D = 192 (see the note at the top): dK and dV for 64 keys a block in one launch. Consumer 0 forms S^T
+// and p^T / l and sums dV; consumer 1 forms dP^T, takes p^T / l from consumer 0 and sums dK.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                              const T* __restrict__ d_o, const float* __restrict__ linv,
+                              const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv, int n,
+                              float scale, float scale_log2) {
+  constexpr int D = 192;
+  using L = Tile<D>;
+  constexpr int kS = kWideDkvStages, kX = kWideExchange;
+  constexpr int kTB = L::kBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t k_own = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [64][D]: consumer 0's, then its dV stage
+  const uint32_t v_own = k_own + kTB;                              // [64][D]: consumer 1's, then its dK stage
+  const uint32_t ring = v_own + kTB;                               // kS x (Q tile, dO tile)
+  const uint32_t vecs = ring + kS * 2 * kTB;                       // kS x (1/l[64], Dv[64])
+  const uint32_t xch = vecs + kS * 2 * kVecBytes;                  // kX x p^T / l
+  const uint32_t full = xch + kX * kExchangeBytes, empty = full + 8 * kS;
+  const uint32_t p_full = empty + 8 * kS, p_empty = p_full + 8 * kX;
+
+  const int tid = threadIdx.x;
+  const size_t head = (size_t)blockIdx.y * n * D, head_rows = (size_t)blockIdx.y * n;
+  const int key0 = blockIdx.x * kTileRows;
+  const int tiles = n / kTileRows;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full + 8 * s, kWgThreads);
+      mbar_init(empty + 8 * s, kWideConsumers * kWgThreads);
+    }
+#pragma unroll
+    for (int x = 0; x < kX; ++x) {
+      mbar_init(p_full + 8 * x, kWgThreads);
+      mbar_init(p_empty + 8 * x, kWgThreads);
+    }
+  }
+  __syncthreads();
+
+  if (tid >= kWideConsumers * kWgThreads) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWideProducerRegs));
+    const int ptid = tid - kWideConsumers * kWgThreads;
+    copy_tile<T, D>(k_own, k + head + (size_t)key0 * D, ptid);
+    copy_tile<T, D>(v_own, v + head + (size_t)key0 * D, ptid);
+#pragma unroll 1
+    for (int j = 0; j < tiles; ++j) {  // the own tiles land before the first tile's arrival
+      const int s = j % kS;
+      if (j >= kS) mbar_wait(empty + 8 * s, (j / kS + 1) & 1);
+      const size_t at = (size_t)j * kTileRows;
+      copy_tile<T, D>(ring + s * 2 * kTB, q + head + at * D, ptid);
+      copy_tile<T, D>(ring + s * 2 * kTB + kTB, d_o + head + at * D, ptid);
+      if (ptid < 2 * kTileRows / 4) {  // 16 threads copy 1/l, 16 Dv
+        const float* src = (ptid < kTileRows / 4 ? linv : dvec) + head_rows + at + (ptid % (kTileRows / 4)) * 4;
+        cp_async16(vecs + s * 2 * kVecBytes + ptid * 16, src);
+      }
+      mbar_arrive_copies(full + 8 * s);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWideConsumerRegs));
+  const int c = tid / kWgThreads, u = tid % kWgThreads, warp = u / 32, lane = tid % 32;
+  const int t = lane & 3;
+  float acc[L::kPanels][L::kAccRegs];  // dV for consumer 0, dK for consumer 1
+#pragma unroll
+  for (int pn = 0; pn < L::kPanels; ++pn) {
+#pragma unroll
+    for (int i = 0; i < L::kAccRegs; ++i) acc[pn][i] = 0.f;
+  }
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % kS, x = j % kX;
+    mbar_wait(full + 8 * s, (j / kS) & 1);
+    fence_async_proxy();
+    const uint32_t q_s = ring + s * 2 * kTB, do_s = q_s + kTB;
+    const uint32_t vec_s = vecs + s * 2 * kVecBytes + c * kVecBytes;  // 1/l for consumer 0, Dv for consumer 1
+    const uint32_t xs = xch + x * kExchangeBytes + u * 8;             // this thread's pairs, 1 KB apart
+    float sc[kTileRows / 2];  // S^T (consumer 0) or dP^T (consumer 1): keys as rows
+    fence_regs(sc);
+    wgmma_fence();
+    mma_rows_rows_t<T, D>(sc, c == 0 ? k_own : v_own, c == 0 ? q_s : do_s, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    uint32_t a[kTileRows / 4];  // p^T / l or m^T, the A fragments of the dV or dK product
+    if (c == 0) {
+      if (j >= kX) mbar_wait(p_empty + 8 * x, (j / kX + 1) & 1);
+#pragma unroll
+      for (int jj = 0; jj < kTileRows / 8; ++jj) {  // 8 queries: this thread's columns 8 jj + 2t, +1
+        float li0, li1;
+        asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];\n" : "=f"(li0), "=f"(li1) : "r"(vec_s + (jj * 8 + 2 * t) * 4));
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {  // key rows g and g + 8
+          const int i = 2 * jj + r;
+          bool in0, in1;
+          const float p0 = clamped_exp2(sc[2 * i] * scale_log2, in0) * li0;
+          const float p1 = clamped_exp2(sc[2 * i + 1] * scale_log2, in1) * li1;
+          a[i] = Mma<T>::pack(p0, p1);
+          // p >= +0: its sign bit tells consumer 1 that the clamp fired
+          asm volatile("st.shared.v2.f32 [%0], {%1,%2};\n" ::"r"(xs + i * kWgThreads * 8), "f"(in0 ? p0 : -p0),
+                       "f"(in1 ? p1 : -p1)
+                       : "memory");
+        }
+      }
+      mbar_arrive(p_full + 8 * x);
+    } else {
+      mbar_wait(p_full + 8 * x, (j / kX) & 1);
+#pragma unroll
+      for (int jj = 0; jj < kTileRows / 8; ++jj) {
+        float dv0, dv1;
+        asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];\n" : "=f"(dv0), "=f"(dv1) : "r"(vec_s + (jj * 8 + 2 * t) * 4));
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 2 * jj + r;
+          float p0, p1;
+          asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];\n" : "=f"(p0), "=f"(p1) : "r"(xs + i * kWgThreads * 8));
+          a[i] = Mma<T>::pack(__float_as_uint(p0) >> 31 ? 0.f : p0 * (sc[2 * i] - dv0),
+                              __float_as_uint(p1) >> 31 ? 0.f : p1 * (sc[2 * i + 1] - dv1));
+        }
+      }
+      mbar_arrive(p_empty + 8 * x);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+    mma_regs_tile<T, D, kTileRows / 16>(acc, a, c == 0 ? do_s : q_s, 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * s);
+  }
+  // each consumer's own tile is read by its own MMAs alone, all retired: its stage
+  const float by_scale[2] = {scale, scale}, by_one[2] = {1.f, 1.f};
+  const size_t out = head + (size_t)key0 * D;
+  if (c == 0)
+    store_rows<T, D>(acc, by_one, k_own, dv + out, warp, lane);
+  else
+    store_rows<T, D>(acc, by_scale, v_own, dk + out, warp, lane);
+}
+
 template <typename T, int D, int kOut>
 cudaError_t launch_dkv(const T* q, const T* k, const T* v, const T* d_o, const float* linv, const float* dvec, T* dk,
                        T* dv, dim3 grid, int n, float scale, float scale_log2, cudaStream_t stream) {
@@ -355,32 +651,57 @@ cudaError_t launch_dkv(const T* q, const T* k, const T* v, const T* d_o, const f
 }
 
 template <typename T, int D>
+cudaError_t launch_dq(const T* q, const T* k, const T* v, const T* o, const T* d_o, const float* l, T* dq, float* dvec,
+                      float* linv, int bh, int n, float scale, float scale_log2, cudaStream_t stream) {
+  constexpr int smem = BwdConfig<D>::kDqSmemBytes;
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wgmma_kernel<T, D>
+      <<<dim3(n / kTileRows, bh), kWgThreads, smem, stream>>>(q, k, v, o, d_o, l, dq, dvec, linv, n, scale, scale_log2);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_wide(const T* q, const T* k, const T* v, const T* o, const T* d_o, const float* l, T* dq,
+                           float* dvec, float* linv, int bh, int n, float scale, float scale_log2,
+                           cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wide_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kWideDqSmemBytes);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_wide_kernel<T><<<dim3((n + kWideRows - 1) / kWideRows, bh), kWideThreads, kWideDqSmemBytes, stream>>>(
+      q, k, v, o, d_o, l, dq, dvec, linv, n, scale, scale_log2);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* d_o,
                        const float* l, void* dq, void* dk, void* dv, float* scratch, int bh, int n, float scale,
                        cudaStream_t stream) {
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
+  const T* o_ = static_cast<const T*>(o);
   const T* do_ = static_cast<const T*>(d_o);
-  constexpr int smem1 = BwdConfig<D>::kDqSmemBytes;
+  T* dq_ = static_cast<T*>(dq);
+  T* dk_ = static_cast<T*>(dk);
+  T* dv_ = static_cast<T*>(dv);
   float* dvec = scratch;                   // Dv, pass 1 -> pass 2
   float* linv = scratch + (size_t)bh * n;  // 1 / l, pass 1 -> pass 2
   const dim3 grid(n / kTileRows, bh);
   const float scale_log2 = scale * kLog2e;
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_wgmma_kernel<T, D><<<grid, kWgThreads, smem1, stream>>>(
-      q_, k_, v_, static_cast<const T*>(o), do_, l, static_cast<T*>(dq), dvec, linv, n, scale, scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  T* dk_ = static_cast<T*>(dk);
-  T* dv_ = static_cast<T*>(dv);
-  if constexpr (BwdConfig<D>::kSplitDkv) {
-    err = launch_dkv<T, D, 1>(q_, k_, v_, do_, linv, dvec, dk_, dv_, grid, n, scale, scale_log2, stream);
+  if constexpr (D == 192) {
+    cudaError_t err = launch_dq_wide<T>(q_, k_, v_, o_, do_, l, dq_, dvec, linv, bh, n, scale, scale_log2, stream);
     if (err != cudaSuccess) return err;
-    return launch_dkv<T, D, 2>(q_, k_, v_, do_, linv, dvec, dk_, dv_, grid, n, scale, scale_log2, stream);
+    err = cudaFuncSetAttribute(flash_bwd_dkv_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWideDkvSmemBytes);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_wide_kernel<T><<<grid, kWideThreads, kWideDkvSmemBytes, stream>>>(
+        q_, k_, v_, do_, linv, dvec, dk_, dv_, n, scale, scale_log2);
+    return cudaGetLastError();
   } else {
+    cudaError_t err = launch_dq<T, D>(q_, k_, v_, o_, do_, l, dq_, dvec, linv, bh, n, scale, scale_log2, stream);
+    if (err != cudaSuccess) return err;
     return launch_dkv<T, D, 3>(q_, k_, v_, do_, linv, dvec, dk_, dv_, grid, n, scale, scale_log2, stream);
   }
 }

@@ -374,6 +374,7 @@ def _(q, k, v, o, do, l):
         )
     cuda_build.check_launch("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_head_dim[d] = flash_attention_bwd.launches_by_head_dim.get(d, 0) + 1
     return dq, dk, dv
 
 
@@ -413,7 +414,8 @@ def _(q, k, v, o, do, l):
     return dq, dk, dv
 
 
-_QUANTIZE_GROUP = 8  # D must be a multiple: the smaller of the quantizer's groups (csrc/quantize_i8.cu G)
+_QUANTIZE_GROUP = 8  # D must be a multiple: rows of whole 16-byte chunks in 16 bits (csrc/quantize_i8.cu)
+_QUANTIZE_SLOTS = 4096  # the quantizer's scratch slots, one a block: above its resident blocks on an H100 (264)
 QK_I8_DTYPES = KERNEL_DTYPES + (torch.float32,)  # V of K2 / K2-f32, q and k of the quantizer
 
 
@@ -465,7 +467,9 @@ def _(q, k, per_item):
         raise ValueError(f"quantize_qk_i8: head dim {d} is not a multiple of {_QUANTIZE_GROUP}")
     scales = b if per_item else 1
     (q, q_strides), (k, k_strides) = _readable_rows(q), _readable_rows(k)
-    amax = torch.zeros(2 * scales, device=q.device, dtype=torch.float32)  # the maxima: pass 1 -> pass 2
+    # a slot for each block's maximum, written in full by every call: pass 1 -> pass 2
+    nslots = max(_QUANTIZE_SLOTS, 2 * scales)
+    slots = torch.empty(nslots, device=q.device, dtype=torch.int32)
     q8 = torch.empty(q.shape, device=q.device, dtype=torch.int8)
     k8 = torch.empty(q.shape, device=q.device, dtype=torch.int8)
     qk_scale = torch.empty(scales, device=q.device, dtype=torch.float32)
@@ -473,7 +477,7 @@ def _(q, k, per_item):
     with torch.cuda.device(q.device):
         err = lib.wc_quantize_qk_i8(
             q.data_ptr(), k.data_ptr(), q_strides, k_strides, b, h, n, d, _DTYPE_CODES[q.dtype], scales,
-            amax.data_ptr(), q8.data_ptr(), k8.data_ptr(), qk_scale.data_ptr(), d**0.5,
+            slots.data_ptr(), nslots, q8.data_ptr(), k8.data_ptr(), qk_scale.data_ptr(), d**0.5,
             cuda_build.stream(q.device),
         )
     cuda_build.check_launch("quantize_qk_i8", err)
@@ -613,6 +617,7 @@ def flash_attention_bwd(q, k, v, o, do, l):
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_head_dim = {}  # the same launches by head dim (D = 192: two consumers a pass)
 
 
 def flash_attention_bwd_f32(q, k, v, o, do, l):
@@ -676,12 +681,12 @@ def quantize_qk_i8(q: torch.Tensor, k: torch.Tensor, *, per_item: bool = False):
     qs * ks / sqrt(D), one for the tensors, shape (1,), or with `per_item`
     one a batch row, shape (B,), as JAX's function computes them under
     jax.vmap over requests. A CPU tensor takes `quantize_qk_i8_plain`; a
-    CUDA tensor (bf16, f16 or f32, D a multiple of 8) launches the kernel's
-    two passes (the maxima, then the division) or raises, and the result
-    equals the plain version's bit for bit. Head-split views of one
-    projection are read in place. One count in `.launches` (and in
-    `.launches_by_dtype` under q's dtype) for the two passes. Nothing here
-    synchronises with the host."""
+    CUDA tensor (bf16, f16 or f32, D a multiple of 8) launches the kernel,
+    one cooperative launch of two passes over a grid-wide barrier (the
+    maxima, then the division), or raises, and the result equals the plain
+    version's bit for bit. Head-split views of one projection are read in
+    place. One count in `.launches` (and in `.launches_by_dtype` under q's
+    dtype) a launch. Nothing here synchronises with the host."""
     if _wants_grad(q, k):
         raise NotImplementedError("quantize_qk_i8 is forward-only: rounding has no useful gradient")
     return _quantize_op(q, k, per_item)
@@ -700,9 +705,9 @@ def flash_attention_qk_i8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     a bf16/f16 V, K2-f32 (P V in 3xTF32, as K1-f32) for an f32 V, as JAX's
     int8 kernel computes P V in V's dtype. A CPU tensor takes
     `flash_attention_qk_i8_plain`; a CUDA tensor launches the kernels or
-    raises (an f32 CUDA tensor never reaches a plain version). A call queues a fill of the maxima, the quantizer's
-    two passes and the forward (and a copy of V if it is a view), and never
-    synchronises with the host. Inputs that require grad (under grad mode)
+    raises (an f32 CUDA tensor never reaches a plain version). A call queues the quantizer's launch and the
+    forward (and a copy of V if it is a view), and never synchronises with
+    the host. Inputs that require grad (under grad mode)
     raise on every device: JAX has no VJP for this path, and autograd through
     the plain version's rounding would give a meaningless gradient."""
     if _wants_grad(q, k, v):

@@ -123,8 +123,8 @@ def library() -> ctypes.CDLL:
             lib.wc_flash_fwd_qk_i8.argtypes = [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _ptr]
             lib.wc_flash_fwd_qk_i8.restype = _int
             strides = ctypes.POINTER(ctypes.c_longlong)
-            lib.wc_quantize_qk_i8.argtypes = ([_ptr, _ptr, strides, strides] + [_int] * 6 + [_ptr] * 4
-                                              + [ctypes.c_float, _ptr])
+            lib.wc_quantize_qk_i8.argtypes = ([_ptr, _ptr, strides, strides] + [_int] * 6 + [_ptr, _int]
+                                              + [_ptr] * 3 + [ctypes.c_float, _ptr])
             lib.wc_quantize_qk_i8.restype = _int
             lib.wc_flash_bwd.argtypes = [_ptr] * 10 + [_int, _int, _int, _int, ctypes.c_float, _ptr]
             lib.wc_flash_bwd.restype = _int

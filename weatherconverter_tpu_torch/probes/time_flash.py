@@ -1,7 +1,7 @@
 """K1-K4 of this checkout beside those of another checkout of the package,
 in one process on one card and timed by one method.
 
-    python -m weatherconverter_tpu_torch.probes.time_flash OTHER_ROOT
+    python -m weatherconverter_tpu_torch.probes.time_flash OTHER_ROOT [--parts k3_wide,quantizer]
 
 OTHER_ROOT is the root of another checkout (say `git archive` of an earlier
 commit, unpacked): its `ops.attention` and `probes.micro_attn` are loaded
@@ -29,6 +29,14 @@ QK_I8_F32_SHAPES in the same turns (the other checkout must have K2-f32),
 each with its max|err|/max|ref| against the f32 plain version, and this
 checkout's K2-f32 whole, its quantizer on f32 q and k, and K1-f32 beside.
 Each f32 line also says whether the two checkouts' outputs are bit-equal.
+Then K3 at (8, 4, 1024, 192) in bf16 with its passes apart (each kernel's
+device time from torch.profiler over 20 calls: pass 1, pass 2, and the
+parent's pass 2 as its dV and dK launches), beside its bound and sdpa's
+backward alone, bit-equality to the other checkout printed; and the
+quantizer at QUANT_SHAPES in bf16 and f32, one scale and one a batch row,
+in the same turns beside its bytes bound, bit-equal to the other
+checkout's, and K2 whole (quantizer included) at QUANT_SHAPES and the
+legacy UNet's (1024, 24), bf16, beside sdpa's forward.
 Without OTHER_ROOT only this checkout is timed.
 """
 
@@ -50,6 +58,7 @@ F32_SHAPES = [(8, 4, 4096, 16), (8, 4, 1024, 16), (8, 4, 1024, 24)]
 F32_WIDE_SHAPES = [(8, 4, 4096, 64), (8, 4, 1024, 128), (8, 4, 1024, 32), (8, 4, 1024, 192)]
 F32_BWD_SHAPES = SHAPES + [(8, 4, 1024, 192)]
 QK_I8_F32_SHAPES = SHAPES + [(8, 4, 1024, 16), (8, 4, 1024, 24), (8, 4, 1024, 192)]
+QUANT_SHAPES = SHAPES + WIDE_SHAPES  # the quantizer at the UNets' flash-length layers in front of K2 and K2-f32
 THIS = types.SimpleNamespace(attention=A, micro_attn=micro_attn)
 
 
@@ -207,18 +216,112 @@ def run_qk_i8_f32(device, card: str, other=None) -> None:
                  f"quantize_qk_i8 on f32 {quant:.4f} ms, K1-f32 {k1:.4f} ms", outs)
 
 
+def device_ms_by_kernel(fn, calls: int = 20) -> dict:
+    """{kernel name: device ms a call of `fn`}, from torch.profiler's device
+    events over `calls` calls after one untimed call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_async():
+            name = torch._C._demangle(e.name())
+            sums[name] = sums.get(name, 0.0) + e.duration_ns() / 1e6 / calls
+    return sums
+
+
+def k3_pass_text(times: dict) -> str:
+    """K3's kernels by pass: pass 1 (dq), pass 2 (dkv, each launch)."""
+    passes = {"pass 1": [t for k, t in times.items() if "flash_bwd_dq" in k],
+              "pass 2": [t for k, t in times.items() if "flash_bwd_dkv" in k]}
+    return ", ".join(f"{name} {sum(ts):.4f} ms" + (f" ({' + '.join(f'{t:.4f}' for t in ts)})" if len(ts) > 1 else "")
+                     for name, ts in passes.items())
+
+
+def run_k3_wide(device, card: str, other=None) -> None:
+    shape = WIDE_SHAPES[0]
+    gen = torch.Generator(device=device).manual_seed(4)
+    turns = _turns(other)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(4))
+    o, l = A.flash_attention_plain(q, k, v, return_l=True)
+    args = (q, k, v, o, do, l)
+    ref = A.flash_attention_bwd_plain(*args)
+    ms = {"this": [], "other": []}
+    for who, checkout in turns:
+        ms[who].append(common.time_ms(lambda: checkout.attention.flash_attention_bwd(*args), reps=20))
+    outs = _outputs(lambda m: tuple(m.attention.flash_attention_bwd(*args)), turns)
+    errs = {who: max(((g.float() - r.float()).abs().max() / r.float().abs().max()).item() for g, r in zip(out, ref))
+            for who, out in outs.items()}
+    passes = {who: k3_pass_text(device_ms_by_kernel(lambda: checkout.attention.flash_attention_bwd(*args)))
+              for who, checkout in dict(turns).items()}
+    mine = sum(ms["this"]) / len(ms["this"])
+    bound = common.attention_roofline(common.peaks(card), shape, backward=True)
+    _compare("K3 flash_attention_bwd", shape, ms, errs, other, card,
+             f"; this checkout's {passes['this']}" + (f"; the other's {passes['other']}" if other is not None else "")
+             + f"; {common.bound_text(bound, mine)}, sdpa backward alone {common.sdpa_ms(q, k, v, do):.4f} ms", outs)
+
+
+def run_quantizer(device, card: str, other=None) -> None:
+    gen = torch.Generator(device=device).manual_seed(5)
+    turns = _turns(other)
+    for shape in QUANT_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k = (torch.randn(shape, generator=gen, device=device).to(dtype) for _ in range(2))
+            for per_item in (False, True):
+                ms = {"this": [], "other": []}
+                for who, checkout in turns:
+                    ms[who].append(common.time_ms(lambda: checkout.attention.quantize_qk_i8(q, k, per_item=per_item),
+                                                  reps=20))
+                outs = _outputs(lambda m: tuple(m.attention.quantize_qk_i8(q, k, per_item=per_item)), turns)
+                plain = A.quantize_qk_i8_plain(q, k, per_item=per_item)
+                errs = {who: float(not all(torch.equal(g, w) for g, w in zip(out, plain))) for who, out in outs.items()}
+                bound = common.quantizer_roofline(common.peaks(card), shape, scales=shape[0] if per_item else 1,
+                                                  elem_bytes=q.element_size())
+                _compare(f"quantize_qk_i8 {str(dtype).removeprefix('torch.')} {'per row' if per_item else 'one scale'}",
+                         shape, ms, errs, other, card,
+                         f" (err: 1.0 where it differs from the plain version); "
+                         f"{common.bound_text(bound, sum(ms['this']) / len(ms['this']))}", outs)
+            del q, k
+    for shape in QUANT_SHAPES + [(8, 4, 1024, 24)]:
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+        ref = A.flash_attention_qk_i8_plain(q, k, v).float()
+        ms = {"this": [], "other": []}
+        for who, checkout in turns:
+            ms[who].append(common.time_ms(lambda: checkout.attention.flash_attention_qk_i8(q, k, v), reps=20))
+        outs = _outputs(lambda m: m.attention.flash_attention_qk_i8(q, k, v), turns)
+        errs = {who: ((out.float() - ref).abs().max() / ref.abs().max()).item() for who, out in outs.items()}
+        mine, sdpa = sum(ms["this"]) / len(ms["this"]), common.sdpa_ms(q, k, v)
+        bound = common.attention_roofline(common.peaks(card), shape, qk_int8=True)
+        _compare("K2 flash_attention_qk_i8 whole", shape, ms, errs, other, card,
+                 f"; {common.bound_text(bound, mine)}, sdpa forward {sdpa:.4f} ms (this/sdpa {mine / sdpa:.2f}x)", outs)
+        del q, k, v, ref, outs
+
+
+PARTS = {"bf16": run, "f32": run_f32, "bwd_f32": run_bwd_f32, "qk_i8_f32": run_qk_i8_f32, "k3_wide": run_k3_wide,
+         "quantizer": run_quantizer}
+
+
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    """[OTHER_ROOT] [--parts NAME,...]: the parts of PARTS to run, all by default."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    parts = list(PARTS)
+    if "--parts" in argv:
+        i = argv.index("--parts")
+        parts = argv[i + 1].split(",")
+        del argv[i:i + 2]
     if not common.require_cuda("time_flash"):
         return 2
     card = common.card_line()
     common.log(card)
     common.log(common.setup())
     other = load_checkout(argv[0]) if argv else None
-    run(torch.device("cuda"), card, other)
-    run_f32(torch.device("cuda"), card, other)
-    run_bwd_f32(torch.device("cuda"), card, other)
-    run_qk_i8_f32(torch.device("cuda"), card, other)
+    for name in parts:
+        PARTS[name](torch.device("cuda"), card, other)
     return 0
 
 

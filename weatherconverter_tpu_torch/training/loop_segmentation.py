@@ -10,8 +10,19 @@ its epoch; SIGTERM flushes a checkpoint and returns.
 
 One device: the CUDA card (`training.device="auto"`, the default, which
 raises when there is none) or the device the config names; the CPU only on
-request. On CUDA the step runs under bf16 autocast when `training.dtype`
-is "bfloat16"; on the CPU in f32, as the JAX loop does off the TPU. The
+request.
+
+Precision. On CUDA the step runs under bf16 autocast when `training.dtype`
+is "bfloat16", and in f32 otherwise, as the JAX loop builds the seg model
+in f32 unless that dtype is bfloat16. An f32 run keeps f32 arithmetic
+through the whole loop: it turns TF32 off for cuDNN's convolutions
+(`torch.backends.cudnn.allow_tf32`, which PyTorch leaves on, so f32
+convolutions would otherwise keep 10 bits of mantissa) and keeps f32
+matmuls at "highest" precision (PyTorch's default), for the run's length
+(`core/precision.f32_arithmetic`, which loop_diffusion and the inference
+commands share). A user who asks for f32 asks for the f32 result, which
+the CPU tests hold against JAX's; bf16 is the fast choice. On the CPU the
+step runs in f32, as the JAX loop does off the TPU. The
 train model is built deterministic (ASPP's dropout off), with the
 backbone's BatchNorm momentum at `model.bn_momentum`, as in JAX. The
 config's geometric legs (`scale_range`, `rotation_degrees`, `hue`) go to
@@ -34,6 +45,7 @@ by name when it is absent: nothing is fetched.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 import time
@@ -45,6 +57,7 @@ from weatherconverter_tpu_torch.core.checkpoint import CheckpointManager, create
 from weatherconverter_tpu_torch.core.config import SegConfig
 from weatherconverter_tpu_torch.core.logging import MetricsLogger
 from weatherconverter_tpu_torch.core.preempt import PreemptionGuard, preempt_save_index
+from weatherconverter_tpu_torch.core.precision import f32_arithmetic
 from weatherconverter_tpu_torch.core.rng import run_key, split_named
 from weatherconverter_tpu_torch.data.transforms import seg_eval_preprocess, seg_train_augment
 from weatherconverter_tpu_torch.metrics.stream import StreamSegMetrics, init_confusion
@@ -265,7 +278,7 @@ def train(cfg: SegConfig, max_steps: Optional[int] = None, datasets=None) -> Seg
     flag_group = sharding.host_group(mesh)
 
     global_step = state.step
-    with PreemptionGuard() as guard:
+    with PreemptionGuard() as guard, f32_arithmetic(device) if dtype is None else contextlib.nullcontext():
         for epoch in range(start_epoch, tr.epochs):
             t0, stop = time.time(), False
             for images_u8, labels in loader:

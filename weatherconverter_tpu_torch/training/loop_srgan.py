@@ -9,8 +9,19 @@ lands in the right phase; `max_steps` counts steps across both phases.
 
 One device: the CUDA card (`training.device="auto"`, the default, which
 raises when there is none) or the device the config names; the CPU only on
-request. On CUDA the steps run under bf16 autocast when `training.dtype` is
-"bfloat16"; on the CPU in f32, as the JAX loop does off the TPU.
+request.
+
+Precision. On CUDA the steps run under bf16 autocast when `training.dtype`
+is "bfloat16", and in f32 otherwise, as the JAX loop builds G and D in f32
+unless that dtype is bfloat16. An f32 run keeps f32 arithmetic through the
+whole loop: it turns TF32 off for cuDNN's convolutions
+(`torch.backends.cudnn.allow_tf32`, which PyTorch leaves on, so f32
+convolutions would otherwise keep 10 bits of mantissa) and keeps f32
+matmuls at "highest" precision (PyTorch's default), for the run's length
+(`core/precision.f32_arithmetic`, which loop_diffusion and the inference
+commands share). A user who asks for f32 asks for the f32 result, which
+the CPU tests hold against JAX's; bf16 is the fast choice. On the CPU the
+steps run in f32, as the JAX loop does off the TPU.
 
 What differs from JAX: `max_steps` ends the run after that many steps, as
 in JAX, but saves the epoch it stops in first, so a short run leaves a
@@ -27,6 +38,7 @@ replicates G and D whatever the flag; the loop says so once.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Optional
@@ -37,6 +49,7 @@ import torch.nn.functional as F
 from weatherconverter_tpu_torch.core.checkpoint import CheckpointManager, create_run, restore_auto
 from weatherconverter_tpu_torch.core.config import SRGANTrainConfig
 from weatherconverter_tpu_torch.core.logging import MetricsLogger
+from weatherconverter_tpu_torch.core.precision import f32_arithmetic
 from weatherconverter_tpu_torch.core.rng import run_key, split_named
 from weatherconverter_tpu_torch.data.transforms import random_crop, random_hflip, to_float
 from weatherconverter_tpu_torch.models.srgan import Discriminator, Generator
@@ -135,39 +148,40 @@ def train(cfg: SRGANTrainConfig, max_steps: Optional[int] = None, dataset=None) 
                              num_workers=tr.num_workers, pin_memory=device.type == "cuda")
 
     global_step = gs.step
-    for epoch in range(gs.epoch, tr.epochs):
-        phase = "pretrain" if epoch < tr.pretrain_epochs else "gan"
-        # the epoch's losses add up on the device; one read per epoch
-        ep_g, ep_d, nb, t0, stop = torch.zeros((), device=device), None, 0, time.time(), False
-        for batch in loader:
-            lr_img, hr_img = pair_fn(batch.to(device, non_blocking=True), keys["train"])
-            if phase == "pretrain":
-                _, g_loss = pre_step(gs, lr_img, hr_img)
-                d_loss = None
-            else:
-                _, _, g_loss, d_loss = gan_step(gs, dstate, lr_img, hr_img)
-                ep_d = d_loss if ep_d is None else ep_d + d_loss
-            ep_g += g_loss
-            global_step += 1
-            nb += 1
-            if global_step % tr.log_interval == 0:
-                rec = {"train/g_loss": g_loss, "epoch": epoch, "phase": phase}
-                if d_loss is not None:
-                    rec["train/d_loss"] = d_loss
-                logger.log(rec, step=global_step)
-            if max_steps is not None and global_step >= max_steps:
-                stop = True
+    with f32_arithmetic(device) if dtype is None else contextlib.nullcontext():
+        for epoch in range(gs.epoch, tr.epochs):
+            phase = "pretrain" if epoch < tr.pretrain_epochs else "gan"
+            # the epoch's losses add up on the device; one read per epoch
+            ep_g, ep_d, nb, t0, stop = torch.zeros((), device=device), None, 0, time.time(), False
+            for batch in loader:
+                lr_img, hr_img = pair_fn(batch.to(device, non_blocking=True), keys["train"])
+                if phase == "pretrain":
+                    _, g_loss = pre_step(gs, lr_img, hr_img)
+                    d_loss = None
+                else:
+                    _, _, g_loss, d_loss = gan_step(gs, dstate, lr_img, hr_img)
+                    ep_d = d_loss if ep_d is None else ep_d + d_loss
+                ep_g += g_loss
+                global_step += 1
+                nb += 1
+                if global_step % tr.log_interval == 0:
+                    rec = {"train/g_loss": g_loss, "epoch": epoch, "phase": phase}
+                    if d_loss is not None:
+                        rec["train/d_loss"] = d_loss
+                    logger.log(rec, step=global_step)
+                if max_steps is not None and global_step >= max_steps:
+                    stop = True
+                    break
+            dt = time.time() - t0
+            logger.log({"epoch": epoch, "phase": phase, "epoch/g_loss": ep_g.item() / nb if nb else 0.0,
+                        "epoch/d_loss": ep_d.item() / nb if ep_d is not None and nb else 0.0,
+                        "epoch/img_per_sec": nb * global_batch / max(dt, 1e-9)}, step=global_step)
+            if nb == len(loader):
+                gs.epoch = dstate.epoch = epoch + 1
+            if stop or (epoch + 1) % tr.save_interval == 0:
+                ckpt.save(epoch + 1, states)
+            if stop:
                 break
-        dt = time.time() - t0
-        logger.log({"epoch": epoch, "phase": phase, "epoch/g_loss": ep_g.item() / nb if nb else 0.0,
-                    "epoch/d_loss": ep_d.item() / nb if ep_d is not None and nb else 0.0,
-                    "epoch/img_per_sec": nb * global_batch / max(dt, 1e-9)}, step=global_step)
-        if nb == len(loader):
-            gs.epoch = dstate.epoch = epoch + 1
-        if stop or (epoch + 1) % tr.save_interval == 0:
-            ckpt.save(epoch + 1, states)
-        if stop:
-            break
     ckpt.wait()
     logger.finish()
     return gs, dstate
