@@ -1,0 +1,8 @@
+"""Milliseconds of one GSG step of the chain on the device: the mean over the
+traced one-step segments of the span between CUDA events recorded before and
+after the segment."""
+
+
+def read(ctx):
+    spans = ctx.spans.get("gsg")
+    return sum(spans) / len(spans) if spans else None
